@@ -7,27 +7,41 @@ Phases, one JSON line each:
 
   environment  the card's name and power limit (nvidia-smi) and versions
   build        nvcc builds every kernel of ops/csrc/ for sm_90a, in parallel
-  main_path    the port's entry points at full width, with every kernel's
-               launch count set to 0 just before and read just after:
+  main_path    the port's entry points at full width:
                  batched_spf      100k-node WAN, 128 sources        (K1)
                  batched_spf_vw   the same solve, edge-list form    (K2)
                  batched_spf +    all-pairs on a 32x32 grid         (K1)
                  ecmp_dag         its first-hop DAG                 (K3)
                  CudaSpfSolver    route dbs on the 9,556-node Clos,
-                                  before and after a flap + metric
-                                  change (K1, K3), and on a star too
-                                  wide for the sliced layout (K2, K3)
+                                  cold, then warm after a flap +
+                                  metric change (K1, K3, K4, K5,
+                                  K7), and cold on a star too wide
+                                  for the sliced layout (K2, K3)
                route dbs must equal the port's CPU oracle, and no SPF may
                be answered by host Dijkstra
   k1 / k2 / k3 each kernel against its plain PyTorch version on the card at
                the main path's shapes (exact equality: min-plus on int32
                does not depend on order), with times
+  event_wan    one seeded 48-edge event on the 100k-node WAN's 128-source
+               fixpoint: the sliced warm solve (K5, K4, K1, K7), its delta
+               extraction (K7) and the edge-list warm solve (K6, K2, K7);
+               D equals a cold K1 solve on the patched weights and the
+               plain versions' results
+  k4 .. k7     each event kernel against its plain version on that event
+  event_clos   DeltaRouteBuilder for rsw0_0 on the Clos through six remote
+               events (delta path) and one at rsw0_0 (full path); every db
+               equals the CPU oracle's, and a delta event copies back only
+               its changed columns
+  star_flap    a remote weight change on the star: the solver's edge-list
+               warm path (K6, K2, K7)
   kernels      one line for all kernels: launches, error, ms, bounds
 
-The card's name and power limit print on their own line before the last,
-and the last line is {"ok": true, "device": {...}}. Any failed check raises,
-and the script then exits non-zero without that line. It imports nothing
-of JAX or of the JAX package.
+Every path (main_path, event_wan, event_clos, star_flap) runs with all
+launch counts set to 0 just before it and read just after, and fails if a
+kernel it drives was not launched. The card's name and power limit print on
+their own line before the last, and the last line is {"ok": true, "device":
+{...}}. Any failed check raises, and the script then exits non-zero without
+that line. It imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -86,18 +100,21 @@ def hbm_rate(name: str) -> float:
     return _HBM_DEFAULT
 
 
-def time_ms(fn, reps: int = 7, warmup: int = 2) -> float:
-    """Median of `reps` timed calls, CUDA events around each."""
+def time_ms(fn, reps: int = 7, warmup: int = 2, setup=None) -> float:
+    """Median of `reps` timed calls, CUDA events around each. `setup`, if
+    given, makes each call's arguments outside the timed span (fresh
+    copies of buffers the call updates in place)."""
     import torch
 
     for _ in range(warmup):
-        fn()
+        fn(*(setup() if setup else ()))
     times = []
     for _ in range(reps):
+        args = setup() if setup else ()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        fn(*args)
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
@@ -115,6 +132,45 @@ def bound(bytes_: float, ops: float, rate: float):
     t_bytes = bytes_ / rate * 1e3
     t_ops = ops / _INT32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+class Launches:
+    """Launch counts per driven path. `start()` sets every kernel's count
+    to 0 just before a path, `read(path, ...)` takes the counts just after
+    it. Inside a path, `pause()` banks the counts so far and `resume()`
+    sets them to 0 again, so comparison runs in between are not counted."""
+
+    def __init__(self, kernels):
+        self.kernels = kernels
+        self.by_path = {}
+        self._bank = {}
+
+    def _zero(self) -> None:
+        for k in self.kernels:
+            k.launches = 0
+
+    def start(self) -> None:
+        self._bank = {k.name: 0 for k in self.kernels}
+        self._zero()
+
+    def pause(self) -> None:
+        for k in self.kernels:
+            self._bank[k.name] += k.launches
+        self._zero()
+
+    resume = _zero
+
+    def read(self, path: str, expect) -> dict:
+        self.pause()
+        counts = dict(self._bank)
+        self.by_path[path] = counts
+        for k in expect:
+            check(counts[k.name] > 0,
+                  f"kernel {k.name} was not launched on path {path}")
+        return counts
+
+    def total(self, name: str) -> int:
+        return sum(c[name] for c in self.by_path.values())
 
 
 # -- topology events --------------------------------------------------------
@@ -152,6 +208,73 @@ def one_prefix_per_node(names, ps_cls, PrefixDatabase, PrefixEntry, IpPrefix):
     return ps
 
 
+def wan_event(g, d, torch, np, INF):
+    """One seeded 48-edge weight event on compiled graph g with row-major
+    fixpoint d [S, n_pad] on the card: 20 increases on the old
+    shortest-path DAG of some source (4 of them links down), 20 decreases
+    and 8 new random metrics. Returns (w_new, changed, increased, the
+    positions raised on the DAG)."""
+    src = torch.as_tensor(g.src[: g.e].astype(np.int64), device=d.device)
+    dst = torch.as_tensor(g.dst[: g.e].astype(np.int64), device=d.device)
+    w = torch.as_tensor(g.w[: g.e], device=d.device)
+    dv = d[:, dst]
+    on_dag = (((d[:, src] + w).clamp_max(INF) == dv) & (dv < INF)).any(0)
+    on_dag = on_dag.cpu().numpy()
+    rng = np.random.default_rng(11)
+    w_new = g.w.copy()
+    up = rng.choice(np.nonzero(on_dag)[0], size=20, replace=False)
+    rest = np.setdiff1d(np.nonzero(g.w[: g.e] > 1)[0], up)
+    down = rng.choice(rest, size=28, replace=False)
+    w_new[up] = g.w[up] + rng.integers(1, 50, size=20)
+    w_new[up[:4]] = INF
+    w_new[down[:20]] = g.w[down[:20]] - rng.integers(
+        1, g.w[down[:20]], size=20)
+    w_new[down[20:]] = rng.integers(1, 101, size=8)
+    changed = np.sort(np.concatenate([up, down]))
+    changed = changed[w_new[changed] != g.w[changed]]
+    return w_new, changed, changed[w_new[changed] > g.w[changed]], up
+
+
+def sell_warm_plain(spf, key, src, st, wgs, idx, vals, inc, d_prev):
+    """_sell_solver_warm composed of the plain versions (K5, K4, K5 reset,
+    K1, K7 columns): (D, rounds, inv_rounds, num_changed, col_changed)."""
+    zero_end, starts, _ = key
+    marks = spf._sell_seed_plain(d_prev, st["nbrs"], wgs, inc, starts)
+    marks, inv = spf._sell_mark_fixpoint_plain(
+        d_prev, marks, st["nbrs"], wgs, starts
+    ) if bool(marks.any()) else (marks, 0)
+    wgs = spf._sell_apply_patches_plain(wgs, idx, vals)
+    d0 = spf._bf_warm_d0_plain(d_prev, marks, src).t().contiguous()
+    d, rounds = spf._sell_relax_plain(d0, src, st["ov"], st["nbrs"], wgs,
+                                      starts)
+    d = d.t().contiguous()
+    cc = (d != d_prev).any(dim=0)
+    return d, rounds, inv, int(cc.sum()), cc
+
+
+def clos_events():
+    """(name, [(node, other, adjacency changes)], expect the delta path):
+    six events away from rsw0_0, then one at it."""
+    link = [("fsw0_3", "rsw0_9"), ("rsw0_9", "fsw0_3")]
+    spine = [("fsw5_2", "ssw2_4"), ("ssw2_4", "fsw5_2")]
+    plane = [(a, b) for k in range(9)
+             for a, b in (("fsw5_2", f"ssw2_{k}"), (f"ssw2_{k}", "fsw5_2"))]
+    return [
+        ("metric_up", [(a, b, {"metric": 5}) for a, b in link], True),
+        ("metric_down", [(a, b, {"metric": 1}) for a, b in link], True),
+        ("spine_link_down",
+         [(a, b, {"is_overloaded": True}) for a, b in spine], True),
+        ("spine_link_up",
+         [(a, b, {"is_overloaded": False}) for a, b in spine], True),
+        ("fsw_plane_down",
+         [(a, b, {"is_overloaded": True}) for a, b in plane], True),
+        ("fsw_plane_up",
+         [(a, b, {"is_overloaded": False}) for a, b in plane], True),
+        ("at_me", [("rsw0_0", "fsw0_1", {"metric": 3}),
+                   ("fsw0_1", "rsw0_0", {"metric": 3})], False),
+    ]
+
+
 def main() -> int:
     import torch
 
@@ -170,8 +293,10 @@ def main() -> int:
     from openr_tpu_torch.lsdb import LinkState, PrefixState
     from openr_tpu_torch.ops import _cuda
     from openr_tpu_torch.ops import spf
-    from openr_tpu_torch.ops.graph import INF, compile_edges
-    from openr_tpu_torch.solver import CudaSpfSolver, SpfSolver
+    from openr_tpu_torch.ops.graph import INF, _next_bucket, compile_edges
+    from openr_tpu_torch.solver import (
+        CudaSpfSolver, DeltaRouteBuilder, SpfSolver,
+    )
     from openr_tpu_torch.topology import (
         build_adj_dbs, fabric_edges, grid_edges, wan_edges,
     )
@@ -250,8 +375,12 @@ def main() -> int:
               f"{me}: MPLS routes differ from the CPU oracle")
         return len(got.unicast_entries)
 
-    for k in _cuda.KERNELS:
-        k.launches = 0
+    K1, K2, K3 = _cuda.SELL_RELAX, _cuda.BF_RELAX, _cuda.ECMP_TRIANGLE
+    K4, K5, K6, K7 = (
+        _cuda.SELL_PATCH, _cuda.SELL_MARK, _cuda.BF_MARK, _cuda.DELTA_EXTRACT
+    )
+    paths = Launches(_cuda.KERNELS)
+    paths.start()
     t0 = time.perf_counter()
     d_wan = spf.batched_spf(wan, wan_src, device=dev)
     d_wan_vw = spf.batched_spf_vw(wan, wan_src, wan.w[None, :], device=dev)
@@ -264,8 +393,8 @@ def main() -> int:
         n_routes[me] = route_build(
             solvers[me], SpfSolver(me), clos_ls, clos_ps, me
         )
-    # a spine link down and a rack metric change: weight patches, then a
-    # cold re-solve through refresh
+    # a spine link down and a rack metric change: weight patches, answered
+    # warm from the resident fixpoint through refresh
     edit_adjacency(clos_ls, "fsw0_1", "ssw1_0", is_overloaded=True)
     edit_adjacency(clos_ls, "ssw1_0", "fsw0_1", is_overloaded=True)
     edit_adjacency(clos_ls, "fsw0_2", "rsw0_5", metric=3)
@@ -276,24 +405,37 @@ def main() -> int:
     route_build(star, SpfSolver("leaf0000"), star_ls, star_ps, "leaf0000")
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in _cuda.KERNELS}
-    host_calls = sum(s.host_spf_calls for s in (*solvers.values(), star))
-    full_solves = sum(s.device_solves for s in (*solvers.values(), star))
+    launches = paths.read("main_path", (K1, K2, K3, K4, K5, K7))
+    main_solvers = (*solvers.values(), star)
+    host_calls = sum(s.host_spf_calls for s in main_solvers)
+    full_solves = sum(
+        s.counters.get("decision.spf.full_solves", 0) for s in main_solvers
+    )
+    warm_solves = sum(
+        s.counters.get("decision.spf.incremental_solves", 0)
+        for s in main_solvers
+    )
     emit({
         "phase": "main_path", "seconds": main_s, "launches": launches,
-        "host_spf_calls": host_calls, "device_solves": full_solves,
+        "host_spf_calls": host_calls, "full_solves": full_solves,
+        "incremental_solves": warm_solves,
         "route_build_ms": route_ms, "device_solve_ms": solve_ms,
         "routes": n_routes,
         "clos_rounds": {
             me: s.counters.get("decision.spf.rounds_last")
             for me, s in solvers.items()
         },
+        "clos_invalidation_rounds": {
+            me: s.counters.get("decision.spf.invalidation_rounds_last")
+            for me, s in solvers.items()
+        },
         "card": card,
     })
-    for name, count in launches.items():
-        check(count > 0, f"kernel {name} was not launched on the main path")
     check(host_calls == 0, f"{host_calls} SPF answers came from host Dijkstra")
-    check(full_solves == 5, f"expected 5 device solves, got {full_solves}")
+    # two cold Clos solves, the two warm answers to the event, the star cold
+    check((full_solves, warm_solves) == (3, 2),
+          f"expected 3 full + 2 incremental solves, got {full_solves} + "
+          f"{warm_solves}")
 
     results = []
 
@@ -359,7 +501,7 @@ def main() -> int:
         "name": _cuda.SELL_RELAX.name, "route": "cuda",
         "source": "openr_tpu_torch/ops/csrc/sell_relax.cu",
         "replaces": _cuda.SELL_RELAX.replaces,
-        "launches": launches[_cuda.SELL_RELAX.name], "max_abs_err": err,
+        "launches": None, "max_abs_err": err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None, "rounds": rounds,
     })
@@ -403,7 +545,7 @@ def main() -> int:
         "name": _cuda.BF_RELAX.name, "route": "cuda",
         "source": "openr_tpu_torch/ops/csrc/bf_relax.cu",
         "replaces": _cuda.BF_RELAX.replaces,
-        "launches": launches[_cuda.BF_RELAX.name], "max_abs_err": err2,
+        "launches": None, "max_abs_err": err2,
         "ms": ms2, "plain_ms": plain_ms2, "bound_ms": b2_ms,
         "bound_by": b2_by, "library_ms": None, "rounds": rounds2,
     })
@@ -451,12 +593,343 @@ def main() -> int:
         "name": _cuda.ECMP_TRIANGLE.name, "route": "cuda",
         "source": "openr_tpu_torch/ops/csrc/ecmp_triangle.cu",
         "replaces": _cuda.ECMP_TRIANGLE.replaces,
-        "launches": launches[_cuda.ECMP_TRIANGLE.name], "max_abs_err": err3,
+        "launches": None, "max_abs_err": err3,
         "ms": ms3, "plain_ms": plain_ms3, "bound_ms": b3_ms,
         "bound_by": b3_by, "library_ms": None,
     })
 
-    # -- 7. kernels line, card, result -----------------------------------
+    # -- 7. event_wan: one LSDB event on the north-star fixpoint ---------
+    st = to_device(wan, dev)
+    n_e = wan.e
+    w_old = wan.w.copy()
+    w_new, changed, inc, up_on_dag = wan_event(wan, d_k1, torch, np, INF)
+    n_inc = int(np.count_nonzero(w_new[changed] > w_old[changed]))
+    n_dec = int(np.count_nonzero(w_new[changed] < w_old[changed]))
+    idx, vals = spf.sell_patch_arrays(wan.sell, changed, w_new, 64)
+    inc_idx, _ = spf.sell_patch_arrays(wan.sell, inc, w_new, 64)
+    idx_t = torch.as_tensor(idx, device=dev)
+    vals_t = torch.as_tensor(vals, device=dev)
+    inc_t = torch.as_tensor(inc_idx, device=dev)
+    w_new_t = torch.as_tensor(w_new, device=dev)
+    wgs_old = st["wgs"]
+    # up-link rows and metrics for the nexthop gather: seven batch rows as
+    # neighbours of row 0, padded to eight with INF
+    nh_rows = torch.tensor([1, 2, 3, 4, 5, 6, 7, 0], dtype=torch.int32,
+                           device=dev)
+    nh_ws = torch.tensor([3, 17, 40, 8, 99, 1, 25, INF], dtype=torch.int32,
+                         device=dev)
+    d_prev = d_k1  # the resident 128-source fixpoint before the event
+
+    def fresh_wgs():
+        return (tuple(a.clone() for a in wgs_old),)
+
+    def sell_warm(wgs):
+        return spf._sell_solver_warm(
+            key, src_t, st["nbrs"], wgs, st["ov"], idx_t, vals_t, inc_t,
+            d_prev,
+        )
+
+    def bf_warm():
+        return spf._bf_solver_warm(
+            src_t, st["src"], st["dst"], w_new_t, st["w"], st["ov"], d_prev,
+            st["csr"],
+        )
+
+    (wgs_run,) = fresh_wgs()
+    torch.cuda.synchronize()
+    paths.start()
+    t0 = time.perf_counter()
+    d_w, wgs_w, rounds_w, inv_w, cc_w, num_t = sell_warm(wgs_run)
+    num = int(num_t)
+    cap = _next_bucket(num, minimum=8)
+    cols, dcols, nh = spf._delta_extract(cc_w, d_w, nh_rows, nh_ws, cap=cap)
+    d_bf, rounds_bf, inv_bf, cc_bf, num_bf = bf_warm()
+    torch.cuda.synchronize()
+    event_s = time.perf_counter() - t0
+    ev_launches = paths.read("event_wan", (K1, K2, K4, K5, K6, K7))
+
+    # the warm D is the cold fixpoint on the patched weights, on both
+    # layouts, and the plain versions' composition gives the same results
+    for a, want in zip(wgs_w, wan.sell.patched_wg(w_new[:n_e])):
+        check(np.array_equal(a.cpu().numpy(), want),
+              "K4 did not leave the buckets at the new weights")
+    d_cold, rounds_cold = spf._sell_solver_counted(
+        key, src_t, st["nbrs"], wgs_w, st["ov"]
+    )
+    check(torch.equal(d_w, d_cold),
+          "sliced warm D differs from a cold solve on the patched weights")
+    check(torch.equal(d_bf, d_w), "edge-list warm D differs from sliced")
+    check(torch.equal(cc_bf, cc_w) and int(num_bf) == num,
+          "edge-list changed columns differ from sliced")
+    plain = sell_warm_plain(spf, key, src_t, st, fresh_wgs()[0], idx_t,
+                            vals_t, inc_t, d_prev)
+    err_warm = max(max_abs_err(d_w, plain[0]), max_abs_err(cc_w, plain[4]))
+    check(err_warm == 0 and (rounds_w, inv_w, num) == plain[1:4],
+          f"sliced warm solve differs from its plain version: err "
+          f"{err_warm}, (rounds, inv, num) {(rounds_w, inv_w, num)} vs "
+          f"{plain[1:4]}")
+    check(inv_w >= 1, "the event's increases marked nothing")
+    check(len(np.intersect1d(up_on_dag, inc)) >= 16 and n_dec >= 16,
+          "the event needs 16 increases on the old DAG and 16 decreases")
+    check(int(cc_w.sum()) == num, "num_changed differs from col_changed")
+    emit({
+        "phase": "event_wan", "graph": f"wan_edges({WAN_N}, 4, 3)",
+        "sources": int(src_t.shape[0]), "changed_edges": int(len(changed)),
+        "increases": n_inc,
+        "increases_on_dag": int(len(np.intersect1d(up_on_dag, inc))),
+        "decreases": n_dec, "seconds": event_s, "launches": ev_launches,
+        "rounds_warm": rounds_w, "rounds_cold": rounds_cold,
+        "inv_rounds": inv_w, "rounds_edge_list": rounds_bf,
+        "inv_rounds_edge_list": inv_bf, "num_changed": num, "cap": cap,
+        "equal_cold": True, "equal_plain": True, "card": card,
+    })
+
+    # -- 8. K4-K7 against their plain versions on that event -------------
+    s_rows, n_pad = d_prev.shape
+    slots = sum(a.shape[0] * a.shape[1] for a in wan.sell.nbr)
+
+    # K4: the patches into copies of the pre-event buckets
+    wk, wp = fresh_wgs()[0], fresh_wgs()[0]
+    spf._sell_apply_patches(wk, idx_t, vals_t)
+    spf._sell_apply_patches_plain(wp, idx_t, vals_t)
+    err4 = max(max_abs_err(a, b) for a, b in zip(wk, wp))
+    check(err4 == 0, f"K4 differs from its plain version: {err4}")
+    lib_idx = []
+    for k, a in enumerate(wk):
+        r, j = idx_t[k, :, 0].long(), idx_t[k, :, 1].long()
+        ok = r < a.shape[0]
+        lib_idx.append(((r[ok], j[ok]), vals_t[k][ok]))
+
+    def index_put():
+        for a, (ij, v) in zip(wk, lib_idx):
+            a.index_put_(ij, v)
+
+    ms4 = time_ms(lambda: spf._sell_apply_patches(wk, idx_t, vals_t))
+    plain_ms4 = time_ms(lambda: spf._sell_apply_patches_plain(
+        wp, idx_t, vals_t))
+    lib_ms4 = time_ms(index_put)
+    n_valid = int(sum(v.numel() for _, v in lib_idx))
+    # every patch slot's index pair and value read once, the valid ones
+    # written once
+    b4_ms, b4_by = bound(12 * idx.shape[0] * idx.shape[1] + 4 * n_valid,
+                         2 * n_valid, rate)
+    emit({"phase": "k4_sell_apply_patches", "patches": n_valid,
+          "buckets": len(wk), "equal_plain": True, "ms": ms4,
+          "plain_ms": plain_ms4, "index_put_ms": lib_ms4, "card": card})
+
+    # K5: seed + mark fixpoint + reset, against the OLD buckets
+    inv_args = (d_prev, st["nbrs"], wgs_old, inc_t, wan.sell.zero_end,
+                wan.sell.starts)
+
+    def k5():
+        marks, r = spf._sell_invalidate(*inv_args)
+        return marks, r, spf._sell_warm_d0(d_prev, marks, src_t)
+
+    def k5_plain():
+        marks = spf._sell_seed_plain(d_prev, st["nbrs"], wgs_old, inc_t,
+                                     wan.sell.starts)
+        marks, r = spf._sell_mark_fixpoint_plain(
+            d_prev, marks, st["nbrs"], wgs_old, wan.sell.starts)
+        return marks, r, spf._bf_warm_d0_plain(
+            d_prev, marks, src_t).t().contiguous()
+
+    m5, r5, d05 = k5()
+    m5p, r5p, d05p = k5_plain()
+    err5 = max(max_abs_err(m5, m5p), max_abs_err(d05, d05p))
+    check(err5 == 0 and r5 == r5p == inv_w,
+          f"K5 differs from its plain version: err {err5}, rounds "
+          f"{r5} vs {r5p}")
+    n_marked = int(m5.sum())
+    ms5 = time_ms(k5)
+    plain_ms5 = time_ms(k5_plain, reps=3, warmup=1)
+    # per round: marks read and written once, the buckets read once; the
+    # reset reads D and the marks and writes D once
+    b5_ms, b5_by = bound(
+        r5 * (2 * s_rows * n_pad + 8 * slots) + 9 * s_rows * n_pad,
+        r5 * 2 * slots * s_rows + 2 * s_rows * n_pad, rate,
+    )
+    emit({"phase": "k5_sell_mark", "rounds": r5, "marked": n_marked,
+          "equal_plain": True, "ms": ms5, "plain_ms": plain_ms5,
+          "bound_ms": b5_ms, "card": card})
+
+    # K6: the same event on the edge-list layout
+    bf_args = (d_prev, st["src"], st["dst"], w_new_t, st["w"], st["csr"])
+
+    def k6():
+        marks, r = spf._bf_invalidate(*bf_args)
+        return marks, r, spf._bf_warm_d0(d_prev, marks, src_t)
+
+    def k6_plain():
+        marks, r = spf._bf_invalidate_plain(*bf_args)
+        return marks, r, spf._bf_warm_d0_plain(d_prev, marks, src_t)
+
+    m6, r6, d06 = k6()
+    m6p, r6p, d06p = k6_plain()
+    err6 = max(max_abs_err(m6, m6p), max_abs_err(d06, d06p))
+    check(err6 == 0 and r6 == r6p == inv_bf,
+          f"K6 differs from its plain version: err {err6}, rounds "
+          f"{r6} vs {r6p}")
+    check(torch.equal(m6, m5), "K6 marks differ from K5's")
+    ms6 = time_ms(k6)
+    plain_ms6 = time_ms(k6_plain, reps=3, warmup=1)
+    # seed: D once, the real edges' src + two weights, csr; per round:
+    # marks read and written once, src + w_old + csr; reset as K5's
+    b6_ms, b6_by = bound(
+        4 * s_rows * n_pad + 12 * n_e + 4 * n_pad + s_rows * n_pad
+        + r6 * (2 * s_rows * n_pad + 8 * n_e + 4 * n_pad)
+        + 9 * s_rows * n_pad,
+        (1 + r6) * 3 * n_e * s_rows, rate,
+    )
+    emit({"phase": "k6_bf_mark", "rounds": r6, "equal_plain": True,
+          "equal_k5_marks": True, "ms": ms6, "plain_ms": plain_ms6,
+          "bound_ms": b6_ms, "card": card})
+
+    # K7: the changed columns and their extraction
+    def k7():
+        cc, count = spf.delta_columns(d_w, d_prev)
+        return (cc, count, *spf._delta_extract(cc, d_w, nh_rows, nh_ws,
+                                               cap=cap))
+
+    def k7_plain():
+        cc = (d_w != d_prev).any(dim=0)
+        return (cc, cc.sum(dtype=torch.int32),
+                *spf._delta_extract_plain(cc, d_w, nh_rows, nh_ws, cap))
+
+    out7, out7p = k7(), k7_plain()
+    err7 = max(max_abs_err(a, b) for a, b in zip(out7, out7p))
+    check(err7 == 0, f"K7 differs from its plain version: {err7}")
+    check(torch.equal(out7[2], cols) and torch.equal(out7[4], nh),
+          "K7 differs from the event path's extraction")
+    cols_h = cols.cpu().numpy()
+    check(bool(np.all(np.diff(cols_h[:num]) > 0))
+          and bool(np.all(cols_h[num:] == n_pad)),
+          "K7 columns are not ascending and padded with n_pad")
+    ms7 = time_ms(k7)
+    plain_ms7 = time_ms(k7_plain)
+    lib_ms7 = time_ms(lambda: torch.nonzero(cc_w))
+    l_pad = nh_rows.shape[0]
+    b7_ms, b7_by = bound(
+        8 * s_rows * n_pad + 2 * n_pad + 4
+        + 4 * cap * (1 + 2 * s_rows) + l_pad * (8 + cap),
+        s_rows * n_pad + n_pad, rate,
+    )
+    emit({"phase": "k7_delta_extract", "num_changed": num, "cap": cap,
+          "equal_plain": True, "ms": ms7, "plain_ms": plain_ms7,
+          "nonzero_ms": lib_ms7, "bound_ms": b7_ms, "card": card})
+
+    warm_ms = time_ms(sell_warm, setup=fresh_wgs)
+    warm_bf_ms = time_ms(bf_warm)
+    emit({"phase": "event_wan_times", "warm_ms": warm_ms,
+          "warm_rounds": rounds_w, "cold_ms": ms, "cold_rounds": rounds,
+          "warm_edge_list_ms": warm_bf_ms, "cold_edge_list_ms": ms2,
+          "card": card})
+    for name, k, e, m_, pm, lm, bm, bb in (
+        ("sell_patch.cu", K4, err4, ms4, plain_ms4, lib_ms4, b4_ms, b4_by),
+        ("sell_mark.cu", K5, err5, ms5, plain_ms5, None, b5_ms, b5_by),
+        ("bf_mark.cu", K6, err6, ms6, plain_ms6, None, b6_ms, b6_by),
+        ("delta_extract.cu", K7, err7, ms7, plain_ms7, lib_ms7, b7_ms, b7_by),
+    ):
+        results.append({
+            "name": k.name, "route": "cuda",
+            "source": f"openr_tpu_torch/ops/csrc/{name}",
+            "replaces": k.replaces, "launches": None, "max_abs_err": e,
+            "ms": m_, "plain_ms": pm, "bound_ms": bm, "bound_by": bb,
+            "library_ms": lm,
+        })
+    del (st, d_w, d_bf, d_cold, plain, m5p, d05p, m6p, d06p, out7, out7p,
+         d05, d06, wk, wp, wgs_w, wgs_run)
+
+    # -- 9. event_clos: DeltaRouteBuilder on the Clos -------------------
+    me = "rsw0_0"
+    t0 = time.perf_counter()
+    paths.start()
+    builder = DeltaRouteBuilder(CudaSpfSolver(me, device=dev))
+    db, _, used = builder.build(me, {"0": clos_ls[1]}, clos_ps, None)
+    paths.pause()  # the full-build solver and the oracle are not counted
+    check(not used, "the first delta-builder build must be full")
+    solve = builder.solver._solves[("0", me)][1]
+    mirror_bytes = solve.d.nbytes
+    full_solver = CudaSpfSolver(me, device=dev)
+    full_solver.build_route_db(me, {"0": clos_ls[1]}, clos_ps)
+    per_event = []
+    for name, edits, want_delta in clos_events():
+        for a, b, changes in edits:
+            edit_adjacency(clos_ls, a, b, **changes)
+        d2h0, dbytes0 = solve.d2h_bytes, solve.delta_bytes
+        cols0 = solve.delta_columns
+        paths.resume()
+        t = time.perf_counter()
+        db, _, used = builder.build(me, {"0": clos_ls[1]}, clos_ps, db)
+        delta_ms = (time.perf_counter() - t) * 1e3
+        paths.pause()
+        t = time.perf_counter()
+        full_db = full_solver.build_route_db(me, {"0": clos_ls[1]}, clos_ps)
+        full_ms = (time.perf_counter() - t) * 1e3
+        want = SpfSolver(me).build_route_db(me, {"0": clos_ls[0]}, clos_ps)
+        for got in (db, full_db):
+            check(got.unicast_entries == want.unicast_entries
+                  and got.mpls_entries == want.mpls_entries,
+                  f"{name}: route db differs from the CPU oracle")
+        check(used == want_delta,
+              f"{name}: used_delta {used}, expected {want_delta}")
+        d2h = solve.d2h_bytes - d2h0
+        dbytes = solve.delta_bytes - dbytes0
+        ncols = solve.delta_columns - cols0
+        if used:
+            # the copy-back is the extraction alone, bounded by its bucket
+            cap_e = _next_bucket(max(ncols, 1), minimum=8)
+            l_pad = _next_bucket(len(solve._nh_link_arrays()[0]), minimum=8)
+            check(d2h == dbytes and d2h <= 4 + cap_e * (
+                4 + 4 * solve.d.shape[0] + l_pad),
+                f"{name}: d2h {d2h} bytes is not O(changes)")
+        per_event.append({
+            "event": name, "used_delta": used, "delta_ms": delta_ms,
+            "full_ms": full_ms, "delta_columns": ncols, "d2h_bytes": d2h,
+            "delta_builds": builder.delta_builds,
+            "full_builds": builder.full_builds,
+            "warm": solve.last_solve_warm,
+            "inv_rounds": solve.invalidation_rounds_last,
+            "rounds": solve.rounds_last,
+        })
+    clos_s = time.perf_counter() - t0
+    clos_launches = paths.read("event_clos", (K1, K3, K4, K5, K7))
+    check(builder.delta_builds >= 6,
+          f"only {builder.delta_builds} delta builds")
+    emit({
+        "phase": "event_clos", "me": me, "seconds": clos_s,
+        "events": per_event, "delta_builds": builder.delta_builds,
+        "full_builds": builder.full_builds, "mirror_bytes": mirror_bytes,
+        "launches": clos_launches,
+        "host_spf_calls": builder.solver.host_spf_calls, "card": card,
+    })
+    check(builder.solver.host_spf_calls == 0, "host Dijkstra on event_clos")
+
+    # -- 10. star_flap: the solver's edge-list warm path -----------------
+    paths.start()
+    edit_adjacency(star_ls, "hub", "leaf0003", metric=9)
+    edit_adjacency(star_ls, "leaf0003", "hub", metric=9)
+    route_build(star, SpfSolver("leaf0000"), star_ls, star_ps, "leaf0000")
+    torch.cuda.synchronize()
+    star_launches = paths.read("star_flap", (K2, K6, K7))
+    star_solve = star._solves[("0", "leaf0000")][1]
+    check(star_solve.graph.sell is None and star_solve.last_solve_warm,
+          "the star flap did not ride the edge-list warm path")
+    check(star.host_spf_calls == 0, "host Dijkstra on the star")
+    emit({"phase": "star_flap", "launches": star_launches,
+          "rounds": star_solve.rounds_last,
+          "inv_rounds": star_solve.invalidation_rounds_last,
+          "delta_columns": star_solve.delta_columns,
+          "route_build_ms": route_ms[-1], "solve_ms": solve_ms[-1],
+          "card": card})
+
+    # -- 11. kernels line, card, result ----------------------------------
+    for row in results:
+        row["launches"] = paths.total(row["name"])
+        row["launches_by_path"] = {
+            path: counts[row["name"]] for path, counts in paths.by_path.items()
+        }
+        check(row["launches"] > 0, f"{row['name']} never launched")
+    check(len(results) == len(_cuda.KERNELS), "a kernel has no row")
     emit({"kernels": results})
     print(card, flush=True)
     emit({

@@ -8,9 +8,13 @@ follow the JAX package, so each counterpart is easy to find:
   topology.py     topology generators (copy)
   lsdb/           LinkState graph + PrefixState, the Dijkstra oracle (copy)
   ops/graph.py    LSDB graph -> padded arrays, sliced-ELL layout (copy)
-  ops/spf.py      batched min-plus SPF and the ECMP triangle, with kernels
+  ops/spf.py      batched min-plus SPF, the ECMP triangle and the warm
+                  event path (patches, invalidation, delta extraction),
+                  with kernels
   solver/cpu.py   the CPU route-computation oracle (copy)
-  solver/cuda.py  CudaSpfSolver: the route pipeline over the device solve
+  solver/cuda.py  CudaSpfSolver: the route pipeline over the device solve,
+                  cold and warm
+  solver/delta.py DeltaRouteBuilder: route deltas from changed columns
   convert.py      carry a compiled graph across packages and onto the card
 
 Nothing here imports jax or openr_tpu, and no CUDA code is built or loaded

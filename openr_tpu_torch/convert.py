@@ -76,22 +76,11 @@ def graph_from_arrays(arrays: Dict) -> CompiledGraph:
     return graph
 
 
-def _up(a, dtype, dev: torch.device) -> torch.Tensor:
-    return torch.as_tensor(np.ascontiguousarray(a, dtype=dtype), device=dev)
-
-
-def weights_to_device(
-    graph: CompiledGraph, device: DeviceLike = "cuda"
-) -> Dict[str, object]:
-    """The tensors a weight or overload patch changes: `w` [e_pad] int32,
-    `ov` [n_pad] bool and per sliced-ELL bucket `wgs` [nk, dk] int32."""
-    dev = resolve_device(device)
-    sell = graph.sell
-    return {
-        "w": _up(graph.w, np.int32, dev),
-        "ov": _up(graph.overloaded, bool, dev),
-        "wgs": tuple(_up(a, np.int32, dev) for a in sell.wg) if sell else (),
-    }
+def upload(a, dtype, device: torch.device) -> torch.Tensor:
+    """An owned device copy of a host array, never a view of it: on the CPU
+    a view would share memory with the compiled graph, and the event path
+    patches the resident weight buckets in place."""
+    return torch.tensor(np.ascontiguousarray(a, dtype=dtype), device=device)
 
 
 def to_device(
@@ -99,16 +88,19 @@ def to_device(
 ) -> Dict[str, object]:
     """Persistent device tensors of one graph: `src`, `dst` [e_pad] int32,
     `csr` [n_pad + 1] int32 (in-edge ranges of the destination-sorted real
-    edges; the padding edges past `e` carry INF and are left out), per
-    sliced-ELL bucket `nbrs` [nk, dk] int32 (an empty tuple without the
-    sliced layout), and the weight tensors of `weights_to_device`."""
+    edges; the padding edges past `e` carry INF and are left out), `w`
+    [e_pad] int32, `ov` [n_pad] bool, and per sliced-ELL bucket `nbrs` and
+    `wgs` [nk, dk] int32 (empty tuples without the sliced layout)."""
     dev = resolve_device(device)
     sell = graph.sell
-    csr = edge_csr(graph)
     return {
-        "src": _up(graph.src, np.int32, dev),
-        "dst": _up(graph.dst, np.int32, dev),
-        "csr": _up(csr, np.int32, dev),
-        "nbrs": tuple(_up(a, np.int32, dev) for a in sell.nbr) if sell else (),
-        **weights_to_device(graph, dev),
+        "src": upload(graph.src, np.int32, dev),
+        "dst": upload(graph.dst, np.int32, dev),
+        "csr": upload(edge_csr(graph), np.int32, dev),
+        "w": upload(graph.w, np.int32, dev),
+        "ov": upload(graph.overloaded, bool, dev),
+        "nbrs": tuple(upload(a, np.int32, dev) for a in sell.nbr)
+        if sell else (),
+        "wgs": tuple(upload(a, np.int32, dev) for a in sell.wg)
+        if sell else (),
     }

@@ -6,9 +6,11 @@ by a hash of the source so an edited kernel is rebuilt. The library is
 loaded with `ctypes`. The build runs at a kernel's first use, never at
 import: hosts without `nvcc` or a card import this module freely.
 
-Every pointer and the stream are passed as `ctypes.c_void_p` and every int as
-`ctypes.c_int`; each entry point returns `cudaGetLastError()` and a non-zero
-code raises. Launches go on PyTorch's current stream.
+A source may export several entry points (one `__global__` each); they
+share one library and one launch count. Every pointer and the stream are
+passed as `ctypes.c_void_p` and every int as `ctypes.c_int`; each entry
+point returns `cudaGetLastError()` and a non-zero code raises. Launches go
+on PyTorch's current stream.
 """
 
 from __future__ import annotations
@@ -33,18 +35,26 @@ _I = ctypes.c_int
 
 
 class Kernel:
-    """One kernel of `csrc/`: its source, C entry point and argument types,
-    the reference function it replaces, and the count of its launches."""
+    """One kernel of `csrc/`: its source, its C entry points with their
+    argument types, the reference function it replaces, and the count of
+    its launches (all entry points together).
+
+    `entries` maps each C function name to its argument types without the
+    trailing stream; the first entry is the default of `launch`."""
 
     def __init__(
-        self, name: str, source: str, argtypes: Sequence, replaces: str
+        self,
+        name: str,
+        source: str,
+        entries: Dict[str, Sequence],
+        replaces: str,
     ) -> None:
         self.name = name
         self.source = _CSRC / source
-        self.argtypes = list(argtypes)
+        self.entries = {sym: [*types, _P] for sym, types in entries.items()}
         self.replaces = replaces
         self.launches = 0
-        self._fn = None
+        self._fns: Optional[Dict[str, object]] = None
         self._lock = threading.Lock()
 
     def library_path(self) -> Path:
@@ -57,26 +67,32 @@ class Kernel:
             "-Xcompiler", "-fPIC", "-o", str(out), str(self.source),
         ]
 
-    def _bind(self):
+    def _bind(self) -> Dict[str, object]:
         with self._lock:
-            if self._fn is None:
+            if self._fns is None:
                 path = self.library_path()
                 if not path.exists():
                     build([self])
-                fn = getattr(ctypes.CDLL(str(path)), self.name)
-                fn.argtypes = self.argtypes
-                fn.restype = ctypes.c_int
-                self._fn = fn
-        return self._fn
+                lib = ctypes.CDLL(str(path))
+                fns = {}
+                for sym, argtypes in self.entries.items():
+                    fn = getattr(lib, sym)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                    fns[sym] = fn
+                self._fns = fns
+        return self._fns
 
-    def launch(self, *args) -> None:
-        """Launch on the current stream; raises on a refused launch."""
-        fn = self._bind()
+    def launch(self, *args, entry: Optional[str] = None) -> None:
+        """Launch one entry point (the first by default) on the current
+        stream; raises on a refused launch."""
+        fns = self._bind()
+        sym = entry or next(iter(self.entries))
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(*args, stream)
+        rc = fns[sym](*args, stream)
         if rc != 0:
             raise RuntimeError(
-                f"CUDA kernel {self.name} failed to launch: cudaError {rc}"
+                f"CUDA kernel {sym} failed to launch: cudaError {rc}"
             )
         self.launches += 1
 
@@ -125,19 +141,58 @@ def build(kernels: Optional[Sequence[Kernel]] = None) -> Dict[str, Path]:
 SELL_RELAX = Kernel(
     "sell_relax_round",
     "sell_relax.cu",
-    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    {"sell_relax_round": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I]},
     "openr_tpu/ops/spf.py:177 _sell_relax",
 )
 BF_RELAX = Kernel(
     "bf_relax_round",
     "bf_relax.cu",
-    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    {"bf_relax_round": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I]},
     "openr_tpu/ops/spf.py:55 _bf_relax",
 )
 ECMP_TRIANGLE = Kernel(
     "ecmp_triangle",
     "ecmp_triangle.cu",
-    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    {"ecmp_triangle": [_P, _P, _P, _P, _P, _P, _P, _I, _I]},
     "openr_tpu/ops/spf.py:1165 _ecmp_dag",
 )
-KERNELS = (SELL_RELAX, BF_RELAX, ECMP_TRIANGLE)
+SELL_PATCH = Kernel(
+    "sell_apply_patches",
+    "sell_patch.cu",
+    {"sell_apply_patches": [_P, _P, _P, _I, _I, _I]},
+    "openr_tpu/ops/spf.py:303 _sell_apply_patches",
+)
+SELL_MARK = Kernel(
+    "sell_mark",
+    "sell_mark.cu",
+    {
+        "sell_mark_seed": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I],
+        "sell_mark_round": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I],
+        "sell_mark_reset": [_P, _P, _P, _P, _I, _I],
+    },
+    "openr_tpu/ops/spf.py:348,387 _sell_invalidate, _sell_mark_fixpoint",
+)
+BF_MARK = Kernel(
+    "bf_mark",
+    "bf_mark.cu",
+    {
+        "bf_mark_seed": [_P, _P, _P, _P, _P, _P, _P, _I, _I],
+        "bf_mark_round": [_P, _P, _P, _P, _P, _P, _P, _I, _I],
+        "bf_mark_reset": [_P, _P, _P, _P, _I, _I],
+    },
+    "openr_tpu/ops/spf.py:497 _bf_warm_core",
+)
+DELTA_EXTRACT = Kernel(
+    "delta_extract",
+    "delta_extract.cu",
+    {
+        "delta_columns": [_P, _P, _P, _P, _I, _I],
+        "delta_compact": [_P, _P, _I, _I],
+        "delta_gather": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I],
+    },
+    "openr_tpu/ops/spf.py:907 _delta_extract",
+)
+KERNELS = (
+    SELL_RELAX, BF_RELAX, ECMP_TRIANGLE,
+    SELL_PATCH, SELL_MARK, BF_MARK, DELTA_EXTRACT,
+)

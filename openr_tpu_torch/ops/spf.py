@@ -11,11 +11,22 @@ Jacobi (each reads the previous round's D) and run until nothing changes,
 capped at n rounds; the final no-change round is counted, so `rounds`
 equals the JAX package's count.
 
-Three hand-written CUDA kernels carry the device work (ops/csrc/):
+Seven hand-written CUDA kernels carry the device work (ops/csrc/):
 
-  K1 sell_relax_round  one round of the sliced-ELL pull, per degree bucket
-  K2 bf_relax_round    one round of the edge-list form (no sliced layout)
-  K3 ecmp_triangle     per-edge first-hop test w(u,v) + D[v,t] == D[u,t]
+  K1 sell_relax_round    one round of the sliced-ELL pull, per degree bucket
+  K2 bf_relax_round      one round of the edge-list form (no sliced layout)
+  K3 ecmp_triangle       per-edge first-hop test w(u,v) + D[v,t] == D[u,t]
+  K4 sell_apply_patches  an event's weight patches into the resident buckets
+  K5 sell_mark           warm-start invalidation on the sliced layout
+  K6 bf_mark             warm-start invalidation on the edge-list layout
+  K7 delta_extract       changed destination columns and their copy-back
+
+The warm event path (an LSDB event answered from the previous fixpoint)
+is K5 -> K4 -> K5 reset -> K1 -> K7 on the sliced layout and K6 -> K2 ->
+K7 on the edge-list one: entries whose old shortest path may cross an
+increased edge are reset to INF (Ramalingam-Reps invalidation), everything
+else keeps its old distance, which is an upper bound of the new one, and
+the relaxation repairs the rest.
 
 Each wrapper checks device, dtype, shape and contiguity; on a CUDA tensor
 it launches its kernel (and counts the launch), on a CPU tensor it runs the
@@ -35,10 +46,21 @@ import torch
 from torch.profiler import record_function
 
 from openr_tpu_torch.device import DeviceLike, resolve_device
-from openr_tpu_torch.ops._cuda import BF_RELAX, ECMP_TRIANGLE, SELL_RELAX
+from openr_tpu_torch.ops._cuda import (
+    BF_MARK,
+    BF_RELAX,
+    DELTA_EXTRACT,
+    ECMP_TRIANGLE,
+    SELL_MARK,
+    SELL_PATCH,
+    SELL_RELAX,
+)
 from openr_tpu_torch.ops.graph import INF, CompiledGraph
 
 _INT32_MAX = int(np.iinfo(np.int32).max)
+# row index of a padding patch: out of range of every bucket, so K4 drops
+# it and the invalidation seed skips it (valid = row < 1 << 29)
+PATCH_PAD = 1 << 30
 
 
 def _i32(x, device: torch.device) -> torch.Tensor:
@@ -388,6 +410,495 @@ def _ecmp_dag(d, src_e, dst_e, w_e, overloaded) -> torch.Tensor:
     """Per-edge shortest-DAG membership: out[e, t] == True iff directed edge
     e = (u -> v) is the first hop of some shortest path u -> t."""
     return ecmp_triangle(d, src_e, dst_e, dst_e, w_e, overloaded)
+
+
+# -- K4: weight patches ----------------------------------------------------
+
+
+def _sell_apply_patches(
+    wgs: Sequence[torch.Tensor],  # int32 [nk, dk] per bucket, patched in place
+    patch_idx: torch.Tensor,  # int32 [B, P, 2] (row, slot) per bucket
+    patch_vals: torch.Tensor,  # int32 [B, P]
+) -> Tuple[torch.Tensor, ...]:
+    """Scatter per-bucket weight patches into the bucket arrays IN PLACE
+    and return them. The reference returns new buffers and donates the old
+    ones; every caller here keeps its handles, so writing in place saves a
+    copy of every bucket per event. A patch whose row or slot lies outside
+    its bucket is dropped, as JAX's mode="drop" does: padding rows carry
+    PATCH_PAD (the host never sends a negative index or two patches for one
+    slot)."""
+    dev = patch_idx.device
+    _check("patch_idx", patch_idx, torch.int32, 3, dev)
+    _check("patch_vals", patch_vals, torch.int32, 2, dev)
+    b, p, two = patch_idx.shape
+    if two != 2 or tuple(patch_vals.shape) != (b, p) or b != len(wgs):
+        raise ValueError("patch_idx/patch_vals do not match the buckets")
+    for k, wg_k in enumerate(wgs):
+        _check(f"wgs[{k}]", wg_k, torch.int32, 2, dev)
+    if dev.type != "cuda":
+        return _sell_apply_patches_plain(wgs, patch_idx, patch_vals)
+    for k, wg_k in enumerate(wgs):
+        nk, dk = wg_k.shape
+        if p and nk * dk:
+            SELL_PATCH.launch(
+                wg_k.data_ptr(), patch_idx[k].data_ptr(),
+                patch_vals[k].data_ptr(), p, nk, dk,
+            )
+    return tuple(wgs)
+
+
+def sell_patch_arrays(
+    sell, positions: np.ndarray, w: np.ndarray, width: int
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Host side of K4: (idx [B, width, 2], vals [B, width]) int32 for the
+    edge positions `positions` (dst-sorted order) of a sliced layout, split
+    by bucket and padded with PATCH_PAD rows; vals[k, i] = w[position]. A
+    bucket with more than `width` positions raises."""
+    nb = len(sell.nbr)
+    idx = np.full((nb, width, 2), PATCH_PAD, dtype=np.int32)
+    vals = np.zeros((nb, width), dtype=np.int32)
+    positions = np.asarray(positions, dtype=np.int64)
+    for k in range(nb):
+        sel = positions[sell.edge_bucket[positions] == k]
+        if len(sel) > width:
+            raise ValueError(f"bucket {k}: {len(sel)} patches > {width}")
+        idx[k, : len(sel), 0] = sell.edge_row[sel]
+        idx[k, : len(sel), 1] = sell.edge_slot[sel]
+        vals[k, : len(sel)] = w[sel]
+    return idx, vals
+
+
+def _sell_apply_patches_plain(wgs, patch_idx, patch_vals):
+    for k, wg_k in enumerate(wgs):
+        nk, dk = wg_k.shape
+        r = patch_idx[k, :, 0].long()
+        j = patch_idx[k, :, 1].long()
+        keep = (r >= 0) & (r < nk) & (j >= 0) & (j < dk)
+        wg_k[r[keep], j[keep]] = patch_vals[k][keep]
+    return tuple(wgs)
+
+
+def _sell_solver_patched(
+    key: Tuple, sources, nbrs, wgs, overloaded, patch_idx, patch_vals
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...], int]:
+    """Patch the resident weights (K4), then solve cold (K1): (D [S, n_pad]
+    row-major, the patched wgs, rounds)."""
+    wgs = _sell_apply_patches(wgs, patch_idx, patch_vals)
+    d, rounds = _sell_solver_counted(key, sources, nbrs, wgs, overloaded)
+    return d, wgs, rounds
+
+
+# -- K5: invalidation on the sliced layout ---------------------------------
+
+
+def _sell_invalidate(
+    d_prev: torch.Tensor,  # int32 [S, n_pad] row-major OLD fixpoint
+    nbrs: Sequence[torch.Tensor],
+    wgs: Sequence[torch.Tensor],  # the OLD bucket weights
+    inc_idx: torch.Tensor,  # int32 [B, P, 2] (row, slot) of increased edges
+    zero_end: int,
+    starts: Sequence[int],
+) -> Tuple[torch.Tensor, int]:
+    """Ramalingam-Reps invalidation on the sliced layout: (marks bool
+    [S, n_pad] row-major, rounds of the mark fixpoint).
+
+    Seeds mark the entries where an increased edge satisfies the triangle
+    equality against the OLD weights (so this runs before the patch); the
+    marks then propagate down the old shortest-path DAG to a fixpoint.
+    Over-marking is safe (marked entries are recomputed from INF); every
+    true DAG edge passes the unmasked triangle test, so nothing that needs
+    recomputing is left unmarked. Padding rows (PATCH_PAD) seed nothing;
+    other rows and slots are clipped into their bucket, as the reference
+    does."""
+    dev = d_prev.device
+    _check("d_prev", d_prev, torch.int32, 2, dev)
+    n = d_prev.shape[1]
+    if len(nbrs) != len(wgs) or len(nbrs) != len(starts):
+        raise ValueError("nbrs, wgs and starts differ in bucket count")
+    for k, (nbr_k, wg_k) in enumerate(zip(nbrs, wgs)):
+        _check(f"nbrs[{k}]", nbr_k, torch.int32, 2, dev)
+        _check(f"wgs[{k}]", wg_k, torch.int32, 2, dev)
+        if nbr_k.shape != wg_k.shape or starts[k] + nbr_k.shape[0] > n:
+            raise ValueError(f"bucket {k}: bad shape {tuple(nbr_k.shape)}")
+    _check("inc_idx", inc_idx, torch.int32, 3, dev)
+    if inc_idx.shape[0] != len(nbrs) or inc_idx.shape[2] != 2:
+        raise ValueError("inc_idx must be [buckets, P, 2]")
+    s, n = d_prev.shape
+    p = inc_idx.shape[1]
+    if dev.type != "cuda":
+        marks = _sell_seed_plain(d_prev, nbrs, wgs, inc_idx, starts)
+        seeded = bool(marks.any())
+    else:
+        marks = torch.zeros((s, n), dtype=torch.bool, device=dev)
+        flag = torch.zeros(1, dtype=torch.int32, device=dev)
+        for k, (bs, nbr_k, wg_k) in enumerate(zip(starts, nbrs, wgs)):
+            nk, dk = nbr_k.shape
+            if p and s and nk * dk:
+                SELL_MARK.launch(
+                    d_prev.data_ptr(), marks.data_ptr(), flag.data_ptr(),
+                    nbr_k.data_ptr(), wg_k.data_ptr(),
+                    inc_idx[k].data_ptr(), p, int(bs), nk, dk, s, n,
+                    entry="sell_mark_seed",
+                )
+        seeded = bool(flag.item())
+    return _sell_mark_fixpoint(
+        d_prev, marks, nbrs, wgs, zero_end, starts, seeded
+    )
+
+
+def _sell_seed_plain(d_prev, nbrs, wgs, inc_idx, starts):
+    s, n = d_prev.shape
+    hits = torch.zeros((s, n), dtype=torch.int32, device=d_prev.device)
+    for k, (bs, nbr_k, wg_k) in enumerate(zip(starts, nbrs, wgs)):
+        nk, dk = nbr_k.shape
+        rows = inc_idx[k, :, 0]
+        valid = rows < (1 << 29)
+        r = rows.clamp(0, nk - 1).long()
+        j = inc_idx[k, :, 1].clamp(0, dk - 1).long()
+        u = nbr_k[r, j].long()
+        w_old = wg_k[r, j]
+        v = bs + r
+        dv = d_prev[:, v]  # [S, P]
+        cond = (
+            valid[None, :]
+            & (dv < INF)
+            & ((d_prev[:, u] + w_old[None, :]).clamp_max(INF) == dv)
+        )
+        hits.index_add_(1, v, cond.int())
+    return hits > 0
+
+
+def _sell_mark_fixpoint(
+    d_prev, marks, nbrs, wgs, zero_end, starts, seeded: bool
+) -> Tuple[torch.Tensor, int]:
+    """Propagate marks down the old shortest-path DAG: an entry marks when
+    one of its old-DAG in-edges carries a marked tail. Jacobi rounds until
+    nothing changes, capped at n_pad; no round runs when nothing was seeded
+    (`seeded`, read from the seed pass, so a decrease-only event pays
+    nothing). Returns (marks, rounds). zero_end is implied by starts and
+    kept for the reference's signature."""
+    s, n = d_prev.shape
+    if not seeded:
+        return marks, 0
+    if d_prev.device.type != "cuda":
+        return _sell_mark_fixpoint_plain(d_prev, marks, nbrs, wgs, starts)
+    cur, nxt = marks, marks.clone()
+    flag = torch.zeros(1, dtype=torch.int32, device=marks.device)
+    rounds = 0
+    while True:
+        flag.zero_()
+        for bs, nbr_k, wg_k in zip(starts, nbrs, wgs):
+            nk, dk = nbr_k.shape
+            if nk and s:
+                SELL_MARK.launch(
+                    d_prev.data_ptr(), cur.data_ptr(), nxt.data_ptr(),
+                    flag.data_ptr(), nbr_k.data_ptr(), wg_k.data_ptr(),
+                    int(bs), nk, dk, s, n, entry="sell_mark_round",
+                )
+        rounds += 1
+        cur, nxt = nxt, cur
+        if not int(flag.item()) or rounds >= n:
+            return cur, rounds
+
+
+def _sell_mark_fixpoint_plain(d_prev, marks, nbrs, wgs, starts):
+    n = d_prev.shape[1]
+    idx = [nbr_k.long() for nbr_k in nbrs]
+    m, rounds = marks, 0
+    while True:
+        new_m = m.clone()
+        for bs, nbr_k, wg_k in zip(starts, idx, wgs):
+            nk = nbr_k.shape[0]
+            dv = d_prev[:, bs : bs + nk]  # [S, nk]
+            cand = (d_prev[:, nbr_k] + wg_k[None]).clamp_max(INF)
+            on_dag = cand == dv[:, :, None]  # [S, nk, dk]
+            hit = (m[:, nbr_k] & on_dag).any(dim=2) & (dv < INF)
+            new_m[:, bs : bs + nk] |= hit
+        rounds += 1
+        changed = not torch.equal(new_m, m)
+        m = new_m
+        if not changed or rounds >= n:
+            return m, rounds
+
+
+def _sell_warm_d0(
+    d_prev: torch.Tensor, marks: torch.Tensor, sources: torch.Tensor
+) -> torch.Tensor:
+    """The repaired initial state in K1's layout: dest-major [n_pad, S] of
+    where(marks, INF, d_prev) with every source's own entry pinned to 0."""
+    dev = d_prev.device
+    s, n = d_prev.shape
+    _check("marks", marks, torch.bool, 2, dev)
+    _check("sources", sources, torch.int32, 1, dev)
+    if marks.shape != d_prev.shape or sources.shape[0] != s:
+        raise ValueError("marks/sources do not match d_prev's shape")
+    if dev.type != "cuda":
+        return _bf_warm_d0_plain(d_prev, marks, sources).t().contiguous()
+    d0 = torch.empty((n, s), dtype=torch.int32, device=dev)
+    SELL_MARK.launch(
+        d_prev.data_ptr(), marks.data_ptr(), sources.data_ptr(),
+        d0.data_ptr(), s, n, entry="sell_mark_reset",
+    )
+    return d0
+
+
+def _sell_solver_warm(
+    key: Tuple,
+    sources,  # int32 [S]
+    nbrs,
+    wgs,  # resident buckets, patched in place
+    overloaded,  # bool [n_pad], the mask after the event
+    patch_idx,  # int32 [B, P, 2]
+    patch_vals,  # int32 [B, P]
+    inc_idx,  # int32 [B, P, 2]: increased edges and newly-overloaded out-edges
+    d_prev,  # int32 [S, n_pad] row-major previous fixpoint
+):
+    """Warm-start event solve on the sliced layout: invalidate against the
+    OLD weights (K5 seed + rounds), patch (K4), reset to the repaired
+    dest-major state (K5 reset), relax from it (K1) and mark the columns
+    that moved (K7 columns). Returns (D [S, n_pad] row-major, wgs, rounds,
+    inv_rounds, col_changed bool [n_pad], num_changed int32 scalar tensor).
+    Rounds scale with the event's affected radius, not the graph's
+    diameter. d_prev is read, never written."""
+    zero_end, starts, _ = key
+    marks, inv_rounds = _sell_invalidate(
+        d_prev, nbrs, wgs, inc_idx, zero_end, starts
+    )
+    wgs = _sell_apply_patches(wgs, patch_idx, patch_vals)
+    d0 = _sell_warm_d0(d_prev, marks, sources)
+    del marks
+    d, rounds = _sell_relax(
+        d0, sources, overloaded, nbrs, wgs, zero_end, starts
+    )
+    d = d.t().contiguous()
+    col_changed, num_changed = delta_columns(d, d_prev)
+    return d, wgs, rounds, inv_rounds, col_changed, num_changed
+
+
+# -- K6: invalidation on the edge-list layout ------------------------------
+
+
+def _bf_invalidate(
+    d_prev: torch.Tensor,  # int32 [S, n_pad] row-major OLD fixpoint
+    src_e: torch.Tensor,  # int32 [E]
+    dst_e: torch.Tensor,  # int32 [E], sorted ascending
+    w_new: torch.Tensor,  # int32 [E]
+    w_old: torch.Tensor,  # int32 [E]
+    csr: torch.Tensor,  # int32 [n_pad + 1] in-edge ranges (edge_csr)
+) -> Tuple[torch.Tensor, int]:
+    """Edge-list invalidation: seeds where an edge on the old shortest-path
+    DAG got heavier (w_new > w_old, classified here, not by the host), then
+    the Jacobi mark fixpoint over the old DAG. Returns (marks bool [S,
+    n_pad] row-major, rounds). Only the edges csr covers are walked; the
+    padding edges carry INF in both weight vectors and can neither seed
+    nor propagate."""
+    dev = d_prev.device
+    _check("d_prev", d_prev, torch.int32, 2, dev)
+    s, n = d_prev.shape
+    for name, t in (("src_e", src_e), ("dst_e", dst_e), ("w_new", w_new),
+                    ("w_old", w_old)):
+        _check(name, t, torch.int32, 1, dev)
+        if t.shape[0] != src_e.shape[0]:
+            raise ValueError(f"{name}: length differs from src_e")
+    _check("csr", csr, torch.int32, 1, dev)
+    if csr.shape[0] != n + 1:
+        raise ValueError("csr must have n_pad + 1 entries")
+    if dev.type != "cuda":
+        return _bf_invalidate_plain(d_prev, src_e, dst_e, w_new, w_old, csr)
+    marks = torch.empty((s, n), dtype=torch.bool, device=dev)
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    if not s * n:
+        return marks, 0
+    BF_MARK.launch(
+        d_prev.data_ptr(), marks.data_ptr(), flag.data_ptr(),
+        src_e.data_ptr(), csr.data_ptr(), w_new.data_ptr(),
+        w_old.data_ptr(), s, n, entry="bf_mark_seed",
+    )
+    if not int(flag.item()):
+        return marks, 0
+    cur, nxt = marks, torch.empty_like(marks)
+    rounds = 0
+    while True:
+        flag.zero_()
+        BF_MARK.launch(
+            d_prev.data_ptr(), cur.data_ptr(), nxt.data_ptr(),
+            flag.data_ptr(), src_e.data_ptr(), csr.data_ptr(),
+            w_old.data_ptr(), s, n, entry="bf_mark_round",
+        )
+        rounds += 1
+        cur, nxt = nxt, cur
+        if not int(flag.item()) or rounds >= n:
+            return cur, rounds
+
+
+def _bf_invalidate_plain(d_prev, src_e, dst_e, w_new, w_old, csr):
+    """The reference's [S, E] form over the edges csr covers, with the
+    segment-max as index_add on int32."""
+    s, n = d_prev.shape
+    m_e = int(csr[-1])
+    src = src_e[:m_e].long()
+    dst = dst_e[:m_e].long()
+    w_o = w_old[:m_e]
+    dv = d_prev[:, dst]
+    on_old = ((d_prev[:, src] + w_o[None, :]).clamp_max(INF) == dv) & (
+        dv < INF
+    )
+
+    def seg_any(rows):  # bool [S, E] -> bool [S, n] (OR per destination)
+        out = torch.zeros((s, n), dtype=torch.int32, device=d_prev.device)
+        return out.index_add_(1, dst, rows.int()) > 0
+
+    marks = seg_any(on_old & (w_new[:m_e] > w_o)[None, :])
+    if not bool(marks.any()):
+        return marks, 0
+    rounds = 0
+    while True:
+        new_m = marks | seg_any(marks[:, src] & on_old)
+        rounds += 1
+        changed = not torch.equal(new_m, marks)
+        marks = new_m
+        if not changed or rounds >= n:
+            return marks, rounds
+
+
+def _bf_warm_d0(
+    d_prev: torch.Tensor, marks: torch.Tensor, sources: torch.Tensor
+) -> torch.Tensor:
+    """Row-major repaired state where(marks, INF, d_prev), sources pinned
+    to 0 (K6 reset)."""
+    dev = d_prev.device
+    s, n = d_prev.shape
+    _check("marks", marks, torch.bool, 2, dev)
+    _check("sources", sources, torch.int32, 1, dev)
+    if marks.shape != d_prev.shape or sources.shape[0] != s:
+        raise ValueError("marks/sources do not match d_prev's shape")
+    if dev.type != "cuda":
+        return _bf_warm_d0_plain(d_prev, marks, sources)
+    d0 = torch.empty_like(d_prev)
+    if s * n:
+        BF_MARK.launch(
+            d_prev.data_ptr(), marks.data_ptr(), sources.data_ptr(),
+            d0.data_ptr(), s, n, entry="bf_mark_reset",
+        )
+    return d0
+
+
+def _bf_warm_d0_plain(d_prev, marks, sources):
+    d0 = torch.where(marks, INF, d_prev)
+    s = d_prev.shape[0]
+    d0[torch.arange(s, device=d0.device), sources.long()] = 0
+    return d0
+
+
+def _bf_solver_warm(
+    sources: torch.Tensor,  # int32 [S]
+    src_e: torch.Tensor,  # int32 [E]
+    dst_e: torch.Tensor,  # int32 [E] (sorted ascending)
+    w_new: torch.Tensor,  # int32 [E] weights after the event
+    w_old: torch.Tensor,  # int32 [E] weights that produced d_prev
+    overloaded: torch.Tensor,  # bool [n_pad]
+    d_prev: torch.Tensor,  # int32 [S, n_pad] previous fixpoint (read only)
+    csr: torch.Tensor,  # int32 [n_pad + 1] in-edge ranges (edge_csr)
+):
+    """Warm-start event solve on the edge-list layout (the reference's
+    `_bf_warm_core`): invalidate (K6 seed + rounds), reset (K6), relax with
+    the new weights (K2) and mark the moved columns (K7). Returns (d,
+    rounds, inv_rounds, col_changed, num_changed), the sliced path's delta
+    outputs, so `_delta_extract` serves both."""
+    marks, inv_rounds = _bf_invalidate(
+        d_prev, src_e, dst_e, w_new, w_old, csr
+    )
+    d0 = _bf_warm_d0(d_prev, marks, sources)
+    del marks
+    d, rounds = _bf_relax(
+        d0, sources, overloaded, src_e, dst_e, w_new[None, :], csr
+    )
+    col_changed, num_changed = delta_columns(d, d_prev)
+    return d, rounds, inv_rounds, col_changed, num_changed
+
+
+# -- K7: delta extraction --------------------------------------------------
+
+
+def delta_columns(
+    d: torch.Tensor, d_prev: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(col_changed bool [n], num_changed int32 scalar tensor): the
+    destination columns of row-major d [S, n] that differ from d_prev. The
+    count stays on the device until the caller reads it (4 bytes)."""
+    dev = d.device
+    _check("d", d, torch.int32, 2, dev)
+    _check("d_prev", d_prev, torch.int32, 2, dev)
+    if d.shape != d_prev.shape:
+        raise ValueError("d and d_prev differ in shape")
+    s, n = d.shape
+    if dev.type != "cuda":
+        col_changed = (d != d_prev).any(dim=0)
+        return col_changed, col_changed.sum(dtype=torch.int32)
+    col_changed = torch.empty(n, dtype=torch.bool, device=dev)
+    count = torch.zeros((), dtype=torch.int32, device=dev)
+    if n:
+        DELTA_EXTRACT.launch(
+            d.data_ptr(), d_prev.data_ptr(), col_changed.data_ptr(),
+            count.data_ptr(), s, n, entry="delta_columns",
+        )
+    return col_changed, count
+
+
+def _delta_extract(
+    col_changed: torch.Tensor,  # bool [n] changed-destination mask
+    d: torch.Tensor,  # int32 [S, n] distance matrix
+    nh_rows: torch.Tensor,  # int32 [L] batch row of each up-link neighbour
+    nh_ws: torch.Tensor,  # int32 [L] metric of each up-link from me
+    *,
+    cap: int,  # compacted column capacity (power-of-two bucket)
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Compact the changed destinations and gather what the route build
+    needs of them: (cols int32 [cap], ascending, padded with n, as
+    `jnp.nonzero(size=cap, fill_value=n)`; dcols int32 [S, cap] their
+    distance columns; nh bool [L, cap], nh[l, c] = nh_ws[l] +
+    dcols[nh_rows[l], c] == dcols[0, c], the reference's unclamped formula
+    with no reachability term). The host applies the overloaded-neighbour
+    rule, as the reference does."""
+    dev = d.device
+    _check("col_changed", col_changed, torch.bool, 1, dev)
+    _check("d", d, torch.int32, 2, dev)
+    _check("nh_rows", nh_rows, torch.int32, 1, dev)
+    _check("nh_ws", nh_ws, torch.int32, 1, dev)
+    s, n = d.shape
+    l_pad = nh_rows.shape[0]
+    if col_changed.shape[0] != n or nh_ws.shape[0] != l_pad:
+        raise ValueError("col_changed/nh_ws do not match d/nh_rows")
+    if cap < 0 or n == 0:
+        raise ValueError(f"bad cap {cap} or empty d")
+    if l_pad and (int(nh_rows.min()) < 0 or int(nh_rows.max()) >= s):
+        raise ValueError(f"nh_rows outside [0, {s})")
+    if dev.type != "cuda":
+        return _delta_extract_plain(col_changed, d, nh_rows, nh_ws, cap)
+    cols = torch.empty(cap, dtype=torch.int32, device=dev)
+    dcols = torch.empty((s, cap), dtype=torch.int32, device=dev)
+    nh = torch.empty((l_pad, cap), dtype=torch.bool, device=dev)
+    if cap:
+        DELTA_EXTRACT.launch(
+            col_changed.data_ptr(), cols.data_ptr(), n, cap,
+            entry="delta_compact",
+        )
+        DELTA_EXTRACT.launch(
+            d.data_ptr(), cols.data_ptr(), nh_rows.data_ptr(),
+            nh_ws.data_ptr(), dcols.data_ptr(), nh.data_ptr(), s, n, cap,
+            l_pad, entry="delta_gather",
+        )
+    return cols, dcols, nh
+
+
+def _delta_extract_plain(col_changed, d, nh_rows, nh_ws, cap):
+    n = d.shape[1]
+    hits = torch.nonzero(col_changed).flatten()[:cap].to(torch.int32)
+    cols = torch.full((cap,), n, dtype=torch.int32, device=d.device)
+    cols[: hits.shape[0]] = hits
+    dcols = d[:, cols.clamp(0, n - 1).long()]
+    nh = (nh_ws[:, None] + dcols[nh_rows.long()]) == dcols[0][None, :]
+    return cols, dcols, nh
 
 
 # -- public entry points ---------------------------------------------------

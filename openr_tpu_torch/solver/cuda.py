@@ -1,4 +1,4 @@
-"""Batched SPF solver backend on the card: the cold path.
+"""Batched SPF solver backend on the card: cold solves and the event path.
 
 Drop-in replacement for the CPU oracle: inherits the whole route-assembly
 pipeline from SpfSolver and overrides the SPF access seam so that distances
@@ -15,9 +15,20 @@ Nexthop sets come from the ECMP triangle kernel over me's up-links,
 w(me, n) + D[n, t] == D[me, t], which reproduces Dijkstra's nexthop-union
 semantics (LinkState.cpp:855-871) without tracing paths.
 
-Every solve is cold (from D0 = INF). A source outside the solved batch is
-answered by the LinkState's own Dijkstra, and each such answer is counted
-in `host_spf_calls`. KSP is not on the card yet and raises.
+The distance matrix stays on the card between events. A weight-only LSDB
+event (link flap, metric change, overload toggle on the sliced layout) is
+answered from the previous fixpoint: the entries whose old shortest path
+may cross a heavier edge are invalidated, the changed weight slots are
+patched, and the relaxation repairs the rest (ops/spf.py
+`_sell_solver_warm`, `_bf_solver_warm`). The same solve names the
+destination columns that moved, and a qualifying event copies back only
+those columns (`_finish_delta`), which `solver/delta.py` turns into a route
+delta. A structural rebuild, a source-batch change, a patch overflow or an
+overload change on the edge-list layout solves cold (from D0 = INF).
+
+A source outside the solved batch is answered by the LinkState's own
+Dijkstra, and each such answer is counted in `host_spf_calls`. KSP is not
+on the card yet and raises.
 """
 
 from __future__ import annotations
@@ -28,7 +39,7 @@ from typing import Dict, List, Optional, Set, Tuple
 import numpy as np
 import torch
 
-from openr_tpu_torch.convert import to_device, weights_to_device
+from openr_tpu_torch.convert import to_device, upload
 from openr_tpu_torch.device import DeviceLike, resolve_device
 from openr_tpu_torch.lsdb.link_state import LinkState, Path
 from openr_tpu_torch.ops.graph import (
@@ -41,12 +52,29 @@ from openr_tpu_torch.ops.graph import (
 from openr_tpu_torch.ops.spf import (
     _bf_d0,
     _bf_relax,
+    _bf_solver_warm,
+    _delta_extract,
+    _sell_apply_patches,
     _sell_solver_counted,
+    _sell_solver_patched,
+    _sell_solver_warm,
+    batched_spf,
     ecmp_triangle,
+    sell_patch_arrays,
 )
 from openr_tpu_torch.solver.cpu import Metric, SpfSolver
 
 _KSP_TODO = "KSP on device: ROADMAP queue 1 item 7"
+
+# fixed per-bucket patch width of the fused patch + solve; an event that
+# changes more slots in one bucket is patched by standalone scatters and
+# solved cold
+_PATCH_SLOTS = 64
+
+# DeltaPath cutoff: when more than this fraction of the destination columns
+# changed, the full [S, n_pad] mirror is the cheaper copy-back and the event
+# is served as a full rebuild instead
+_DELTA_MAX_FRAC = 0.5
 
 
 class _NodeView:
@@ -119,32 +147,61 @@ class _CudaSpfResult:
 
 
 class _AreaSolve:
-    """One batched cold solve on the card: sources = [me] + up-neighbours(me).
+    """One batched device solve: sources = [me] + up-neighbours(me).
 
     The layout buffers and the distance matrix stay on the card between
-    reads; host readers go through the lazy `d` mirror. On a topology
+    events; host readers go through the lazy `d` mirror. On a topology
     change `refresh()` patches the compiled arrays through the LinkState
-    changelog, re-uploads the weight buffers (the index buffers are kept
-    while the structure is unchanged) and solves cold again."""
+    changelog and solves again: warm from the resident D when the event is
+    a pure weight patch (same source batch, fits _PATCH_SLOTS; on the
+    sliced layout an overload toggle too), cold otherwise. A warm event
+    that qualifies for DeltaPath patches the host mirrors in place with the
+    changed columns only and queues them for `take_route_delta`."""
 
     def __init__(
-        self, link_state: LinkState, me: str, device: torch.device
+        self,
+        link_state: LinkState,
+        me: str,
+        device: torch.device,
+        warm_start: bool = True,
     ) -> None:
         self.link_state = link_state
         self.me = me
         self.device = device
+        self.warm_start = warm_start
         self.graph: CompiledGraph = compile_graph(link_state)
-        # every solve is cold and full: this one count feeds both
-        # device_solves and decision.spf.full_solves
         self.device_solves = 0
+        # decision.spf.* convergence counters
+        self.incremental_solves = 0  # warm-started weight-patch solves
+        self.full_solves = 0  # cold solves (from D0 = INF)
+        # relaxation rounds of the last solve; None after a cold edge-list
+        # solve, whose rounds the reference does not track
         self.rounds_last: Optional[int] = None
+        # mark-fixpoint rounds of the last WARM solve (0 when nothing was
+        # invalidated)
+        self.invalidation_rounds_last: Optional[int] = None
         self.solve_ms_last: Optional[float] = None
+        self.last_solve_warm = False
         self.h2d_bytes = 0
         self.d2h_bytes = 0
+        # DeltaPath: changed columns and copy-back bytes of the extractions;
+        # d2h_bytes grows by delta_bytes on the delta path and by the full
+        # mirror on the cold path
+        self.delta_extracts = 0
+        self.delta_columns = 0
+        self.delta_bytes = 0
+        self.delta_extract_ms_last: Optional[float] = None
+        # changed destination columns accumulated for take_route_delta;
+        # None = poisoned: a solve since the last take had no device delta
+        self._delta_pending: Optional[set] = set()
+        self._last_solve_delta: Optional[np.ndarray] = None
+        # _sync_spf_counters bookmarks
         self._h2d_synced = 0
         self._d2h_synced = 0
+        self._delta_cols_synced = 0
+        self._delta_bytes_synced = 0
+        self._delta_extracts_synced = 0
         self._dev: Optional[dict] = None
-        self._dev_graph: Optional[CompiledGraph] = None
         self._d_dev: Optional[torch.Tensor] = None
         self._d_host: Optional[np.ndarray] = None
         self._nh_links: Optional[List[str]] = None
@@ -154,34 +211,24 @@ class _AreaSolve:
     @property
     def d(self) -> np.ndarray:
         """Host mirror of the device distance matrix [s_pad, n_pad], fetched
-        on first access after each solve. An owned copy: on the CPU device
-        the tensor's numpy view would alias the solver's own buffer."""
+        on first access after a cold or non-qualifying solve (a DeltaPath
+        event patches it in place). An owned copy: on the CPU device the
+        tensor's numpy view would alias the solver's own buffer."""
         if self._d_host is None:
             self._d_host = self._d_dev.cpu().numpy().copy()
             self.d2h_bytes += self._d_host.nbytes
         return self._d_host
 
-    def _upload(self) -> dict:
-        """Persistent device buffers for the current graph: everything on a
-        structural rebuild (new src array), only the weight and overload
-        buffers on a weight or overload patch."""
-        g = self.graph
-        st = self._dev
-        if st is None or st["src_ref"] is not g.src:
-            up = to_device(g, self.device)
-            st = self._dev = dict(up, src_ref=g.src)
-        elif self._dev_graph is not g:
-            up = weights_to_device(g, self.device)
-            st.update(up)
-        else:
-            up = {}
-        self.h2d_bytes += sum(
-            t.numel() * t.element_size()
-            for v in up.values()
-            for t in (v if isinstance(v, tuple) else (v,))
+    def _source_rows(self) -> np.ndarray:
+        """Node ids of the batch, bucket-padded; padding rows repeat me's
+        row (and so solve with me's transit mask)."""
+        rows = np.array(
+            [self.graph.node_index[s] for s in self.sources], dtype=np.int32
         )
-        self._dev_graph = g
-        return st
+        s_pad = _next_bucket(len(rows), minimum=8)
+        return np.concatenate(
+            [rows, np.full(s_pad - len(rows), rows[0], dtype=np.int32)]
+        )
 
     def _solve(self) -> None:
         me = self.me
@@ -196,43 +243,351 @@ class _AreaSolve:
         self.row_map: Dict[str, int] = {
             name: i for i, name in enumerate(self.sources)
         }
-        rows = np.array(
-            [self.graph.node_index[s] for s in self.sources], dtype=np.int32
-        )
-        # bucket-padded batch; padding rows repeat me's row (and so solve
-        # with me's transit mask)
-        s_pad = _next_bucket(len(rows), minimum=8)
-        rows = np.concatenate(
-            [rows, np.full(s_pad - len(rows), rows[0], dtype=np.int32)]
-        )
+        rows = self._source_rows()
+        inc_before = self.incremental_solves
+        self._last_solve_delta = None  # set by a qualifying warm solve
         t0 = time.perf_counter()
-        st = self._upload()
-        g = self.graph
-        sources = torch.as_tensor(rows, device=self.device)
         self.h2d_bytes += rows.nbytes
-        if g.sell is not None:
-            d, rounds = _sell_solver_counted(
-                g.sell.shape_key(), sources, st["nbrs"], st["wgs"], st["ov"]
+        if self.graph.sell is not None:
+            self._d_dev, self.rounds_last = self._sell_solve_resident(rows)
+        else:
+            self._d_dev, self.rounds_last = self._bf_solve_resident(rows)
+        # the round loops read a flag from the card every round, so the wall
+        # time covers the device work
+        self.solve_ms_last = (time.perf_counter() - t0) * 1e3
+        self.last_solve_warm = self.incremental_solves > inc_before
+        self.device_solves += 1
+        if self._last_solve_delta is None:
+            # cold or non-qualifying event: the host mirrors are stale and
+            # the accumulated delta cannot describe the event; poison it
+            # until the consumer takes it (and rebuilds in full)
+            self._d_host = None
+            self._nh_links = None
+            self._nh_mask = None
+            self._delta_pending = None
+        elif self._delta_pending is not None:
+            self._delta_pending.update(int(c) for c in self._last_solve_delta)
+
+    def _changed_edges(self, st: dict) -> np.ndarray:
+        """Positions whose weight differs from the snapshot that produced
+        the resident state: only the changelog's positions when the graph
+        was patched from that snapshot, else a diff of the real edges."""
+        g = self.graph
+        if g.changed_edges is not None and g.parent_version == st["w_ver"]:
+            cand = g.changed_edges
+            changed = cand[st["w_host"][cand] != g.w[cand]]
+        else:
+            changed = np.nonzero(st["w_host"][: g.e] != g.w[: g.e])[0]
+        st["w_ver"] = g.version  # the snapshot is current even if no diff
+        return changed
+
+    def _delta_ok(self, changed: np.ndarray, rows: np.ndarray) -> bool:
+        """DeltaPath qualification: the route inputs besides D are my own
+        out-link metrics (the nexthop triangle's weight column) and the
+        transit mask, so an event touching either cannot be described by
+        changed D columns alone."""
+        return not np.any(self.graph.src[changed] == rows[0])
+
+    def _sell_solve_resident(self, rows: np.ndarray):
+        """Sliced-ELL solve against the resident buffers: (D [s_pad, n_pad]
+        on the device, rounds).
+
+        The first call (or a structural rebuild, seen by the identity of
+        the src array) uploads the layout. Later events diff the weights
+        and the overload mask against the resident snapshot and upload only
+        the changed slots. A pure weight patch warm-starts (K5, K4, K1, K7);
+        an overload toggle rides the same path, as weight increases on the
+        newly overloaded nodes' out-edges."""
+        g = self.graph
+        sell = g.sell
+        st = self._dev
+        rows_t = torch.as_tensor(rows, device=self.device)
+        if st is None or st["kind"] != "sell" or st["src_ref"] is not g.src:
+            st = self._dev = {
+                "kind": "sell",
+                "src_ref": g.src,
+                "nbrs": tuple(
+                    upload(a, np.int32, self.device) for a in sell.nbr
+                ),
+                "wgs": tuple(
+                    upload(a, np.int32, self.device) for a in sell.wg
+                ),
+                "ov": upload(g.overloaded, bool, self.device),
+                "w_host": g.w.copy(),
+                "w_ver": g.version,
+                "ov_host": g.overloaded.copy(),
+                "rows": rows.copy(),
+            }
+            self.h2d_bytes += (
+                sum(a.nbytes for a in sell.nbr)
+                + sum(a.nbytes for a in sell.wg)
+                + g.overloaded.nbytes
             )
         else:
-            d, rounds = _bf_relax(
-                _bf_d0(sources, g.n_pad),
-                sources,
-                st["ov"],
-                st["src"],
-                st["dst"],
-                st["w"][None, :],
-                st["csr"],
+            ov_changed = not np.array_equal(st["ov_host"], g.overloaded)
+            ov_seed_edges = np.empty(0, dtype=np.int64)
+            if ov_changed:
+                # a newly overloaded node relays nothing: for every other
+                # source its out-edges just rose to INF, so they seed the
+                # invalidation like a metric increase; un-overloading only
+                # adds paths and warm-starts as it is
+                newly_on = np.nonzero(g.overloaded & ~st["ov_host"])[0]
+                if len(newly_on):
+                    ov_seed_edges = np.nonzero(
+                        np.isin(g.src[: g.e], newly_on)
+                    )[0]
+                    # down edges (old weight INF) are never on the old DAG
+                    ov_seed_edges = ov_seed_edges[
+                        st["w_host"][ov_seed_edges] < INF
+                    ]
+                st["ov"] = upload(g.overloaded, bool, self.device)
+                st["ov_host"] = g.overloaded.copy()
+                self.h2d_bytes += g.overloaded.nbytes
+            # the previous fixpoint describes the same problem only for the
+            # same source batch (a flap next to me changes the rows)
+            rows_same = np.array_equal(st["rows"], rows)
+            st["rows"] = rows.copy()
+            changed = self._changed_edges(st)
+            if len(changed) or ov_changed:
+                # classify against the weights that produced the resident D
+                increased = changed[g.w[changed] > st["w_host"][changed]]
+                st["w_host"][changed] = g.w[changed]
+                inc_edges = (
+                    np.concatenate([increased, ov_seed_edges])
+                    if len(ov_seed_edges)
+                    else increased
+                )
+                nb = len(sell.nbr)
+                per_bucket = [
+                    changed[sell.edge_bucket[changed] == k] for k in range(nb)
+                ]
+                fits_inc = all(
+                    np.count_nonzero(sell.edge_bucket[inc_edges] == k)
+                    <= _PATCH_SLOTS
+                    for k in range(nb)
+                )
+                if all(len(sel) <= _PATCH_SLOTS for sel in per_bucket):
+                    idx, vals = sell_patch_arrays(
+                        sell, changed, g.w, _PATCH_SLOTS
+                    )
+                    self.h2d_bytes += idx.nbytes + vals.nbytes
+                    idx_t = torch.as_tensor(idx, device=self.device)
+                    vals_t = torch.as_tensor(vals, device=self.device)
+                    if (
+                        self.warm_start
+                        and rows_same
+                        and fits_inc
+                        and self._d_dev is not None
+                    ):
+                        inc_idx, _ = sell_patch_arrays(
+                            sell, inc_edges, g.w, _PATCH_SLOTS
+                        )
+                        self.h2d_bytes += inc_idx.nbytes
+                        delta_ok = not ov_changed and self._delta_ok(
+                            changed, rows
+                        )
+                        (
+                            d,
+                            st["wgs"],
+                            rounds,
+                            inv_rounds,
+                            col_changed,
+                            num_changed,
+                        ) = _sell_solver_warm(
+                            sell.shape_key(),
+                            rows_t,
+                            st["nbrs"],
+                            st["wgs"],
+                            st["ov"],
+                            idx_t,
+                            vals_t,
+                            torch.as_tensor(inc_idx, device=self.device),
+                            self._d_dev,
+                        )
+                        self.incremental_solves += 1
+                        self.invalidation_rounds_last = inv_rounds
+                        self._finish_delta(
+                            col_changed, num_changed, d, delta_ok
+                        )
+                        return d, rounds
+                    if len(changed):
+                        d, st["wgs"], rounds = _sell_solver_patched(
+                            sell.shape_key(),
+                            rows_t,
+                            st["nbrs"],
+                            st["wgs"],
+                            st["ov"],
+                            idx_t,
+                            vals_t,
+                        )
+                        self.full_solves += 1
+                        return d, rounds
+                    # overload-only event without a warm start: nothing to
+                    # patch, plain cold solve below
+                elif len(changed):
+                    # more than _PATCH_SLOTS in some bucket: standalone
+                    # scatters (K4 at this event's width), then cold
+                    width = max(len(sel) for sel in per_bucket)
+                    idx, vals = sell_patch_arrays(sell, changed, g.w, width)
+                    self.h2d_bytes += idx.nbytes + vals.nbytes
+                    st["wgs"] = _sell_apply_patches(
+                        st["wgs"],
+                        torch.as_tensor(idx, device=self.device),
+                        torch.as_tensor(vals, device=self.device),
+                    )
+        d, rounds = _sell_solver_counted(
+            sell.shape_key(), rows_t, st["nbrs"], st["wgs"], st["ov"]
+        )
+        self.full_solves += 1
+        return d, rounds
+
+    def _bf_solve_resident(self, rows: np.ndarray):
+        """Edge-list solve against the resident buffers: (D [s_pad, n_pad]
+        on the device, rounds or None). A weight-only event uploads the
+        whole weight vector (the layout's native patch unit) and
+        warm-starts (K6, K2, K7), with the increased edges classified on
+        the card. The cold solve reports no rounds, as the reference's does
+        not; an overload change solves cold."""
+        g = self.graph
+        st = self._dev
+        rows_t = torch.as_tensor(rows, device=self.device)
+        if st is None or st["kind"] != "bf" or st["src_ref"] is not g.src:
+            up = to_device(g, self.device)
+            st = self._dev = {
+                "kind": "bf",
+                "src_ref": g.src,
+                **{k: up[k] for k in ("src", "dst", "csr", "w", "ov")},
+                "w_host": g.w.copy(),
+                "w_ver": g.version,
+                "ov_host": g.overloaded.copy(),
+                "rows": rows.copy(),
+            }
+            self.h2d_bytes += sum(
+                st[k].numel() * st[k].element_size()
+                for k in ("src", "dst", "csr", "w", "ov")
             )
-        # `rounds` is read from the card every round, so the wall time
-        # covers the device work
-        self.solve_ms_last = (time.perf_counter() - t0) * 1e3
-        self._d_dev = d
-        self.rounds_last = rounds
-        self.device_solves += 1
-        self._d_host = None
-        self._nh_links = None
-        self._nh_mask = None
+        else:
+            ov_changed = not np.array_equal(st["ov_host"], g.overloaded)
+            rows_same = np.array_equal(st["rows"], rows)
+            st["rows"] = rows.copy()
+            changed = self._changed_edges(st)
+            if ov_changed:
+                st["ov"] = upload(g.overloaded, bool, self.device)
+                st["ov_host"] = g.overloaded.copy()
+                self.h2d_bytes += g.overloaded.nbytes
+            if (
+                self.warm_start
+                and rows_same
+                and not ov_changed
+                and len(changed)
+                and self._d_dev is not None
+            ):
+                w_new = upload(g.w, np.int32, self.device)
+                self.h2d_bytes += g.w.nbytes
+                delta_ok = self._delta_ok(changed, rows)
+                d, rounds, inv_rounds, col_changed, num_changed = (
+                    _bf_solver_warm(
+                        rows_t,
+                        st["src"],
+                        st["dst"],
+                        w_new,
+                        st["w"],
+                        st["ov"],
+                        self._d_dev,
+                        st["csr"],
+                    )
+                )
+                st["w"] = w_new
+                st["w_host"] = g.w.copy()
+                self.incremental_solves += 1
+                self.invalidation_rounds_last = inv_rounds
+                self._finish_delta(col_changed, num_changed, d, delta_ok)
+                return d, rounds
+            if len(changed):
+                st["w"] = upload(g.w, np.int32, self.device)
+                st["w_host"] = g.w.copy()
+                self.h2d_bytes += g.w.nbytes
+        d, _ = _bf_relax(
+            _bf_d0(rows_t, g.n_pad),
+            rows_t,
+            st["ov"],
+            st["src"],
+            st["dst"],
+            st["w"][None, :],
+            st["csr"],
+        )
+        self.full_solves += 1
+        return d, None
+
+    def _finish_delta(self, col_changed, num_changed, d_dev, delta_ok) -> None:
+        """Complete a qualifying warm solve's DeltaPath extraction: read the
+        changed-column count (4 bytes), size a compacted `_delta_extract`
+        (K7), and patch the host mirrors (distance matrix and nexthop mask)
+        in place. Sets self._last_solve_delta to the changed columns;
+        leaving it None makes _solve treat the event as full (mirrors
+        reset, accumulated delta poisoned)."""
+        if not delta_ok:
+            return
+        num = int(num_changed)
+        if num == 0:
+            self._last_solve_delta = np.empty(0, dtype=np.int64)
+            return
+        g = self.graph
+        if num > max(_PATCH_SLOTS, int(g.n_pad * _DELTA_MAX_FRAC)):
+            return  # the full mirror is the cheaper copy-back
+        names, rows_l, ws_l, _ = self._nh_link_arrays()
+        ls = self.link_state
+        ov_l = [ls.is_node_overloaded(nm) for nm in names]
+        l_pad = _next_bucket(max(len(rows_l), 1), minimum=8)
+        nh_rows = np.zeros(l_pad, dtype=np.int32)
+        nh_ws = np.full(l_pad, INF, dtype=np.int32)  # padding never matches
+        nh_rows[: len(rows_l)] = rows_l
+        nh_ws[: len(ws_l)] = ws_l
+        cap = _next_bucket(num, minimum=8)
+        t0 = time.perf_counter()
+        self.h2d_bytes += nh_rows.nbytes + nh_ws.nbytes
+        cols_d, dcols_d, nh_d = _delta_extract(
+            col_changed,
+            d_dev,
+            torch.as_tensor(nh_rows, device=self.device),
+            torch.as_tensor(nh_ws, device=self.device),
+            cap=cap,
+        )
+        cols = cols_d.cpu().numpy().copy()
+        dcols = dcols_d.cpu().numpy().copy()
+        nh = nh_d.cpu().numpy().copy()
+        self.delta_extract_ms_last = (time.perf_counter() - t0) * 1e3
+        xfer = cols.nbytes + dcols.nbytes + nh.nbytes + 4  # + the count
+        self.d2h_bytes += xfer
+        self.delta_bytes += xfer
+        self.delta_columns += num
+        self.delta_extracts += 1
+        valid = cols < g.n_pad
+        cols_real = cols[valid].astype(np.int64)
+        if self._d_host is not None:
+            self._d_host[:, cols_real] = dcols[:, valid]
+        if self._nh_mask is not None and self._nh_links == names:
+            mask_cols = nh[: len(names)][:, valid]
+            for i, (nm, is_ov) in enumerate(zip(names, ov_l)):
+                if is_ov:
+                    # an overloaded neighbour relays nothing: a first hop
+                    # only toward itself
+                    mask_cols[i] &= cols_real == g.node_index[nm]
+            self._nh_mask[:, cols_real] = mask_cols
+        elif self._nh_mask is not None:
+            self._nh_mask = None  # the up-link set moved: rebuild lazily
+            self._nh_links = None
+        self._last_solve_delta = cols_real
+
+    def take_route_delta(self) -> Optional[set]:
+        """One-shot consumer handshake for the DeltaPath route build: the
+        changed destination columns accumulated since the last take (empty
+        when nothing moved), or None when a solve in between had no device
+        delta, and the caller must rebuild in full (which re-arms the
+        accumulation)."""
+        out = self._delta_pending
+        self._delta_pending = set()
+        return out
 
     def _nh_link_arrays(
         self,
@@ -297,16 +652,39 @@ class _AreaSolve:
         self.graph = refresh_graph(self.graph, self.link_state)
         self._solve()
 
+    def cold_reference_d(self) -> np.ndarray:
+        """A cold solve from the host-side graph (the compiled arrays that
+        refresh_graph keeps current), independent of the resident buffers
+        and distances: the warm-state audit's comparator."""
+        rows = self._source_rows()
+        cold = (
+            batched_spf(self.graph, rows, device=self.device)
+            .cpu()
+            .numpy()
+            .copy()
+        )
+        self.d2h_bytes += cold.nbytes
+        return cold
+
 
 class CudaSpfSolver(SpfSolver):
     """SpfSolver with the batched device distance backend.
 
     device: "cuda" (default) runs the hand-written kernels and raises when
-    no card is present; "cpu" runs their plain PyTorch versions."""
+    no card is present; "cpu" runs their plain PyTorch versions.
+    warm_start: answer weight-only events from the resident fixpoint
+    (default), or solve every event cold."""
 
-    def __init__(self, *args, device: DeviceLike = "cuda", **kwargs) -> None:
+    def __init__(
+        self,
+        *args,
+        device: DeviceLike = "cuda",
+        warm_start: bool = True,
+        **kwargs,
+    ) -> None:
         super().__init__(*args, **kwargs)
         self.device = resolve_device(device)
+        self.warm_start = warm_start
         # (area name, node) -> (LinkState identity, solve); keyed by the
         # stable area name so a replaced LinkState for the same area
         # overwrites its predecessor
@@ -316,6 +694,7 @@ class CudaSpfSolver(SpfSolver):
         # areas without me); the main path keeps this at 0
         self.host_spf_calls = 0
         self.solve_ms_last: Optional[float] = None
+        self.delta_extract_ms_last: Optional[float] = None
 
     def _area_solve(
         self, link_state: LinkState, node: str
@@ -331,29 +710,51 @@ class CudaSpfSolver(SpfSolver):
         if cached is not None and cached[0] == id(link_state):
             solve = cached[1]
             before = solve.device_solves
+            inc0, full0 = solve.incremental_solves, solve.full_solves
             solve.refresh()
             self.device_solves += solve.device_solves - before
-            self._sync_spf_counters(solve, before)
+            self._sync_spf_counters(solve, inc0, full0)
             return solve
-        solve = _AreaSolve(link_state, node, self.device)
+        solve = _AreaSolve(
+            link_state, node, self.device, warm_start=self.warm_start
+        )
         self.device_solves += solve.device_solves
-        self._sync_spf_counters(solve, 0)
+        self._sync_spf_counters(solve, 0, 0)
         self._solves[key] = (id(link_state), solve)
         return solve
 
-    def _sync_spf_counters(self, solve: _AreaSolve, solves0: int) -> None:
+    def _sync_spf_counters(
+        self, solve: _AreaSolve, inc0: int, full0: int
+    ) -> None:
         """Fold an _AreaSolve's stats into the decision.spf.* counters and
-        histograms: full solves and transfer bytes are monotonic, rounds is
-        a gauge of the most recent solve."""
+        histograms: incremental and full solves, transfer and delta bytes
+        are monotonic; rounds and invalidation rounds are gauges of the
+        most recent solve that reported them; solve wall time lands in the
+        warm/cold-split latency histograms."""
         counters = self._ensure_counters()
-        d_full = solve.device_solves - solves0
+        d_inc = solve.incremental_solves - inc0
+        d_full = solve.full_solves - full0
+        if d_inc:
+            self._bump("decision.spf.incremental_solves", d_inc)
         if d_full:
             self._bump("decision.spf.full_solves", d_full)
-            self.solve_ms_last = solve.solve_ms_last
-            self._observe("decision.spf.solve_ms", solve.solve_ms_last)
-            self._observe("decision.spf.solve_cold_ms", solve.solve_ms_last)
         if solve.rounds_last is not None:
             counters["decision.spf.rounds_last"] = solve.rounds_last
+        if solve.invalidation_rounds_last is not None:
+            counters["decision.spf.invalidation_rounds_last"] = (
+                solve.invalidation_rounds_last
+            )
+        if (d_inc or d_full) and solve.solve_ms_last is not None:
+            self.solve_ms_last = solve.solve_ms_last
+            self._observe("decision.spf.solve_ms", solve.solve_ms_last)
+            self._observe(
+                "decision.spf.solve_warm_ms"
+                if solve.last_solve_warm
+                else "decision.spf.solve_cold_ms",
+                solve.solve_ms_last,
+            )
+        # the lazy d mirror fetch lands on the NEXT sync: it happens after
+        # this call, when the route pipeline first reads solve.d
         d_h2d = solve.h2d_bytes - solve._h2d_synced
         if d_h2d:
             solve._h2d_synced = solve.h2d_bytes
@@ -362,6 +763,99 @@ class CudaSpfSolver(SpfSolver):
         if d_d2h:
             solve._d2h_synced = solve.d2h_bytes
             self._bump("decision.spf.device_to_host_bytes", d_d2h)
+        d_cols = solve.delta_columns - solve._delta_cols_synced
+        if d_cols:
+            solve._delta_cols_synced = solve.delta_columns
+            self._bump("decision.spf.delta_columns", d_cols)
+        d_bytes = solve.delta_bytes - solve._delta_bytes_synced
+        if d_bytes:
+            solve._delta_bytes_synced = solve.delta_bytes
+            self._bump("decision.spf.delta_bytes", d_bytes)
+        if (
+            solve.delta_extracts > solve._delta_extracts_synced
+            and solve.delta_extract_ms_last is not None
+        ):
+            solve._delta_extracts_synced = solve.delta_extracts
+            self.delta_extract_ms_last = solve.delta_extract_ms_last
+            self._observe(
+                "decision.spf.delta_extract_ms", solve.delta_extract_ms_last
+            )
+
+    def poll_device_delta(
+        self, area_link_states: Dict[str, LinkState]
+    ) -> Optional[Set[str]]:
+        """Refresh every area's device solve against the current LSDB and
+        return the union of changed destination node names, if every area
+        event since the last poll rode the device delta path. None means
+        some event had no device delta (cold solve, overload change, an
+        event at me, a bulk event): the caller must rebuild the full route
+        db, which re-arms the accumulation. Areas without this node are
+        skipped.
+
+        Under `compute_lfa_paths` the ME column feeds every destination's
+        RFC 5286 threshold, so a changed set that contains me answers None."""
+        me = self.my_node_name
+        changed: Set[str] = set()
+        ok = True
+        for link_state in area_link_states.values():
+            solve = self._area_solve(link_state, me)
+            if solve is None:
+                continue
+            cols = solve.take_route_delta()
+            if cols is None:
+                ok = False  # keep draining the other areas' pending state
+                continue
+            names = solve.graph.names
+            changed.update(names[c] for c in cols if c < len(names))
+        if ok and self.compute_lfa_paths and me in changed:
+            return None
+        return changed if ok else None
+
+    def lfa_delta_ready(self) -> bool:
+        """DeltaPath-under-LFA gate (solver/delta.py): True only when every
+        area solve carries a resident all-pairs matrix. The port has none
+        yet (ROADMAP queue 1 item 9), so the delta route build keeps the
+        force-full behaviour under LFA, as the reference does with
+        apsp_max_nodes = 0."""
+        return False
+
+    def invalidate_warm_state(self) -> None:
+        """Drop every cached device solve: the next build_route_db compiles
+        the graph again and solves cold. For use after a device fault or a
+        detected divergence, when the resident buffers are not to be
+        trusted."""
+        self._solves.clear()
+        self._bump("decision.spf.warm_state_invalidations")
+
+    def audit_warm_state(self) -> List[dict]:
+        """Shadow cold audit of every resident solve: recompute each area's
+        distance matrix from the host-side graph and compare it entrywise
+        with the warm one. Returns one record per diverged area (empty when
+        all are clean)."""
+        mismatches: List[dict] = []
+        for (area, node), (_, solve) in self._solves.items():
+            cold = solve.cold_reference_d()
+            warm = solve.d
+            if warm.shape == cold.shape and np.array_equal(warm, cold):
+                continue
+            if warm.shape != cold.shape:
+                entries = max_abs = -1
+            else:
+                entries = int((warm != cold).sum())
+                max_abs = int(
+                    np.abs(
+                        warm.astype(np.int64) - cold.astype(np.int64)
+                    ).max()
+                )
+            mismatches.append(
+                {
+                    "area": area,
+                    "node": node,
+                    "entries": entries,
+                    "max_abs_delta": max_abs,
+                }
+            )
+        return mismatches
 
     # -- SPF access seam -------------------------------------------------
 

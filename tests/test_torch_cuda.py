@@ -7,7 +7,9 @@ imports no JAX, so it runs on a machine without it:
 
 The graphs are small but cover what the main path's shapes do not: an
 overloaded transit node, a bucket wider than 32 slots, a graph too wide for
-the sliced layout, per-row weights, a batch padded with repeated sources.
+the sliced layout, per-row weights, a batch padded with repeated sources,
+out-of-range patches. The event-path kernels (K4-K7) are held against their
+plain versions and the warm solves against cold ones on the new weights.
 Tolerance is exact equality.
 """
 
@@ -136,3 +138,192 @@ def test_route_db_on_card_equals_cpu(dev):
         assert solver.host_spf_calls == 0
     assert dbs["cpu"].unicast_entries == dbs["cuda"].unicast_entries
     assert dbs["cpu"].mpls_entries == dbs["cuda"].mpls_entries
+
+
+# -- the event path: K4-K7 and the warm solves -----------------------------
+
+
+def event_for(g, seed=0, k=24):
+    """A seeded weight event on compiled graph g: (w_new, changed,
+    increased), a third of the changes up (some to INF), the rest down."""
+    rng = np.random.default_rng(seed)
+    changed = rng.choice(g.e, size=min(k, g.e), replace=False)
+    w_new = g.w.copy()
+    up = changed[: len(changed) // 3]
+    down = changed[len(changed) // 3:]
+    w_new[up] = g.w[up] + rng.integers(1, 9, size=len(up))
+    w_new[up[:2]] = INF
+    w_new[down] = np.maximum(1, g.w[down] - 2)
+    changed = changed[w_new[changed] != g.w[changed]]
+    return w_new, changed, changed[w_new[changed] > g.w[changed]]
+
+
+def sell_graphs():
+    return [n for n in sorted(GRAPHS) if n != "extreme"]
+
+
+@pytest.mark.parametrize("name", sell_graphs())
+def test_sell_patch_kernel_equals_plain(dev, name):
+    edges, ov = GRAPHS[name]
+    g = compile_edges(edges, ov)
+    w_new, changed, _ = event_for(g)
+    idx, vals = spf.sell_patch_arrays(g.sell, changed, w_new, 64)
+    idx[0, -1] = [g.sell.nbr[0].shape[0] + 5, 0]  # out of range: dropped
+    st = to_device(g, dev)
+    wk = tuple(a.clone() for a in st["wgs"])
+    wp = tuple(a.clone() for a in st["wgs"])
+    before = _cuda.SELL_PATCH.launches
+    spf._sell_apply_patches(wk, torch.as_tensor(idx, device=dev),
+                            torch.as_tensor(vals, device=dev))
+    assert _cuda.SELL_PATCH.launches - before == len(wk)
+    spf._sell_apply_patches_plain(wp, torch.as_tensor(idx, device=dev),
+                                  torch.as_tensor(vals, device=dev))
+    torch.cuda.synchronize()
+    for a, b, want in zip(wk, wp, g.sell.patched_wg(w_new[: g.e])):
+        assert torch.equal(a, b)
+        assert np.array_equal(a.cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("name", sell_graphs())
+def test_sell_mark_kernel_equals_plain(dev, name):
+    edges, ov = GRAPHS[name]
+    g = compile_edges(edges, ov)
+    _, _, inc = event_for(g)
+    inc_idx, _ = spf.sell_patch_arrays(g.sell, inc, g.w, 64)
+    st = to_device(g, dev)
+    src = torch.as_tensor(sources_for(g), device=dev)
+    d_prev = spf._sell_solver_counted(
+        g.sell.shape_key(), src, st["nbrs"], st["wgs"], st["ov"]
+    )[0]
+    inc_t = torch.as_tensor(inc_idx, device=dev)
+    args = (d_prev, st["nbrs"], st["wgs"], inc_t, g.sell.zero_end,
+            g.sell.starts)
+    m_k, r_k = spf._sell_invalidate(*args)
+    m_p = spf._sell_seed_plain(d_prev, st["nbrs"], st["wgs"], args[3],
+                               g.sell.starts)
+    m_p, r_p = spf._sell_mark_fixpoint_plain(
+        d_prev, m_p, st["nbrs"], st["wgs"], g.sell.starts
+    ) if bool(m_p.any()) else (m_p, 0)
+    torch.cuda.synchronize()
+    assert r_k == r_p and r_k >= 1
+    assert torch.equal(m_k, m_p)
+    d0_k = spf._sell_warm_d0(d_prev, m_k, src)
+    d0_p = spf._bf_warm_d0_plain(d_prev, m_p, src).t().contiguous()
+    assert torch.equal(d0_k, d0_p)
+
+
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_bf_mark_kernel_equals_plain(dev, name):
+    edges, ov = GRAPHS[name]
+    g = compile_edges(edges, ov)
+    w_new, _, _ = event_for(g)
+    st = to_device(g, dev)
+    src = torch.as_tensor(sources_for(g), device=dev)
+    d_prev = spf._bf_relax(spf._bf_d0(src, g.n_pad), src, st["ov"],
+                           st["src"], st["dst"], st["w"][None, :],
+                           st["csr"])[0]
+    args = (d_prev, st["src"], st["dst"],
+            torch.as_tensor(w_new, device=dev), st["w"], st["csr"])
+    before = _cuda.BF_MARK.launches
+    m_k, r_k = spf._bf_invalidate(*args)
+    assert _cuda.BF_MARK.launches - before == 1 + r_k
+    m_p, r_p = spf._bf_invalidate_plain(*args)
+    torch.cuda.synchronize()
+    assert r_k == r_p
+    assert torch.equal(m_k, m_p)
+    assert torch.equal(spf._bf_warm_d0(d_prev, m_k, src),
+                       spf._bf_warm_d0_plain(d_prev, m_p, src))
+
+
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_delta_extract_kernel_equals_plain(dev, name):
+    edges, ov = GRAPHS[name]
+    g = compile_edges(edges, ov)
+    w_new, _, _ = event_for(g)
+    rows = sources_for(g)
+    d_prev = spf.batched_spf_vw(g, rows, g.w[None, :], device=dev)
+    d = spf.batched_spf_vw(g, rows, w_new[None, :], device=dev)
+    cc_k, num_k = spf.delta_columns(d, d_prev)
+    cc_p = (d != d_prev).any(dim=0)
+    assert torch.equal(cc_k, cc_p) and int(num_k) == int(cc_p.sum())
+    nh_rows = torch.tensor([1, 2, 3, 0, 0, 0, 0, 0], dtype=torch.int32,
+                           device=dev)
+    nh_ws = torch.tensor([1, 3, 2, INF, INF, INF, INF, INF],
+                         dtype=torch.int32, device=dev)
+    for cap in (8, max(8, 1 << int(num_k).bit_length())):
+        out_k = spf._delta_extract(cc_k, d, nh_rows, nh_ws, cap=cap)
+        out_p = spf._delta_extract_plain(cc_p, d, nh_rows, nh_ws, cap)
+        torch.cuda.synchronize()
+        for a, b in zip(out_k, out_p):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_warm_solves_equal_cold(dev, name):
+    edges, ov = GRAPHS[name]
+    g = compile_edges(edges, ov)
+    w_new, changed, inc = event_for(g, seed=3)
+    rows = sources_for(g)
+    src = torch.as_tensor(rows, device=dev)
+    st = to_device(g, dev)
+    cold_new = spf.batched_spf_vw(g, rows, w_new[None, :], device=dev)
+    d_prev = spf.batched_spf_vw(g, rows, g.w[None, :], device=dev)
+    d_bf, _, inv_bf, cc_bf, _ = spf._bf_solver_warm(
+        src, st["src"], st["dst"], torch.as_tensor(w_new, device=dev),
+        st["w"], st["ov"], d_prev, st["csr"],
+    )
+    assert torch.equal(d_bf, cold_new)
+    assert torch.equal(cc_bf, (cold_new != d_prev).any(dim=0))
+    if g.sell is None:
+        return
+    idx, vals = spf.sell_patch_arrays(g.sell, changed, w_new, 64)
+    inc_idx, _ = spf.sell_patch_arrays(g.sell, inc, w_new, 64)
+    d_s, wgs, _, inv_s, cc_s, num_s = spf._sell_solver_warm(
+        g.sell.shape_key(), src, st["nbrs"], st["wgs"], st["ov"],
+        torch.as_tensor(idx, device=dev), torch.as_tensor(vals, device=dev),
+        torch.as_tensor(inc_idx, device=dev), d_prev,
+    )
+    assert torch.equal(d_s, cold_new)
+    assert inv_s == inv_bf
+    assert torch.equal(cc_s, cc_bf) and int(num_s) == int(cc_bf.sum())
+
+
+def test_event_path_on_card_equals_cpu(dev):
+    """The DeltaRouteBuilder over the solver on the card and on the CPU
+    through remote events (delta path) and one at me (full path)."""
+    from openr_tpu_torch.solver import DeltaRouteBuilder
+    import dataclasses
+
+    edges, _ = GRAPHS["clos"]
+    runs = {}
+    for device in ("cpu", dev):
+        ls = LinkState("0")
+        dbs = build_adj_dbs(edges)
+        for db in dbs.values():
+            ls.update_adjacency_database(db)
+        ps = PrefixState()
+        for i, node in enumerate(sorted(ls.node_names())):
+            ps.update_prefix_database(PrefixDatabase(
+                node, [PrefixEntry(IpPrefix(f"10.0.{i}.0/24"))], area="0"
+            ))
+        builder = DeltaRouteBuilder(CudaSpfSolver("rsw0_0", device=device))
+        db, _, _ = builder.build("rsw0_0", {"0": ls}, ps, None)
+        used = []
+        # a rack link of one of my uplink switches moves that rack's
+        # column in the switch's batch row; the last event is at me
+        for a, b, metric in (("fsw0_1", "rsw0_7", 7), ("rsw0_7", "fsw0_1", 7),
+                             ("fsw0_1", "rsw0_7", 1), ("rsw0_0", "fsw0_0", 4)):
+            dbs[a] = dataclasses.replace(dbs[a], adjacencies=[
+                dataclasses.replace(x, metric=metric)
+                if x.other_node_name == b else x for x in dbs[a].adjacencies
+            ])
+            ls.update_adjacency_database(dbs[a])
+            db, _, u = builder.build("rsw0_0", {"0": ls}, ps, db)
+            used.append(u)
+        runs[str(device)] = (db, used, builder.solver.counters)
+    assert runs["cpu"][0].unicast_entries == runs["cuda"][0].unicast_entries
+    assert runs["cpu"][1] == runs["cuda"][1] == [True, True, True, False]
+    assert runs["cpu"][2]["decision.spf.delta_columns"] > 0
+    for key in ("decision.spf.incremental_solves", "decision.spf.full_solves",
+                "decision.spf.delta_columns", "decision.spf.delta_bytes"):
+        assert runs["cpu"][2][key] == runs["cuda"][2][key], key

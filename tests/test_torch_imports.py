@@ -3,12 +3,15 @@ quiet fall back to the CPU when the card is asked for."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
 
 import pytest
 import torch
+
+from openr_tpu_torch.ops._cuda import KERNELS
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "openr_tpu_torch"
@@ -50,6 +53,7 @@ print("imported", len(sys.argv) - 1)
 def test_every_module_imports_without_jax_or_openr_tpu():
     mods = port_modules()
     assert "openr_tpu_torch.solver.cuda" in mods
+    assert "openr_tpu_torch.solver.delta" in mods
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run(
         [sys.executable, "-c", _IMPORT_ALL, *mods],
@@ -106,3 +110,54 @@ def test_default_device_raises_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA card"):
         CudaSpfSolver("a")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def _c_params(source: str, symbol: str):
+    """Parameter types of `extern "C" int symbol(...)` in a .cu source."""
+    m = re.search(
+        r'extern "C" int ' + symbol + r"\((.*?)\)\s*\{", source, re.S
+    )
+    assert m, f"no extern C entry point {symbol}"
+    return [" ".join(p.split()[:-1]) for p in m.group(1).split(",")]
+
+
+@pytest.mark.parametrize("kernel", KERNELS, ids=lambda k: k.name)
+def test_kernel_bindings_match_their_c_entry_points(kernel):
+    """Each ctypes binding has one c_void_p per pointer parameter and one
+    c_int per int parameter of its C entry point, the stream last: nvcc is
+    absent here, so this is the check that runs before the card does."""
+    import ctypes
+
+    source = kernel.source.read_text()
+    assert kernel.entries
+    for symbol, argtypes in kernel.entries.items():
+        params = _c_params(source, symbol)
+        assert params[-1] == "void*", symbol  # the stream
+        want = [
+            ctypes.c_void_p if p.endswith("*") else ctypes.c_int
+            for p in params
+        ]
+        assert all(p.endswith("*") or p == "int" for p in params), params
+        assert argtypes == want, symbol
+
+
+def test_event_wrappers_run_plain_versions_on_cpu_tensors():
+    """K4-K7's wrappers on CPU tensors: plain versions, no launch."""
+    from openr_tpu_torch.ops import _cuda, spf
+
+    d = torch.tensor([[0, 1, 2], [1, 0, 1]], dtype=torch.int32)
+    before = [k.launches for k in _cuda.KERNELS]
+    col_changed, num = spf.delta_columns(d, d.clone())
+    assert int(num) == 0 and not bool(col_changed.any())
+    cols, _, _ = spf._delta_extract(
+        col_changed, d, torch.zeros(1, dtype=torch.int32),
+        torch.ones(1, dtype=torch.int32), cap=8,
+    )
+    assert cols.tolist() == [3] * 8
+    wg = torch.zeros((2, 2), dtype=torch.int32)
+    spf._sell_apply_patches(
+        (wg,), torch.tensor([[[1, 0]]], dtype=torch.int32),
+        torch.tensor([[5]], dtype=torch.int32),
+    )
+    assert wg.tolist() == [[0, 0], [5, 0]]
+    assert [k.launches for k in _cuda.KERNELS] == before

@@ -6,7 +6,8 @@ PyTorch versions). Its route db must equal the port's own SpfSolver oracle
 TpuSpfSolver(warm_start=False) (different classes: compared in a canonical
 form of sorted plain tuples with enums as values). KSP2 is not ported yet
 and is left out; every other case of the reference parity set is here,
-plus a link-flap and metric-change sequence through refresh().
+plus a link-flap and metric-change sequence through refresh(), and the
+decision.spf.* counters against the reference's (`assert_spf_counters`).
 """
 
 import dataclasses
@@ -75,11 +76,38 @@ def make_ps(pkg, announcers):
     return ps
 
 
+# transfer bytes depend on the layout's own buffers: the port also uploads
+# the in-edge ranges and copies K3's nexthop mask back from the card, where
+# the reference builds that mask from its host mirror; the compile-cache
+# gauges count jit executables, which PyTorch does not have
+_NOT_SHARED = (
+    "decision.spf.host_to_device_bytes",
+    "decision.spf.device_to_host_bytes",
+    "decision.spf.compile_cache_hits",
+    "decision.spf.compile_cache_misses",
+)
+
+
+def spf_counters(solver):
+    return {
+        k: v for k, v in solver.counters.items()
+        if k.startswith("decision.spf.") and k not in _NOT_SHARED
+    }
+
+
+def assert_spf_counters(port, ref):
+    """The port's decision.spf.* counters: the same keys as the
+    reference's, with equal values."""
+    assert spf_counters(port) == spf_counters(ref)
+
+
 class Trio:
     """One topology held by three solvers: the port's CudaSpfSolver (CPU),
-    the port's SpfSolver oracle and the JAX TpuSpfSolver."""
+    the port's SpfSolver oracle and the JAX TpuSpfSolver (warm_start as
+    given; the port's solver warm-starts by default)."""
 
-    def __init__(self, areas, announcers, me, overloaded=None, lfa=False):
+    def __init__(self, areas, announcers, me, overloaded=None, lfa=False,
+                 warm_start=False):
         # areas: {area: edges}; announcers: {area: {node: [prefix]}}
         self.me = me
         pkgs = (("cuda", T), ("oracle", T), ("jax", J))
@@ -91,7 +119,8 @@ class Trio:
         self.solvers = {
             "cuda": CudaSpfSolver(me, compute_lfa_paths=lfa, device="cpu"),
             "oracle": SpfSolver(me, compute_lfa_paths=lfa),
-            "jax": TpuSpfSolver(me, compute_lfa_paths=lfa, warm_start=False),
+            "jax": TpuSpfSolver(me, compute_lfa_paths=lfa,
+                                warm_start=warm_start),
         }
 
     def build(self):
@@ -200,7 +229,8 @@ def test_flap_and_metric_change_through_refresh():
                          rsw_per_pod=4)
     announcers = {"rsw1_0": [PFXS[0]], "rsw1_3": [PFXS[1]],
                   "ssw1_1": [PFXS[2]]}
-    trio = Trio({"0": edges}, {"0": announcers}, "rsw0_0", lfa=True)
+    trio = Trio({"0": edges}, {"0": announcers}, "rsw0_0", lfa=True,
+                warm_start=True)
     trio.build()
     solve = trio.solvers["cuda"]._solves[("0", "rsw0_0")][1]
     src0 = solve.graph.src
@@ -224,8 +254,33 @@ def test_flap_and_metric_change_through_refresh():
     solver = trio.solvers["cuda"]
     assert solver.device_solves == 5
     assert solve.graph.src is src0  # weight patches only: no rebuild
-    assert solver.counters["decision.spf.full_solves"] == 5
+    # the two remote events warm-start; the batch changes at my own
+    # uplink's flap, which solves cold
+    assert solver.counters["decision.spf.full_solves"] == 3
+    assert solver.counters["decision.spf.incremental_solves"] == 2
+    assert_spf_counters(solver, trio.solvers["jax"])
     assert solver.host_spf_calls == 0
+
+
+def test_edge_list_cold_solve_leaves_rounds_unset():
+    """A star past the sliced layout's unroll cap solves on the edge-list
+    form. Its cold solve reports no rounds in the reference, so
+    decision.spf.rounds_last stays unset; the warm edge-list solve after a
+    remote metric change reports its rounds."""
+    star = [("hub", f"leaf{i:04d}", 1 + i % 5) for i in range(1100)]
+    trio = Trio({"0": star}, {"0": {"leaf0005": [PFXS[0]]}}, "leaf0000",
+                warm_start=True)
+    trio.build()
+    solve = trio.solvers["cuda"]._solves[("0", "leaf0000")][1]
+    assert solve.graph.sell is None
+    assert solve.rounds_last is None
+    assert_spf_counters(trio.solvers["cuda"], trio.solvers["jax"])
+    assert "decision.spf.rounds_last" not in trio.solvers["cuda"].counters
+    trio.edit("0", "hub", "leaf0007", metric=9)
+    trio.edit("0", "leaf0007", "hub", metric=9)
+    trio.build()
+    assert solve.last_solve_warm and solve.rounds_last is not None
+    assert_spf_counters(trio.solvers["cuda"], trio.solvers["jax"])
 
 
 def test_ksp_is_not_ported_yet():

@@ -1,0 +1,354 @@
+"""The event-path ops of openr_tpu_torch against the JAX package's, on the CPU.
+
+`_sell_solver_patched`, `_sell_solver_warm`, `_bf_solver_warm` and
+`_delta_extract` of both packages take the same inputs: one graph compiled
+by the JAX package and handed to the port, a cold fixpoint for a batch of
+sources, and a seeded event (weight increases, decreases, both, none, an
+overload toggle). On CPU tensors the port's wrappers run the plain versions
+of K1, K2 and K4-K7. Tolerance is exact equality: min-plus on int32 gives
+the same answer in any order, the mark fixpoint is boolean, and the round
+counts are of the same Jacobi rounds.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from openr_tpu.ops import graph as jgraph
+from openr_tpu.ops import spf as jspf
+from openr_tpu_torch.convert import graph_arrays, graph_from_arrays, to_device
+from openr_tpu_torch.ops import _cuda
+from openr_tpu_torch.ops import spf as tspf
+from openr_tpu_torch.ops.graph import INF, _next_bucket
+from openr_tpu_torch.topology import fabric_edges, grid_edges, wan_edges
+
+CPU = torch.device("cpu")
+PAD = tspf.PATCH_PAD
+SLOTS = 64
+
+GRAPHS = {
+    "grid4": grid_edges(4),
+    "grid6": grid_edges(6),
+    "wan": wan_edges(100, degree=4, seed=5),
+    "clos": fabric_edges(pods=2, planes=2, ssw_per_plane=2, fsw_per_pod=2,
+                         rsw_per_pod=3),
+    # hub in-degree past the sliced layout's cap: edge-list form only
+    "star": [("hub", f"leaf{i:04d}", 1 + i % 5) for i in range(1100)],
+}
+EVENTS = ("increase", "decrease", "mixed", "none", "overload_on",
+          "overload_off")
+
+
+def t32(a):
+    return torch.as_tensor(np.array(a, dtype=np.int32))
+
+
+@pytest.fixture(scope="module", params=sorted(GRAPHS))
+def graph(request):
+    jg = jgraph.compile_edges(GRAPHS[request.param])
+    tg = graph_from_arrays(graph_arrays(jg))
+    rng = np.random.default_rng(len(request.param))
+    s_real = min(12, jg.n)
+    rows = rng.choice(jg.n, size=s_real, replace=False).astype(np.int32)
+    # a padded batch repeats its first source, as the area solve does
+    rows = np.concatenate([rows, np.full(16 - s_real, rows[0], np.int32)])
+    return {"name": request.param, "jg": jg, "tg": tg, "rows": rows}
+
+
+def make_event(g, kind, seed):
+    """(w_old, w_new, ov_old, ov_new, changed, inc_edges) for one seeded
+    event on compiled graph g; inc_edges are the increased positions plus,
+    for overload_on, the newly overloaded node's live out-edges."""
+    rng = np.random.default_rng(seed)
+    w_old = g.w.copy()
+    ov_old = g.overloaded.copy()
+    w_new, ov_new = w_old.copy(), ov_old.copy()
+    real = np.arange(g.e)
+    if kind == "overload_off":
+        node = int(rng.integers(g.n))
+        ov_old[node] = True
+    k = min(10, g.e)
+    changed = rng.choice(real, size=k, replace=False)
+    if kind == "increase":
+        w_new[changed] = w_old[changed] + rng.integers(1, 9, size=k)
+        w_new[changed[: k // 3]] = INF  # links down
+    elif kind == "decrease":
+        w_new[changed] = np.maximum(1, w_old[changed] - rng.integers(1, 5, k))
+    elif kind == "mixed":
+        half = k // 2
+        w_new[changed[:half]] = w_old[changed[:half]] + 7
+        w_new[changed[half:]] = np.maximum(1, w_old[changed[half:]] - 2)
+    else:
+        changed = changed[:0]
+    if kind == "overload_on":
+        node = int(g.dst[rng.integers(g.e)])  # a node with in-edges
+        ov_new[node] = True
+    changed = changed[w_new[changed] != w_old[changed]]
+    inc = changed[w_new[changed] > w_old[changed]]
+    newly_on = np.nonzero(ov_new & ~ov_old)[0]
+    if len(newly_on):
+        out = np.nonzero(np.isin(g.src[: g.e], newly_on))[0]
+        inc = np.concatenate([inc, out[w_old[out] < INF]])
+    return w_old, w_new, ov_old, ov_new, changed, inc
+
+
+def patch_arrays(sell, positions, w, width=SLOTS, interleave=False):
+    """Per-bucket (idx [B, width, 2], vals [B, width]) padded with PAD
+    rows, as the area solve builds them; `interleave` puts a padding row
+    before every real one."""
+    nb = len(sell.nbr)
+    idx = np.full((nb, width, 2), PAD, dtype=np.int32)
+    vals = np.zeros((nb, width), dtype=np.int32)
+    for k in range(nb):
+        sel = positions[sell.edge_bucket[positions] == k]
+        at = np.arange(len(sel)) * (2 if interleave else 1) + int(interleave)
+        idx[k, at, 0] = sell.edge_row[sel]
+        idx[k, at, 1] = sell.edge_slot[sel]
+        vals[k, at] = w[sel]
+    return idx, vals
+
+
+def cold_d(case, w, ov):
+    """Row-major cold fixpoint from the JAX package for weights w."""
+    jg, rows = case["jg"], case["rows"]
+    return np.asarray(
+        jspf._bf_fixpoint(rows, jg.src, jg.dst, w, ov)
+    )
+
+
+def sell_inputs(case, kind, seed):
+    jg = case["jg"]
+    w_old, w_new, ov_old, ov_new, changed, inc = make_event(jg, kind, seed)
+    sell = jg.sell
+    wg_old = sell.patched_wg(w_old[: jg.e])
+    idx, vals = patch_arrays(sell, changed, w_new,
+                             interleave=kind == "mixed")
+    inc_idx, _ = patch_arrays(sell, inc, w_new)
+    return {
+        "w_old": w_old, "w_new": w_new, "ov_old": ov_old, "ov_new": ov_new,
+        "wg_old": wg_old, "idx": idx, "vals": vals, "inc_idx": inc_idx,
+        "d_prev": cold_d(case, w_old, ov_old),
+    }
+
+
+def run_sell_warm(case, ev):
+    """Both packages' _sell_solver_warm on the same inputs: (jax, port)."""
+    jg, tg, rows = case["jg"], case["tg"], case["rows"]
+    key = jg.sell.shape_key()
+    jout = jspf._sell_solver_warm(key)(
+        jnp.asarray(rows), tuple(jnp.asarray(a) for a in jg.sell.nbr),
+        tuple(jnp.asarray(a) for a in ev["wg_old"]),
+        jnp.asarray(ev["ov_new"]), jnp.asarray(ev["idx"]),
+        jnp.asarray(ev["vals"]), jnp.asarray(ev["inc_idx"]),
+        jnp.asarray(ev["d_prev"]),
+    )
+    st = to_device(tg, CPU)
+    wgs = tuple(t32(a) for a in ev["wg_old"])
+    d_prev = t32(ev["d_prev"])
+    tout = tspf._sell_solver_warm(
+        key, t32(rows), st["nbrs"], wgs, torch.as_tensor(ev["ov_new"]),
+        t32(ev["idx"]), t32(ev["vals"]), t32(ev["inc_idx"]), d_prev,
+    )
+    # d_prev is read, never written
+    np.testing.assert_array_equal(d_prev.numpy(), ev["d_prev"])
+    return jout, tout
+
+
+@pytest.mark.parametrize("kind", EVENTS)
+def test_sell_solver_warm_matches_jax(graph, kind):
+    if graph["jg"].sell is None:
+        assert graph["tg"].sell is None
+        return
+    ev = sell_inputs(graph, kind, seed=7)
+    (jd, jw, jr, jir, jcc, jnc), (td, tw, tr, tir, tcc, tnc) = run_sell_warm(
+        graph, ev
+    )
+    np.testing.assert_array_equal(np.asarray(jd), td.numpy())
+    for a, b in zip(jw, tw):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    assert (int(jr), int(jir)) == (tr, tir)
+    np.testing.assert_array_equal(np.asarray(jcc), tcc.numpy())
+    assert int(jnc) == int(tnc) == int(tcc.sum())
+    # the warm fixpoint is the cold one on the patched weights
+    np.testing.assert_array_equal(
+        td.numpy(), cold_d(graph, ev["w_new"], ev["ov_new"])
+    )
+    if kind in ("decrease", "none", "overload_off"):
+        assert tir == 0  # nothing seeded: the mark loop never runs
+    if kind == "none":
+        assert int(tnc) == 0 and tr == 1
+
+
+def test_sell_invalidation_marks_on_increases(graph):
+    """The increase events really invalidate: some entries are marked, and
+    the mark fixpoint takes at least one round."""
+    if graph["jg"].sell is None:
+        return
+    ev = sell_inputs(graph, "increase", seed=7)
+    tg = graph["tg"]
+    st = to_device(tg, CPU)
+    marks, rounds = tspf._sell_invalidate(
+        t32(ev["d_prev"]), st["nbrs"], tuple(t32(a) for a in ev["wg_old"]),
+        t32(ev["inc_idx"]), tg.sell.zero_end, tg.sell.starts,
+    )
+    assert rounds >= 1 and bool(marks.any())
+
+
+@pytest.mark.parametrize("kind", ["increase", "mixed", "none"])
+def test_sell_solver_patched_matches_jax(graph, kind):
+    jg, tg, rows = graph["jg"], graph["tg"], graph["rows"]
+    if jg.sell is None:
+        return
+    ev = sell_inputs(graph, kind, seed=11)
+    key = jg.sell.shape_key()
+    jd, jw, jr = jspf._sell_solver_patched(key)(
+        jnp.asarray(rows), tuple(jnp.asarray(a) for a in jg.sell.nbr),
+        tuple(jnp.asarray(a) for a in ev["wg_old"]),
+        jnp.asarray(ev["ov_old"]), jnp.asarray(ev["idx"]),
+        jnp.asarray(ev["vals"]),
+    )
+    st = to_device(tg, CPU)
+    wgs = tuple(t32(a) for a in ev["wg_old"])
+    td, tw, tr = tspf._sell_solver_patched(
+        key, t32(rows), st["nbrs"], wgs, torch.as_tensor(ev["ov_old"]),
+        t32(ev["idx"]), t32(ev["vals"]),
+    )
+    np.testing.assert_array_equal(np.asarray(jd), td.numpy())
+    assert int(jr) == tr
+    for a, b, w_in in zip(jw, tw, wgs):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+        assert b is w_in  # patched in place
+    np.testing.assert_array_equal(
+        tw[0].numpy(), jg.sell.patched_wg(ev["w_new"][: jg.e])[0]
+    )
+
+
+@pytest.mark.parametrize("kind", ["increase", "decrease", "mixed", "none"])
+def test_bf_solver_warm_matches_jax(graph, kind):
+    jg, tg, rows = graph["jg"], graph["tg"], graph["rows"]
+    w_old, w_new, ov_old, _, _, _ = make_event(jg, kind, seed=13)
+    d_prev = cold_d(graph, w_old, ov_old)
+    jd, jr, jir, jcc, jnc = jspf._bf_solver_warm(
+        jnp.asarray(rows), jnp.asarray(jg.src), jnp.asarray(jg.dst),
+        jnp.asarray(w_new), jnp.asarray(w_old), jnp.asarray(ov_old),
+        jnp.asarray(d_prev),
+    )
+    td, tr, tir, tcc, tnc = tspf._bf_solver_warm(
+        t32(rows), t32(tg.src), t32(tg.dst), t32(w_new), t32(w_old),
+        torch.as_tensor(ov_old), t32(d_prev), t32(tspf.edge_csr(tg)),
+    )
+    np.testing.assert_array_equal(np.asarray(jd), td.numpy())
+    assert (int(jr), int(jir)) == (tr, tir)
+    np.testing.assert_array_equal(np.asarray(jcc), tcc.numpy())
+    assert int(jnc) == int(tnc)
+    np.testing.assert_array_equal(td.numpy(), cold_d(graph, w_new, ov_old))
+    if kind == "increase":
+        assert tir >= 1
+
+
+@pytest.mark.parametrize("kind", ["increase", "mixed"])
+@pytest.mark.parametrize("cap_kind", ["bucket", "short"])
+def test_delta_extract_matches_jax(graph, kind, cap_kind):
+    jg, rows = graph["jg"], graph["rows"]
+    w_old, w_new, ov_old, _, _, _ = make_event(jg, kind, seed=17)
+    d_prev = cold_d(graph, w_old, ov_old)
+    d = cold_d(graph, w_new, ov_old)
+    col_changed = np.any(d != d_prev, axis=0)
+    num = int(col_changed.sum())
+    # "short" truncates to fewer columns than changed, as nonzero(size=)
+    cap = _next_bucket(num, minimum=8) if cap_kind == "bucket" else 4
+    # five up-links padded to eight: padding rows point at row 0 with INF
+    nh_rows = np.zeros(8, dtype=np.int32)
+    nh_ws = np.full(8, INF, dtype=np.int32)
+    nh_rows[:5] = [1, 2, 3, 4, 5]
+    nh_ws[:5] = [1, 2, 3, 1, 9]
+    jout = jspf._delta_extract(
+        jnp.asarray(col_changed), jnp.asarray(d), jnp.asarray(nh_rows),
+        jnp.asarray(nh_ws), cap=cap,
+    )
+    tout = tspf._delta_extract(
+        torch.as_tensor(col_changed), t32(d), t32(nh_rows), t32(nh_ws),
+        cap=cap,
+    )
+    for a, b in zip(jout, tout):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    cols, dcols, nh = tout
+    assert cols.dtype == torch.int32 and dcols.dtype == torch.int32
+    assert nh.dtype == torch.bool
+    if cap_kind == "bucket":
+        assert int((cols < jg.n_pad).sum()) == num
+
+
+def test_delta_columns_matches_warm_outputs():
+    d_prev = t32([[0, 1, 2, INF], [1, 0, 5, INF]])
+    d = t32([[0, 1, 3, INF], [1, 0, 5, 7]])
+    col_changed, num = tspf.delta_columns(d, d_prev)
+    assert col_changed.tolist() == [False, False, True, True]
+    assert int(num) == 2 and num.dtype == torch.int32
+
+
+def test_patches_out_of_range_are_dropped():
+    """K4's plain version drops a patch whose row or slot lies outside its
+    bucket (JAX's mode="drop"), and leaves the rest of the bucket alone."""
+    wg = t32([[5, 6], [7, 8], [9, 10]])
+    idx = t32([[[1, 1], [PAD, 0], [3, 0], [0, 2], [2, 0]]])
+    vals = t32([[40, 41, 42, 43, 44]])
+    (out,) = tspf._sell_apply_patches((wg,), idx, vals)
+    assert out is wg
+    assert wg.tolist() == [[5, 6], [7, 40], [44, 10]]
+    jw = jspf._sell_apply_patches(
+        (jnp.asarray([[5, 6], [7, 8], [9, 10]], dtype=jnp.int32),),
+        jnp.asarray(idx.numpy()), jnp.asarray(vals.numpy()),
+    )[0]
+    np.testing.assert_array_equal(np.asarray(jw), wg.numpy())
+
+
+def test_invalidation_seed_clips_rows_below_the_pad():
+    """K5's seed clips a row or slot outside the bucket into it (only rows
+    at or above 1 << 29 are padding), as the reference's seeding does,
+    while K4 drops such a patch: both against the JAX package."""
+    jg = jgraph.compile_edges(grid_edges(3))
+    tg = graph_from_arrays(graph_arrays(jg))
+    rows = np.arange(8, dtype=np.int32)
+    d_prev = np.asarray(jspf._bf_fixpoint(rows, jg.src, jg.dst, jg.w,
+                                          jg.overloaded))
+    sell = jg.sell
+    nb = len(sell.nbr)
+    inc = np.full((nb, 4, 2), PAD, dtype=np.int32)
+    inc[:, 0] = [sell.nbr[0].shape[0] + 3, 0]  # past the bucket: clipped
+    inc[:, 1] = [-2, 9]  # below and past: clipped
+    st = to_device(tg, CPU)
+    marks, rounds = tspf._sell_invalidate(
+        t32(d_prev), st["nbrs"], st["wgs"], t32(inc), sell.zero_end,
+        sell.starts,
+    )
+    jmarks, jrounds = jspf._sell_invalidate(
+        jnp.asarray(d_prev.T), tuple(jnp.asarray(a) for a in sell.nbr),
+        tuple(jnp.asarray(a) for a in sell.wg), jnp.asarray(inc),
+        sell.zero_end, sell.starts, tuple(a.shape for a in sell.nbr),
+    )
+    np.testing.assert_array_equal(np.asarray(jmarks).T, marks.numpy())
+    assert int(jrounds) == rounds
+
+
+def test_event_ops_never_launch_kernels_on_cpu(graph):
+    before = [k.launches for k in _cuda.KERNELS]
+    if graph["jg"].sell is not None:
+        run_sell_warm(graph, sell_inputs(graph, "mixed", seed=3))
+    assert [k.launches for k in _cuda.KERNELS] == before
+
+
+def test_event_wrappers_check_inputs():
+    d = t32([[0, 1], [1, 0]])
+    with pytest.raises(ValueError):
+        tspf.delta_columns(d, t32([[0, 1, 2]]))
+    with pytest.raises(ValueError):
+        tspf._delta_extract(torch.zeros(2, dtype=torch.bool), d, t32([0, 2]),
+                            t32([1, 1]), cap=8)
+    with pytest.raises(ValueError):
+        tspf._sell_apply_patches((t32([[1]]),), t32([[[0, 0]]]),
+                                 t32([[1, 2]]))
+    with pytest.raises(ValueError):
+        tspf._bf_warm_d0(d, torch.zeros((2, 3), dtype=torch.bool),
+                         t32([0, 1]))
