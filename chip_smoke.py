@@ -34,13 +34,25 @@ Phases, one JSON line each:
                its changed columns
   star_flap    a remote weight change on the star: the solver's edge-list
                warm path (K6, K2, K7)
+  ksp_wan      KSP2 on the 50k-node WAN of BASELINE config 4
+               (wan_edges(50000, 4, seed=5), me = w0): K8 build + K9 (cold)
+               and K8 seed + K5 + K9 (warm from the base rows) against their
+               plain versions and each other at the bench's batch (me, its
+               neighbours, 15 rows of 8 masked edges); then 16 SR-MPLS KSP2
+               prefixes through CudaSpfSolver, warm and cold, and again
+               after a link on a first path goes down: route dbs equal the
+               CPU oracle's
+  k8 / k9      those kernels' times, bounds and plain times
+  ksp_star     KSP2 on the star with a ring through its leaves (edge-list
+               layout): K6's per-row seed against its plain version, and
+               route dbs warm (K6, K2) and cold (K2 per row)
   kernels      one line for all kernels: launches, error, ms, bounds
 
-Every path (main_path, event_wan, event_clos, star_flap) runs with all
-launch counts set to 0 just before it and read just after, and fails if a
-kernel it drives was not launched. The card's name and power limit print on
-their own line before the last, and the last line is {"ok": true, "device":
-{...}}. Any failed check raises, and the script then exits non-zero without
+Every path (main_path, event_wan, event_clos, star_flap, ksp_wan,
+ksp_star) runs with all launch counts set to 0 just before it and read just
+after, and fails if a kernel it drives was not launched. The card's name
+and power limit print on their own line before the last, and the last line
+is {"ok": true, "device": {...}}. Any failed check raises, and the script then exits non-zero without
 that line. It imports nothing of JAX or of the JAX package.
 """
 
@@ -73,6 +85,9 @@ GRID_SIDE = 32
 CLOS_PODS = 170
 CLOS_NODES = 9556
 STAR_LEAVES = 1100  # hub in-degree past the sliced layout's cap
+# KSP2: BASELINE.json config 4's WAN, and the star with a ring through it
+KSP_WAN_N = 50000
+KSP_STAR_LEAVES = 1100
 
 
 def emit(obj) -> None:
@@ -300,7 +315,10 @@ def main() -> int:
     from openr_tpu_torch.topology import (
         build_adj_dbs, fabric_edges, grid_edges, wan_edges,
     )
-    from openr_tpu_torch.types import IpPrefix, PrefixDatabase, PrefixEntry
+    from openr_tpu_torch.types import (
+        IpPrefix, PrefixDatabase, PrefixEntry, PrefixForwardingAlgorithm,
+        PrefixForwardingType,
+    )
 
     dev = torch.device(DEVICE)
     card = smi_line()
@@ -922,7 +940,418 @@ def main() -> int:
           "route_build_ms": route_ms[-1], "solve_ms": solve_ms[-1],
           "card": card})
 
-    # -- 11. kernels line, card, result ----------------------------------
+    # -- 11. ksp_wan: KSP2 on BASELINE config 4 ---------------------------
+    K8, K9 = _cuda.SELL_MASK, _cuda.SELL_RELAX_MASKED
+    ksp_algo = dict(
+        forwarding_type=PrefixForwardingType.SR_MPLS,
+        forwarding_algorithm=PrefixForwardingAlgorithm.KSP2_ED_ECMP,
+    )
+
+    class KspRecorder(SpfSolver):
+        """The CPU oracle, recording the destinations of each k = 2
+        prefetch of its route builds (a no-op hook on the host)."""
+
+        def __init__(self, me):
+            super().__init__(me)
+            self.k2_dests = []
+
+        def _prefetch_kth_paths(self, link_state, src, dests, k):
+            if k == 2:
+                self.k2_dests.append(list(dests))
+
+        def device_batches(self) -> int:
+            """k = 2 prefetches with a destination not traced before in
+            the build: one device batch each on the card."""
+            seen, n = {self.my_node_name}, 0
+            for dests in self.k2_dests:
+                n += any(d not in seen for d in dests)
+                seen.update(dests)
+            return n
+
+    class TimedKsp(CudaSpfSolver):
+        """CudaSpfSolver timing its k = 2 prefetches: the masked device
+        solve (its round loop reads a flag every round, so the wall time
+        covers the device work), the copy-back and the host trace."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.k2_ms = []
+
+        def _prefetch_kth_paths(self, link_state, src, dests, k):
+            t = time.perf_counter()
+            super()._prefetch_kth_paths(link_state, src, dests, k)
+            if k == 2:
+                self.k2_ms.append((time.perf_counter() - t) * 1e3)
+
+    t0 = time.perf_counter()
+    ksp_edges = wan_edges(KSP_WAN_N, degree=4, seed=5)
+    kg = compile_edges(ksp_edges)
+    check(kg.sell is not None, "the KSP WAN must have the sliced layout")
+    me_row = kg.node_index["w0"]
+    mine = np.nonzero((kg.src == me_row) & (kg.w < INF))[0]
+    deg = len(mine)
+    k_rows = 15
+    # the bench's batch (benchmarks/scale_bench.py bench_wan_ksp): me, its
+    # neighbours, and 15 me rows each masking 8 edges drawn by
+    # default_rng(11)
+    ksp_src = np.concatenate([
+        [me_row], kg.dst[mine], np.full(k_rows, me_row),
+    ]).astype(np.int32)
+    s_k = len(ksp_src)
+    rng = np.random.default_rng(11)
+    positions = [[] for _ in range(1 + deg)] + [
+        list(rng.choice(kg.e, size=8, replace=False)) for _ in range(k_rows)
+    ]
+    masks_h = spf.sell_mask_arrays(kg.sell, positions)
+    kst = to_device(kg, dev)
+    knb, kwg, kov = kst["nbrs"], kst["wgs"], kst["ov"]
+    ksrc = torch.as_tensor(ksp_src, device=dev)
+    kmasks = tuple(torch.as_tensor(m, device=dev) for m in masks_h)
+    kkey = kg.sell.shape_key()
+    kstarts = kg.sell.starts
+    # the unpenalized base fixpoint of the batch (me's base row in the 16
+    # me rows): the warm solve's d_prev
+    base, base_rounds = spf._sell_solver_counted(kkey, ksrc, knb, kwg, kov)
+
+    # K8: the bit masks and the warm seed against their plain versions
+    def k8():
+        return (spf._sell_mask_bits(kmasks, knb, s_k),
+                *spf._sell_mask_seed(base, knb, kwg, kmasks, kstarts))
+
+    def k8_plain():
+        marks = spf._sell_mask_seed_plain(base, knb, kwg, kmasks, kstarts)
+        return (tuple(spf._sell_mask_bits_plain(m, *nb.shape, s_k)
+                      for m, nb in zip(kmasks, knb)),
+                marks, bool(marks.any()))
+
+    bits, marks8, seeded = k8()
+    bits_p, marks8_p, seeded_p = k8_plain()
+    err8 = max(max(max_abs_err(a, b) for a, b in zip(bits, bits_p)),
+               max_abs_err(marks8, marks8_p))
+    check(err8 == 0 and seeded == seeded_p,
+          f"K8 differs from its plain version: err {err8}")
+    check(seeded, "no masked edge lies on the base DAG: nothing to seed")
+    # the library's form of the build: index_put_ of the valid entries into
+    # the expanded [nk, dk, S] weights; it must equal the bit mask's
+    lib_full, lib_idx = [], []
+    for m, nb, wg_k in zip(kmasks, knb, kwg):
+        nk, dk = nb.shape
+        r, j, c = m[:, 0].long(), m[:, 1].long(), m[:, 2].long()
+        ok = (r < nk) & (j < dk) & (c < s_k)
+        lib_idx.append((r[ok], j[ok], c[ok]))
+        lib_full.append(wg_k[:, :, None].expand(nk, dk, s_k).contiguous())
+    inf_t = torch.tensor(INF, dtype=torch.int32, device=dev)
+
+    def index_put8():
+        for full, ij in zip(lib_full, lib_idx):
+            full.index_put_(ij, inf_t)
+
+    index_put8()
+    wv_p = spf._sell_masked_wgs_plain(kwg, bits_p, s_k)
+    check(all(torch.equal(a, b) for a, b in zip(lib_full, wv_p)),
+          "K8's bit mask differs from index_put_'s expanded weights")
+
+    # K9: the masked relaxation from the cold state
+    d0k = spf._sell_d0(ksrc, kg.n_pad)
+
+    def k9(d0c):
+        return spf._sell_relax(d0c, ksrc, kov, knb, kwg, kg.sell.zero_end,
+                               kstarts, bits)
+
+    def k9_plain(d0c):
+        return spf._sell_relax_plain(d0c, ksrc, kov, knb, wv_p, kstarts)
+
+    def fresh_d0():
+        return (d0k.clone(),)
+
+    d9, r9 = k9(*fresh_d0())
+    d9p, r9p = k9_plain(*fresh_d0())
+    err9 = max_abs_err(d9, d9p)
+    check(err9 == 0 and r9 == r9p,
+          f"K9 differs from its plain version: err {err9}, rounds {r9} vs "
+          f"{r9p}")
+    del d9p
+
+    # the masked solvers: cold (K8 build, K9) and warm (K8 build + seed,
+    # K5 rounds and reset, K9), against each other and the plain warm
+    def cold_vw():
+        return spf._sell_solver_vw(kkey, ksrc, knb, kwg, kmasks, kov)
+
+    def warm_vw():
+        return spf._sell_solver_vw_warm(kkey, ksrc, knb, kwg, kmasks, kov,
+                                        base)
+
+    def warm_vw_plain():
+        m = spf._sell_mask_seed_plain(base, knb, kwg, kmasks, kstarts)
+        m, inv = spf._sell_mark_fixpoint_plain(
+            base, m, knb, kwg, kstarts) if bool(m.any()) else (m, 0)
+        d0w = spf._bf_warm_d0_plain(base, m, ksrc).t().contiguous()
+        d, r = spf._sell_relax_plain(d0w, ksrc, kov, knb, wv_p, kstarts)
+        return d.t().contiguous(), r, inv
+
+    d_cold = cold_vw()
+    d_warm = warm_vw()
+    d_warm_p, warm_rounds, warm_inv = warm_vw_plain()
+    check(torch.equal(d_cold, d9.t()), "cold masked solve differs from K9")
+    check(torch.equal(d_warm, d_warm_p),
+          "warm masked solve differs from its plain version")
+    check(torch.equal(d_warm, d_cold), "warm masked solve differs from cold")
+    check(torch.equal(d_cold[: 1 + deg], base[: 1 + deg]),
+          "an unmasked row differs from the base solve")
+    check(bool((d_cold[1 + deg:] >= base[1 + deg:]).all())
+          and not torch.equal(d_cold[1 + deg:], base[1 + deg:]),
+          "masking must raise distances, and did not move any")
+    del d_warm_p, d9
+    ksp_inputs_s = time.perf_counter() - t0
+
+    ms8 = time_ms(k8)
+    plain_ms8 = time_ms(k8_plain, reps=5, warmup=1)
+    lib_ms8 = time_ms(index_put8)
+    ms9 = time_ms(k9, setup=fresh_d0)
+    plain_ms9 = time_ms(k9_plain, setup=fresh_d0, reps=3, warmup=1)
+    cold_vw_ms = time_ms(cold_vw)
+    warm_vw_ms = time_ms(warm_vw)
+    base_ms = time_ms(lambda: spf._sell_solver_counted(
+        kkey, ksrc, knb, kwg, kov))
+    m_total = sum(m.shape[0] for m in masks_h)
+    m_valid = int(sum(np.count_nonzero(m[:, 0] < nb.shape[0])
+                      for m, nb in zip(masks_h, kg.sell.nbr)))
+    words = spf._mask_words(s_k)
+    kslots = sum(a.shape[0] * a.shape[1] for a in kg.sell.nbr)
+    krows = sum(a.shape[0] for a in kg.sell.nbr)
+    # K8: each entry read by both entries; the bit masks and the marks
+    # written once; the seed gathers two distances and one slot's nbr and
+    # weight per valid entry
+    b8_ms, b8_by = bound(
+        2 * 12 * m_total + 4 * kslots * words + s_k * kg.n_pad
+        + 16 * m_valid, 4 * m_valid, rate,
+    )
+    # K9 per round: K1's bytes plus the mask words of every slot
+    k9_round_bytes = (4 * s_k * (kg.n + krows) + 8 * kslots + kg.n_pad
+                      + 4 * kslots * words)
+    b9_ms, b9_by = bound(r9 * k9_round_bytes, r9 * 3 * kslots * s_k, rate)
+    emit({
+        "phase": "k8_k9_ksp_wan", "graph": f"wan_edges({KSP_WAN_N}, 4, 5)",
+        "n": kg.n, "n_pad": kg.n_pad, "e": kg.e,
+        "buckets": [list(a.shape) for a in kg.sell.nbr],
+        "batch": s_k, "neighbours": deg, "masked_rows": k_rows,
+        "mask_entries": m_valid, "mask_words": words,
+        "marked": int(marks8.sum()), "equal_plain": True,
+        "equal_index_put": True, "warm_equals_cold": True,
+        "base_rounds": base_rounds, "masked_rounds": r9,
+        "warm_rounds": warm_rounds, "warm_inv_rounds": warm_inv,
+        "k8_ms": ms8, "k8_plain_ms": plain_ms8, "k8_index_put_ms": lib_ms8,
+        "k8_bound_ms": b8_ms, "k9_ms": ms9, "k9_plain_ms": plain_ms9,
+        "k9_bound_ms": b9_ms, "cold_masked_solve_ms": cold_vw_ms,
+        "warm_masked_solve_ms": warm_vw_ms, "base_solve_ms": base_ms,
+        "seconds": ksp_inputs_s, "card": card,
+    })
+    results.append({
+        "name": K8.name, "route": "cuda",
+        "source": "openr_tpu_torch/ops/csrc/sell_mask.cu",
+        "replaces": K8.replaces, "launches": None, "max_abs_err": err8,
+        "ms": ms8, "plain_ms": plain_ms8, "bound_ms": b8_ms,
+        "bound_by": b8_by, "library_ms": lib_ms8,
+    })
+    results.append({
+        "name": K9.name, "route": "cuda",
+        "source": "openr_tpu_torch/ops/csrc/sell_relax.cu",
+        "replaces": K9.replaces, "launches": None, "max_abs_err": err9,
+        "ms": ms9, "plain_ms": plain_ms9, "bound_ms": b9_ms,
+        "bound_by": b9_by, "library_ms": None, "rounds": r9,
+    })
+    del (kst, knb, kwg, kov, base, d_cold, d_warm, bits, bits_p, wv_p,
+         lib_full)
+
+    # through the solver: 16 SR-MPLS KSP2 prefixes, 12 single-node and 4
+    # anycast over 2 nodes, at 20 nodes drawn by default_rng(11)
+    t0 = time.perf_counter()
+    ksp_ls = build_ls(ksp_edges, LinkState, build_adj_dbs)
+    others = sorted(n for n in ksp_ls.node_names() if n != "w0")
+    picked = list(np.random.default_rng(11).choice(others, size=20,
+                                                   replace=False))
+    groups = [[n] for n in picked[:12]] + [
+        picked[12 + 2 * i: 14 + 2 * i] for i in range(4)
+    ]
+    ksp_ps = PrefixState()
+    for i, nodes in enumerate(groups):
+        for node in nodes:
+            ksp_ps.update_prefix_database(PrefixDatabase(node, [PrefixEntry(
+                IpPrefix(f"10.250.{i}.0/24"), **ksp_algo)], area="0"))
+    ls_s = time.perf_counter() - t0
+
+    def ksp_build(solver, ls, ps, me):
+        """(route db, build ms, solve ms, ms in the k = 2 prefetches)."""
+        n0 = len(solver.k2_ms)
+        t = time.perf_counter()
+        db = solver.build_route_db(me, {"0": ls}, ps)
+        ms_ = (time.perf_counter() - t) * 1e3
+        return db, ms_, solver.solve_ms_last, sum(solver.k2_ms[n0:])
+
+    def ksp_oracle(ls, ps, me, got_dbs, what, n_prefixes):
+        """The CPU oracle's route db, which every db of got_dbs must equal,
+        with a route for each prefix: (device batches expected, seconds)."""
+        t = time.perf_counter()
+        oracle = KspRecorder(me)
+        want = oracle.build_route_db(me, {"0": ls}, ps)
+        for got in got_dbs:
+            check(got.unicast_entries == want.unicast_entries
+                  and got.mpls_entries == want.mpls_entries,
+                  f"{what}: KSP2 route db differs from the CPU oracle")
+        check(len(want.unicast_entries) == n_prefixes,
+              f"{what}: {len(want.unicast_entries)} routes for "
+              f"{n_prefixes} prefixes")
+        return oracle.device_batches(), time.perf_counter() - t
+
+    paths.start()
+    warm_solver = TimedKsp("w0", device=dev, warm_start=True)
+    db_w, ms_w, solve_w, k2_w = ksp_build(warm_solver, ksp_ls, ksp_ps, "w0")
+    paths.pause()
+    batches1, oracle1_s = ksp_oracle(ksp_ls, ksp_ps, "w0", [db_w], "warm",
+                                     len(groups))
+    paths.resume()
+    cold_solver = TimedKsp("w0", device=dev, warm_start=False)
+    db_c, ms_c, solve_c, k2_c = ksp_build(cold_solver, ksp_ls, ksp_ps, "w0")
+    paths.pause()
+    check(db_c.unicast_entries == db_w.unicast_entries
+          and db_c.mpls_entries == db_w.mpls_entries,
+          "cold KSP2 route db differs from the warm one")
+    # a link in the middle of a first path of the first destination goes
+    # down; the warm solver answers the event and traces anew
+    wsolve = warm_solver._solves[("0", "w0")][1]
+    first = wsolve.kth_paths(groups[0][0], 1)[0]
+    down = first[len(first) // 2]
+    edit_adjacency([ksp_ls], down.n1, down.n2, is_overloaded=True)
+    edit_adjacency([ksp_ls], down.n2, down.n1, is_overloaded=True)
+    paths.resume()
+    db_d, ms_d, solve_d, k2_d = ksp_build(warm_solver, ksp_ls, ksp_ps, "w0")
+    torch.cuda.synchronize()
+    ksp_launches = paths.read("ksp_wan", (K1, K5, K8, K9))
+    batches2, oracle2_s = ksp_oracle(ksp_ls, ksp_ps, "w0", [db_d],
+                                     "link down", len(groups))
+    check(all(down not in p for p in wsolve.kth_paths(groups[0][0], 1)),
+          "the KSP cache kept a path over the down link")
+    csolve = cold_solver._solves[("0", "w0")][1]
+    host_calls = warm_solver.host_spf_calls + cold_solver.host_spf_calls
+    check(host_calls == 0, f"{host_calls} KSP answers from host Dijkstra")
+    check(wsolve.ksp_warm_batches > 0 and csolve.ksp_warm_batches == 0,
+          f"ksp_warm_batches warm {wsolve.ksp_warm_batches}, cold "
+          f"{csolve.ksp_warm_batches}")
+    check(wsolve.ksp_device_batches == batches1 + batches2
+          and csolve.ksp_device_batches == batches1,
+          f"KSP device batches warm {wsolve.ksp_device_batches}, cold "
+          f"{csolve.ksp_device_batches}; expected {batches1} + {batches2} "
+          f"and {batches1}")
+    emit({
+        "phase": "ksp_wan", "graph": f"wan_edges({KSP_WAN_N}, 4, 5)",
+        "me": "w0", "prefixes": len(groups),
+        "destinations": sum(len(g_) for g_ in groups),
+        "routes": len(db_w.unicast_entries),
+        "mpls_routes": len(db_w.mpls_entries),
+        "route_build_ms": {"warm": ms_w, "cold": ms_c, "link_down": ms_d},
+        "solve_ms": {"warm": solve_w, "cold": solve_c, "link_down": solve_d},
+        "k2_prefetch_ms": {"warm": k2_w, "cold": k2_c, "link_down": k2_d},
+        "k2_prefetches": {"warm": len(warm_solver.k2_ms),
+                          "cold": len(cold_solver.k2_ms)},
+        "ksp_device_batches": {"warm": wsolve.ksp_device_batches,
+                               "cold": csolve.ksp_device_batches},
+        "ksp_warm_batches": {"warm": wsolve.ksp_warm_batches,
+                             "cold": csolve.ksp_warm_batches},
+        "down_link": [down.n1, down.n2], "host_spf_calls": host_calls,
+        "launches": {k.name: ksp_launches[k.name] for k in (K1, K5, K8, K9)},
+        "oracle_seconds": oracle1_s + oracle2_s, "linkstate_seconds": ls_s,
+        "card": card,
+    })
+    del warm_solver, cold_solver, wsolve, csolve, ksp_ls
+
+    # -- 12. ksp_star: KSP2 on the edge-list layout ----------------------
+    leaves = [f"leaf{i:04d}" for i in range(KSP_STAR_LEAVES)]
+    ring_edges = [("hub", leaf, 1 + i % 7) for i, leaf in enumerate(leaves)]
+    ring_edges += [(leaves[i], leaves[(i + 1) % len(leaves)], 1 + i % 5)
+                   for i in range(len(leaves))]
+    ring_ls = build_ls(ring_edges, LinkState, build_adj_dbs)
+    ring_dests = list(np.random.default_rng(11).choice(
+        leaves[1:], size=8, replace=False))
+    ring_ps = PrefixState()
+    for i, node in enumerate(ring_dests):
+        ring_ps.update_prefix_database(PrefixDatabase(node, [PrefixEntry(
+            IpPrefix(f"10.251.{i}.0/24"), **ksp_algo)], area="0"))
+    paths.start()
+    ring_warm = TimedKsp("leaf0000", device=dev, warm_start=True)
+    dbr_w, msr_w, _, k2r_w = ksp_build(ring_warm, ring_ls, ring_ps,
+                                       "leaf0000")
+    ring_cold = TimedKsp("leaf0000", device=dev, warm_start=False)
+    dbr_c, msr_c, _, k2r_c = ksp_build(ring_cold, ring_ls, ring_ps,
+                                       "leaf0000")
+    torch.cuda.synchronize()
+    ring_launches = paths.read("ksp_star", (K2, K6))
+    ring_batches, _ = ksp_oracle(ring_ls, ring_ps, "leaf0000",
+                                 [dbr_w, dbr_c], "star ring", len(ring_dests))
+    rsolve = ring_warm._solves[("0", "leaf0000")][1]
+    rcold = ring_cold._solves[("0", "leaf0000")][1]
+    check(rsolve.graph.sell is None, "the star ring has a sliced layout")
+    check(rsolve.ksp_warm_batches == rsolve.ksp_device_batches
+          == rcold.ksp_device_batches == ring_batches > 0
+          and rcold.ksp_warm_batches == 0,
+          "star ring KSP batches: warm "
+          f"{rsolve.ksp_warm_batches}/{rsolve.ksp_device_batches}, cold "
+          f"{rcold.ksp_warm_batches}/{rcold.ksp_device_batches}, expected "
+          f"{ring_batches}")
+    check(ring_warm.host_spf_calls + ring_cold.host_spf_calls == 0,
+          "host Dijkstra on the star ring")
+
+    # K6's per-row seed: all 8 destinations' first-path links masked, one
+    # row each, against me's base row (the solver's form, one batch)
+    rg, rst = rsolve.graph, rsolve._dev
+    w_rows = np.tile(rg.w, (len(ring_dests), 1))
+    for row, dest in enumerate(ring_dests):
+        for path in rsolve.kth_paths(dest, 1):
+            for link in path:
+                w_rows[row, list(rg.link_edges[link])] = INF
+    w_rows_t = torch.as_tensor(w_rows, device=dev)
+    ring_src = torch.full((len(ring_dests),), rg.node_index["leaf0000"],
+                          dtype=torch.int32, device=dev)
+    d_base = rsolve._d_dev[0:1].expand(len(ring_dests), -1).contiguous()
+    seed_args = (d_base, rst["src"], rst["dst"], w_rows_t, rst["w"],
+                 rst["csr"])
+    m6r, r6r = spf._bf_invalidate(*seed_args)
+    m6rp, r6rp = spf._bf_invalidate_plain(*seed_args)
+    err6r = max_abs_err(m6r, m6rp)
+    check(err6r == 0 and r6r == r6rp and r6r >= 1,
+          f"K6's per-row seed differs from its plain version: err {err6r}, "
+          f"rounds {r6r} vs {r6rp}")
+    d_vw, rounds_vw, inv_vw = spf._bf_warm_vw_core(
+        ring_src, rst["src"], rst["dst"], w_rows_t, rst["w"], rst["ov"],
+        d_base, rst["csr"])
+    d_vw_cold = spf.batched_spf_vw(rg, ring_src.cpu().numpy(), w_rows,
+                                   device=dev)
+    check(torch.equal(d_vw, d_vw_cold),
+          "edge-list warm per-row solve differs from the cold one")
+    ms6r = time_ms(lambda: spf._bf_invalidate(*seed_args))
+    plain_ms6r = time_ms(lambda: spf._bf_invalidate_plain(*seed_args),
+                         reps=3, warmup=1)
+    s6, n6, e6 = len(ring_dests), rg.n_pad, rg.e
+    b6r_ms, _ = bound(
+        4 * s6 * n6 + 8 * e6 + 4 * s6 * e6 + 4 * n6 + s6 * n6
+        + r6r * (2 * s6 * n6 + 8 * e6 + 4 * n6),
+        (1 + r6r) * 3 * e6 * s6, rate,
+    )
+    emit({
+        "phase": "ksp_star", "leaves": KSP_STAR_LEAVES, "me": "leaf0000",
+        "prefixes": len(ring_dests), "launches": ring_launches,
+        "route_build_ms": {"warm": msr_w, "cold": msr_c},
+        "k2_prefetch_ms": {"warm": k2r_w, "cold": k2r_c},
+        "ksp_device_batches": rsolve.ksp_device_batches,
+        "k6_per_row_seed": {
+            "rows": s6, "inv_rounds": r6r, "equal_plain": True,
+            "ms": ms6r, "plain_ms": plain_ms6r, "bound_ms": b6r_ms,
+            "warm_rounds": rounds_vw, "warm_inv_rounds": inv_vw,
+            "warm_equals_cold": True,
+        },
+        "card": card,
+    })
+
+    # -- 13. kernels line, card, result ----------------------------------
     for row in results:
         row["launches"] = paths.total(row["name"])
         row["launches_by_path"] = {

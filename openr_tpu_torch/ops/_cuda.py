@@ -7,9 +7,12 @@ loaded with `ctypes`. The build runs at a kernel's first use, never at
 import: hosts without `nvcc` or a card import this module freely.
 
 A source may export several entry points (one `__global__` each); they
-share one library and one launch count. Every pointer and the stream are
-passed as `ctypes.c_void_p` and every int as `ctypes.c_int`; each entry
-point returns `cudaGetLastError()` and a non-zero code raises. Launches go
+share one library and, within one `Kernel`, one launch count. Two `Kernel`s
+may name the same source (K1 and K9 share `sell_relax.cu`): they share the
+library, which is built once, and count their launches apart. Every
+pointer and the stream are passed as `ctypes.c_void_p` and every int as
+`ctypes.c_int`; each entry point returns `cudaGetLastError()` and a
+non-zero code raises. Launches go
 on PyTorch's current stream.
 """
 
@@ -114,10 +117,12 @@ def build(kernels: Optional[Sequence[Kernel]] = None) -> Dict[str, Path]:
     kernels = list(KERNELS if kernels is None else kernels)
     _BUILD.mkdir(parents=True, exist_ok=True)
     procs = []
+    started = set()
     for k in kernels:
         out = k.library_path()
-        if out.exists():
+        if out.exists() or out in started:
             continue
+        started.add(out)
         tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
         proc = subprocess.Popen(
             k.compile_command(tmp),
@@ -176,11 +181,11 @@ BF_MARK = Kernel(
     "bf_mark",
     "bf_mark.cu",
     {
-        "bf_mark_seed": [_P, _P, _P, _P, _P, _P, _P, _I, _I],
+        "bf_mark_seed": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I],
         "bf_mark_round": [_P, _P, _P, _P, _P, _P, _P, _I, _I],
         "bf_mark_reset": [_P, _P, _P, _P, _I, _I],
     },
-    "openr_tpu/ops/spf.py:497 _bf_warm_core",
+    "openr_tpu/ops/spf.py:497,567 _bf_warm_core, _bf_warm_vw_core",
 )
 DELTA_EXTRACT = Kernel(
     "delta_extract",
@@ -192,7 +197,27 @@ DELTA_EXTRACT = Kernel(
     },
     "openr_tpu/ops/spf.py:907 _delta_extract",
 )
+SELL_MASK = Kernel(
+    "sell_mask",
+    "sell_mask.cu",
+    {
+        "sell_mask_build": [_P, _P, _I, _I, _I, _I, _I],
+        "sell_mask_seed": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I],
+    },
+    "openr_tpu/ops/spf.py:933,970 _sell_solver_vw, _sell_solver_vw_warm",
+)
+SELL_RELAX_MASKED = Kernel(
+    "sell_relax_masked_round",
+    "sell_relax.cu",
+    {
+        "sell_relax_masked_round": [
+            _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+        ],
+    },
+    "openr_tpu/ops/spf.py:177 _sell_relax (per-row wg, from :933, :970)",
+)
 KERNELS = (
     SELL_RELAX, BF_RELAX, ECMP_TRIANGLE,
     SELL_PATCH, SELL_MARK, BF_MARK, DELTA_EXTRACT,
+    SELL_MASK, SELL_RELAX_MASKED,
 )

@@ -5,7 +5,8 @@
 // its reset (d0 = where(marks, INF, dp), sources re-pinned). Three entry
 // points, each one thread per (source row s, node v), row-major [S, n]:
 //
-//   seed   marks[s, v] = any_{e in in(v)} on_old(e, s) && w_new[e] > w_old[e]
+//   seed   marks[s, v] = any_{e in in(v)} on_old(e, s)
+//                                          && w_new[s, e] > w_old[e]
 //   round  m_new[s, v] = m_old[s, v]
 //                        | any_{e in in(v)} m_old[s, src[e]] && on_old(e, s)
 //   reset  d0[s, v] = (v == sources[s]) ? 0 : marks[s, v] ? INF : dp[s, v]
@@ -14,7 +15,10 @@
 //                                    == dp[s, v]
 //
 // recomputed per edge from dp and w_old, so the reference's [S, E] bool is
-// never materialised. Rounds are Jacobi (two mark buffers), so the round
+// never materialised. The seed's w_new is shared ([E], w_stride 0: an LSDB
+// event, `_bf_warm_core`) or per row ([S, E], w_stride E: KSP's link-ignore
+// re-solves warm-started from the base fixpoint, `_bf_warm_vw_core`), as
+// K2 takes its weights. Rounds are Jacobi (two mark buffers), so the round
 // count equals the reference's; `*flag` is set when a mark is set (seed)
 // or newly set (round).
 //
@@ -48,19 +52,20 @@ __global__ void bf_mark_seed_kernel(
     const int32_t* __restrict__ dp, uint8_t* __restrict__ marks,
     int32_t* __restrict__ any, const int32_t* __restrict__ src,
     const int32_t* __restrict__ csr, const int32_t* __restrict__ w_new,
-    const int32_t* __restrict__ w_old, int S, int n) {
+    const int32_t* __restrict__ w_old, int w_stride, int S, int n) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (long long)S * n) return;
   const int s = (int)(i / n);
   const int v = (int)(i - (long long)s * n);
   const int32_t* row = dp + (long long)s * n;
+  const int32_t* wn = w_new + (long long)s * w_stride;
   const int dv = row[v];
   uint8_t m = 0;
   if (dv < kInf) {
     const int hi = csr[v + 1];
     for (int e = csr[v]; e < hi; ++e) {
       const int wo = w_old[e];
-      if (w_new[e] > wo && min(row[src[e]] + wo, kInf) == dv) {
+      if (wn[e] > wo && min(row[src[e]] + wo, kInf) == dv) {
         m = 1;
         break;
       }
@@ -122,15 +127,15 @@ long long blocks_for(long long total) {
 
 extern "C" int bf_mark_seed(const void* dp, void* marks, void* any,
                             const void* src, const void* csr,
-                            const void* w_new, const void* w_old, int S,
-                            int n, void* stream) {
+                            const void* w_new, const void* w_old,
+                            int w_stride, int S, int n, void* stream) {
   const long long total = (long long)S * n;
   if (total == 0) return 0;
   bf_mark_seed_kernel<<<(unsigned)blocks_for(total), kThreads, 0,
                         (cudaStream_t)stream>>>(
       (const int32_t*)dp, (uint8_t*)marks, (int32_t*)any,
       (const int32_t*)src, (const int32_t*)csr, (const int32_t*)w_new,
-      (const int32_t*)w_old, S, n);
+      (const int32_t*)w_old, w_stride, S, n);
   return (int)cudaGetLastError();
 }
 

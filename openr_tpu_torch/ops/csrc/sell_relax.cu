@@ -1,9 +1,13 @@
 // K1 sell_relax_round: one Jacobi round of the sliced-ELL pull min-plus
-// relaxation over one degree bucket.
+// relaxation over one degree bucket. K9 sell_relax_masked_round: the same
+// round with per-(row, slot, source column) weights, the form KSP's
+// link-ignore re-solves feed it.
 //
 // Replaces: openr_tpu/ops/spf.py `_sell_relax` (one iteration of its
-// while_loop body for bucket k), with the transit mask of `_sell_d0_allow`
-// computed in the kernel instead of materialised as an [n_pad, S] bool.
+// while_loop body for bucket k; K9: with wg_k of shape [nk, dk, S], as
+// `_sell_solver_vw` and `_sell_solver_vw_warm` build it), with the transit
+// mask of `_sell_d0_allow` computed in the kernel instead of materialised as
+// an [n_pad, S] bool.
 //
 // Layout: distances are destination-major [n_pad, S] int32 (INF = 1 << 29).
 // Bucket k covers rows [row0, row0 + nk); nbr/wg are its [nk, dk] in-neighbour
@@ -13,7 +17,12 @@
 //                     min_j min(dt[nbr[r, j], s] + wg[r, j], INF))
 //   dt[u, s]    = d_old[u, s] if (!ov[u] || u == sources[s]) else INF
 //
-// and `*changed` is set to 1 when any entry went down. Rounds are Jacobi:
+// and `*changed` is set to 1 when any entry went down. K9 reads the weight
+// as INF where bit s of mask[r, j] (a [nk, dk, W] uint32 bit mask, W =
+// ceil(S / 32), built by K8 sell_mask_build) is set: the reference's
+// where-masked [nk, dk, S] weights, which are never materialised here. A
+// masked slot contributes min(du + INF, INF) = INF, which never lowers acc
+// (every entry is at most INF), so K9 skips its gather. Rounds are Jacobi:
 // every round reads the previous round's matrix (d_old) and writes a second
 // buffer (d_new), so the round count equals the reference's.
 //
@@ -28,7 +37,10 @@
 // contiguous S * 4-byte read (512 bytes at S = 128) shared by the threads of
 // that row, and the nbr/wg entries are warp-uniform broadcast loads. Nothing
 // of size [nk, dk, S] is materialised. The sum stays in int32 with no
-// overflow: both terms are at most INF = 2^29, their sum at most 2^30.
+// overflow: both terms are at most INF = 2^29, their sum at most 2^30. K9
+// adds one mask word per slot, shared by the 32 source columns it covers
+// (a warp-uniform load when S >= 32). At S = 1, as a per-prefix KSP call
+// has it, a warp covers 32 rows and each gather is a scattered 4-byte read.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -38,11 +50,13 @@ namespace {
 constexpr int kInf = 1 << 29;
 constexpr int kThreads = 256;
 
+template <bool kMasked>
 __global__ void sell_relax_round_kernel(
     const int32_t* __restrict__ d_old, int32_t* __restrict__ d_new,
     int32_t* __restrict__ changed, const int32_t* __restrict__ sources,
     const uint8_t* __restrict__ ov, const int32_t* __restrict__ nbr,
-    const int32_t* __restrict__ wg, int row0, int nk, int dk, int S) {
+    const int32_t* __restrict__ wg, const uint32_t* __restrict__ mask,
+    int row0, int nk, int dk, int S, int W) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (long long)nk * S) return;
   const int r = (int)(i / S);
@@ -53,7 +67,11 @@ __global__ void sell_relax_round_kernel(
   int acc = old;
   const int32_t* nb = nbr + (long long)r * dk;
   const int32_t* w = wg + (long long)r * dk;
+  const uint32_t* mw = kMasked ? mask + (long long)r * dk * W + (s >> 5)
+                               : nullptr;
+  const uint32_t bit = 1u << (s & 31);
   for (int j = 0; j < dk; ++j) {
+    if (kMasked && (mw[(long long)j * W] & bit)) continue;
     const int u = nb[j];
     const int du = (ov[u] && u != src) ? kInf : d_old[(long long)u * S + s];
     const int c = min(du + w[j], kInf);
@@ -63,19 +81,38 @@ __global__ void sell_relax_round_kernel(
   if (acc != old) *changed = 1;
 }
 
+template <bool kMasked>
+int launch(const void* d_old, void* d_new, void* changed, const void* sources,
+           const void* ov, const void* nbr, const void* wg, const void* mask,
+           int row0, int nk, int dk, int S, int W, void* stream) {
+  const long long total = (long long)nk * S;
+  if (total == 0) return 0;
+  const long long blocks = (total + kThreads - 1) / kThreads;
+  sell_relax_round_kernel<kMasked><<<(unsigned)blocks, kThreads, 0,
+                                     (cudaStream_t)stream>>>(
+      (const int32_t*)d_old, (int32_t*)d_new, (int32_t*)changed,
+      (const int32_t*)sources, (const uint8_t*)ov, (const int32_t*)nbr,
+      (const int32_t*)wg, (const uint32_t*)mask, row0, nk, dk, S, W);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int sell_relax_round(const void* d_old, void* d_new, void* changed,
                                 const void* sources, const void* ov,
                                 const void* nbr, const void* wg, int row0,
                                 int nk, int dk, int S, void* stream) {
-  const long long total = (long long)nk * S;
-  if (total == 0) return 0;
-  const long long blocks = (total + kThreads - 1) / kThreads;
-  sell_relax_round_kernel<<<(unsigned)blocks, kThreads, 0,
-                            (cudaStream_t)stream>>>(
-      (const int32_t*)d_old, (int32_t*)d_new, (int32_t*)changed,
-      (const int32_t*)sources, (const uint8_t*)ov, (const int32_t*)nbr,
-      (const int32_t*)wg, row0, nk, dk, S);
-  return (int)cudaGetLastError();
+  return launch<false>(d_old, d_new, changed, sources, ov, nbr, wg, nullptr,
+                       row0, nk, dk, S, 0, stream);
+}
+
+// mask: [nk, dk, W] uint32 bit mask of bucket k, W = ceil(S / 32)
+extern "C" int sell_relax_masked_round(const void* d_old, void* d_new,
+                                       void* changed, const void* sources,
+                                       const void* ov, const void* nbr,
+                                       const void* wg, const void* mask,
+                                       int row0, int nk, int dk, int S, int W,
+                                       void* stream) {
+  return launch<true>(d_old, d_new, changed, sources, ov, nbr, wg, mask, row0,
+                      nk, dk, S, W, stream);
 }

@@ -11,7 +11,7 @@ Jacobi (each reads the previous round's D) and run until nothing changes,
 capped at n rounds; the final no-change round is counted, so `rounds`
 equals the JAX package's count.
 
-Seven hand-written CUDA kernels carry the device work (ops/csrc/):
+Nine hand-written CUDA kernels carry the device work (ops/csrc/):
 
   K1 sell_relax_round    one round of the sliced-ELL pull, per degree bucket
   K2 bf_relax_round      one round of the edge-list form (no sliced layout)
@@ -20,6 +20,8 @@ Seven hand-written CUDA kernels carry the device work (ops/csrc/):
   K5 sell_mark           warm-start invalidation on the sliced layout
   K6 bf_mark             warm-start invalidation on the edge-list layout
   K7 delta_extract       changed destination columns and their copy-back
+  K8 sell_mask           KSP link-ignore masks: bit-mask build, warm seed
+  K9 sell_relax_masked_round  K1's round with K8's per-column masks
 
 The warm event path (an LSDB event answered from the previous fixpoint)
 is K5 -> K4 -> K5 reset -> K1 -> K7 on the sliced layout and K6 -> K2 ->
@@ -27,6 +29,12 @@ K7 on the edge-list one: entries whose old shortest path may cross an
 increased edge are reset to INF (Ramalingam-Reps invalidation), everything
 else keeps its old distance, which is an upper bound of the new one, and
 the relaxation repairs the rest.
+
+KSP's link-ignore re-solves (one batch row per destination, each with its
+own links at INF) are K8 build -> K9 cold on the sliced layout, or K8
+build + seed -> K5 rounds and reset -> K9 when warm-started from the base
+fixpoint; on the edge-list layout K2 with per-row weights, or K6 with a
+per-row seed -> K2 warm.
 
 Each wrapper checks device, dtype, shape and contiguity; on a CUDA tensor
 it launches its kernel (and counts the launch), on a CPU tensor it runs the
@@ -39,7 +47,7 @@ the Dijkstra nexthop-union semantics of LinkState.cpp:855-871.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -52,14 +60,17 @@ from openr_tpu_torch.ops._cuda import (
     DELTA_EXTRACT,
     ECMP_TRIANGLE,
     SELL_MARK,
+    SELL_MASK,
     SELL_PATCH,
     SELL_RELAX,
+    SELL_RELAX_MASKED,
 )
-from openr_tpu_torch.ops.graph import INF, CompiledGraph
+from openr_tpu_torch.ops.graph import INF, CompiledGraph, _next_bucket
 
 _INT32_MAX = int(np.iinfo(np.int32).max)
-# row index of a padding patch: out of range of every bucket, so K4 drops
-# it and the invalidation seed skips it (valid = row < 1 << 29)
+# row index of a padding patch or KSP mask entry: out of range of every
+# bucket, so K4 and K8's build drop it and the seeds skip it (valid = row
+# < 1 << 29)
 PATCH_PAD = 1 << 30
 
 
@@ -155,6 +166,7 @@ def _sell_relax(
     wgs: Sequence[torch.Tensor],  # int32 [nk, dk] per bucket
     zero_end: int,
     starts: Sequence[int],
+    bits: Optional[Sequence[torch.Tensor]] = None,  # int32 [nk, dk, W]
 ) -> Tuple[torch.Tensor, int]:
     """Min-plus relaxation from dest-major initial state d0 to the fixpoint.
 
@@ -163,7 +175,11 @@ def _sell_relax(
     Rows [0, zero_end) and the padding rows past the last bucket never
     change. zero_end is implied by starts and kept for the reference's
     signature. d0 is consumed: on the card it is one of the two round
-    buffers, so a caller that needs it afterwards passes a copy."""
+    buffers, so a caller that needs it afterwards passes a copy.
+
+    With `bits` (K8's per-bucket bit masks, `_sell_mask_bits`), slot (r, j)
+    weighs INF for batch column s where bit s of bits[k][r, j] is set: the
+    reference's per-row wg [nk, dk, S] form, relaxed by K9 on the card."""
     dev = d0.device
     _check("d0", d0, torch.int32, 2, dev)
     n, s = d0.shape
@@ -180,24 +196,38 @@ def _sell_relax(
             raise ValueError(f"bucket {k}: bad shape {tuple(nbr_k.shape)}")
     if starts and starts[0] < zero_end:
         raise ValueError("first bucket starts below zero_end")
+    if bits is not None:
+        if len(bits) != len(nbrs):
+            raise ValueError("bits and nbrs differ in bucket count")
+        words = _mask_words(s)
+        for k, (nbr_k, bits_k) in enumerate(zip(nbrs, bits)):
+            _check(f"bits[{k}]", bits_k, torch.int32, 3, dev)
+            if tuple(bits_k.shape) != (*nbr_k.shape, words):
+                raise ValueError(f"bits[{k}]: bad shape {tuple(bits_k.shape)}")
     if dev.type == "cuda":
-        return _sell_relax_cuda(d0, sources, overloaded, nbrs, wgs, starts)
+        return _sell_relax_cuda(
+            d0, sources, overloaded, nbrs, wgs, starts, bits
+        )
+    if bits is not None:
+        wgs = _sell_masked_wgs_plain(wgs, bits, s)
     return _sell_relax_plain(d0, sources, overloaded, nbrs, wgs, starts)
 
 
 def _sell_relax_plain(d0, sources, overloaded, nbrs, wgs, starts):
     """Plain PyTorch version of K1's fixpoint (the JAX body, vectorised over
-    each bucket's dk slots)."""
+    each bucket's dk slots); a bucket's wg is [nk, dk] (shared) or
+    [nk, dk, S] (per batch column: K9's)."""
     n = d0.shape[0]
     allow = _sell_d0_allow(sources, overloaded)[1]
     idx = [nbr_k.long() for nbr_k in nbrs]
+    wcols = [wg_k if wg_k.dim() == 3 else wg_k[:, :, None] for wg_k in wgs]
     d, rounds = d0, 0
     while True:
         dt = torch.where(allow, d, INF)
         new_d = d.clone()
-        for bs, nbr_k, wg_k in zip(starts, idx, wgs):
+        for bs, nbr_k, wg_k in zip(starts, idx, wcols):
             nk = nbr_k.shape[0]
-            cand = (dt[nbr_k] + wg_k[:, :, None]).clamp_max(INF).amin(dim=1)
+            cand = (dt[nbr_k] + wg_k).clamp_max(INF).amin(dim=1)
             new_d[bs : bs + nk] = torch.minimum(d[bs : bs + nk], cand)
         rounds += 1
         changed = not torch.equal(new_d, d)
@@ -206,24 +236,31 @@ def _sell_relax_plain(d0, sources, overloaded, nbrs, wgs, starts):
             return d, rounds
 
 
-def _sell_relax_cuda(d0, sources, overloaded, nbrs, wgs, starts):
-    """K1 rounds: one launch per bucket per round into the second buffer,
-    one 4-byte changed flag read per round. d0 is the first buffer; the
-    second starts as its copy, so the rows outside the buckets hold their
-    values in both."""
+def _sell_relax_cuda(d0, sources, overloaded, nbrs, wgs, starts, bits):
+    """K1 (K9 with `bits`) rounds: one launch per bucket per round into the
+    second buffer, one 4-byte changed flag read per round. d0 is the first
+    buffer; the second starts as its copy, so the rows outside the buckets
+    hold their values in both."""
     n, s = d0.shape
     cur, nxt = d0, d0.clone()
     flag = torch.zeros(1, dtype=torch.int32, device=d0.device)
     rounds = 0
     while True:
         flag.zero_()
-        for bs, nbr_k, wg_k in zip(starts, nbrs, wgs):
+        for k, (bs, nbr_k, wg_k) in enumerate(zip(starts, nbrs, wgs)):
             nk, dk = nbr_k.shape
-            SELL_RELAX.launch(
+            args = (
                 cur.data_ptr(), nxt.data_ptr(), flag.data_ptr(),
                 sources.data_ptr(), overloaded.data_ptr(),
-                nbr_k.data_ptr(), wg_k.data_ptr(), int(bs), nk, dk, s,
+                nbr_k.data_ptr(), wg_k.data_ptr(),
             )
+            if bits is None:
+                SELL_RELAX.launch(*args, int(bs), nk, dk, s)
+            else:
+                SELL_RELAX_MASKED.launch(
+                    *args, bits[k].data_ptr(), int(bs), nk, dk, s,
+                    bits[k].shape[2],
+                )
         rounds += 1
         cur, nxt = nxt, cur
         if not int(flag.item()) or rounds >= n:
@@ -675,6 +712,211 @@ def _sell_solver_warm(
     return d, wgs, rounds, inv_rounds, col_changed, num_changed
 
 
+# -- K8 + K9: KSP link-ignore masks on the sliced layout -------------------
+
+
+def _mask_words(s: int) -> int:
+    """32-bit words per slot of K8's bit mask for a batch of s columns."""
+    return (s + 31) // 32
+
+
+def sell_mask_arrays(sell, mask_positions) -> List[np.ndarray]:
+    """Host half of `sell_fixpoint_masked`: mask_positions[c] lists the edge
+    positions (dst-sorted order) that batch column c ignores. Returns one
+    int32 [Mk, 3] array of (row-in-bucket, slot, column) per bucket, in the
+    order the positions come, padded to _next_bucket(max(Mk, 1)) rows of
+    PATCH_PAD in all three columns: the reference's arrays exactly."""
+    per_bucket: List[list] = [[] for _ in sell.nbr]
+    for col, positions in enumerate(mask_positions):
+        for p in positions:
+            per_bucket[sell.edge_bucket[p]].append(
+                (sell.edge_row[p], sell.edge_slot[p], col)
+            )
+    masks = []
+    for entries in per_bucket:
+        arr = np.full(
+            (_next_bucket(max(len(entries), 1)), 3), PATCH_PAD, dtype=np.int32
+        )
+        if entries:
+            arr[: len(entries)] = np.asarray(entries, dtype=np.int32)
+        masks.append(arr)
+    return masks
+
+
+def _check_masks(masks, nbrs, dev) -> None:
+    if len(masks) != len(nbrs):
+        raise ValueError("masks and nbrs differ in bucket count")
+    for k, (m_k, nbr_k) in enumerate(zip(masks, nbrs)):
+        _check(f"masks[{k}]", m_k, torch.int32, 2, dev)
+        _check(f"nbrs[{k}]", nbr_k, torch.int32, 2, dev)
+        if m_k.shape[1] != 3:
+            raise ValueError(f"masks[{k}] must be [M, 3]")
+
+
+def _sell_mask_bits(
+    masks: Sequence[torch.Tensor],  # int32 [Mk, 3] per bucket
+    nbrs: Sequence[torch.Tensor],  # int32 [nk, dk] per bucket
+    s: int,  # batch columns
+) -> Tuple[torch.Tensor, ...]:
+    """K8 build: per bucket the int32 [nk, dk, W] bit mask (W = ceil(s /
+    32)) of masks[k]'s (row-in-bucket, slot, column) entries; bit c of word
+    [r, j, c // 32] set means slot (r, j) weighs INF for column c. An entry
+    with any index out of range is dropped, as the reference's mode="drop"
+    scatter drops it (the host never sends a negative index). The kernels
+    read the words as uint32; bit 31 is the int32 sign bit."""
+    dev = masks[0].device if masks else torch.device("cpu")
+    _check_masks(masks, nbrs, dev)
+    if dev.type != "cuda":
+        return tuple(
+            _sell_mask_bits_plain(m_k, *nbr_k.shape, s)
+            for m_k, nbr_k in zip(masks, nbrs)
+        )
+    words = _mask_words(s)
+    out = []
+    for m_k, nbr_k in zip(masks, nbrs):
+        nk, dk = nbr_k.shape
+        bits = torch.zeros((nk, dk, words), dtype=torch.int32, device=dev)
+        if m_k.shape[0] and nk * dk and s:
+            SELL_MASK.launch(
+                m_k.data_ptr(), bits.data_ptr(), m_k.shape[0], nk, dk, s,
+                words, entry="sell_mask_build",
+            )
+        out.append(bits)
+    return tuple(out)
+
+
+def _sell_mask_bits_plain(m_k, nk, dk, s):
+    words = _mask_words(s)
+    r, j, c = (m_k[:, i].long() for i in range(3))
+    keep = (r >= 0) & (r < nk) & (j >= 0) & (j < dk) & (c >= 0) & (c < s)
+    dense = torch.zeros(
+        (nk, dk, words * 32), dtype=torch.bool, device=m_k.device
+    )
+    dense[r[keep], j[keep], c[keep]] = True
+    shifts = torch.arange(32, device=m_k.device)
+    v = (dense.view(nk, dk, words, 32).long() << shifts).sum(dim=3)
+    return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+
+
+def _sell_mask_expand(bits_k: torch.Tensor, s: int) -> torch.Tensor:
+    """bool [nk, dk, s]: the slots K8's bit mask pins to INF, per column."""
+    nk, dk, words = bits_k.shape
+    shifts = torch.arange(32, dtype=torch.int32, device=bits_k.device)
+    bit = (bits_k[..., None] >> shifts) & 1
+    return bit.bool().reshape(nk, dk, words * 32)[..., :s]
+
+
+def _sell_masked_wgs_plain(wgs, bits, s):
+    """The reference's per-row weights: wg [nk, dk, s], INF where masked."""
+    return tuple(
+        torch.where(_sell_mask_expand(b_k, s), INF, wg_k[:, :, None])
+        for wg_k, b_k in zip(wgs, bits)
+    )
+
+
+def _sell_mask_seed(
+    d_prev: torch.Tensor,  # int32 [S, n_pad] row-major base fixpoint
+    nbrs: Sequence[torch.Tensor],
+    wgs: Sequence[torch.Tensor],  # the base (unmasked) bucket weights
+    masks: Sequence[torch.Tensor],  # int32 [Mk, 3] per bucket
+    starts: Sequence[int],
+) -> Tuple[torch.Tensor, bool]:
+    """K8 seed: (marks bool [S, n_pad] row-major, seeded). An entry marks
+    (column, head) where its slot lies on the column's base shortest-path
+    DAG. Its rules are the reference's, and differ from the build's:
+    validity is tested on the row only (row < 1 << 29), then row and slot
+    are clipped into the bucket and the column into [0, S), not dropped.
+    `seeded` is read from the kernel's flag, so no mark round runs when
+    nothing was seeded."""
+    dev = d_prev.device
+    _check("d_prev", d_prev, torch.int32, 2, dev)
+    _check_masks(masks, nbrs, dev)
+    s, n = d_prev.shape
+    if dev.type != "cuda":
+        marks = _sell_mask_seed_plain(d_prev, nbrs, wgs, masks, starts)
+        return marks, bool(marks.any())
+    marks = torch.zeros((s, n), dtype=torch.bool, device=dev)
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    for bs, nbr_k, wg_k, m_k in zip(starts, nbrs, wgs, masks):
+        nk, dk = nbr_k.shape
+        if m_k.shape[0] and s and nk * dk:
+            SELL_MASK.launch(
+                d_prev.data_ptr(), marks.data_ptr(), flag.data_ptr(),
+                nbr_k.data_ptr(), wg_k.data_ptr(), m_k.data_ptr(),
+                m_k.shape[0], int(bs), nk, dk, s, n, entry="sell_mask_seed",
+            )
+    return marks, bool(flag.item())
+
+
+def _sell_mask_seed_plain(d_prev, nbrs, wgs, masks, starts):
+    s, n = d_prev.shape
+    hits = torch.zeros((s, n), dtype=torch.int32, device=d_prev.device)
+    for bs, nbr_k, wg_k, m_k in zip(starts, nbrs, wgs, masks):
+        nk, dk = nbr_k.shape
+        valid = m_k[:, 0] < (1 << 29)
+        r = m_k[:, 0].clamp(0, nk - 1).long()
+        j = m_k[:, 1].clamp(0, dk - 1).long()
+        c = m_k[:, 2].clamp(0, s - 1).long()
+        u = nbr_k[r, j].long()
+        v = bs + r
+        dv = d_prev[c, v]
+        cond = (
+            valid
+            & (dv < INF)
+            & ((d_prev[c, u] + wg_k[r, j]).clamp_max(INF) == dv)
+        )
+        hits.index_put_((c, v), cond.int(), accumulate=True)
+    return hits > 0
+
+
+def _sell_solver_vw(
+    key: Tuple, sources, nbrs, wgs, masks, overloaded
+) -> torch.Tensor:
+    """Per-row-weights sliced-ELL fixpoint, the device form of KSP's
+    link-ignore re-solves (LinkState.cpp:760-789): K8 builds each bucket's
+    bit mask from masks[k] ([Mk, 3] (row-in-bucket, slot, batch column)
+    positions to pin to INF), K9 relaxes from the cold state. The expanded
+    [nk, dk, S] weights are never built. Returns D [S, n_pad] row-major."""
+    zero_end, starts, _ = key
+    bits = _sell_mask_bits(masks, nbrs, sources.shape[0])
+    d0 = _sell_d0(sources, overloaded.shape[0])
+    d, _ = _sell_relax(
+        d0, sources, overloaded, nbrs, wgs, zero_end, starts, bits
+    )
+    return d.t().contiguous()
+
+
+def _sell_solver_vw_warm(
+    key: Tuple, sources, nbrs, wgs, masks, overloaded, d_prev
+) -> torch.Tensor:
+    """Warm per-row-weights sliced-ELL solve: the KSP layer-seeding form.
+
+    The masked slots are the increased edges (base weight -> INF), so the
+    penalized solve starts from the unpenalized base fixpoint d_prev
+    (int32 [S, n_pad] row-major and contiguous, for the same sources and
+    the base weights `wgs`): K8 seeds marks where a masked slot lies on a
+    column's base DAG, K5 propagates them down the base DAG (its rounds
+    read `wgs`) and resets the marked entries to INF with the sources
+    re-pinned, and K9 relaxes with the masked weights. Returns D [S, n_pad]
+    row-major. d_prev is read, never written, and `wgs` are never patched:
+    the masks live only in K8's bit masks."""
+    zero_end, starts, _ = key
+    s = sources.shape[0]
+    if tuple(d_prev.shape) != (s, overloaded.shape[0]):
+        raise ValueError(f"d_prev must be [{s}, n_pad]")
+    bits = _sell_mask_bits(masks, nbrs, s)
+    marks, seeded = _sell_mask_seed(d_prev, nbrs, wgs, masks, starts)
+    marks, _ = _sell_mark_fixpoint(
+        d_prev, marks, nbrs, wgs, zero_end, starts, seeded
+    )
+    d0 = _sell_warm_d0(d_prev, marks, sources)
+    del marks
+    d, _ = _sell_relax(
+        d0, sources, overloaded, nbrs, wgs, zero_end, starts, bits
+    )
+    return d.t().contiguous()
+
+
 # -- K6: invalidation on the edge-list layout ------------------------------
 
 
@@ -682,24 +924,28 @@ def _bf_invalidate(
     d_prev: torch.Tensor,  # int32 [S, n_pad] row-major OLD fixpoint
     src_e: torch.Tensor,  # int32 [E]
     dst_e: torch.Tensor,  # int32 [E], sorted ascending
-    w_new: torch.Tensor,  # int32 [E]
+    w_new: torch.Tensor,  # int32 [E] (shared) or [S, E] (per row)
     w_old: torch.Tensor,  # int32 [E]
     csr: torch.Tensor,  # int32 [n_pad + 1] in-edge ranges (edge_csr)
 ) -> Tuple[torch.Tensor, int]:
     """Edge-list invalidation: seeds where an edge on the old shortest-path
     DAG got heavier (w_new > w_old, classified here, not by the host), then
     the Jacobi mark fixpoint over the old DAG. Returns (marks bool [S,
-    n_pad] row-major, rounds). Only the edges csr covers are walked; the
-    padding edges carry INF in both weight vectors and can neither seed
-    nor propagate."""
+    n_pad] row-major, rounds). Per-row w_new [S, E] seeds each row against
+    its own weights (KSP's link-ignore rows against the shared base). Only
+    the edges csr covers are walked; the padding edges carry INF in both
+    weight vectors and can neither seed nor propagate."""
     dev = d_prev.device
     _check("d_prev", d_prev, torch.int32, 2, dev)
     s, n = d_prev.shape
-    for name, t in (("src_e", src_e), ("dst_e", dst_e), ("w_new", w_new),
-                    ("w_old", w_old)):
+    for name, t in (("src_e", src_e), ("dst_e", dst_e), ("w_old", w_old)):
         _check(name, t, torch.int32, 1, dev)
         if t.shape[0] != src_e.shape[0]:
             raise ValueError(f"{name}: length differs from src_e")
+    _check("w_new", w_new, torch.int32, w_new.dim(), dev)
+    e = src_e.shape[0]
+    if tuple(w_new.shape) not in ((e,), (s, e)):
+        raise ValueError(f"w_new must be [{e}] or [{s}, {e}]")
     _check("csr", csr, torch.int32, 1, dev)
     if csr.shape[0] != n + 1:
         raise ValueError("csr must have n_pad + 1 entries")
@@ -709,10 +955,11 @@ def _bf_invalidate(
     flag = torch.zeros(1, dtype=torch.int32, device=dev)
     if not s * n:
         return marks, 0
+    w_stride = 0 if w_new.dim() == 1 else w_new.shape[1]
     BF_MARK.launch(
         d_prev.data_ptr(), marks.data_ptr(), flag.data_ptr(),
         src_e.data_ptr(), csr.data_ptr(), w_new.data_ptr(),
-        w_old.data_ptr(), s, n, entry="bf_mark_seed",
+        w_old.data_ptr(), w_stride, s, n, entry="bf_mark_seed",
     )
     if not int(flag.item()):
         return marks, 0
@@ -748,7 +995,7 @@ def _bf_invalidate_plain(d_prev, src_e, dst_e, w_new, w_old, csr):
         out = torch.zeros((s, n), dtype=torch.int32, device=d_prev.device)
         return out.index_add_(1, dst, rows.int()) > 0
 
-    marks = seg_any(on_old & (w_new[:m_e] > w_o)[None, :])
+    marks = seg_any(on_old & (w_new[..., :m_e] > w_o))
     if not bool(marks.any()):
         return marks, 0
     rounds = 0
@@ -815,6 +1062,34 @@ def _bf_solver_warm(
     )
     col_changed, num_changed = delta_columns(d, d_prev)
     return d, rounds, inv_rounds, col_changed, num_changed
+
+
+def _bf_warm_vw_core(
+    sources: torch.Tensor,  # int32 [S]
+    src_e: torch.Tensor,  # int32 [E]
+    dst_e: torch.Tensor,  # int32 [E] (sorted ascending)
+    w_rows: torch.Tensor,  # int32 [S, E] per-row weights
+    w_base: torch.Tensor,  # int32 [E] shared weights that produced d_prev
+    overloaded: torch.Tensor,  # bool [n_pad]
+    d_prev: torch.Tensor,  # int32 [S, n_pad] base fixpoint (read only)
+    csr: torch.Tensor,  # int32 [n_pad + 1] in-edge ranges (edge_csr)
+) -> Tuple[torch.Tensor, int, int]:
+    """Per-row-weights warm solve on the edge-list layout: the KSP
+    layer-seeding form of `_bf_solver_warm`. A link-ignore row only raises
+    weights (ignored links -> INF), so each row warm-starts from the shared
+    base fixpoint: K6 seeds where a row's raised edge lies on the base DAG
+    (per-row seed against w_base), K6 rounds propagate down the base DAG,
+    K6 resets, and K2 relaxes with the per-row weights. Returns (d [S,
+    n_pad], rounds, inv_rounds)."""
+    marks, inv_rounds = _bf_invalidate(
+        d_prev, src_e, dst_e, w_rows, w_base, csr
+    )
+    d0 = _bf_warm_d0(d_prev, marks, sources)
+    del marks
+    d, rounds = _bf_relax(
+        d0, sources, overloaded, src_e, dst_e, w_rows, csr
+    )
+    return d, rounds, inv_rounds
 
 
 # -- K7: delta extraction --------------------------------------------------
@@ -922,6 +1197,46 @@ def sell_fixpoint(
             sell.zero_end,
             sell.starts,
         )
+
+
+def sell_fixpoint_masked(
+    sell,  # ops.graph.SlicedEll
+    sources,  # int32 [S]
+    overloaded,  # bool [n_pad]
+    mask_positions,  # per batch row: edge positions to pin to INF
+    device_arrays=None,  # optional (nbrs, wgs, ov) already on `device`
+    d_prev=None,  # optional int32 [S, n_pad] base fixpoint on `device`
+    device: DeviceLike = "cuda",
+) -> torch.Tensor:
+    """Per-row link-ignore solve on the sliced layout: D [S, n_pad].
+
+    mask_positions[i] lists edge positions (dst-sorted, e.g. from
+    CompiledGraph.link_edges) whose weight becomes INF for batch row i
+    only; `sell_mask_arrays` packs them per bucket. device_arrays (an area
+    solve's resident buffers) saves uploading the layout. With d_prev, the
+    UNPENALIZED base fixpoint for the same sources and weights (row-major,
+    contiguous), the penalized solve warm-starts by increase invalidation
+    (`_sell_solver_vw_warm`) instead of relaxing from INF: sound because
+    masking only raises weights."""
+    dev = resolve_device(device)
+    masks = tuple(
+        torch.as_tensor(a, device=dev)
+        for a in sell_mask_arrays(sell, mask_positions)
+    )
+    if device_arrays is not None:
+        nbrs, wgs, ov = device_arrays
+    else:
+        nbrs = tuple(_i32(a, dev) for a in sell.nbr)
+        wgs = tuple(_i32(a, dev) for a in sell.wg)
+        ov = _bool(overloaded, dev)
+    src = _rows(sources, len(overloaded), dev)
+    if d_prev is not None:
+        with record_function("spf.ksp_masked_warm"):
+            return _sell_solver_vw_warm(
+                sell.shape_key(), src, nbrs, wgs, masks, ov, d_prev
+            )
+    with record_function("spf.ksp_masked"):
+        return _sell_solver_vw(sell.shape_key(), src, nbrs, wgs, masks, ov)
 
 
 def batched_spf(

@@ -26,9 +26,15 @@ those columns (`_finish_delta`), which `solver/delta.py` turns into a route
 delta. A structural rebuild, a source-batch change, a patch overflow or an
 overload change on the edge-list layout solves cold (from D0 = INF).
 
+KSP2 (the k-edge-disjoint second paths of SR-MPLS prefixes) runs on the
+card too: `prefetch_ksp` solves every destination's link-ignore re-solve as
+one batch row of a masked solve (ops/spf.py `sell_fixpoint_masked` on the
+sliced layout, `_bf_warm_vw_core` or `batched_spf_vw` on the edge-list
+one), warm-started from me's resident base row, and the paths are traced
+greedily on the host from the copied-back rows (`_trace_paths`).
+
 A source outside the solved batch is answered by the LinkState's own
-Dijkstra, and each such answer is counted in `host_spf_calls`. KSP is not
-on the card yet and raises.
+Dijkstra, and each such answer is counted in `host_spf_calls`.
 """
 
 from __future__ import annotations
@@ -41,7 +47,7 @@ import torch
 
 from openr_tpu_torch.convert import to_device, upload
 from openr_tpu_torch.device import DeviceLike, resolve_device
-from openr_tpu_torch.lsdb.link_state import LinkState, Path
+from openr_tpu_torch.lsdb.link_state import Link, LinkState, Path
 from openr_tpu_torch.ops.graph import (
     INF,
     CompiledGraph,
@@ -53,18 +59,19 @@ from openr_tpu_torch.ops.spf import (
     _bf_d0,
     _bf_relax,
     _bf_solver_warm,
+    _bf_warm_vw_core,
     _delta_extract,
     _sell_apply_patches,
     _sell_solver_counted,
     _sell_solver_patched,
     _sell_solver_warm,
     batched_spf,
+    batched_spf_vw,
     ecmp_triangle,
+    sell_fixpoint_masked,
     sell_patch_arrays,
 )
 from openr_tpu_torch.solver.cpu import Metric, SpfSolver
-
-_KSP_TODO = "KSP on device: ROADMAP queue 1 item 7"
 
 # fixed per-bucket patch width of the fused patch + solve; an event that
 # changes more slots in one bucket is patched by standalone scatters and
@@ -201,6 +208,11 @@ class _AreaSolve:
         self._delta_cols_synced = 0
         self._delta_bytes_synced = 0
         self._delta_extracts_synced = 0
+        # KSP: device batches of link-ignore re-solves, and those of them
+        # warm-started from the base row (decision.spf.ksp_warm_batches)
+        self.ksp_device_batches = 0
+        self.ksp_warm_batches = 0
+        self._ksp_warm_synced = 0
         self._dev: Optional[dict] = None
         self._d_dev: Optional[torch.Tensor] = None
         self._d_host: Optional[np.ndarray] = None
@@ -267,6 +279,9 @@ class _AreaSolve:
             self._delta_pending = None
         elif self._delta_pending is not None:
             self._delta_pending.update(int(c) for c in self._last_solve_delta)
+        # KSP: (dest, k) -> traced edge-disjoint path set for src == me;
+        # reset with the snapshot, so topology changes invalidate it
+        self._ksp: Dict[Tuple[str, int], List[Path]] = {}
 
     def _changed_edges(self, st: dict) -> np.ndarray:
         """Positions whose weight differs from the snapshot that produced
@@ -645,6 +660,123 @@ class _AreaSolve:
             self.d2h_bytes += self._nh_mask.nbytes
         return self._nh_links, self._nh_mask
 
+    # -- KSP (k-edge-disjoint shortest paths), device-batched ------------
+
+    def kth_paths(self, dest: str, k: int) -> List[Path]:
+        cached = self._ksp.get((dest, k))
+        if cached is None:
+            self.prefetch_ksp([dest], k)
+            cached = self._ksp[(dest, k)]
+        return cached
+
+    def prefetch_ksp(self, dests: List[str], k: int) -> None:
+        """Solve and trace the k-th path set of every dest in one device
+        call. The reference runs one penalized Dijkstra per destination
+        (LinkState.cpp:777-780); here each destination's penalized solve is
+        one batch row of a per-row-weights fixpoint, all rows sourced at me.
+
+        Warm (`warm_start`): every row starts from me's resident base row,
+        materialised as a contiguous [s_pad, n_pad] copy of row 0 of the
+        resident D (s_pad * n_pad * 4 bytes) because K5, K6 and K8 read a
+        row-major buffer. The resident weights are the base weights of
+        that D and are never patched here."""
+        assert k >= 1
+        idx = self.graph.node_index
+        todo = [
+            d
+            for d in dests
+            if (d, k) not in self._ksp and d != self.me and d in idx
+        ]
+        for d in dests:
+            if (d, k) not in self._ksp and (d == self.me or d not in idx):
+                self._ksp[(d, k)] = []
+        if not todo:
+            return
+        if k == 1:
+            # row 0 of the base solve is me with the unpenalized weights
+            for dest in todo:
+                self._ksp[(dest, 1)] = _trace_paths(
+                    self.link_state, self.graph, self.d[0], self.me, dest,
+                    set(),
+                )
+            return
+        self.prefetch_ksp(todo, k - 1)
+
+        # per-dest ignore set = links used by path sets 1..k-1
+        ignores: List[Set[Link]] = []
+        for dest in todo:
+            ig: Set[Link] = set()
+            for i in range(1, k):
+                for path in self._ksp[(dest, i)]:
+                    ig.update(path)
+            ignores.append(ig)
+
+        # the batch is padded to a power of two; filler rows solve
+        # unpenalized
+        s_pad = _next_bucket(len(todo), minimum=1)
+        sources = np.full(s_pad, idx[self.me], dtype=np.int32)
+        st = self._dev
+        warm_prev = None
+        if self.warm_start and self._d_dev is not None:
+            warm_prev = self._d_dev[0:1].expand(s_pad, -1).contiguous()
+        if self.graph.sell is not None:
+            # sliced layout: the ignores become per-column masks on the
+            # resident buffers (uploaded as [Mk, 3] lists, not counted in
+            # h2d_bytes, as the reference does not count them)
+            mask_positions: List[List[int]] = []
+            for ig in ignores:
+                pos: List[int] = []
+                for link in ig:
+                    fwd, rev = self.graph.link_edges[link]
+                    pos.extend((fwd, rev))
+                mask_positions.append(pos)
+            mask_positions.extend([[] for _ in range(s_pad - len(todo))])
+            d_dev = sell_fixpoint_masked(
+                self.graph.sell,
+                sources,
+                self.graph.overloaded,
+                mask_positions,
+                device_arrays=(st["nbrs"], st["wgs"], st["ov"]),
+                d_prev=warm_prev,
+                device=self.device,
+            )
+            if warm_prev is not None:
+                self.ksp_warm_batches += 1
+        else:
+            w_rows = np.tile(self.graph.w, (s_pad, 1))
+            for row, ig in enumerate(ignores):
+                for link in ig:
+                    fwd, rev = self.graph.link_edges[link]
+                    w_rows[row, fwd] = INF
+                    w_rows[row, rev] = INF
+            self.h2d_bytes += w_rows.nbytes
+            if warm_prev is not None:
+                d_dev, _rounds, _inv = _bf_warm_vw_core(
+                    torch.as_tensor(sources, device=self.device),
+                    st["src"],
+                    st["dst"],
+                    torch.as_tensor(w_rows, device=self.device),
+                    st["w"],
+                    st["ov"],
+                    warm_prev,
+                    st["csr"],
+                )
+                self.ksp_warm_batches += 1
+            else:
+                d_dev = batched_spf_vw(
+                    self.graph, sources, w_rows, device=self.device
+                )
+        # the penalized rows are consumed on the host by the greedy
+        # back-trace: a real copy-back
+        d_rows = d_dev.cpu().numpy()
+        self.d2h_bytes += d_rows.nbytes
+        self.ksp_device_batches += 1
+
+        for row, (dest, ig) in enumerate(zip(todo, ignores)):
+            self._ksp[(dest, k)] = _trace_paths(
+                self.link_state, self.graph, d_rows[row], self.me, dest, ig
+            )
+
     def refresh(self) -> None:
         """Re-solve against the current LinkState snapshot if it moved."""
         if self.graph.version == self.link_state.version:
@@ -665,6 +797,71 @@ class _AreaSolve:
         )
         self.d2h_bytes += cold.nbytes
         return cold
+
+
+def _trace_paths(
+    link_state: LinkState,
+    graph: CompiledGraph,
+    d_row: np.ndarray,
+    src: str,
+    dest: str,
+    ignore: Set[Link],
+) -> List[Path]:
+    """Greedy edge-disjoint path enumeration from a single-source distance
+    row, equivalent to tracing the Dijkstra SPF DAG (LinkState.cpp:398-419):
+    path links into v are the up, non-ignored links from nodes u with d(u)
+    + w(u->v) == d(v) that offer transit, ordered by u's settle order
+    ((d(u), u), valid since metrics are >= 1) then by u's sorted link
+    order."""
+    idx = graph.node_index
+    dd = d_row.tolist()
+    dcol = idx.get(dest)
+    if dcol is None or dd[dcol] >= INF:
+        return []
+
+    path_links: Dict[str, List[Tuple[Link, str]]] = {}
+
+    def pl(v: str) -> List[Tuple[Link, str]]:
+        cached = path_links.get(v)
+        if cached is not None:
+            return cached
+        vi = idx[v]
+        out: List[Tuple[Link, str]] = []
+        for link in link_state.ordered_links_from_node(v):
+            if not link.is_up() or link in ignore:
+                continue
+            u = link.other_node_name(v)
+            ui = idx.get(u)
+            if ui is None or dd[ui] >= INF:
+                continue
+            if u != src and link_state.is_node_overloaded(u):
+                continue
+            if dd[ui] + link.metric_from_node(u) == dd[vi]:
+                out.append((link, u))
+        out.sort(key=lambda t: (dd[idx[t[1]]], t[1], t[0]))
+        path_links[v] = out
+        return out
+
+    visited: Set[Link] = set()
+
+    def trace_one(node: str) -> Optional[Path]:
+        if node == src:
+            return []
+        for link, prev in pl(node):
+            if link not in visited:
+                visited.add(link)
+                sub = trace_one(prev)
+                if sub is not None:
+                    sub.append(link)
+                    return sub
+        return None
+
+    paths: List[Path] = []
+    path = trace_one(dest)
+    while path:
+        paths.append(path)
+        path = trace_one(dest)
+    return paths
 
 
 class CudaSpfSolver(SpfSolver):
@@ -780,6 +977,13 @@ class CudaSpfSolver(SpfSolver):
             self._observe(
                 "decision.spf.delta_extract_ms", solve.delta_extract_ms_last
             )
+        # KSP batches run during the route build, after this sync: they
+        # reach the counter at the next one, as in the reference (whose
+        # _sync_apsp_counters ends its sync)
+        d_ksp = solve.ksp_warm_batches - solve._ksp_warm_synced
+        if d_ksp:
+            solve._ksp_warm_synced = solve.ksp_warm_batches
+            self._bump("decision.spf.ksp_warm_batches", d_ksp)
 
     def poll_device_delta(
         self, area_link_states: Dict[str, LinkState]
@@ -882,9 +1086,15 @@ class CudaSpfSolver(SpfSolver):
     def _kth_paths(
         self, link_state: LinkState, src: str, dest: str, k: int
     ) -> List[Path]:
-        raise NotImplementedError(_KSP_TODO)
+        solve = self._area_solve(link_state, self.my_node_name)
+        if solve is None or src != self.my_node_name:
+            self.host_spf_calls += 1
+            return link_state.get_kth_paths(src, dest, k)
+        return solve.kth_paths(dest, k)
 
     def _prefetch_kth_paths(
         self, link_state: LinkState, src: str, dests: List[str], k: int
     ) -> None:
-        raise NotImplementedError(_KSP_TODO)
+        solve = self._area_solve(link_state, self.my_node_name)
+        if solve is not None and src == self.my_node_name:
+            solve.prefetch_ksp(dests, k)

@@ -9,8 +9,10 @@ The graphs are small but cover what the main path's shapes do not: an
 overloaded transit node, a bucket wider than 32 slots, a graph too wide for
 the sliced layout, per-row weights, a batch padded with repeated sources,
 out-of-range patches. The event-path kernels (K4-K7) are held against their
-plain versions and the warm solves against cold ones on the new weights.
-Tolerance is exact equality.
+plain versions and the warm solves against cold ones on the new weights;
+KSP's kernels (K8 build and seed, K9, K6's per-row seed) against their plain
+versions, the masked solve warm against cold, and a KSP2 route db against
+the CPU's. Tolerance is exact equality.
 """
 
 import numpy as np
@@ -22,14 +24,20 @@ from openr_tpu_torch.lsdb import LinkState, PrefixState
 from openr_tpu_torch.ops import _cuda
 from openr_tpu_torch.ops import spf
 from openr_tpu_torch.ops.graph import INF, compile_edges
-from openr_tpu_torch.solver import CudaSpfSolver
+from openr_tpu_torch.solver import CudaSpfSolver, SpfSolver
 from openr_tpu_torch.topology import (
     build_adj_dbs,
     fabric_edges,
     grid_edges,
     wan_edges,
 )
-from openr_tpu_torch.types import IpPrefix, PrefixDatabase, PrefixEntry
+from openr_tpu_torch.types import (
+    IpPrefix,
+    PrefixDatabase,
+    PrefixEntry,
+    PrefixForwardingAlgorithm,
+    PrefixForwardingType,
+)
 
 GRAPHS = {
     "grid": (grid_edges(6), {"g2_2", "g3_1"}),
@@ -327,3 +335,158 @@ def test_event_path_on_card_equals_cpu(dev):
     for key in ("decision.spf.incremental_solves", "decision.spf.full_solves",
                 "decision.spf.delta_columns", "decision.spf.delta_bytes"):
         assert runs["cpu"][2][key] == runs["cuda"][2][key], key
+
+
+# -- KSP: K8, K9, K6's per-row seed and the masked solves -------------------
+
+
+def ksp_masks(g, s, seed=0):
+    """Per-bucket [Mk, 3] mask lists for s batch columns: links of the
+    graph masked per column (both directions), a padding row, and entries
+    out of range in the slot and in the column (the build drops them, the
+    seed clips them)."""
+    rng = np.random.default_rng(seed)
+    links = sorted(g.link_edges) if g.link_edges else []
+    positions = []
+    for c in range(s):
+        if links and c % 3 != 1:  # every third column masks nothing
+            pick = rng.choice(len(links), size=min(4, len(links)),
+                              replace=False)
+            positions.append([p for i in pick for p in g.link_edges[links[i]]])
+        else:
+            positions.append(
+                list(rng.choice(g.e, size=min(6, g.e), replace=False))
+                if c % 3 != 1 else [])
+    masks = spf.sell_mask_arrays(g.sell, positions)
+    for k, nbr_k in enumerate(g.sell.nbr):
+        extra = np.array([[nbr_k.shape[0] - 1, nbr_k.shape[1] + 2, 0],
+                          [0, 0, s + 4]], dtype=np.int32)
+        masks[k] = np.concatenate([masks[k], extra])
+    return positions, masks
+
+
+@pytest.mark.parametrize("s", [1, 3, 33])
+@pytest.mark.parametrize("name", sell_graphs())
+def test_sell_mask_and_masked_relax_kernels_equal_plain(dev, name, s):
+    edges, ov = GRAPHS[name]
+    g = compile_edges(edges, ov)
+    _, masks = ksp_masks(g, s)
+    st = to_device(g, dev)
+    rows = sources_for(g)[:s]
+    if len(rows) < s:
+        rows = np.resize(rows, s)
+    src = torch.as_tensor(rows.astype(np.int32), device=dev)
+    m_t = [torch.as_tensor(m, device=dev) for m in masks]
+    before = _cuda.SELL_MASK.launches
+    bits = spf._sell_mask_bits(m_t, st["nbrs"], s)
+    assert _cuda.SELL_MASK.launches - before == len(m_t)
+    for m, b, nbr_k in zip(m_t, bits, st["nbrs"]):
+        assert torch.equal(b, spf._sell_mask_bits_plain(m, *nbr_k.shape, s))
+    d0 = spf._sell_d0(src, g.n_pad)
+    before = _cuda.SELL_RELAX_MASKED.launches
+    d_k, r_k = spf._sell_relax(
+        d0.clone(), src, st["ov"], st["nbrs"], st["wgs"], g.sell.zero_end,
+        g.sell.starts, bits,
+    )
+    assert (_cuda.SELL_RELAX_MASKED.launches - before
+            == r_k * len(g.sell.starts))
+    d_p, r_p = spf._sell_relax_plain(
+        d0, src, st["ov"], st["nbrs"],
+        spf._sell_masked_wgs_plain(st["wgs"], bits, s), g.sell.starts,
+    )
+    torch.cuda.synchronize()
+    assert r_k == r_p and torch.equal(d_k, d_p)
+    base = spf.sell_fixpoint(g.sell, rows, g.sell.wg, g.overloaded,
+                             device=dev)
+    marks, seeded = spf._sell_mask_seed(base, st["nbrs"], st["wgs"], m_t,
+                                        g.sell.starts)
+    want = spf._sell_mask_seed_plain(base, st["nbrs"], st["wgs"], m_t,
+                                     g.sell.starts)
+    torch.cuda.synchronize()
+    assert torch.equal(marks, want) and seeded == bool(want.any())
+
+
+@pytest.mark.parametrize("s", [1, 3, 33])
+@pytest.mark.parametrize("name", sell_graphs())
+def test_masked_solve_warm_equals_cold(dev, name, s):
+    edges, ov = GRAPHS[name]
+    g = compile_edges(edges, ov)
+    positions, _ = ksp_masks(g, s, seed=1)
+    rows = np.resize(sources_for(g), s).astype(np.int32)
+    st = to_device(g, dev)
+    arrays = (st["nbrs"], st["wgs"], st["ov"])
+    base = spf.sell_fixpoint(g.sell, rows, g.sell.wg, g.overloaded,
+                             device=dev)
+    cold = spf.sell_fixpoint_masked(g.sell, rows, g.overloaded, positions,
+                                    device_arrays=arrays, device=dev)
+    warm = spf.sell_fixpoint_masked(g.sell, rows, g.overloaded, positions,
+                                    device_arrays=arrays, d_prev=base,
+                                    device=dev)
+    cpu = spf.sell_fixpoint_masked(g.sell, rows, g.overloaded, positions,
+                                   device="cpu")
+    torch.cuda.synchronize()
+    assert torch.equal(warm, cold)
+    assert torch.equal(cold.cpu(), cpu)
+    for a, want in zip(st["wgs"], g.sell.wg):  # the base weights stay
+        assert np.array_equal(a.cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_bf_mark_per_row_seed_equals_plain(dev, name):
+    edges, ov = GRAPHS[name]
+    g = compile_edges(edges, ov)
+    rows = sources_for(g)
+    s = len(rows)
+    rng = np.random.default_rng(4)
+    w_rows = np.tile(g.w, (s, 1))
+    for i in range(s):
+        w_rows[i, rng.choice(g.e, size=min(5, g.e), replace=False)] = INF
+    st = to_device(g, dev)
+    src = torch.as_tensor(rows, device=dev)
+    w_rows_t = torch.as_tensor(w_rows, device=dev)
+    d_prev = spf.batched_spf(g, rows, device=dev)
+    args = (d_prev, st["src"], st["dst"], w_rows_t, st["w"], st["csr"])
+    m_k, r_k = spf._bf_invalidate(*args)
+    m_p, r_p = spf._bf_invalidate_plain(*args)
+    torch.cuda.synchronize()
+    assert r_k == r_p and torch.equal(m_k, m_p)
+    d, _, _ = spf._bf_warm_vw_core(src, st["src"], st["dst"], w_rows_t,
+                                   st["w"], st["ov"], d_prev, st["csr"])
+    cold = spf.batched_spf_vw(g, rows, w_rows, device=dev)
+    torch.cuda.synchronize()
+    assert torch.equal(d, cold)
+
+
+@pytest.mark.parametrize("warm", [True, False])
+@pytest.mark.parametrize("name", ["wan", "extreme"])
+def test_ksp2_route_db_on_card_equals_cpu(dev, name, warm):
+    edges, ov = GRAPHS[name]
+    if name == "extreme":  # a ring through the leaves: second paths exist
+        leaves = sorted({b for _, b, _ in edges})
+        edges = edges + [(a, b, 2) for a, b in zip(leaves, leaves[1:])]
+    ls = LinkState("0")
+    for db in build_adj_dbs(edges, overloaded_nodes=ov).values():
+        ls.update_adjacency_database(db)
+    names = sorted(ls.node_names())
+    me = names[0]
+    ps = PrefixState()
+    for i, node in enumerate(names[1::max(1, len(names) // 6)]):
+        ps.update_prefix_database(PrefixDatabase(node, [PrefixEntry(
+            IpPrefix(f"10.0.{i}.0/24"),
+            forwarding_type=PrefixForwardingType.SR_MPLS,
+            forwarding_algorithm=PrefixForwardingAlgorithm.KSP2_ED_ECMP,
+        )], area="0"))
+    solver = CudaSpfSolver(me, device=dev, warm_start=warm)
+    before = {k.name: k.launches for k in _cuda.KERNELS}
+    got = solver.build_route_db(me, {"0": ls}, ps)
+    torch.cuda.synchronize()
+    want = SpfSolver(me).build_route_db(me, {"0": ls}, ps)
+    assert got.unicast_entries == want.unicast_entries
+    assert got.mpls_entries == want.mpls_entries
+    assert solver.host_spf_calls == 0
+    solve = solver._solves[("0", me)][1]
+    assert solve.ksp_device_batches >= 1
+    assert (solve.ksp_warm_batches > 0) == warm
+    if solve.graph.sell is not None:
+        k = _cuda.SELL_RELAX_MASKED
+        assert k.launches > before[k.name]

@@ -4,9 +4,9 @@ The port's solver runs on the CPU here (device="cpu": its kernels' plain
 PyTorch versions). Its route db must equal the port's own SpfSolver oracle
 (same classes, compared with ==) and the JAX package's
 TpuSpfSolver(warm_start=False) (different classes: compared in a canonical
-form of sorted plain tuples with enums as values). KSP2 is not ported yet
-and is left out; every other case of the reference parity set is here,
-plus a link-flap and metric-change sequence through refresh(), and the
+form of sorted plain tuples with enums as values). The reference parity set
+is here without its KSP2 cases (those are in test_torch_ksp.py), plus a
+link-flap and metric-change sequence through refresh(), and the
 decision.spf.* counters against the reference's (`assert_spf_counters`).
 """
 
@@ -60,16 +60,23 @@ def build_ls(pkg, edges, area="0", overloaded=None):
     return ls
 
 
-def make_ps(pkg, announcers):
-    """announcers: {area: {node: [prefix]}}"""
+def make_ps(pkg, announcers, forwarding_type="IP",
+            forwarding_algorithm="SP_ECMP"):
+    """announcers: {area: {node: [prefix]}}; every entry has the forwarding
+    type and algorithm named (enum member names, resolved per package)."""
     _, ps_cls, _, types = pkg
+    ftype = types.PrefixForwardingType[forwarding_type]
+    falgo = types.PrefixForwardingAlgorithm[forwarding_algorithm]
     ps = ps_cls()
     for area, ann in announcers.items():
         for node, pfxs in ann.items():
             ps.update_prefix_database(
                 types.PrefixDatabase(
                     node,
-                    [types.PrefixEntry(types.IpPrefix(p)) for p in pfxs],
+                    [types.PrefixEntry(types.IpPrefix(p),
+                                       forwarding_type=ftype,
+                                       forwarding_algorithm=falgo)
+                     for p in pfxs],
                     area=area,
                 )
             )
@@ -104,10 +111,11 @@ def assert_spf_counters(port, ref):
 class Trio:
     """One topology held by three solvers: the port's CudaSpfSolver (CPU),
     the port's SpfSolver oracle and the JAX TpuSpfSolver (warm_start as
-    given; the port's solver warm-starts by default)."""
+    given; the port's solver takes port_warm_start, True by default).
+    ps_kw (forwarding_type, forwarding_algorithm) goes to make_ps."""
 
     def __init__(self, areas, announcers, me, overloaded=None, lfa=False,
-                 warm_start=False):
+                 warm_start=False, port_warm_start=True, **ps_kw):
         # areas: {area: edges}; announcers: {area: {node: [prefix]}}
         self.me = me
         pkgs = (("cuda", T), ("oracle", T), ("jax", J))
@@ -115,9 +123,12 @@ class Trio:
             name: {a: build_ls(pkg, e, a, overloaded) for a, e in areas.items()}
             for name, pkg in pkgs
         }
-        self.ps = {name: make_ps(pkg, announcers) for name, pkg in pkgs}
+        self.ps = {
+            name: make_ps(pkg, announcers, **ps_kw) for name, pkg in pkgs
+        }
         self.solvers = {
-            "cuda": CudaSpfSolver(me, compute_lfa_paths=lfa, device="cpu"),
+            "cuda": CudaSpfSolver(me, compute_lfa_paths=lfa, device="cpu",
+                                  warm_start=port_warm_start),
             "oracle": SpfSolver(me, compute_lfa_paths=lfa),
             "jax": TpuSpfSolver(me, compute_lfa_paths=lfa,
                                 warm_start=warm_start),
@@ -282,11 +293,3 @@ def test_edge_list_cold_solve_leaves_rounds_unset():
     assert solve.last_solve_warm and solve.rounds_last is not None
     assert_spf_counters(trio.solvers["cuda"], trio.solvers["jax"])
 
-
-def test_ksp_is_not_ported_yet():
-    solver = CudaSpfSolver("a", device="cpu")
-    ls = build_ls(T, [("a", "b", 1)])
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        solver._kth_paths(ls, "a", "b", 1)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        solver._prefetch_kth_paths(ls, "a", ["b"], 2)
