@@ -46,14 +46,38 @@ Phases, one JSON line each:
   ksp_star     KSP2 on the star with a ring through its leaves (edge-list
                layout): K6's per-row seed against its plain version, and
                route dbs warm (K6, K2) and cold (K2 per row)
+  apsp_wan     the resident all-pairs matrix at the production cap, on
+               bench.py's APSP graph wan_edges(4096, degree=4, seed=7)
+               (n_pad 4,096, 32 blocks of 128): the
+               cold close K11 against its plain version and against K1's
+               solve of all 4,096 sources, without and with 16 overloaded
+               nodes; then, counted, CudaSpfSolver("w0", apsp_max_nodes=
+               4096, compute_lfa_paths=True) builds route dbs from 8 other
+               nodes' perspectives (256 prefixes), each equal to the CPU
+               oracle's with no host Dijkstra, and answers four events
+               (one raised edge on a shortest path, about 40 raised pairs
+               with links down and decreases, more than 64 raised pairs,
+               an overload toggle), each matrix equal to a fresh cold close
+               and to the plain versions' composition, with their round
+               count; then K11-K13's times, bounds and plain times
+  lfa_clos     DeltaRouteBuilder over CudaSpfSolver(compute_lfa_paths=True,
+               apsp_max_nodes=4096) on the 3,956-node Clos through six
+               remote events and one into me's column: delta builds occur
+               under LFA, every db equals a full build and the CPU oracle's,
+               and the me-column event builds in full
   kernels      one line for all kernels: launches, error, ms, bounds
 
 Every path (main_path, event_wan, event_clos, star_flap, ksp_wan,
-ksp_star) runs with all launch counts set to 0 just before it and read just
-after, and fails if a kernel it drives was not launched. The card's name
-and power limit print on their own line before the last, and the last line
-is {"ok": true, "device": {...}}. Any failed check raises, and the script then exits non-zero without
-that line. It imports nothing of JAX or of the JAX package.
+ksp_star, apsp_wan, lfa_clos) runs with all launch counts set to 0 just
+before it and read just after, and fails if a kernel it drives was not
+launched. The (min,+) tile product of fw_minplus.cuh (K10 in the port's
+numbering) has no launch and no row of its own: it runs inside K11 and
+K13, whose results are held against their plain versions at full width,
+so it is checked through them. The card's name and power limit print on
+their own line before the last, and the last line is {"ok": true,
+"device": {...}}. Any failed check raises, and the script then exits
+non-zero without that line. It imports nothing of JAX or of the JAX
+package.
 """
 
 from __future__ import annotations
@@ -88,6 +112,11 @@ STAR_LEAVES = 1100  # hub in-degree past the sliced layout's cap
 # KSP2: BASELINE.json config 4's WAN, and the star with a ring through it
 KSP_WAN_N = 50000
 KSP_STAR_LEAVES = 1100
+# APSP: bench.py's _bench_apsp graph at the production node cap
+# (DecisionConfig.solver_apsp_max_nodes), and a Clos under it for LFA
+APSP_N = 4096
+LFA_CLOS_PODS = 70
+LFA_CLOS_NODES = 3956
 
 
 def emit(obj) -> None:
@@ -304,6 +333,7 @@ def main() -> int:
 
     import numpy as np
 
+    from openr_tpu_torch.apsp import kernels as fw
     from openr_tpu_torch.convert import to_device
     from openr_tpu_torch.lsdb import LinkState, PrefixState
     from openr_tpu_torch.ops import _cuda
@@ -1351,7 +1381,375 @@ def main() -> int:
         "card": card,
     })
 
-    # -- 13. kernels line, card, result ----------------------------------
+    # -- 13. apsp_wan: the resident all-pairs matrix at the cap -----------
+    K11, K12, K13 = _cuda.FW_CLOSE, _cuda.FW_SEED, _cuda.FW_RECLOSE
+    t0 = time.perf_counter()
+    apsp_edges = wan_edges(APSP_N, degree=4, seed=7)
+    ag = compile_edges(apsp_edges)
+    n_a = ag.n_pad
+    nb_a, bsz_a = fw.fw_block_shape(n_a)
+    check(ag.n == APSP_N and n_a == APSP_N, f"APSP WAN n {ag.n}, n_pad {n_a}")
+    rng = np.random.default_rng(7)
+
+    def dense(g):
+        return (
+            torch.as_tensor(fw.build_weight_matrix(g), device=dev),
+            torch.as_tensor(fw.build_allow_matrix(g.overloaded), device=dev),
+        )
+
+    # the cold close K11, against its plain version and K1's solve of every
+    # source (the bench's crossover comparison), without and with 16
+    # overloaded nodes
+    ov_nodes = set(rng.choice(ag.names[: ag.n], size=16, replace=False))
+    ag_ov = compile_edges(apsp_edges, ov_nodes)
+    check(int(ag_ov.overloaded.sum()) == 16, "16 overloaded nodes")
+    err11, cold_checks, closed = 0, {}, []
+    for label, g in (("open", ag), ("overloaded_16", ag_ov)):
+        w_t, allow_t = dense(g)
+        d_k, probe_k = fw.fw_close(w_t, allow_t)
+        d_p, probe_p = fw._fw_close_plain(w_t, allow_t)
+        err = max_abs_err(d_k, d_p)
+        check(err == 0 and int(probe_k) == int(probe_p),
+              f"K11 ({label}) differs from its plain version: {err}")
+        err11 = max(err11, err)
+        d_b = spf.batched_spf(g, np.arange(g.n, dtype=np.int32), device=dev)
+        check(torch.equal(d_k[: g.n], d_b),
+              f"K11 ({label}) differs from K1's all-sources solve")
+        cold_checks[label] = {
+            "unreachable": int((d_k[: g.n, : g.n] >= INF).sum()),
+            "max_finite": int(d_k[d_k < INF].max()),
+        }
+        closed.append(d_k)
+        del d_p, d_b
+    # the transit mask matters at full width: overloaded nodes relay
+    # nothing, so some distances rise and none falls
+    raised = int((closed[1] > closed[0]).sum())
+    check(raised > 0 and bool((closed[1] >= closed[0]).all()),
+          f"16 overloaded nodes raised {raised} distances")
+    cold_checks["overloaded_16"]["raised"] = raised
+    del closed, d_k
+    kernel_checks_s = time.perf_counter() - t0
+
+    # the solver: route dbs from 8 other perspectives, then four events
+    t0 = time.perf_counter()
+    apsp_ls = [build_ls(apsp_edges, LinkState, build_adj_dbs) for _ in "ab"]
+    a_names = sorted(apsp_ls[0].node_names())
+    apsp_ps = PrefixState()
+    for i, node in enumerate(sorted(rng.choice(a_names, size=256,
+                                               replace=False))):
+        apsp_ps.update_prefix_database(PrefixDatabase(
+            node, [PrefixEntry(IpPrefix(f"10.240.{i}.0/24"))], area="0"))
+    others = list(rng.choice([x for x in a_names if x != "w0"], size=8,
+                             replace=False))
+    apsp_setup_s = time.perf_counter() - t0
+
+    def apsp_oracle(other, got, what):
+        want = SpfSolver(other, compute_lfa_paths=True).build_route_db(
+            other, {"0": apsp_ls[0]}, apsp_ps)
+        check(got.unicast_entries == want.unicast_entries
+              and got.mpls_entries == want.mpls_entries,
+              f"{what}: route db of {other} differs from the CPU oracle")
+        return len(got.unicast_entries)
+
+    t0 = time.perf_counter()
+    paths.start()
+    asolver = CudaSpfSolver("w0", device=dev, apsp_max_nodes=APSP_N,
+                            compute_lfa_paths=True)
+    asolver.build_route_db("w0", {"0": apsp_ls[1]}, apsp_ps)
+    other_ms, other_routes = [], []
+    for other in others:
+        t = time.perf_counter()
+        got = asolver.build_route_db(other, {"0": apsp_ls[1]}, apsp_ps)
+        other_ms.append((time.perf_counter() - t) * 1e3)
+        paths.pause()
+        other_routes.append(apsp_oracle(other, got, "apsp_wan"))
+        paths.resume()
+    asolve = asolver._solves[("0", "w0")][1]
+    apsp = asolve.apsp
+    check(apsp.backend == "device" and apsp.cold_closes == 1,
+          f"the first close: backend {apsp.backend}, {apsp.cold_closes} cold")
+    first_close_ms = apsp.close_ms_last
+
+    def plain_warm(d_prev, w_prev, w_new):
+        """The plain versions' composition of a warm close: the seed, then
+        rounds until nothing changes. (d, rounds, slots, dirty0)."""
+        pairs = torch.nonzero(w_new > w_prev).cpu().numpy()
+        check(len(pairs) <= fw._APSP_PATCH_SLOTS, "warm event too wide")
+        p = _next_bucket(max(len(pairs), 1), minimum=8)
+        slots = np.zeros((3, p), dtype=np.int32)
+        slots[0] = fw.INCREASE_PAD
+        w_prev_h = w_prev.cpu().numpy()
+        for i, (u, v) in enumerate(pairs):
+            slots[:, i] = (u, v, w_prev_h[u, v])
+        iu, iv, iw = (torch.as_tensor(x, device=dev) for x in slots)
+        d, dirty, num = fw._fw_seed_plain(d_prev, w_new, iu, iv, iw, nb_a,
+                                          bsz_a)
+        nd, rounds, dirty0 = int(num), 0, int(num)
+        while nd:
+            kb = min(_next_bucket(nd, minimum=1), nb_a)
+            d, dirty, nd_t, changed = fw._fw_reclose_plain(
+                d, allow_a, dirty, nb_a, bsz_a, kb)
+            rounds += 1
+            if int(changed) == 0:
+                break
+            nd = int(nd_t)
+        return d, rounds, (iu, iv, iw), dirty0
+
+    ev_nodes = {name: i for i, name in enumerate(ag.names[: ag.n])}
+    d_now = apsp._d_dev
+    # 1: one directed edge on a shortest path raised (bench.py's event
+    # position, moved to the next edge that is a shortest path itself)
+    pos = ag.e // 2
+    while int(ag.w[pos]) != int(d_now[ag.src[pos], ag.dst[pos]]):
+        pos += 1
+    u1, v1 = ag.names[ag.src[pos]], ag.names[ag.dst[pos]]
+    ev1 = [(u1, v1, {"metric": int(ag.w[pos]) + 20})]
+    # 2: about 40 raised pairs: 30 metrics up, 5 links down (both
+    # directions), and 15 metrics down
+    erng = np.random.default_rng(11)
+    dirs = [(a, b) for a, b, _ in apsp_edges] + [
+        (b, a) for a, b, _ in apsp_edges]
+    pick = erng.choice(len(dirs), size=50, replace=False)
+    metric = {(a, b): m for a, b, m in apsp_edges}
+    metric.update({(b, a): m for a, b, m in apsp_edges})
+    ev2 = []
+    for j, idx in enumerate(pick):
+        a, b = dirs[idx]
+        if j < 30:
+            ev2.append((a, b, {"metric": metric[(a, b)]
+                               + int(erng.integers(1, 60))}))
+        elif j < 35:
+            ev2.append((a, b, {"is_overloaded": True}))
+        else:
+            ev2.append((a, b, {"metric": max(1, metric[(a, b)]
+                                             - int(erng.integers(1, 60)))}))
+    # 3: more than 64 raised pairs: the warm patch overflows, cold close
+    pick3 = erng.choice(len(dirs), size=80, replace=False)
+    ev3 = [(dirs[i][0], dirs[i][1], {"metric": 101 + int(erng.integers(
+        0, 50))}) for i in pick3]
+    events = [("raise_one", ev1, True), ("raise_40", ev2, True),
+              ("raise_80", ev3, False), ("overload_toggle", None, False)]
+    per_event = []
+    seed2 = None
+    for k, (name, edits, want_warm) in enumerate(events):
+        paths.pause()
+        d_prev, w_prev = apsp._d_dev.clone(), apsp._w_dev.clone()
+        inv0, warm0 = apsp.invalidations, apsp.warm_closes
+        if edits is None:
+            node = others[0]
+            for ls in apsp_ls:
+                db = ls.get_adjacency_databases()[node]
+                ls.update_adjacency_database(
+                    dataclasses.replace(db, is_overloaded=True))
+        else:
+            for a, b, changes in edits:
+                edit_adjacency(apsp_ls, a, b, **changes)
+        other = others[(k + 1) % len(others)]
+        paths.resume()
+        t = time.perf_counter()
+        got = asolver.build_route_db(other, {"0": apsp_ls[1]}, apsp_ps)
+        ev_ms = (time.perf_counter() - t) * 1e3
+        paths.pause()
+        apsp_oracle(other, got, name)
+        g_new = asolve.graph
+        w_new, allow_a = dense(g_new)
+        check(torch.equal(apsp._w_dev, w_new),
+              f"{name}: resident weights differ from the new graph's")
+        cold, _ = fw.fw_close(w_new, allow_a)
+        check(torch.equal(apsp._d_dev, cold),
+              f"{name}: the matrix differs from a fresh cold close")
+        warm = apsp.warm_closes > warm0
+        check(warm == want_warm, f"{name}: warm {warm}, want {want_warm}")
+        inc_pairs = int((w_new > w_prev).sum())
+        rec = {"event": name, "warm": warm, "increased_pairs": inc_pairs,
+               "decreased_pairs": int((w_new < w_prev).sum()),
+               "close_ms": apsp.close_ms_last, "route_build_ms": ev_ms,
+               "rounds": apsp.reclose_rounds_last,
+               "invalidations": apsp.invalidations - inv0}
+        if warm:
+            d_pl, rounds_pl, slots, dirty0 = plain_warm(d_prev, w_prev, w_new)
+            check(torch.equal(d_pl, apsp._d_dev)
+                  and rounds_pl == apsp.reclose_rounds_last,
+                  f"{name}: warm close differs from the plain composition "
+                  f"(rounds {apsp.reclose_rounds_last} vs {rounds_pl})")
+            rec["dirty_blocks_seeded"] = dirty0
+            if name == "raise_40":
+                seed2 = (d_prev, w_new, slots, dirty0, allow_a)
+            del d_pl
+        else:
+            d_pl, _ = fw._fw_close_plain(w_new, allow_a)
+            check(torch.equal(d_pl, apsp._d_dev) and rec["rounds"] is None,
+                  f"{name}: cold close differs from the plain close")
+            del d_pl
+        per_event.append(rec)
+        paths.resume()
+    torch.cuda.synchronize()
+    apsp_s = time.perf_counter() - t0
+    apsp_launches = paths.read("apsp_wan",
+                               (K1, K3, K4, K5, K7, K11, K12, K13))
+    check(per_event[1]["increased_pairs"] >= 30
+          and per_event[2]["increased_pairs"] > fw._APSP_PATCH_SLOTS
+          and per_event[2]["invalidations"] == 1,
+          f"event sizes {[e['increased_pairs'] for e in per_event]}")
+    check(asolver.host_spf_calls == 0,
+          f"{asolver.host_spf_calls} SPF answers from host Dijkstra")
+    counters = {k: v for k, v in asolver.counters.items()
+                if k.startswith("decision.spf.apsp_")}
+
+    # K11-K13's times beside their bounds and plain versions. A (min,+)
+    # product counts one operation per (i, j, m): its add and min are one
+    # DPX instruction (__viaddmin_s32) at the int32 lane rate
+    w_t, allow_t = dense(asolve.graph)
+    ms11 = time_ms(lambda: fw.fw_close(w_t, allow_t), reps=5, warmup=1)
+    plain_ms11 = time_ms(lambda: fw._fw_close_plain(w_t, allow_t), reps=1,
+                         warmup=0)
+    # the blocked sweep does nb^2 * B^3 = N^2 * B per stage, N^3 in all
+    b11_ms, b11_by = bound(9 * n_a * n_a + 4, n_a ** 3, rate)
+    d_prev2, w_new2, slots2, dirty02, allow2 = seed2
+    seed_args = (d_prev2, w_new2, *slots2, nb_a, bsz_a)
+    d0_2, dirty_2, num_2 = fw.fw_seed(*seed_args)
+    d0p, dirtyp, nump = fw._fw_seed_plain(*seed_args)
+    err12 = max(max_abs_err(d0_2, d0p), max_abs_err(dirty_2, dirtyp))
+    check(err12 == 0 and int(num_2) == int(nump) == dirty02,
+          f"K12 differs from its plain version: {err12}")
+    ms12 = time_ms(lambda: fw.fw_seed(*seed_args))
+    plain_ms12 = time_ms(lambda: fw._fw_seed_plain(*seed_args), reps=3,
+                         warmup=1)
+    # K12's work on this data: a row scans D once for each valid slot whose
+    # u it reaches, up to and including its first hit; an add, a min and a
+    # compare per entry
+    iu2, iv2, iw2 = slots2
+    valid2 = iu2 < n_a
+    done = torch.zeros(n_a, dtype=torch.bool, device=dev)
+    rows_scanned = 0
+    for q in torch.nonzero(valid2).flatten().tolist():
+        a_q = (d_prev2[:, int(iu2[q])] + iw2[q]).clamp_max(INF)
+        live = (a_q < INF) & ~done
+        rows_scanned += int(live.sum())
+        cand = (a_q[:, None] + d_prev2[int(iv2[q])][None, :]).clamp_max(INF)
+        done |= live & ((cand == d_prev2) & (d_prev2 < INF)).any(dim=1)
+    del cand
+    b12_ms, b12_by = bound(12 * n_a * n_a + n_a + 12 * iu2.numel(),
+                           3 * rows_scanned * n_a, rate)
+    kb2 = min(_next_bucket(dirty02, minimum=1), nb_a)
+
+    def fresh_round():
+        return (d0_2.clone(), dirty_2.clone())
+
+    def k13(d, dirty):
+        return fw.fw_reclose(d, allow2, dirty, nb_a, bsz_a, kb2)
+
+    def k13_plain(d, dirty):
+        return fw._fw_reclose_plain(d, allow2, dirty, nb_a, bsz_a, kb2)
+
+    d13, dirty13, counts13 = k13(*fresh_round())
+    d13p, dirty13p, num13p, ch13p = k13_plain(*fresh_round())
+    err13 = max(max_abs_err(d13, d13p), max_abs_err(dirty13, dirty13p))
+    check(err13 == 0 and counts13.tolist() == [int(num13p), int(ch13p)],
+          f"K13 differs from its plain version: {err13}")
+    del d13, d13p
+    ms13 = time_ms(k13, setup=fresh_round, reps=5)
+    plain_ms13 = time_ms(k13_plain, setup=fresh_round, reps=1, warmup=0)
+    # rule (a) and rule (b) are each a B * N^2 product per dirty block
+    b13_ms, b13_by = bound(9 * n_a * n_a + 3 * nb_a,
+                           2 * bsz_a * n_a * n_a * dirty02, rate)
+    emit({
+        "phase": "apsp_wan", "graph": f"wan_edges({APSP_N}, 4, 7)",
+        "n": ag.n, "n_pad": n_a, "e": ag.e, "blocks": nb_a, "block": bsz_a,
+        "overloaded": len(ov_nodes), "cold_checks": cold_checks,
+        "equal_plain": True, "equal_k1_all_sources": True,
+        "kernel_checks_seconds": kernel_checks_s,
+        "setup_seconds": apsp_setup_s, "seconds": apsp_s,
+        "other_nodes": others, "prefixes": 256,
+        "other_route_build_ms": other_ms, "routes": other_routes,
+        "first_close_ms": first_close_ms, "events": per_event,
+        "counters": counters, "launches": apsp_launches,
+        "host_spf_calls": asolver.host_spf_calls,
+        "k11": {"ms": ms11, "plain_ms": plain_ms11, "bound_ms": b11_ms},
+        "k12": {"slots": int(iu2.numel()), "valid": int(valid2.sum()),
+                "rows_scanned": rows_scanned, "dirty_blocks": dirty02,
+                "ms": ms12, "plain_ms": plain_ms12, "bound_ms": b12_ms},
+        "k13": {"kb": kb2, "dirty_blocks": dirty02, "ms": ms13,
+                "plain_ms": plain_ms13, "bound_ms": b13_ms},
+        "card": card,
+    })
+    for name, k, e, m_, pm, bm, bb in (
+        ("fw_close.cu", K11, err11, ms11, plain_ms11, b11_ms, b11_by),
+        ("fw_seed.cu", K12, err12, ms12, plain_ms12, b12_ms, b12_by),
+        ("fw_reclose.cu", K13, err13, ms13, plain_ms13, b13_ms, b13_by),
+    ):
+        results.append({
+            "name": k.name, "route": "cuda",
+            "source": f"openr_tpu_torch/ops/csrc/{name}",
+            "replaces": k.replaces, "launches": None, "max_abs_err": e,
+            "ms": m_, "plain_ms": pm, "bound_ms": bm, "bound_by": bb,
+            "library_ms": None,
+        })
+    del (asolver, asolve, apsp, apsp_ls, w_t, allow_t, seed2,
+         d_prev2, w_new2, allow2, d0_2, d0p, d_prev, w_prev, w_new, cold)
+
+    # -- 14. lfa_clos: DeltaPath under LFA on the Clos --------------------
+    t0 = time.perf_counter()
+    lfa_edges = fabric_edges(pods=LFA_CLOS_PODS)
+    lfa_ls = [build_ls(lfa_edges, LinkState, build_adj_dbs) for _ in "ab"]
+    check(lfa_ls[0].num_nodes() == LFA_CLOS_NODES, "LFA Clos node count")
+    l_names = sorted(lfa_ls[0].node_names())
+    lfa_ps = PrefixState()
+    for i, node in enumerate(sorted(np.random.default_rng(11).choice(
+            l_names, size=256, replace=False))):
+        lfa_ps.update_prefix_database(PrefixDatabase(
+            node, [PrefixEntry(IpPrefix(f"10.241.{i}.0/24"))], area="0"))
+    me = "rsw0_0"
+    lfa_kw = dict(device=dev, compute_lfa_paths=True, apsp_max_nodes=4096)
+    paths.start()
+    lbuilder = DeltaRouteBuilder(CudaSpfSolver(me, **lfa_kw))
+    ldb, _, used = lbuilder.build(me, {"0": lfa_ls[1]}, lfa_ps, None)
+    paths.pause()
+    check(not used, "the first LFA delta-builder build must be full")
+    check(lbuilder.solver.lfa_delta_ready(), "lfa_delta_ready is False")
+    lfull = CudaSpfSolver(me, **lfa_kw)
+    lfull.build_route_db(me, {"0": lfa_ls[1]}, lfa_ps)
+    lfa_events = [(name, edits) for name, edits, _ in clos_events()[:6]]
+    # the far side of one of me's links, INTO me: the me column moves, so
+    # every prefix's LFA threshold may move; the delta path must refuse it
+    lfa_events.append(("into_me", [("fsw0_1", me, {"metric": 3})]))
+    lfa_per_event = []
+    for name, edits in lfa_events:
+        for a, b, changes in edits:
+            edit_adjacency(lfa_ls, a, b, **changes)
+        paths.resume()
+        t = time.perf_counter()
+        ldb, _, used = lbuilder.build(me, {"0": lfa_ls[1]}, lfa_ps, ldb)
+        delta_ms = (time.perf_counter() - t) * 1e3
+        paths.pause()
+        t = time.perf_counter()
+        full_db = lfull.build_route_db(me, {"0": lfa_ls[1]}, lfa_ps)
+        full_ms = (time.perf_counter() - t) * 1e3
+        want = SpfSolver(me, compute_lfa_paths=True).build_route_db(
+            me, {"0": lfa_ls[0]}, lfa_ps)
+        for got in (ldb, full_db):
+            check(got.unicast_entries == want.unicast_entries
+                  and got.mpls_entries == want.mpls_entries,
+                  f"lfa_clos {name}: route db differs from the CPU oracle")
+        lfa_per_event.append({"event": name, "used_delta": used,
+                              "delta_ms": delta_ms, "full_ms": full_ms})
+    lfa_s = time.perf_counter() - t0
+    lfa_launches = paths.read("lfa_clos", (K1, K4, K5, K7))
+    check(lbuilder.delta_builds >= 1,
+          f"no delta build under LFA ({lbuilder.full_builds} full)")
+    check(not lfa_per_event[-1]["used_delta"],
+          "the event into me's column rode the delta path")
+    check(lbuilder.solver.host_spf_calls == 0, "host Dijkstra on lfa_clos")
+    emit({
+        "phase": "lfa_clos", "me": me, "nodes": LFA_CLOS_NODES,
+        "prefixes": 256, "seconds": lfa_s, "events": lfa_per_event,
+        "delta_builds": lbuilder.delta_builds,
+        "full_builds": lbuilder.full_builds, "launches": lfa_launches,
+        "host_spf_calls": lbuilder.solver.host_spf_calls, "card": card,
+    })
+    del lbuilder, lfull, lfa_ls
+
+    # -- 15. kernels line, card, result ----------------------------------
     for row in results:
         row["launches"] = paths.total(row["name"])
         row["launches_by_path"] = {

@@ -9,7 +9,9 @@ import: hosts without `nvcc` or a card import this module freely.
 A source may export several entry points (one `__global__` each); they
 share one library and, within one `Kernel`, one launch count. Two `Kernel`s
 may name the same source (K1 and K9 share `sell_relax.cu`): they share the
-library, which is built once, and count their launches apart. Every
+library, which is built once, and count their launches apart. A source may
+include a local header (`#include "fw_minplus.cuh"`); the library's name
+hashes the header too, so editing it rebuilds every source that uses it. Every
 pointer and the stream are passed as `ctypes.c_void_p` and every int as
 `ctypes.c_int`; each entry point returns `cudaGetLastError()` and a
 non-zero code raises. Launches go
@@ -21,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -61,8 +64,10 @@ class Kernel:
         self._lock = threading.Lock()
 
     def library_path(self) -> Path:
-        digest = hashlib.sha1(self.source.read_bytes()).hexdigest()[:12]
-        return _BUILD / f"{self.source.stem}.{digest}.so"
+        h = hashlib.sha1(self.source.read_bytes())
+        for header in _local_headers(self.source):
+            h.update(header.read_bytes())
+        return _BUILD / f"{self.source.stem}.{h.hexdigest()[:12]}.so"
 
     def compile_command(self, out: Path) -> List[str]:
         return [
@@ -98,6 +103,12 @@ class Kernel:
                 f"CUDA kernel {sym} failed to launch: cudaError {rc}"
             )
         self.launches += 1
+
+
+def _local_headers(source: Path) -> List[Path]:
+    """The headers of csrc/ that `source` includes with quotes."""
+    names = re.findall(r'^#include "([^"]+)"', source.read_text(), re.M)
+    return [source.parent / name for name in names]
 
 
 def _nvcc() -> str:
@@ -216,8 +227,42 @@ SELL_RELAX_MASKED = Kernel(
     },
     "openr_tpu/ops/spf.py:177 _sell_relax (per-row wg, from :933, :970)",
 )
+FW_CLOSE = Kernel(
+    "fw_close",
+    "fw_close.cu",
+    {
+        "fw_close_diag": [_P, _P, _I, _I, _I],
+        "fw_close_panels": [_P, _P, _I, _I, _I],
+        "fw_close_outer": [_P, _P, _I, _I, _I],
+        "fw_close_probe": [_P, _P, _I],
+    },
+    "openr_tpu/apsp/kernels.py:112 _fw_solver",
+)
+FW_SEED = Kernel(
+    "fw_seed",
+    "fw_seed.cu",
+    {
+        "fw_seed_rows": [_P, _P, _P, _P, _P, _P, _P, _I, _I],
+        "fw_seed_blocks": [_P, _P, _P, _I, _I],
+    },
+    "openr_tpu/apsp/kernels.py:178 _fw_seed_solver",
+)
+FW_RECLOSE = Kernel(
+    "fw_reclose",
+    "fw_reclose.cu",
+    {
+        "fw_reclose_compact": [_P, _P, _P, _I, _I],
+        "fw_reclose_rows": [_P, _P, _P, _P, _I, _I, _I],
+        "fw_reclose_rows_apply": [_P, _P, _P, _P, _I, _I, _I],
+        "fw_reclose_snapshot": [_P, _P, _P, _P, _P, _I, _I, _I],
+        "fw_reclose_step": [_P, _P, _P, _P, _P, _I, _I, _I],
+        "fw_reclose_finish": [_P, _P, _P, _P, _I],
+    },
+    "openr_tpu/apsp/kernels.py:231 _fw_reclose_solver",
+)
 KERNELS = (
     SELL_RELAX, BF_RELAX, ECMP_TRIANGLE,
     SELL_PATCH, SELL_MARK, BF_MARK, DELTA_EXTRACT,
     SELL_MASK, SELL_RELAX_MASKED,
+    FW_CLOSE, FW_SEED, FW_RECLOSE,
 )

@@ -33,8 +33,18 @@ sliced layout, `_bf_warm_vw_core` or `batched_spf_vw` on the edge-list
 one), warm-started from me's resident base row, and the paths are traced
 greedily on the host from the copied-back rows (`_trace_paths`).
 
-A source outside the solved batch is answered by the LinkState's own
-Dijkstra, and each such answer is counted in `host_spf_calls`.
+With `apsp_max_nodes` > 0 an area of at most that many nodes also keeps a
+resident all-pairs matrix (apsp/state.py `ApspState`: the blocked
+Floyd–Warshall close K11, warm re-closes K12 + K13), closed at the first
+read and re-closed warm per weight event. It answers every source outside
+the batch: `_spf` views (`_ApspSpfResult`, nexthops by the triangle test
+against its rows), `_dist`, route dbs built from another node's
+perspective, the LFA checks of those, and `borrow_apsp`; and it opens
+DeltaPath under LFA (`lfa_delta_ready`). An event that poisons the batch's
+warm solve invalidates it too. A source outside the batch that the matrix
+cannot answer (APSP off, or the area past the cap) is answered by the
+LinkState's own Dijkstra, and each such answer is counted in
+`host_spf_calls`.
 """
 
 from __future__ import annotations
@@ -45,6 +55,7 @@ from typing import Dict, List, Optional, Set, Tuple
 import numpy as np
 import torch
 
+from openr_tpu_torch.apsp import ApspState
 from openr_tpu_torch.convert import to_device, upload
 from openr_tpu_torch.device import DeviceLike, resolve_device
 from openr_tpu_torch.lsdb.link_state import Link, LinkState, Path
@@ -130,11 +141,21 @@ class _CudaSpfResult:
         return view
 
     def next_hops_of(self, dest: str) -> Set[str]:
-        """ECMP nexthop node set for source -> dest. Only solved from the
-        primary node's perspective, which is the only one the route
-        pipeline reads nexthop sets from; any other source fails fast
+        """ECMP nexthop node set for source -> dest. The batch solves
+        nexthop sets from the primary node's perspective only; for any
+        other source the resident all-pairs matrix answers (the same
+        triangle against its rows), and without one the call fails fast
         rather than serve a partial answer."""
         if self._source != self._area.sources[0]:
+            cached = self._nh_cache.get(dest)
+            if cached is not None:
+                return cached
+            if self._area.ensure_apsp():
+                nhs = _ApspSpfResult(
+                    self._area, self._source
+                ).next_hops_of(dest)
+                self._nh_cache[dest] = nhs
+                return nhs
             raise RuntimeError(
                 f"nexthop sets are only solved for {self._area.sources[0]}, "
                 f"requested for {self._source}"
@@ -149,6 +170,75 @@ class _CudaSpfResult:
             if col is not None:
                 names, mask = area.nh_mask()
                 nhs = {n for n, hit in zip(names, mask[:, col]) if hit}
+        self._nh_cache[dest] = nhs
+        return nhs
+
+
+class _ApspSpfResult:
+    """SpfResult-compatible view for a source OUTSIDE the solved batch,
+    backed by the area's resident all-pairs matrix.
+
+    Metrics read the source's row; nexthop sets come from the triangle
+    test the batch path uses, w(s, n) + D[n, t] == D[s, t] over s's
+    ordered up-links, with an overloaded neighbour valid only as the
+    destination itself, against rows of the one resident matrix."""
+
+    def __init__(self, area: "_AreaSolve", source: str):
+        self._area = area
+        self._source = source
+        self._src_row = area.graph.node_index[source]
+        self._nh_cache: Dict[str, Set[str]] = {}
+
+    def __contains__(self, dest: str) -> bool:
+        col = self._area.graph.node_index.get(dest)
+        if col is None:
+            return False
+        return self._area.apsp.d[self._src_row, col] < INF
+
+    def get(self, dest: str) -> Optional[_NodeView]:
+        col = self._area.graph.node_index.get(dest)
+        if col is None:
+            return None
+        metric = int(self._area.apsp.d[self._src_row, col])
+        if metric >= INF:
+            return None
+        return _NodeView(metric, self, dest)
+
+    def __getitem__(self, dest: str) -> _NodeView:
+        view = self.get(dest)
+        if view is None:
+            raise KeyError(dest)
+        return view
+
+    def next_hops_of(self, dest: str) -> Set[str]:
+        cached = self._nh_cache.get(dest)
+        if cached is not None:
+            return cached
+        nhs: Set[str] = set()
+        area = self._area
+        idx = area.graph.node_index
+        col = idx.get(dest)
+        d = area.apsp.d
+        if (
+            dest != self._source
+            and col is not None
+            and d[self._src_row, col] < INF
+        ):
+            ls = area.link_state
+            for link in ls.ordered_links_from_node(self._source):
+                if not link.is_up():
+                    continue
+                n = link.other_node_name(self._source)
+                ni = idx.get(n)
+                if ni is None:
+                    continue
+                # an overloaded neighbour relays nothing: valid only when it
+                # is itself the destination
+                if ls.is_node_overloaded(n) and n != dest:
+                    continue
+                w = link.metric_from_node(self._source)
+                if w + int(d[ni, col]) == int(d[self._src_row, col]):
+                    nhs.add(n)
         self._nh_cache[dest] = nhs
         return nhs
 
@@ -171,12 +261,25 @@ class _AreaSolve:
         me: str,
         device: torch.device,
         warm_start: bool = True,
+        apsp_max_nodes: int = 0,
+        apsp_audit_interval: int = 0,
     ) -> None:
         self.link_state = link_state
         self.me = me
         self.device = device
         self.warm_start = warm_start
         self.graph: CompiledGraph = compile_graph(link_state)
+        # resident all-pairs matrix: closed at the first consumer read,
+        # re-closed warm per weight event, poisoned with the batch's warm
+        # state; None when the apsp knob is off
+        self.apsp: Optional[ApspState] = None
+        if apsp_max_nodes > 0:
+            self.apsp = ApspState(
+                apsp_max_nodes,
+                audit_interval=apsp_audit_interval,
+                warm=warm_start,
+                device=device,
+            )
         self.device_solves = 0
         # decision.spf.* convergence counters
         self.incremental_solves = 0  # warm-started weight-patch solves
@@ -282,6 +385,21 @@ class _AreaSolve:
         # KSP: (dest, k) -> traced edge-disjoint path set for src == me;
         # reset with the snapshot, so topology changes invalidate it
         self._ksp: Dict[Tuple[str, int], List[Path]] = {}
+        # APSP staleness guard: an event that poisons the batch's warm
+        # solve (cold start, patch overflow, structural rebuild, overload
+        # change, a source-batch change) invalidates the resident all-pairs
+        # matrix too; a warm event leaves it, and its own ensure() re-closes
+        # the touched blocks
+        if self.apsp is not None and not self.last_solve_warm:
+            self.apsp.invalidate("batch_warm_poisoned")
+
+    def ensure_apsp(self) -> bool:
+        """Bring the resident all-pairs matrix current with this solve's
+        graph snapshot; False when APSP is off or the area exceeds the
+        node cap."""
+        if self.apsp is None:
+            return False
+        return self.apsp.ensure(self.graph)
 
     def _changed_edges(self, st: dict) -> np.ndarray:
         """Positions whose weight differs from the snapshot that produced
@@ -870,18 +988,27 @@ class CudaSpfSolver(SpfSolver):
     device: "cuda" (default) runs the hand-written kernels and raises when
     no card is present; "cpu" runs their plain PyTorch versions.
     warm_start: answer weight-only events from the resident fixpoint
-    (default), or solve every event cold."""
+    (default), or solve every event cold.
+    apsp_max_nodes: areas of up to this many nodes keep a resident
+    all-pairs matrix, which answers sources outside the batch (0: off).
+    apsp_audit_interval: shadow-audit every Nth close of that matrix
+    against the numpy Floyd–Warshall (0: never)."""
 
     def __init__(
         self,
         *args,
         device: DeviceLike = "cuda",
         warm_start: bool = True,
+        apsp_max_nodes: int = 0,
+        apsp_audit_interval: int = 0,
         **kwargs,
     ) -> None:
         super().__init__(*args, **kwargs)
         self.device = resolve_device(device)
         self.warm_start = warm_start
+        self.apsp_max_nodes = apsp_max_nodes
+        self.apsp_audit_interval = apsp_audit_interval
+        self.apsp_close_ms_last: Optional[float] = None
         # (area name, node) -> (LinkState identity, solve); keyed by the
         # stable area name so a replaced LinkState for the same area
         # overwrites its predecessor
@@ -913,7 +1040,12 @@ class CudaSpfSolver(SpfSolver):
             self._sync_spf_counters(solve, inc0, full0)
             return solve
         solve = _AreaSolve(
-            link_state, node, self.device, warm_start=self.warm_start
+            link_state,
+            node,
+            self.device,
+            warm_start=self.warm_start,
+            apsp_max_nodes=self.apsp_max_nodes,
+            apsp_audit_interval=self.apsp_audit_interval,
         )
         self.device_solves += solve.device_solves
         self._sync_spf_counters(solve, 0, 0)
@@ -977,13 +1109,53 @@ class CudaSpfSolver(SpfSolver):
             self._observe(
                 "decision.spf.delta_extract_ms", solve.delta_extract_ms_last
             )
-        # KSP batches run during the route build, after this sync: they
-        # reach the counter at the next one, as in the reference (whose
-        # _sync_apsp_counters ends its sync)
+        self._sync_apsp_counters(solve)
+
+    def _sync_apsp_counters(self, solve: _AreaSolve) -> None:
+        """Fold the solve's APSP and KSP-warm stats into the decision.spf.*
+        counters, at the end of every sync as the reference does: close
+        counts split warm/cold/fallback, staleness invalidations, shadow
+        audits, transfer bytes (monotonic), the re-close round gauge and
+        the close-latency histogram. KSP batches and APSP closes run during
+        the route build, after the sync: they reach the counters at the
+        next one."""
+        counters = self._ensure_counters()
         d_ksp = solve.ksp_warm_batches - solve._ksp_warm_synced
         if d_ksp:
             solve._ksp_warm_synced = solve.ksp_warm_batches
             self._bump("decision.spf.ksp_warm_batches", d_ksp)
+        apsp = solve.apsp
+        if apsp is None:
+            return
+        if apsp.close_ms_last is not None:
+            self.apsp_close_ms_last = apsp.close_ms_last
+        d_closes = apsp.closes - apsp._closes_synced
+        if d_closes:
+            apsp._closes_synced = apsp.closes
+            self._bump("decision.spf.apsp_closes", d_closes)
+            if apsp.close_ms_last is not None:
+                self._observe(
+                    "decision.spf.apsp_close_ms", apsp.close_ms_last
+                )
+        for attr, name in (
+            ("warm_closes", "decision.spf.apsp_warm_closes"),
+            ("cold_closes", "decision.spf.apsp_cold_closes"),
+            ("fallback_closes", "decision.spf.apsp_fallback_closes"),
+            ("invalidations", "decision.spf.apsp_invalidations"),
+            ("audit_runs", "decision.spf.apsp_audit_runs"),
+            ("audit_mismatches", "decision.spf.apsp_audit_mismatches"),
+            ("h2d_bytes", "decision.spf.apsp_h2d_bytes"),
+            ("d2h_bytes", "decision.spf.apsp_d2h_bytes"),
+        ):
+            value = getattr(apsp, attr)
+            synced = apsp._sync_marks.get(attr, 0)
+            if value > synced:
+                apsp._sync_marks[attr] = value
+                self._bump(name, value - synced)
+        if apsp.reclose_rounds_last is not None:
+            counters["decision.spf.apsp_reclose_rounds_last"] = (
+                apsp.reclose_rounds_last
+            )
 
     def poll_device_delta(
         self, area_link_states: Dict[str, LinkState]
@@ -1016,12 +1188,35 @@ class CudaSpfSolver(SpfSolver):
         return changed if ok else None
 
     def lfa_delta_ready(self) -> bool:
-        """DeltaPath-under-LFA gate (solver/delta.py): True only when every
-        area solve carries a resident all-pairs matrix. The port has none
-        yet (ROADMAP queue 1 item 9), so the delta route build keeps the
-        force-full behaviour under LFA, as the reference does with
-        apsp_max_nodes = 0."""
-        return False
+        """DeltaPath-under-LFA gate (solver/delta.py): True when every
+        resident area solve carries an all-pairs state within its node cap
+        (the LFA checks of alternate neighbours read its rows, and
+        poll_device_delta poisons an event that moves the me column).
+        Otherwise the delta build keeps the force-full behaviour under
+        LFA."""
+        if self.apsp_max_nodes <= 0 or not self._solves:
+            return False
+        return all(
+            solve.apsp is not None and solve.apsp.enabled_for(solve.graph)
+            for _, solve in self._solves.values()
+        )
+
+    def borrow_apsp(self, area: str, version: int) -> Optional[np.ndarray]:
+        """TE hard-scoring borrow: the exact [n, n] distance matrix for this
+        area's CURRENT weights, or None when no fresh matrix can serve:
+        another snapshot version, APSP off or the area past the node cap,
+        or overloaded (drained) nodes present, whose per-source transit
+        masks TE's pinned out-edges do not reproduce."""
+        cached = self._solves.get((area, self.my_node_name))
+        if cached is None:
+            return None
+        solve = cached[1]
+        g = solve.graph
+        if g.version != version or np.any(g.overloaded[: g.n]):
+            return None
+        if not solve.ensure_apsp():
+            return None
+        return solve.apsp.d[: g.n, : g.n]
 
     def invalidate_warm_state(self) -> None:
         """Drop every cached device solve: the next build_route_db compiles
@@ -1067,6 +1262,14 @@ class CudaSpfSolver(SpfSolver):
         solve = self._area_solve(link_state, self.my_node_name)
         if solve is not None and node in solve.row_map:
             return _CudaSpfResult(solve, node)
+        # a source outside the batch: the resident all-pairs matrix serves
+        # its whole row
+        if (
+            solve is not None
+            and node in solve.graph.node_index
+            and solve.ensure_apsp()
+        ):
+            return _ApspSpfResult(solve, node)
         self.host_spf_calls += 1
         return link_state.get_spf_result(node)
 
@@ -1079,6 +1282,13 @@ class CudaSpfSolver(SpfSolver):
             col = solve.graph.node_index.get(b)
             if row is not None and col is not None:
                 metric = int(solve.d[row, col])
+                return metric if metric < INF else None
+            if (
+                col is not None
+                and a in solve.graph.node_index
+                and solve.ensure_apsp()
+            ):
+                metric = int(solve.apsp.d[solve.graph.node_index[a], col])
                 return metric if metric < INF else None
         self.host_spf_calls += 1
         return link_state.get_metric_from_a_to_b(a, b)

@@ -12,18 +12,31 @@ out-of-range patches. The event-path kernels (K4-K7) are held against their
 plain versions and the warm solves against cold ones on the new weights;
 KSP's kernels (K8 build and seed, K9, K6's per-row seed) against their plain
 versions, the masked solve warm against cold, and a KSP2 route db against
-the CPU's. Tolerance is exact equality.
+the CPU's. The all-pairs kernels (K10 tile product, K11 close, K12 seed, K13
+re-close round) against their plain versions with overloaded nodes at one,
+four and 32 blocks, warm re-closes against cold closes, `ApspState` against
+the numpy Floyd-Warshall, and route dbs from other nodes' perspectives with
+LFA against the CPU's. Tolerance is exact equality.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
+from openr_tpu_torch.apsp import ApspState
+from openr_tpu_torch.apsp import kernels as fw
 from openr_tpu_torch.convert import to_device
 from openr_tpu_torch.lsdb import LinkState, PrefixState
 from openr_tpu_torch.ops import _cuda
 from openr_tpu_torch.ops import spf
-from openr_tpu_torch.ops.graph import INF, compile_edges
+from openr_tpu_torch.ops.graph import (
+    INF,
+    compile_edges,
+    compile_graph,
+    refresh_graph,
+)
 from openr_tpu_torch.solver import CudaSpfSolver, SpfSolver
 from openr_tpu_torch.topology import (
     build_adj_dbs,
@@ -490,3 +503,142 @@ def test_ksp2_route_db_on_card_equals_cpu(dev, name, warm):
     if solve.graph.sell is not None:
         k = _cuda.SELL_RELAX_MASKED
         assert k.launches > before[k.name]
+
+
+# -- all-pairs matrix (K11-K13) ---------------------------------------------
+
+
+def fw_inputs(n, seed, ov_frac=0.02):
+    """A sparse direct-edge matrix (INF holes, 0 diagonal) and its allow
+    mask with some overloaded nodes."""
+    rng = np.random.default_rng(seed)
+    w = np.full((n, n), INF, dtype=np.int32)
+    mask = rng.random((n, n)) < 4.0 / n
+    w[mask] = rng.integers(1, 50, size=int(mask.sum()))
+    np.fill_diagonal(w, 0)
+    ov = rng.random(n) < ov_frac
+    ov[:2] = True
+    return w, ov, rng
+
+
+@pytest.mark.parametrize("n", [64, 512, 4096])
+def test_fw_close_kernel_equals_plain(dev, n):
+    w, ov, _ = fw_inputs(n, n)
+    wt = torch.as_tensor(w, device=dev)
+    at = torch.as_tensor(fw.build_allow_matrix(ov), device=dev)
+    nb = fw.fw_block_shape(n)[0]
+    before = _cuda.FW_CLOSE.launches
+    d, probe = fw.fw_close(wt, at)
+    assert _cuda.FW_CLOSE.launches - before == (3 * nb if nb > 1 else 1) + 1
+    d_p, probe_p = fw._fw_close_plain(wt, at)
+    torch.cuda.synchronize()
+    assert torch.equal(d, d_p) and int(probe) == int(probe_p)
+    assert torch.equal(wt, torch.as_tensor(w, device=dev))
+    if n <= 512:
+        assert np.array_equal(d.cpu().numpy(), fw.np_floyd_warshall(w, ov))
+
+
+def _fw_event(w, rng, n_inc, n_dec):
+    present = np.argwhere((w < INF) & (w > 0))
+    pick = present[rng.choice(len(present), n_inc + n_dec, replace=False)]
+    w_new = w.copy()
+    p = 64
+    iu = np.full(p, fw.INCREASE_PAD, dtype=np.int32)
+    iv = np.zeros(p, dtype=np.int32)
+    iw = np.zeros(p, dtype=np.int32)
+    for i, (u, v) in enumerate(pick):
+        if i < n_inc:
+            iu[i], iv[i], iw[i] = u, v, w[u, v]
+            w_new[u, v] = INF if i % 3 == 0 else w[u, v] + rng.integers(1, 30)
+        else:
+            w_new[u, v] = max(1, w[u, v] - rng.integers(1, 30))
+    iu[n_inc], iv[n_inc], iw[n_inc] = 1, w.shape[0] + 5, 3  # v clipped
+    return w_new, iu, iv, iw
+
+
+@pytest.mark.parametrize("n", [64, 512, 4096])
+def test_fw_seed_and_reclose_kernels_equal_plain(dev, n):
+    """K12 and every K13 round against their plain versions, and the warm
+    fixpoint against a cold close of the new weights."""
+    w, ov, rng = fw_inputs(n, n + 1)
+    at = torch.as_tensor(fw.build_allow_matrix(ov), device=dev)
+    d_prev, _ = fw.fw_close(torch.as_tensor(w, device=dev), at)
+    w_new, iu, iv, iw = _fw_event(w, rng, 24, 8)
+    nb, bsz = fw.fw_block_shape(n)
+    args = (d_prev, torch.as_tensor(w_new, device=dev),
+            *(torch.as_tensor(x, device=dev) for x in (iu, iv, iw)), nb, bsz)
+    before = _cuda.FW_SEED.launches
+    d0, dirty, num = fw.fw_seed(*args)
+    assert _cuda.FW_SEED.launches == before + 2
+    d0_p, dirty_p, num_p = fw._fw_seed_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(d0, d0_p) and torch.equal(dirty, dirty_p)
+    assert int(num) == int(num_p) > 0
+    d_k, dirty_k, d_p, dirty_pl = d0, dirty, d0.clone(), dirty.clone()
+    nd, rounds = int(num), 0
+    while nd:
+        kb = min(1 << (nd - 1).bit_length(), nb)
+        d_k, dirty_k, counts = fw.fw_reclose(d_k, at, dirty_k, nb, bsz, kb)
+        d_p, dirty_pl, num_p, changed_p = fw._fw_reclose_plain(
+            d_p, at, dirty_pl, nb, bsz, kb)
+        torch.cuda.synchronize()
+        rounds += 1
+        assert torch.equal(d_k, d_p) and torch.equal(dirty_k, dirty_pl)
+        assert counts.tolist() == [int(num_p), int(changed_p)]
+        nd, changed = counts.tolist()
+        if changed == 0:
+            break
+        assert rounds <= nb + 4
+    cold, _ = fw.fw_close(torch.as_tensor(w_new, device=dev), at)
+    assert torch.equal(d_k, cold)
+
+
+def test_apsp_state_on_card_equals_numpy(dev):
+    edges = wan_edges(400, degree=4, seed=21)
+    ls = LinkState("0")
+    dbs = build_adj_dbs(edges)
+    for db in dbs.values():
+        ls.update_adjacency_database(db)
+    graph = compile_graph(ls)
+    card = ApspState(4096, device=dev)
+    cpu = ApspState(4096, device="cpu")
+    rng = np.random.default_rng(4)
+    for step in range(6):
+        if step:
+            a, b, _ = edges[rng.integers(len(edges))]
+            db = dbs[a]
+            dbs[a] = dataclasses.replace(db, adjacencies=[
+                dataclasses.replace(x, metric=int(rng.integers(1, 60)))
+                if x.other_node_name == b else x for x in db.adjacencies
+            ])
+            ls.update_adjacency_database(dbs[a])
+            graph = refresh_graph(graph, ls)
+        assert card.ensure(graph) and cpu.ensure(graph)
+        want = fw.np_floyd_warshall(fw.build_weight_matrix(graph),
+                                    graph.overloaded)
+        assert np.array_equal(card.d, want)
+        assert card.health() == cpu.health()
+    assert card.warm_closes > 0 and card.backend == "device"
+
+
+def test_other_node_route_dbs_on_card_equal_cpu(dev):
+    edges = grid_edges(6)
+    ls = LinkState("0")
+    for db in build_adj_dbs(edges, overloaded_nodes={"g2_2"}).values():
+        ls.update_adjacency_database(db)
+    ps = PrefixState()
+    for i, node in enumerate(["g5_5", "g0_5", "g3_1"]):
+        ps.update_prefix_database(PrefixDatabase(
+            node, [PrefixEntry(IpPrefix(f"10.0.{i}.0/24"))], area="0"))
+    solver = CudaSpfSolver("g0_0", device=dev, compute_lfa_paths=True,
+                           apsp_max_nodes=4096)
+    solver.build_route_db("g0_0", {"0": ls}, ps)
+    before = _cuda.FW_CLOSE.launches
+    for other in ("g3_3", "g5_0", "g1_4"):
+        got = solver.build_route_db(other, {"0": ls}, ps)
+        want = SpfSolver(other, compute_lfa_paths=True).build_route_db(
+            other, {"0": ls}, ps)
+        assert got.unicast_entries == want.unicast_entries
+        assert got.mpls_entries == want.mpls_entries
+    assert solver.host_spf_calls == 0
+    assert _cuda.FW_CLOSE.launches > before

@@ -54,6 +54,8 @@ def test_every_module_imports_without_jax_or_openr_tpu():
     mods = port_modules()
     assert "openr_tpu_torch.solver.cuda" in mods
     assert "openr_tpu_torch.solver.delta" in mods
+    assert "openr_tpu_torch.apsp.kernels" in mods
+    assert "openr_tpu_torch.apsp.state" in mods
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run(
         [sys.executable, "-c", _IMPORT_ALL, *mods],
@@ -109,6 +111,10 @@ def test_default_device_raises_without_a_card(monkeypatch):
         batched_spf(graph, [0])
     with pytest.raises(RuntimeError, match="no CUDA card"):
         CudaSpfSolver("a")
+    from openr_tpu_torch.apsp import ApspState
+
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        ApspState(4096)
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -161,3 +167,27 @@ def test_event_wrappers_run_plain_versions_on_cpu_tensors():
     )
     assert wg.tolist() == [[0, 0], [5, 0]]
     assert [k.launches for k in _cuda.KERNELS] == before
+
+
+def test_apsp_wrappers_run_plain_versions_on_cpu_tensors():
+    """K11-K13's wrappers on CPU tensors: plain versions, no launch; and
+    ApspState asks for the card by default."""
+    from openr_tpu_torch.apsp import ApspState
+    from openr_tpu_torch.apsp import kernels as fw
+    from openr_tpu_torch.ops import _cuda
+    from openr_tpu_torch.ops.graph import INF
+
+    before = [k.launches for k in _cuda.KERNELS]
+    w = torch.full((4, 4), INF, dtype=torch.int32)
+    w.fill_diagonal_(0)
+    w[0, 1] = w[1, 2] = 1
+    allow = torch.ones((4, 4), dtype=torch.bool)
+    d, probe = fw.fw_close(w, allow)
+    assert int(d[0, 2]) == 2 and int(probe) == 0
+    slots = [torch.tensor([fw.INCREASE_PAD], dtype=torch.int32)] * 3
+    d0, dirty, num = fw.fw_seed(d, w, *slots, 1, 4)
+    assert torch.equal(d0, d) and int(num) == 0
+    d1, _, counts = fw.fw_reclose(d0, allow, dirty | True, 1, 4, 1)
+    assert torch.equal(d1, d) and counts.tolist() == [1, 0]
+    assert [k.launches for k in _cuda.KERNELS] == before
+    assert ApspState(4, device="cpu").device == torch.device("cpu")

@@ -30,6 +30,7 @@ from openr_tpu_torch.ops.graph import INF
 from openr_tpu_torch.topology import build_adj_dbs as t_build_adj_dbs
 from openr_tpu_torch.topology import grid_edges, wan_edges
 
+from test_torch_memory import release_memory_around_each_test  # noqa: F401
 from test_torch_solver import PFXS, Trio, assert_spf_counters
 
 CPU = torch.device("cpu")

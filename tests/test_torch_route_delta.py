@@ -90,7 +90,9 @@ class DeltaHarness:
                 self.builders["jax"], count
             )
         oracle = SpfSolver(self.me, **{
-            k: v for k, v in self.solver_kwargs.items() if k != "warm_start"
+            k: v for k, v in self.solver_kwargs.items()
+            if k not in ("warm_start", "apsp_max_nodes",
+                         "apsp_audit_interval")
         }).build_route_db(self.me, self.als("port"), self.pair.ps["port"])
         assert_db_equal(oracle, self.db["port"])
         return used["port"]
