@@ -65,12 +65,37 @@ Phases, one JSON line each:
                remote events and one into me's column: delta builds occur
                under LFA, every db equals a full build and the CPU oracle's,
                and the me-column event builds in full
+  te_clos      differentiable TE at full width on the same 3,956-node Clos
+               (fabric_edges(70), 63,840 directed edges, metric 1), 4,096
+               seeded rsw->rsw demands in 4 scenarios, 128 rounds: first,
+               not counted, one launch each of K14 (softmin round), K15
+               (its backward), K16 (gate, flow round, utilization), K17
+               (adjoint round, gate backward) and K18 (MLU, seed, Adam)
+               against their plain versions on the card at a mid-anneal tau
+               (0.5) from the D of 128 rounds, with times; then, counted,
+               adam_solve for 8 steps (per-step ms, launches per step, peak
+               memory, first and last loss, all finite); then two steps
+               under torch.profiler (device busy share, kernel time by
+               name); then, not counted,
+               8 steps on fabric_edges(4) (260 nodes, seeded metrics)
+               against the plain versions differentiated by autograd on
+               the card
+  te_service   TeService(device="cuda") on the bench's congested 6-node
+               fixture: at the bench's settings (48 steps, 4 scenarios)
+               the CPU run's proposal and scores, best of 3 timed runs
+               after a first; at the acceptance test's (one scenario) 6.0
+               -> 2.0 with the CPU run's proposal; and
+               TeService over CudaSpfSolver(apsp_max_nodes=4096) on
+               fabric_edges(2) (148 nodes) after a route build: one
+               all-pairs borrow (K11), the initial scores equal the CPU
+               run's (a failed card run raises: the service has no CPU
+               fallback)
   kernels      one line for all kernels: launches, error, ms, bounds
 
 Every path (main_path, event_wan, event_clos, star_flap, ksp_wan,
-ksp_star, apsp_wan, lfa_clos) runs with all launch counts set to 0 just
-before it and read just after, and fails if a kernel it drives was not
-launched. The (min,+) tile product of fw_minplus.cuh (K10 in the port's
+ksp_star, apsp_wan, lfa_clos, te_clos, te_service) runs with all launch
+counts set to 0 just before it and read just after, and fails if a kernel
+it drives was not launched. The (min,+) tile product of fw_minplus.cuh (K10 in the port's
 numbering) has no launch and no row of its own: it runs inside K11 and
 K13, whose results are held against their plain versions at full width,
 so it is checked through them. The card's name and power limit print on
@@ -100,6 +125,9 @@ _HBM_DEFAULT = 3.35e12
 # int32 add/min outside the tensor cores: 64 lanes/SM/clock x 132 SMs x
 # 1.98 GHz boost (the data sheet's 67 TFLOP/s fp32 counts an FMA as two)
 _INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# float32 exp/log in the special function units: 16/SM/clock (CUDA C
+# Programming Guide throughput table, compute capability 9.0)
+_MUFU_OPS_PER_S = 16 * 132 * 1.98e9
 
 # the main path's sizes: the north-star WAN, the grid of the ECMP bench and
 # the Clos of the 9,556-node fabric configuration
@@ -117,6 +145,14 @@ KSP_STAR_LEAVES = 1100
 APSP_N = 4096
 LFA_CLOS_PODS = 70
 LFA_CLOS_NODES = 3956
+# differentiable TE: the LFA Clos at full width, and the smaller Closes of
+# the whole-chain check and the borrow
+TE_CLOS_PODS = 70
+TE_CLOS_NODES = 3956
+TE_STEPS = 8
+TE_DEMANDS = 4096
+TE_CHAIN_PODS = 4
+TE_BORROW_PODS = 2
 
 
 def emit(obj) -> None:
@@ -165,6 +201,39 @@ def time_ms(fn, reps: int = 7, warmup: int = 2, setup=None) -> float:
     return statistics.median(times)
 
 
+def profile_window(fn) -> dict:
+    """One call of `fn` under torch.profiler: its wall ms (the profiler's
+    host cost included), the device time of its kernels and copies summed
+    by name, and the device's busy share, their sum over the wall time.
+    The call runs all the same; where the profiler fails or records no
+    device time, the result says "not measured" and why."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+    except RuntimeError as exc:  # a profiler that cannot trace the card
+        fn()
+        return {"not_measured": f"torch.profiler failed: {exc}"}
+    by_name = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[ev.name] = (by_name.get(ev.name, 0.0)
+                                + ev.time_range.elapsed_us() / 1e3)
+    if not by_name:
+        return {"not_measured": "torch.profiler recorded no device time"}
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"wall_ms": wall_ms, "device_ms": busy,
+            "busy_share": busy / wall_ms, "top_ms": dict(top)}
+
+
 def max_abs_err(a, b) -> int:
     check(a.shape == b.shape, f"shape {tuple(a.shape)} != {tuple(b.shape)}")
     if a.numel() == 0:
@@ -172,9 +241,36 @@ def max_abs_err(a, b) -> int:
     return int((a.long() - b.long()).abs().max())
 
 
-def bound(bytes_: float, ops: float, rate: float):
+def rel_err(a, b) -> float:
+    """max |a - b| over max |b|, in float64: the float32 kernels' error."""
+    check(a.shape == b.shape, f"shape {tuple(a.shape)} != {tuple(b.shape)}")
+    if a.numel() == 0:
+        return 0.0
+    diff = (a.double() - b.double()).abs().max()
+    return float(diff / b.double().abs().max().clamp_min(1e-30))
+
+
+def te_demand_spec(names, count, seed):
+    """A seeded spec of `count` rsw -> rsw demands, loads uniform in [0.5,
+    4], 4 scenarios with spread 0.5, capacities 1.0."""
+    import numpy as np
+
+    rsw = [x for x in names if x.startswith("rsw")]
+    rng = np.random.default_rng(seed)
+    pairs = rng.choice(len(rsw), size=(count, 2))
+    loads = rng.uniform(0.5, 4.0, size=count)
+    return {
+        "demands": [[rsw[a], rsw[b], float(x)]
+                    for (a, b), x in zip(pairs, loads) if a != b],
+        "capacities": {"default": 1.0},
+        "scenarios": 4, "scenario_spread": 0.5,
+    }
+
+
+def bound(bytes_: float, ops: float, rate: float,
+          ops_rate: float = _INT32_OPS_PER_S):
     t_bytes = bytes_ / rate * 1e3
-    t_ops = ops / _INT32_OPS_PER_S * 1e3
+    t_ops = ops / ops_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -334,14 +430,23 @@ def main() -> int:
     import numpy as np
 
     from openr_tpu_torch.apsp import kernels as fw
-    from openr_tpu_torch.convert import to_device
+    from openr_tpu_torch.convert import te_inputs, to_device
     from openr_tpu_torch.lsdb import LinkState, PrefixState
     from openr_tpu_torch.ops import _cuda
     from openr_tpu_torch.ops import spf
-    from openr_tpu_torch.ops.graph import INF, _next_bucket, compile_edges
+    from openr_tpu_torch.ops.graph import (
+        INF, _next_bucket, compile_edges, compile_graph,
+    )
     from openr_tpu_torch.solver import (
         CudaSpfSolver, DeltaRouteBuilder, SpfSolver,
     )
+    from openr_tpu_torch.te import (
+        TeService, build_demand_scenarios, congested_clos_fixture,
+        te_edge_arrays,
+    )
+    from openr_tpu_torch.te import kernels as tk
+    from openr_tpu_torch.te import objective as teo
+    from openr_tpu_torch.te import optimizer as teopt
     from openr_tpu_torch.topology import (
         build_adj_dbs, fabric_edges, grid_edges, wan_edges,
     )
@@ -1749,7 +1854,378 @@ def main() -> int:
     })
     del lbuilder, lfull, lfa_ls
 
-    # -- 15. kernels line, card, result ----------------------------------
+    # -- 15. te_clos: differentiable TE at full width --------------------
+    K14, K15, K16, K17, K18 = (
+        _cuda.SOFTMIN_ROUND, _cuda.SOFTMIN_BWD, _cuda.SOFT_FLOW,
+        _cuda.SOFT_FLOW_BWD, _cuda.TE_STEP,
+    )
+    t0 = time.perf_counter()
+    te_ls = build_ls(fabric_edges(pods=TE_CLOS_PODS), LinkState,
+                     build_adj_dbs)
+    te_g = compile_graph(te_ls)
+    check(te_g.n == TE_CLOS_NODES, f"TE Clos n {te_g.n}")
+    te_src, te_dst, te_w0, te_up = te_edge_arrays(te_g)
+    te_spec = te_demand_spec(te_g.names[: te_g.n], TE_DEMANDS, seed=11)
+    te_dem, te_caps, te_b = build_demand_scenarios(te_g, te_spec, seed=0)
+    inp = te_inputs(te_src, te_dst, te_w0, te_up, te_dem, te_caps, dev)
+    del te_dem
+    graph, up_t, caps_t, dem_t = (inp["graph"], inp["up"], inp["caps"],
+                                  inp["demands"])
+    n_t, e_t = graph.n, graph.e
+    te_setup_s = time.perf_counter() - t0
+    cfg = teopt.TeOptConfig()
+    te_rounds = max(2, min(n_t, 128))
+
+    # one launch of each entry against its plain version on the card, at
+    # tau 0.5 from the D of te_rounds rounds, the state each step's gate,
+    # flow and backward see (K14's fold outcome feeds both backward
+    # versions, so they decide the same ties); tolerance 1e-5 of the
+    # largest magnitude (float32 sums in another order), F_INF entries
+    # exactly
+    t0 = time.perf_counter()
+    tau = 0.5
+    we = teo.edge_weights(inp["w"], up_t)
+    with torch.no_grad():
+        d_run = teo.softmin_core(we, graph, tau, te_rounds)
+    d_run_unreached = int((d_run >= tk.F_INF / 2).sum())
+    te_err, te_abs = {}, {}
+
+    def te_cmp(key, a, b):
+        """Fold one output's errors into kernel `key`'s: (max |a - b|, and
+        that over max |b|)."""
+        te_abs[key] = max(te_abs.get(key, 0.0), float(
+            (a.double() - b.double()).abs().max()) if a.numel() else 0.0)
+        te_err[key] = max(te_err.get(key, 0.0), rel_err(a, b))
+        return te_err[key]
+
+    new_k, keep = tk.softmin_round(d_run, we, graph, tau)
+    new_p, _ = tk._softmin_round_plain(d_run, we, graph, tau)
+    fin = new_p < tk.F_INF / 2
+    check(torch.equal(new_k[~fin], new_p[~fin]),
+          "K14: F_INF entries differ from the plain version")
+    te_cmp("K14", new_k[fin], new_p[fin])
+    del new_p, fin
+    gen = torch.Generator(dev).manual_seed(5)
+    g_new = torch.randn((n_t, n_t), device=dev, generator=gen)
+    gk = tk.softmin_round_bwd(g_new, d_run, keep, we, graph, tau)
+    gp = tk._softmin_round_bwd_plain(g_new, d_run, keep, we, graph, tau)
+    te_cmp("K15", gk[0], gp[0])
+    te_cmp("K15", gk[1], gp[1])
+    del gk, gp
+    p_k = tk.soft_gate(d_run, we, up_t, graph, tau)
+    p_p = tk._soft_gate_plain(d_run, we, up_t, graph, tau)
+    err16 = {"gate": te_cmp("K16", p_k, p_p)}
+    del p_p
+    eye = torch.eye(n_t, dtype=torch.bool, device=dev)
+    x0 = dem_t.masked_fill(eye, 0.0)
+    del eye
+    xs_k, xs_p = torch.zeros_like(x0), torch.zeros_like(x0)
+    x1_k = tk.soft_flow_round(p_k, x0, xs_k, graph)
+    x1_p = tk._soft_flow_round_plain(p_k, x0, xs_p, graph)
+    te_cmp("K16", xs_k, xs_p)
+    err16["round"] = te_cmp("K16", x1_k, x1_p)
+    del x1_p, xs_p
+    util_k = tk.soft_flow_util(p_k, xs_k, caps_t, graph)
+    err16["util"] = te_cmp(
+        "K16", util_k, tk._soft_flow_util_plain(p_k, xs_k, caps_t, graph))
+    g_util = torch.randn(util_k.shape, device=dev, generator=gen)
+    gpk, gpp = torch.empty_like(p_k), torch.empty_like(p_k)
+    lam_k = tk.soft_flow_bwd_round(p_k, g_util, caps_t, None, x1_k, gpk,
+                                   graph, True)
+    lam_p = tk._soft_flow_bwd_round_plain(p_k, g_util, caps_t, None, x1_k,
+                                          gpp, graph, True)
+    lam_k = tk.soft_flow_bwd_round(p_k, g_util, caps_t, lam_k, x0, gpk,
+                                   graph, False)
+    lam_p = tk._soft_flow_bwd_round_plain(p_k, g_util, caps_t, lam_p, x0,
+                                          gpp, graph, False)
+    te_cmp("K17", lam_k, lam_p)
+    err17 = {"round": te_cmp("K17", gpk, gpp)}
+    del lam_p
+    gd_k = tk.soft_gate_bwd(gpk.clone(), d_run, we, up_t, graph, tau)
+    gd_p = tk._soft_gate_bwd_plain(gpp, d_run, we, up_t, graph, tau)
+    te_cmp("K17", gd_k[0], gd_p[0])
+    err17["gate"] = te_cmp("K17", gd_k[1], gd_p[1])
+    del gd_k, gd_p, gpp
+    mask_t = torch.ones(te_b, dtype=torch.float32, device=dev)
+    loss_k, lse_k = tk.te_mlu(util_k, mask_t, cfg.tau_obj)
+    loss_p, lse_p = tk._te_mlu_plain(util_k, mask_t, cfg.tau_obj)
+    one = torch.ones(1, device=dev)
+    gu_k = tk.te_mlu_bwd(one, util_k, lse_k, mask_t, cfg.tau_obj)
+    gu_p = tk._te_mlu_bwd_plain(one, util_k, lse_k, mask_t, cfg.tau_obj)
+    hp = tk.adam_hparams(cfg, 3)
+    g_w = torch.randn(e_t, device=dev, generator=gen)
+
+    def adam_state():
+        return [inp["w"].clone(), torch.full_like(inp["w"], 0.01),
+                torch.full_like(inp["w"], 1e-4), torch.empty_like(inp["w"])]
+
+    ad_k, ad_p = adam_state(), adam_state()
+    tk.te_adam(*ad_k[:3], g_w, up_t, ad_k[3], hp)
+    tk._te_adam_plain(*ad_p[:3], g_w, up_t, ad_p[3], hp)
+    for a, b in ((loss_k, loss_p), (lse_k, lse_p), (gu_k, gu_p),
+                 *zip(ad_k, ad_p)):
+        te_cmp("K18", a, b)
+    torch.cuda.synchronize()
+    for name, err in te_err.items():
+        check(err <= 1e-5, f"{name} differs from its plain version: {err}")
+
+    # times at this size: the kernels, their plain versions, their bounds
+    te_ms, te_plain_ms, te_bound, te_lib = {}, {}, {}, {}
+    te_ms["K14"] = time_ms(lambda: tk.softmin_round(d_run, we, graph, tau))
+    te_plain_ms["K14"] = time_ms(
+        lambda: tk._softmin_round_plain(d_run, we, graph, tau), reps=3,
+        warmup=1)
+    te_ms["K15"] = time_ms(
+        lambda: tk.softmin_round_bwd(g_new, d_run, keep, we, graph, tau))
+    te_plain_ms["K15"] = time_ms(
+        lambda: tk._softmin_round_bwd_plain(g_new, d_run, keep, we, graph,
+                                            tau), reps=3, warmup=1)
+    te_ms["K16"] = time_ms(lambda: tk.soft_flow_round(p_k, x0, xs_k, graph))
+    te_plain_ms["K16"] = time_ms(
+        lambda: tk._soft_flow_round_plain(p_k, x0, None, graph), reps=3,
+        warmup=1)
+    te_ms["K17"] = time_ms(lambda: tk.soft_flow_bwd_round(
+        p_k, g_util, caps_t, lam_k, x0, gpk, graph, False))
+    te_plain_ms["K17"] = time_ms(lambda: tk._soft_flow_bwd_round_plain(
+        p_k, g_util, caps_t, lam_k, x0, gpk.clone(), graph, False), reps=3,
+        warmup=1)
+    te_ms["K18"] = time_ms(lambda: tk.te_adam(*ad_k[:3], g_w, up_t, ad_k[3],
+                                              hp))
+    te_plain_ms["K18"] = time_ms(
+        lambda: tk._te_adam_plain(*ad_p[:3], g_w, up_t, ad_p[3], hp))
+    side_ms = {
+        "K16_gate": time_ms(lambda: tk.soft_gate(d_run, we, up_t, graph,
+                                                 tau)),
+        "K16_util": time_ms(lambda: tk.soft_flow_util(p_k, xs_k, caps_t,
+                                                      graph)),
+        "K17_gate_bwd": time_ms(lambda: tk.soft_gate_bwd(
+            gpk.clone(), d_run, we, up_t, graph, tau)),
+        "K18_mlu": time_ms(lambda: tk.te_mlu(util_k, mask_t, cfg.tau_obj)),
+        "K18_mlu_bwd": time_ms(lambda: tk.te_mlu_bwd(
+            one, util_k, lse_k, mask_t, cfg.tau_obj)),
+    }
+    # the library yardstick of the Adam step: PyTorch's fused Adam on [E]
+    # (the port never calls it)
+    lib_w = inp["w"].clone().requires_grad_(True)
+    lib_w.grad = g_w.clone()
+    lib_opt = torch.optim.Adam([lib_w], lr=cfg.lr, betas=(cfg.beta1,
+                                                         cfg.beta2),
+                               eps=cfg.eps, fused=True)
+    te_lib["K18"] = time_ms(lib_opt.step)
+    del lib_opt, lib_w
+    # bounds: each input read once, each output written once; exp and log
+    # at the special-function rate. K14: D, we and the edge layout in, D'
+    # and keep out, E*N exp; K15: g', D, keep, we in, g_prev and g_we out,
+    # E*N exp (the softmax weights, once); K16 (a flow round): p and B x in,
+    # B xsum read and written, B x' out; K17 (an adjoint round): p, B g_util,
+    # B lam', B x_r and g_p in, B lam and g_p out; K18 (Adam): w, m, v, g,
+    # up in, w, m, v and the trajectory row out
+    nn_t, b_t = n_t * n_t, te_b
+    topo = 4 * (3 * e_t + 2 * (n_t + 1))
+    te_bound["K14"] = bound(9 * nn_t + 4 * e_t + topo, e_t * n_t + nn_t,
+                            rate, _MUFU_OPS_PER_S)
+    te_bound["K15"] = bound(13 * nn_t + 8 * e_t + topo, e_t * n_t + nn_t,
+                            rate, _MUFU_OPS_PER_S)
+    te_bound["K16"] = bound(4 * e_t * n_t + 16 * b_t * nn_t + topo, 0, rate)
+    te_bound["K17"] = bound(12 * e_t * n_t + 12 * b_t * nn_t
+                            + 4 * b_t * e_t + topo, 0, rate)
+    te_bound["K18"] = bound(33 * e_t, 0, rate)
+    gate_share = float((p_k > 0).float().mean())
+    del (d_run, new_k, keep, g_new, p_k, x0, xs_k, x1_k, util_k, g_util,
+         gpk, lam_k, ad_k, ad_p)
+    torch.cuda.empty_cache()
+    te_checks_s = time.perf_counter() - t0
+
+    # counted: adam_solve for TE_STEPS steps at full width
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    paths.start()
+    t0 = time.perf_counter()
+    w_fin, w_hist, losses = teopt.adam_solve(
+        inp["w"], dem_t, mask_t, caps_t, graph, up_t, cfg, te_rounds,
+        TE_STEPS)
+    torch.cuda.synchronize()
+    te_solve_s = time.perf_counter() - t0
+    te_launches = paths.read("te_clos", (K14, K15, K16, K17, K18))
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses_h = losses.cpu().numpy()
+    check(bool(np.isfinite(losses_h).all())
+          and bool(torch.isfinite(w_hist).all()),
+          "te_clos: a loss or a weight is not finite")
+    check(peak_gb < 48, f"te_clos peak memory {peak_gb:.1f} GiB")
+    moved = int((w_hist[-1] != inp["w"]).sum())
+    del w_fin, w_hist, losses
+    # two more steps under torch.profiler, outside the counted run
+    te_profile = profile_window(lambda: teopt.adam_solve(
+        inp["w"], dem_t, mask_t, caps_t, graph, up_t, cfg, te_rounds, 2))
+    del dem_t, inp, we, mask_t
+    torch.cuda.empty_cache()
+
+    # the whole chain on a smaller Clos with seeded metrics 1..9: kernels
+    # against the plain versions differentiated by autograd on the card;
+    # losses within 1e-4, weights within 5e-3. Adam normalises each step by
+    # the gradient's root mean square, so a component whose gradient is
+    # small moves by up to lr (0.4) times its relative rounding difference
+    # per step (1.1e-3 after 8 steps on a 148-node Clos between the two on
+    # the CPU); with uniform metrics the Clos is symmetric, its exact
+    # gradient is zero on many edges, and both versions step on rounding
+    # alone, so the chain uses seeded metrics
+    t0 = time.perf_counter()
+    ch_rng = np.random.default_rng(4)
+    ch_g = compile_graph(build_ls(
+        [(a, b, int(ch_rng.integers(1, 10)))
+         for a, b, _ in fabric_edges(pods=TE_CHAIN_PODS)],
+        LinkState, build_adj_dbs))
+    ch_src, ch_dst, ch_w0, ch_up = te_edge_arrays(ch_g)
+    ch_spec = te_demand_spec(ch_g.names[: ch_g.n], 256, seed=12)
+    ch_dem, ch_caps, ch_b = build_demand_scenarios(ch_g, ch_spec, seed=1)
+    ch = te_inputs(ch_src, ch_dst, ch_w0, ch_up, ch_dem, ch_caps, dev)
+    ch_mask = torch.ones(ch_b, dtype=torch.float32, device=dev)
+    ch_rounds = max(2, min(ch_g.n, 128))
+    runs = {}
+    for plain in (False, True):
+        runs[plain] = teopt.adam_solve(
+            ch["w"], ch["demands"], ch_mask, ch["caps"], ch["graph"],
+            ch["up"], cfg, ch_rounds, TE_STEPS, plain=plain)
+    torch.cuda.synchronize()
+    chain_w_err = float((runs[False][1] - runs[True][1]).abs().max())
+    chain_loss_err = rel_err(runs[False][2], runs[True][2])
+    check(chain_w_err <= 5e-3 and chain_loss_err <= 1e-4,
+          f"te chain: weights differ by {chain_w_err}, losses by "
+          f"{chain_loss_err} from the plain versions")
+    del runs, ch
+    chain_s = time.perf_counter() - t0
+    per_step = {
+        k.name: te_launches[k.name] / TE_STEPS for k in (K14, K15, K16, K17,
+                                                          K18)
+    }
+    emit({
+        "phase": "te_clos", "graph": f"fabric_edges({TE_CLOS_PODS})",
+        "n": n_t, "e": e_t, "scenarios": te_b, "demands": TE_DEMANDS,
+        "rounds": te_rounds, "steps": TE_STEPS,
+        "setup_seconds": te_setup_s, "kernel_checks_seconds": te_checks_s,
+        "max_rel_err": te_err, "max_abs_err": te_abs, "k16_rel_err": err16,
+        "k17_rel_err": err17,
+        "seconds": te_solve_s, "step_ms": te_solve_s * 1e3 / TE_STEPS,
+        "launches": te_launches, "launches_per_step": per_step,
+        "kernel_ms": te_ms, "plain_ms": te_plain_ms, "side_ms": side_ms,
+        "est_kernel_ms_per_step": {
+            "K14": te_ms["K14"] * per_step[K14.name],
+            "K15": te_ms["K15"] * per_step[K15.name] / 3,
+            "K16": te_ms["K16"] * (per_step[K16.name] - 2)
+            + side_ms["K16_gate"] + side_ms["K16_util"],
+            "K17": te_ms["K17"] * (per_step[K17.name] - 3)
+            + side_ms["K17_gate_bwd"],
+            "K18": te_ms["K18"] + side_ms["K18_mlu"] + side_ms["K18_mlu_bwd"],
+        },
+        "d_unreached_share": d_run_unreached / (n_t * n_t),
+        "gate_nonzero_share": gate_share, "profiled_2_steps": te_profile,
+        "peak_memory_gib": peak_gb, "loss_first": float(losses_h[0]),
+        "loss_last": float(losses_h[-1]), "weights_moved": moved,
+        "chain": {"graph": f"fabric_edges({TE_CHAIN_PODS})", "n": ch_g.n,
+                  "rounds": ch_rounds, "steps": TE_STEPS,
+                  "max_weight_err": chain_w_err,
+                  "max_loss_rel_err": chain_loss_err, "seconds": chain_s},
+        "card": card,
+    })
+    for key, k, src_name in (("K14", K14, "te_softmin.cu"),
+                             ("K15", K15, "te_softmin.cu"),
+                             ("K16", K16, "te_flow.cu"),
+                             ("K17", K17, "te_flow.cu"),
+                             ("K18", K18, "te_step.cu")):
+        results.append({
+            "name": k.name, "route": "cuda",
+            "source": f"openr_tpu_torch/ops/csrc/{src_name}",
+            "replaces": k.replaces, "launches": None,
+            "max_abs_err": te_abs[key], "max_rel_err": te_err[key],
+            "ms": te_ms[key],
+            "plain_ms": te_plain_ms[key], "bound_ms": te_bound[key][0],
+            "bound_by": te_bound[key][1], "library_ms": te_lib.get(key),
+        })
+
+    # -- 16. te_service: the TE service on the card ----------------------
+    t0 = time.perf_counter()
+    fx_edges, fx_spec = congested_clos_fixture()
+    fx_params = {"demands": fx_spec, "steps": 48, "scenarios": 4}
+    paths.start()
+    fx_svc = TeService("l0_0", {"0": build_ls(fx_edges, LinkState,
+                                             build_adj_dbs)}, device=dev)
+    fx_reports = [fx_svc.optimize(dict(fx_params)) for _ in range(4)]
+    # the acceptance run of the fixture: its one scenario, 6.0 -> 2.0
+    acc_params = {"demands": fx_spec, "steps": 48, "seed": 0}
+    acc = fx_svc.optimize(dict(acc_params))
+    paths.pause()
+    fx_cpu, acc_cpu = (
+        TeService("l0_0", {"0": build_ls(fx_edges, LinkState,
+                                         build_adj_dbs)},
+                  device="cpu").optimize(dict(params))
+        for params in (fx_params, acc_params))
+    fx = fx_reports[-1]
+    check(all(r["improved"] for r in (*fx_reports, acc)),
+          "te_service: a fixture run did not improve")
+    check(acc["initial_max_util"] == 6.0 and acc["optimized_max_util"] == 2.0,
+          f"te_service: {acc['initial_max_util']} -> "
+          f"{acc['optimized_max_util']}, want 6.0 -> 2.0")
+    for got, want in ((fx, fx_cpu), (acc, acc_cpu)):
+        check(got["weight_changes"] == want["weight_changes"]
+              and got["initial_max_util"] == want["initial_max_util"]
+              and got["optimized_max_util"] == want["optimized_max_util"],
+              "te_service: the card's proposal differs from the CPU run's")
+    fx_ms = min(r["solve_ms"] for r in fx_reports[1:])
+
+    # the all-pairs borrow: a solver holding the matrix serves the initial
+    # hard scoring
+    b_edges = fabric_edges(pods=TE_BORROW_PODS)
+    b_ls = build_ls(b_edges, LinkState, build_adj_dbs)
+    b_names = sorted(b_ls.node_names())
+    b_params = {"demands": dict(te_demand_spec(b_names, 256, seed=13),
+                                scenarios=2),
+                "steps": 16, "seed": 0}
+    b_me = "rsw0_0"
+    paths.resume()
+    b_solver = CudaSpfSolver(b_me, device=dev, apsp_max_nodes=4096)
+    b_solver.build_route_db(b_me, {"0": b_ls}, PrefixState())
+    b_svc = TeService(b_me, {"0": b_ls}, solver=b_solver, device=dev)
+    b_report = b_svc.optimize(dict(b_params))
+    torch.cuda.synchronize()
+    svc_launches = paths.read("te_service", (K11, K14, K15, K16, K17, K18))
+    b_cpu = TeService(b_me, {"0": b_ls}, device="cpu").optimize(
+        dict(b_params))
+    check(b_svc.counters.get("decision.te.apsp_borrows") == 1,
+          "te_service: the all-pairs matrix was not borrowed")
+    check(b_report["initial_max_util"] == b_cpu["initial_max_util"]
+          and b_report["top_links"]["initial"]
+          == b_cpu["top_links"]["initial"],
+          "te_service: the borrowed initial scores differ from the CPU run's")
+    emit({
+        "phase": "te_service", "seconds": time.perf_counter() - t0,
+        "fixture": {"nodes": fx["nodes"], "scenarios": fx["scenarios"],
+                    "steps": fx["steps"], "te_optimize_ms": fx_ms,
+                    "solve_ms": [r["solve_ms"] for r in fx_reports],
+                    "initial_max_util": fx["initial_max_util"],
+                    "optimized_max_util": fx["optimized_max_util"],
+                    "weight_changes": len(fx["weight_changes"]),
+                    "cpu_solve_ms": fx_cpu["solve_ms"],
+                    "acceptance": {
+                        "scenarios": acc["scenarios"],
+                        "initial_max_util": acc["initial_max_util"],
+                        "optimized_max_util": acc["optimized_max_util"],
+                        "weight_changes": acc["weight_changes"]}},
+        "borrow": {"graph": f"fabric_edges({TE_BORROW_PODS})",
+                   "nodes": b_report["nodes"],
+                   "scenarios": b_report["scenarios"],
+                   "steps": b_report["steps"],
+                   "apsp_borrows": b_svc.counters["decision.te.apsp_borrows"],
+                   "improved": b_report["improved"],
+                   "initial_max_util": b_report["initial_max_util"],
+                   "optimized_max_util": b_report["optimized_max_util"],
+                   "solve_ms": b_report["solve_ms"],
+                   "cpu_solve_ms": b_cpu["solve_ms"]},
+        "launches": svc_launches, "card": card,
+    })
+    del fx_svc, b_svc, b_solver
+
+    # -- 17. kernels line, card, result ----------------------------------
     for row in results:
         row["launches"] = paths.total(row["name"])
         row["launches_by_path"] = {

@@ -1,7 +1,8 @@
 """openr-tpu-torch: the PyTorch and CUDA port of openr_tpu.
 
-The Decision module's batched shortest-path solve, on an NVIDIA Hopper card,
-with the device work in hand-written CUDA kernels (ops/csrc/). Module names
+The Decision module's batched shortest-path solve and its TE optimizer, on
+an NVIDIA Hopper card, with the device work in hand-written CUDA kernels
+(ops/csrc/). Module names
 follow the JAX package, so each counterpart is easy to find:
 
   types.py        wire types (copy)
@@ -15,7 +16,12 @@ follow the JAX package, so each counterpart is easy to find:
   solver/cuda.py  CudaSpfSolver: the route pipeline over the device solve,
                   cold and warm
   solver/delta.py DeltaRouteBuilder: route deltas from changed columns
-  convert.py      carry a compiled graph across packages and onto the card
+  apsp/           the resident all-pairs matrix, with kernels
+  te/             differentiable traffic engineering: softmin SPF, soft
+                  ECMP flow and the annealed Adam loop, forward and
+                  backward, with kernels; the TE service
+  convert.py      carry a compiled graph (and TE's edge arrays) across
+                  packages and onto the card
 
 Nothing here imports jax or openr_tpu, and no CUDA code is built or loaded
 at import time.

@@ -5,11 +5,17 @@ from any producer (the JAX package included) travels as a dict of plain
 Python values and numpy arrays, which `graph_from_arrays` turns into the
 port's `CompiledGraph`. `to_device` uploads the persistent tensors a solve
 reads.
+
+Traffic engineering's "weights" are the edge arrays, demands and
+capacities of `te.objective.te_edge_arrays` and `te.scenarios`, numpy in
+both packages: `te_inputs` uploads them with the two edge-range layouts
+(`TeGraph`) the TE kernels walk.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from dataclasses import dataclass
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -104,3 +110,92 @@ def to_device(
         "wgs": tuple(upload(a, np.int32, dev) for a in sell.wg)
         if sell else (),
     }
+
+
+@dataclass(frozen=True)
+class TeGraph:
+    """The TE edge list on the card with its two range layouts.
+
+    Edge e runs src[e] -> dst[e] (int32 [E]). The out-edges of node u are
+    out_perm[out_ptr[u]:out_ptr[u + 1]], its in-edges
+    in_perm[in_ptr[u]:in_ptr[u + 1]], each a stable sort of the edge ids, so
+    a segment keeps the edge order the reference's segment sums see. The
+    compiled edge order is by destination, not by source, so the out-edge
+    layout is a permutation even there."""
+
+    n: int
+    src: torch.Tensor
+    dst: torch.Tensor
+    out_ptr: torch.Tensor  # int32 [n + 1]
+    out_perm: torch.Tensor  # int32 [E]
+    in_ptr: torch.Tensor  # int32 [n + 1]
+    in_perm: torch.Tensor  # int32 [E]
+
+    @property
+    def e(self) -> int:
+        return int(self.src.shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        return self.src.device
+
+
+def edge_ranges(keys: np.ndarray, n: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(perm [E], ptr [n + 1]): a stable argsort of the edges by `keys` and
+    each node's range in it."""
+    keys = np.asarray(keys, dtype=np.int64)
+    perm = np.argsort(keys, kind="stable")
+    ptr = np.searchsorted(keys[perm], np.arange(n + 1), side="left")
+    return perm, ptr
+
+
+def te_graph(src_e, dst_e, n: int, device: DeviceLike = "cuda") -> TeGraph:
+    """The `TeGraph` of numpy edge arrays (src_e, dst_e [E], ids in [0, n))
+    on `device`."""
+    dev = resolve_device(device)
+    src = np.asarray(src_e, dtype=np.int64)
+    dst = np.asarray(dst_e, dtype=np.int64)
+    if src.shape != dst.shape or src.ndim != 1:
+        raise ValueError("src_e and dst_e must be 1-d of one length")
+    if len(src) and (min(src.min(), dst.min()) < 0
+                     or max(src.max(), dst.max()) >= n):
+        raise ValueError(f"edge endpoints outside [0, {n})")
+    out_perm, out_ptr = edge_ranges(src, n)
+    in_perm, in_ptr = edge_ranges(dst, n)
+    return TeGraph(
+        n=int(n),
+        src=upload(src, np.int32, dev),
+        dst=upload(dst, np.int32, dev),
+        out_ptr=upload(out_ptr, np.int32, dev),
+        out_perm=upload(out_perm, np.int32, dev),
+        in_ptr=upload(in_ptr, np.int32, dev),
+        in_perm=upload(in_perm, np.int32, dev),
+    )
+
+
+def te_inputs(
+    src_e, dst_e, w, up, demands, caps, device: DeviceLike = "cuda"
+) -> Dict[str, object]:
+    """TE's inputs on `device`: `w` [E] float32, `up` [E] bool, `demands`
+    [B, n, n] float32 (a single [n, n] matrix becomes B = 1), `caps` [E]
+    float32, and `graph`, the `TeGraph` of the edge arrays (n from the
+    demands)."""
+    dev = resolve_device(device)
+    dem = np.asarray(demands, dtype=np.float32)
+    if dem.ndim == 2:
+        dem = dem[None]
+    if dem.ndim != 3 or dem.shape[1] != dem.shape[2]:
+        raise ValueError(f"demands must be [B, n, n], got {dem.shape}")
+    n = dem.shape[1]
+    graph = te_graph(src_e, dst_e, n, dev)
+    out = {
+        "w": upload(w, np.float32, dev),
+        "up": upload(up, bool, dev),
+        "demands": upload(dem, np.float32, dev),
+        "caps": upload(caps, np.float32, dev),
+        "graph": graph,
+    }
+    for key in ("w", "up", "caps"):
+        if out[key].shape != (graph.e,):
+            raise ValueError(f"{key} must be [{graph.e}]")
+    return out

@@ -12,8 +12,8 @@ may name the same source (K1 and K9 share `sell_relax.cu`): they share the
 library, which is built once, and count their launches apart. A source may
 include a local header (`#include "fw_minplus.cuh"`); the library's name
 hashes the header too, so editing it rebuilds every source that uses it. Every
-pointer and the stream are passed as `ctypes.c_void_p` and every int as
-`ctypes.c_int`; each entry point returns `cudaGetLastError()` and a
+pointer and the stream are passed as `ctypes.c_void_p`, every int as
+`ctypes.c_int` and every float as `ctypes.c_float`; each entry point returns `cudaGetLastError()` and a
 non-zero code raises. Launches go
 on PyTorch's current stream.
 """
@@ -38,6 +38,7 @@ _ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 
 
 class Kernel:
@@ -260,9 +261,63 @@ FW_RECLOSE = Kernel(
     },
     "openr_tpu/apsp/kernels.py:231 _fw_reclose_solver",
 )
+SOFTMIN_ROUND = Kernel(
+    "softmin_round",
+    "te_softmin.cu",
+    {"softmin_round": [_P, _P, _P, _P, _P, _P, _P, _I, _F]},
+    "openr_tpu/te/objective.py:72,94 _segment_softmin, "
+    "_softmin_fixpoint_core",
+)
+SOFTMIN_BWD = Kernel(
+    "softmin_round_bwd",
+    "te_softmin.cu",
+    {
+        "softmin_bwd_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                             _I, _F],
+        "softmin_bwd_pull": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _F],
+        "softmin_bwd_edges": [_P, _P, _I, _I],
+    },
+    "openr_tpu/te/objective.py:72,94 _segment_softmin, "
+    "_softmin_fixpoint_core (jax.grad)",
+)
+SOFT_FLOW = Kernel(
+    "soft_flow",
+    "te_flow.cu",
+    {
+        "soft_gate": [_P, _P, _P, _P, _P, _P, _P, _I, _F],
+        "soft_flow_round": [_P, _P, _P, _P, _P, _P, _P, _I, _I],
+        "soft_flow_util": [_P, _P, _P, _P, _P, _I, _I, _I],
+    },
+    "openr_tpu/te/objective.py:138 _soft_utilization_core",
+)
+SOFT_FLOW_BWD = Kernel(
+    "soft_flow_bwd",
+    "te_flow.cu",
+    {
+        "soft_flow_bwd_round": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                _I, _I, _I],
+        "soft_gate_bwd_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                               _F],
+        "soft_gate_bwd_pull": [_P, _P, _P, _P, _I],
+        "soft_gate_bwd_edges": [_P, _P, _I, _I],
+    },
+    "openr_tpu/te/objective.py:138 _soft_utilization_core (jax.grad)",
+)
+TE_STEP = Kernel(
+    "te_step",
+    "te_step.cu",
+    {
+        "te_mlu": [_P, _P, _P, _P, _I, _I, _F],
+        "te_mlu_bwd": [_P, _P, _P, _P, _P, _I, _I, _F],
+        "te_adam": [_P, _P, _P, _P, _P, _P, _I, _F, _F, _F, _F, _F, _F, _F,
+                    _F],
+    },
+    "openr_tpu/te/optimizer.py:87,103 _loss_core, _adam_scan_core",
+)
 KERNELS = (
     SELL_RELAX, BF_RELAX, ECMP_TRIANGLE,
     SELL_PATCH, SELL_MARK, BF_MARK, DELTA_EXTRACT,
     SELL_MASK, SELL_RELAX_MASKED,
     FW_CLOSE, FW_SEED, FW_RECLOSE,
+    SOFTMIN_ROUND, SOFTMIN_BWD, SOFT_FLOW, SOFT_FLOW_BWD, TE_STEP,
 )

@@ -1,0 +1,394 @@
+// K16 soft_flow and K17 soft_flow_bwd: differentiable TE's soft ECMP flow,
+// forward and backward.
+//
+// Replaces: openr_tpu/te/objective.py `_soft_utilization_core` after the
+// softmin (D [N, N], we [E], up [E], demands [B, N, N] vmapped, caps [E] ->
+// util [B, E] float32), and the reverse-mode derivative `jax.grad` takes
+// through it. The reference:
+//
+//   gap[e, t]  = (we[e] + D[dst_e, t]) - D[src_e, t]
+//   score      = exp(-max(gap, 0) / tau), 0 for a down edge, for t = src_e
+//                and where D[dst_e, t] >= F_INF / 2
+//   denom[u,t] = sum of score over u's out-edges
+//   p[e, t]    = denom > 1e-20 ? score / denom : 0       (double where)
+//   x_0        = demands with a zero diagonal
+//   x_{r+1}[b, v, t] = sum over v's in-edges of p[e, t] * x_r[b, src_e, t]
+//   util[b, e] = sum_t sum_r p[e, t] * x_r[b, src_e, t] / max(caps, 1e-9)
+//
+// The [E, N] flow tensor of the reference is never built: its row sums are
+// sum_t p[e, t] * xsum[b, src_e, t] with xsum = sum_r x_r, which the rounds
+// accumulate elementwise.
+//
+// Entry points:
+//
+//   soft_gate            K16, one thread per (u, t): denom, then p for each
+//                        out-edge (once per optimizer step)
+//   soft_flow_round      K16, one thread per (v, t), all B scenarios: the
+//                        pull x_{r+1}, and xsum += x_r (xsum may be null:
+//                        the backward's recomputation)
+//   soft_flow_util       K16, one block per edge: util[b, e]
+//   soft_flow_bwd_round  K17, one thread per (u, t): the adjoint round
+//                          g_ef[b, e, t] = g_util[b, e] / max(caps, 1e-9)
+//                                          + lam_next[b, dst_e, t]
+//                          lam[b, u, t]  = sum over out-edges p * g_ef
+//                          g_p[e, t]    += sum_b x_r[b, u, t] * g_ef
+//                        (lam_next null stands for lam_R = 0; `first` sets
+//                        g_p instead of adding to it)
+//   soft_gate_bwd_rows   K17, one thread per (u, t): the softmax-ratio rule
+//                        g_score = (g_p - sum_e g_p score / denom) / denom
+//                        where denom > 1e-20, else 0; masked like the score;
+//                        through exp and max(gap, 0) (half at gap == 0,
+//                        which a node with one out-edge gives exactly); the
+//                        gap's gradient overwrites g_p, its row sum is
+//                        -g_D[u, t], and a block per (u, 256 columns)
+//                        reduces it over its columns into partial[e, chunk]
+//   soft_gate_bwd_pull   K17, one thread per (v, t): g_D[v, t] += the gap
+//                        gradients of v's in-edges (a pull: deterministic)
+//   soft_gate_bwd_edges  K17, g_we[e] = the sum of partial[e, :] in order
+//
+// The gate's forward and backward compute gap and score by one function with
+// round-to-nearest intrinsics, so the backward's recomputed gap equals the
+// forward's bit for bit and the gap == 0 ties land where the reference's do.
+//
+// Bound on the card: bytes. p is [E, N] (1.0 GB at 3,956 nodes and 63,840
+// edges): the gate writes it once; a flow round reads it once and gathers
+// x[b, src_e, t] for every (e, t), B * E * N * 4 bytes (4 GB at B = 4), and
+// writes B * N^2 * 4; the adjoint round reads p, gathers lam the same way
+// and reads and writes g_p. Design against the bound: lanes run along t, so
+// every gather of a row is coalesced; one thread handles all scenarios
+// (chunks of kB), so p is read once per round, not B times; nothing scatters,
+// so no atomics and no nondeterministic order.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float kFInf = 1.0e9f;
+constexpr int kThreads = 256;
+constexpr int kMaxN = 65535;
+constexpr int kB = 4;  // scenarios per pass of a thread
+
+__device__ __forceinline__ float gate_score(float we_e, bool up_e,
+                                           float d_dst, float d_src,
+                                           bool self_t, float tau,
+                                           float* gap_out) {
+  const float gap = __fsub_rn(__fadd_rn(we_e, d_dst), d_src);
+  *gap_out = gap;
+  if (!up_e || self_t || d_dst >= kFInf * 0.5f) return 0.f;
+  return expf(__fdiv_rn(-fmaxf(gap, 0.f), tau));
+}
+
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) red[warp] = v;
+  __syncthreads();
+  float total = 0.f;
+  if (threadIdx.x == 0) {
+    for (int w = 0; w < kThreads / 32; ++w) total += red[w];
+  }
+  __syncthreads();
+  return total;  // valid in thread 0
+}
+
+__global__ void __launch_bounds__(kThreads) soft_gate_kernel(
+    const float* __restrict__ d, const float* __restrict__ we,
+    const bool* __restrict__ up, const int32_t* __restrict__ dst,
+    const int32_t* __restrict__ out_ptr, const int32_t* __restrict__ out_perm,
+    float* __restrict__ p, int n, float tau) {
+  const int u = blockIdx.y;
+  const int t = blockIdx.x * kThreads + threadIdx.x;
+  if (t >= n) return;
+  const float du = d[(long long)u * n + t];
+  const int beg = out_ptr[u];
+  const int end = out_ptr[u + 1];
+  float denom = 0.f;
+  float gap;
+  for (int k = beg; k < end; ++k) {
+    const int e = out_perm[k];
+    denom = __fadd_rn(denom, gate_score(we[e], up[e],
+                                        d[(long long)dst[e] * n + t], du,
+                                        u == t, tau, &gap));
+  }
+  const bool ok = denom > 1e-20f;
+  for (int k = beg; k < end; ++k) {
+    const int e = out_perm[k];
+    const float score = gate_score(we[e], up[e], d[(long long)dst[e] * n + t],
+                                   du, u == t, tau, &gap);
+    p[(long long)e * n + t] = ok ? __fdiv_rn(score, denom) : 0.f;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) soft_flow_round_kernel(
+    const float* __restrict__ p, const float* __restrict__ x,
+    float* __restrict__ xsum, float* __restrict__ x_next,
+    const int32_t* __restrict__ src, const int32_t* __restrict__ in_ptr,
+    const int32_t* __restrict__ in_perm, int n, int nb) {
+  const int v = blockIdx.y;
+  const int t = blockIdx.x * kThreads + threadIdx.x;
+  if (t >= n) return;
+  const long long nn = (long long)n * n;
+  const long long vt = (long long)v * n + t;
+  const int beg = in_ptr[v];
+  const int end = in_ptr[v + 1];
+  for (int b0 = 0; b0 < nb; b0 += kB) {
+    const int nbk = min(kB, nb - b0);
+    float acc[kB] = {0.f, 0.f, 0.f, 0.f};
+    for (int k = beg; k < end; ++k) {
+      const int e = in_perm[k];
+      const float pe = p[(long long)e * n + t];
+      if (pe == 0.f) continue;
+      const long long ut = (long long)src[e] * n + t;
+#pragma unroll
+      for (int j = 0; j < kB; ++j) {
+        if (j < nbk) {
+          acc[j] = __fadd_rn(acc[j], __fmul_rn(pe, x[(b0 + j) * nn + ut]));
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kB; ++j) {
+      if (j < nbk) {
+        const long long i = (b0 + j) * nn + vt;
+        x_next[i] = acc[j];
+        if (xsum != nullptr) xsum[i] = __fadd_rn(xsum[i], x[i]);
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) soft_flow_util_kernel(
+    const float* __restrict__ p, const float* __restrict__ xsum,
+    const float* __restrict__ caps, const int32_t* __restrict__ src,
+    float* __restrict__ util, int n, int e_count, int nb) {
+  __shared__ float red[kThreads / 32];
+  const int e = blockIdx.x;
+  const long long nn = (long long)n * n;
+  const float* pe = p + (long long)e * n;
+  const long long u_row = (long long)src[e] * n;
+  const float cap = fmaxf(caps[e], 1e-9f);
+  for (int b = 0; b < nb; ++b) {
+    const float* xs = xsum + b * nn + u_row;
+    float acc = 0.f;
+    for (int t = threadIdx.x; t < n; t += kThreads) {
+      acc = __fadd_rn(acc, __fmul_rn(pe[t], xs[t]));
+    }
+    acc = block_sum(acc, red);
+    if (threadIdx.x == 0) util[(long long)b * e_count + e] = __fdiv_rn(acc, cap);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) soft_flow_bwd_round_kernel(
+    const float* __restrict__ p, const float* __restrict__ g_util,
+    const float* __restrict__ caps, const float* __restrict__ lam_next,
+    const float* __restrict__ x_r, float* __restrict__ g_p,
+    float* __restrict__ lam, const int32_t* __restrict__ dst,
+    const int32_t* __restrict__ out_ptr, const int32_t* __restrict__ out_perm,
+    int n, int e_count, int nb, int first) {
+  const int u = blockIdx.y;
+  const int t = blockIdx.x * kThreads + threadIdx.x;
+  if (t >= n) return;
+  const long long nn = (long long)n * n;
+  const long long ut = (long long)u * n + t;
+  const int beg = out_ptr[u];
+  const int end = out_ptr[u + 1];
+  for (int b0 = 0; b0 < nb; b0 += kB) {
+    const int nbk = min(kB, nb - b0);
+    float xr[kB];
+    float acc[kB] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < kB; ++j) xr[j] = j < nbk ? x_r[(b0 + j) * nn + ut] : 0.f;
+    for (int k = beg; k < end; ++k) {
+      const int e = out_perm[k];
+      const float pe = p[(long long)e * n + t];
+      const float cap = fmaxf(caps[e], 1e-9f);
+      const long long wt = (long long)dst[e] * n + t;
+      float gp = 0.f;
+#pragma unroll
+      for (int j = 0; j < kB; ++j) {
+        if (j < nbk) {
+          const int b = b0 + j;
+          float g = __fdiv_rn(g_util[(long long)b * e_count + e], cap);
+          if (lam_next != nullptr) g = __fadd_rn(g, lam_next[b * nn + wt]);
+          acc[j] = __fadd_rn(acc[j], __fmul_rn(pe, g));
+          gp = __fadd_rn(gp, __fmul_rn(xr[j], g));
+        }
+      }
+      const long long i = (long long)e * n + t;
+      g_p[i] = (first && b0 == 0) ? gp : __fadd_rn(g_p[i], gp);
+    }
+#pragma unroll
+    for (int j = 0; j < kB; ++j) {
+      if (j < nbk) lam[(b0 + j) * nn + ut] = acc[j];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) soft_gate_bwd_rows_kernel(
+    float* __restrict__ g_p, const float* __restrict__ d,
+    const float* __restrict__ we, const bool* __restrict__ up,
+    const int32_t* __restrict__ dst, const int32_t* __restrict__ out_ptr,
+    const int32_t* __restrict__ out_perm, float* __restrict__ g_d,
+    float* __restrict__ partial, int n, int nchunks, float tau) {
+  __shared__ float red[kThreads / 32];
+  const int u = blockIdx.y;
+  const int chunk = blockIdx.x;
+  const int t = chunk * kThreads + threadIdx.x;
+  const bool active = t < n;
+  const int beg = out_ptr[u];
+  const int end = out_ptr[u + 1];
+  float du = 0.f, denom = 0.f, s_gp = 0.f, gap;
+  if (active) {
+    du = d[(long long)u * n + t];
+    for (int k = beg; k < end; ++k) {
+      const int e = out_perm[k];
+      const float score = gate_score(we[e], up[e],
+                                     d[(long long)dst[e] * n + t], du,
+                                     u == t, tau, &gap);
+      denom = __fadd_rn(denom, score);
+      s_gp = __fadd_rn(s_gp, __fmul_rn(g_p[(long long)e * n + t], score));
+    }
+  }
+  const bool ok = denom > 1e-20f;
+  const float ratio = ok ? __fdiv_rn(s_gp, denom) : 0.f;
+  float row = 0.f;
+  for (int k = beg; k < end; ++k) {
+    const int e = out_perm[k];
+    float g = 0.f;
+    if (active) {
+      const long long i = (long long)e * n + t;
+      const float score = gate_score(we[e], up[e],
+                                     d[(long long)dst[e] * n + t], du,
+                                     u == t, tau, &gap);
+      if (ok && score != 0.f) {
+        const float g_score = __fdiv_rn(__fsub_rn(g_p[i], ratio), denom);
+        const float tie = gap > 0.f ? 1.f : (gap == 0.f ? 0.5f : 0.f);
+        g = __fmul_rn(-__fdiv_rn(__fmul_rn(g_score, score), tau), tie);
+      }
+      g_p[i] = g;
+      row = __fsub_rn(row, g);
+    }
+    g = block_sum(g, red);
+    if (threadIdx.x == 0) partial[(long long)e * nchunks + chunk] = g;
+  }
+  if (active) g_d[(long long)u * n + t] = row;
+}
+
+__global__ void __launch_bounds__(kThreads) soft_gate_bwd_pull_kernel(
+    const float* __restrict__ g_gap, const int32_t* __restrict__ in_ptr,
+    const int32_t* __restrict__ in_perm, float* __restrict__ g_d, int n) {
+  const int v = blockIdx.y;
+  const int t = blockIdx.x * kThreads + threadIdx.x;
+  if (t >= n) return;
+  const long long i = (long long)v * n + t;
+  float acc = g_d[i];
+  for (int k = in_ptr[v]; k < in_ptr[v + 1]; ++k) {
+    acc = __fadd_rn(acc, g_gap[(long long)in_perm[k] * n + t]);
+  }
+  g_d[i] = acc;
+}
+
+__global__ void __launch_bounds__(kThreads) sum_chunks_kernel(
+    const float* __restrict__ partial, float* __restrict__ out, int e,
+    int nchunks) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= e) return;
+  float acc = 0.f;
+  for (int c = 0; c < nchunks; ++c) acc += partial[(long long)i * nchunks + c];
+  out[i] = acc;
+}
+
+bool bad_n(int n) { return n < 1 || n > kMaxN; }
+
+dim3 rows_grid(int n) { return dim3((n + kThreads - 1) / kThreads, n); }
+
+}  // namespace
+
+extern "C" int soft_gate(const void* d, const void* we, const void* up,
+                         const void* dst, const void* out_ptr,
+                         const void* out_perm, void* p, int n, float tau,
+                         void* stream) {
+  if (bad_n(n)) return (int)cudaErrorInvalidValue;
+  soft_gate_kernel<<<rows_grid(n), kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)d, (const float*)we, (const bool*)up,
+      (const int32_t*)dst, (const int32_t*)out_ptr, (const int32_t*)out_perm,
+      (float*)p, n, tau);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int soft_flow_round(const void* p, const void* x, void* xsum,
+                               void* x_next, const void* src,
+                               const void* in_ptr, const void* in_perm, int n,
+                               int nb, void* stream) {
+  if (bad_n(n) || nb < 1) return (int)cudaErrorInvalidValue;
+  soft_flow_round_kernel<<<rows_grid(n), kThreads, 0,
+                           (cudaStream_t)stream>>>(
+      (const float*)p, (const float*)x, (float*)xsum, (float*)x_next,
+      (const int32_t*)src, (const int32_t*)in_ptr, (const int32_t*)in_perm, n,
+      nb);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int soft_flow_util(const void* p, const void* xsum,
+                              const void* caps, const void* src, void* util,
+                              int n, int e, int nb, void* stream) {
+  if (bad_n(n) || nb < 1) return (int)cudaErrorInvalidValue;
+  if (e == 0) return 0;
+  soft_flow_util_kernel<<<e, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)p, (const float*)xsum, (const float*)caps,
+      (const int32_t*)src, (float*)util, n, e, nb);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int soft_flow_bwd_round(const void* p, const void* g_util,
+                                   const void* caps, const void* lam_next,
+                                   const void* x_r, void* g_p, void* lam,
+                                   const void* dst, const void* out_ptr,
+                                   const void* out_perm, int n, int e, int nb,
+                                   int first, void* stream) {
+  if (bad_n(n) || nb < 1) return (int)cudaErrorInvalidValue;
+  soft_flow_bwd_round_kernel<<<rows_grid(n), kThreads, 0,
+                               (cudaStream_t)stream>>>(
+      (const float*)p, (const float*)g_util, (const float*)caps,
+      (const float*)lam_next, (const float*)x_r, (float*)g_p, (float*)lam,
+      (const int32_t*)dst, (const int32_t*)out_ptr, (const int32_t*)out_perm,
+      n, e, nb, first);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int soft_gate_bwd_rows(void* g_p, const void* d, const void* we,
+                                  const void* up, const void* dst,
+                                  const void* out_ptr, const void* out_perm,
+                                  void* g_d, void* partial, int n,
+                                  int nchunks, float tau, void* stream) {
+  if (bad_n(n) || nchunks != (n + kThreads - 1) / kThreads)
+    return (int)cudaErrorInvalidValue;
+  soft_gate_bwd_rows_kernel<<<rows_grid(n), kThreads, 0,
+                              (cudaStream_t)stream>>>(
+      (float*)g_p, (const float*)d, (const float*)we, (const bool*)up,
+      (const int32_t*)dst, (const int32_t*)out_ptr, (const int32_t*)out_perm,
+      (float*)g_d, (float*)partial, n, nchunks, tau);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int soft_gate_bwd_pull(const void* g_gap, const void* in_ptr,
+                                  const void* in_perm, void* g_d, int n,
+                                  void* stream) {
+  if (bad_n(n)) return (int)cudaErrorInvalidValue;
+  soft_gate_bwd_pull_kernel<<<rows_grid(n), kThreads, 0,
+                              (cudaStream_t)stream>>>(
+      (const float*)g_gap, (const int32_t*)in_ptr, (const int32_t*)in_perm,
+      (float*)g_d, n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int soft_gate_bwd_edges(const void* partial, void* g_we, int e,
+                                   int nchunks, void* stream) {
+  if (e == 0) return 0;
+  sum_chunks_kernel<<<(e + kThreads - 1) / kThreads, kThreads, 0,
+                      (cudaStream_t)stream>>>((const float*)partial,
+                                              (float*)g_we, e, nchunks);
+  return (int)cudaGetLastError();
+}

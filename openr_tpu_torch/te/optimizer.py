@@ -1,0 +1,237 @@
+"""Gradient-descent TE loop: Adam over link weights, annealed.
+
+The counterpart of the JAX package's te/optimizer.py. Per step: anneal the
+softmin temperature toward hard SPF, differentiate the mean soft
+max-link-utilization over the demand-scenario batch (`torch.autograd.grad`
+of `_loss`, whose forward and backward run the kernels of te/kernels.py),
+apply the Adam update (K18) and project back into the bounded weight box.
+The weight trajectory [steps, E] and the losses [steps] stay on the card
+and come back in one copy at the end, so the host can score every *rounded
+integer* iterate under exact hard-SPF routing and keep the best one.
+
+The scenario batch is a [B, N, N] demand tensor with a validity mask. The
+softmin distances do not depend on the demands, so a step computes them
+once for the whole batch (the reference's vmap leaves them unbatched too).
+The batch sharded over several cards (the reference's mesh) is not ported.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from openr_tpu_torch.convert import TeGraph, te_inputs
+from openr_tpu_torch.device import DeviceLike, resolve_device
+from openr_tpu_torch.te import kernels as tk
+from openr_tpu_torch.te.objective import (
+    edge_weights,
+    hard_max_util,
+    utilization_core,
+)
+
+
+@dataclass(frozen=True)
+class TeOptConfig:
+    """Knobs of the gradient-descent TE loop (docs/TrafficEngineering.md)."""
+
+    steps: int = 80  # Adam steps
+    lr: float = 0.4
+    beta1: float = 0.9
+    beta2: float = 0.999
+    eps: float = 1e-8
+    # softmin/softmax temperature annealing: geometric tau0 -> tau_min
+    # across the step budget; small tau -> the relaxation approaches the
+    # hard SPF objective it is scored under
+    tau0: float = 2.0
+    tau_min: float = 0.05
+    # smooth-max temperature of the max-link-utilization objective
+    tau_obj: float = 0.25
+    # bounded-weight projection box (integer metrics after rounding)
+    w_min: float = 1.0
+    w_max: float = 64.0
+    # soft relaxation rounds; None -> n (graph node count)
+    rounds: Optional[int] = None
+
+
+@dataclass
+class TeOptResult:
+    """Outcome of one optimization run, hard-scored."""
+
+    w0: np.ndarray  # initial float weights [E]
+    w_best: np.ndarray  # best rounded integer weights [E]
+    best_step: int  # scan step the winner came from (-1 = initial)
+    initial_max_util: float  # worst-scenario hard MLU at w0
+    best_max_util: float  # worst-scenario hard MLU at w_best
+    losses: np.ndarray  # soft objective per step [steps]
+    steps: int
+    # device->host bytes of the trajectory copy-back (one per run); the
+    # TE service folds this into decision.te.d2h_bytes so the TE share of
+    # transfer traffic is observable next to decision.spf.*
+    d2h_bytes: int = 0
+
+
+def _loss(w, demands, scen_mask, caps, graph: TeGraph, up, tau: float,
+          tau_obj: float, rounds: int) -> torch.Tensor:
+    """Scenario-averaged soft max-link-utilization (the objective) as a
+    one-element tensor, differentiable in w: the softmin distances once
+    (K14), the flow of all B scenarios (K16) and the MLU (K18)."""
+    we = edge_weights(w, up)
+    util = utilization_core(we, up, demands, caps, graph, tau, rounds)
+    return tk.SoftMlu.apply(util, scen_mask, tk.f32(tau_obj))
+
+
+def _loss_plain(w, demands, scen_mask, caps, graph: TeGraph, up,
+                tau: float, tau_obj: float, rounds: int) -> torch.Tensor:
+    """`_loss` composed of the plain versions and differentiated by autograd
+    on whatever device its tensors are (the kernels' reference)."""
+    we = edge_weights(w, up)
+    tau = tk.f32(tau)
+    n = graph.n
+    d = torch.full((n, n), tk.F_INF, dtype=torch.float32, device=w.device)
+    d.fill_diagonal_(0.0)
+    for _ in range(rounds):
+        d = tk._softmin_round_plain(d, we, graph, tau)[0]
+    util = tk._soft_flow_plain(d, we, up, demands, caps, graph, tau, rounds)
+    return tk._te_mlu_plain(util, scen_mask, tk.f32(tau_obj))[0]
+
+
+def anneal_tau(cfg: TeOptConfig, i: int, steps: int) -> float:
+    """Step i's temperature tau0 * (tau_min / tau0) ** (i / (steps - 1)),
+    in float32 as the reference's traced step computes it."""
+    frac = np.float32(i) / np.float32(max(steps - 1, 1))
+    tau0 = np.float32(cfg.tau0)
+    return float(tau0 * (np.float32(cfg.tau_min) / tau0) ** frac)
+
+
+def adam_solve(
+    w0: torch.Tensor,
+    demands: torch.Tensor,
+    scen_mask: torch.Tensor,
+    caps: torch.Tensor,
+    graph: TeGraph,
+    up: torch.Tensor,
+    cfg: TeOptConfig,
+    rounds: int,
+    steps: int,
+    plain: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(final w [E], weight trajectory [steps, E], losses [steps]) on w0's
+    device, with nothing copied to the host. Each step takes the gradient
+    of `_loss` at w, zeroes it on down links and applies Adam (K18). With
+    `plain` every piece is its plain version differentiated by autograd,
+    on any device: the reference the card's kernels are held against."""
+    w = w0.detach().clone()
+    m = torch.zeros_like(w)
+    v = torch.zeros_like(w)
+    w_hist = torch.empty((steps, w.shape[0]), dtype=torch.float32,
+                         device=w.device)
+    losses = torch.empty(steps, dtype=torch.float32, device=w.device)
+    loss_fn = _loss_plain if plain else _loss
+    for i in range(steps):
+        tau = anneal_tau(cfg, i, steps)
+        wv = w.detach().requires_grad_(True)
+        loss = loss_fn(wv, demands, scen_mask, caps, graph, up, tau,
+                       cfg.tau_obj, rounds)
+        (g,) = torch.autograd.grad(loss, wv)
+        losses[i : i + 1].copy_(loss.detach())
+        hp = tk.adam_hparams(cfg, i)
+        if plain:
+            tk._te_adam_plain(w, m, v, g, up, w_hist[i], hp)
+        else:
+            tk.te_adam(w, m, v, g.contiguous(), up, w_hist[i], hp)
+        del loss, g, wv
+    return w, w_hist, losses
+
+
+def optimize_weights(
+    src_e: np.ndarray,
+    dst_e: np.ndarray,
+    up: np.ndarray,
+    w0: np.ndarray,  # float initial weights [E]
+    demands: np.ndarray,  # [B, N, N] candidate demand scenarios
+    caps: np.ndarray,  # [E] per-directed-edge capacities
+    n: int,
+    config: Optional[TeOptConfig] = None,
+    mesh=None,
+    initial_d: Optional[np.ndarray] = None,
+    device: DeviceLike = "cuda",
+) -> TeOptResult:
+    """Run the annealed GD loop on `device` and hard-score the rounded
+    iterates on the host.
+
+    The winner is the rounded integer weight vector minimizing the WORST
+    scenario's hard max link utilization; the initial weights are scored
+    too, so a run that finds nothing better reports itself unimproved
+    instead of proposing noise. `initial_d`, when given, is an exact
+    distance matrix for the INITIAL integer weights (the solver's resident
+    APSP matrix, docs/Apsp.md): the w0 score reuses it instead of
+    re-deriving [N, N] distances by Bellman-Ford."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "the scenario batch sharded over a mesh of cards is not ported "
+            "(ROADMAP.md queue 1 item 10, multi-GPU layouts): pass mesh=None"
+        )
+    cfg = config or TeOptConfig()
+    rounds = cfg.rounds if cfg.rounds is not None else int(n)
+    rounds = max(2, min(int(rounds), 128))
+
+    b = demands.shape[0]
+    dev = resolve_device(device)
+    inp = te_inputs(src_e, dst_e, w0, up, demands, caps, dev)
+    scen_mask = torch.ones(b, dtype=torch.float32, device=dev)
+    _, w_hist, losses = adam_solve(
+        inp["w"], inp["demands"], scen_mask, inp["caps"], inp["graph"],
+        inp["up"], cfg, rounds, int(cfg.steps),
+    )
+    # the whole optimization stays on the device; this is its single
+    # copy-back (trajectory + losses), accounted like every other d2h
+    w_hist = w_hist.cpu().numpy()
+    losses = losses.cpu().numpy()
+    d2h_bytes = int(w_hist.nbytes + losses.nbytes)
+
+    def worst_hard(w_int: np.ndarray, d=None) -> float:
+        return max(
+            hard_max_util(w_int, demands[k], caps, src_e, dst_e, up, n, d=d)
+            for k in range(b)
+        )
+
+    w0_int = np.clip(np.rint(w0), cfg.w_min, cfg.w_max).astype(np.int64)
+    best_w, best_step = w0_int, -1
+    best_util = initial_util = worst_hard(w0_int, d=initial_d)
+    seen = {w0_int.tobytes()}
+    for i in range(w_hist.shape[0]):
+        w_int = np.clip(np.rint(w_hist[i]), cfg.w_min, cfg.w_max).astype(
+            np.int64
+        )
+        key = w_int.tobytes()
+        if key in seen:
+            continue  # rounded trajectory revisits few distinct vectors
+        seen.add(key)
+        util = worst_hard(w_int)
+        if util < best_util:
+            best_util, best_w, best_step = util, w_int, i
+
+    if best_step >= 0:
+        # minimal-change prune: GD wanders many weights on its way to the
+        # optimum; revert every changed edge that does not pay for itself
+        # so operators see the smallest equivalent proposal
+        best_w = best_w.copy()
+        for pos in np.flatnonzero(best_w != w0_int):
+            trial = best_w.copy()
+            trial[pos] = w0_int[pos]
+            if worst_hard(trial) <= best_util:
+                best_w = trial
+
+    return TeOptResult(
+        w0=np.asarray(w0),
+        w_best=best_w,
+        best_step=best_step,
+        initial_max_util=initial_util,
+        best_max_util=best_util,
+        losses=losses,
+        steps=int(cfg.steps),
+        d2h_bytes=d2h_bytes,
+    )

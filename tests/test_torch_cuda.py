@@ -16,7 +16,16 @@ the CPU's. The all-pairs kernels (K10 tile product, K11 close, K12 seed, K13
 re-close round) against their plain versions with overloaded nodes at one,
 four and 32 blocks, warm re-closes against cold closes, `ApspState` against
 the numpy Floyd-Warshall, and route dbs from other nodes' perspectives with
-LFA against the CPU's. Tolerance is exact equality.
+LFA against the CPU's. Tolerance is exact equality, except for
+differentiable TE: its kernels (K14 softmin round, K15 its backward, K16
+gate, flow round and utilization, K17 their backward, K18 MLU, its seed and
+the Adam step) sum float32 in another order than their plain versions, so
+they agree within 1e-5 of the largest magnitude (F_INF entries exactly),
+given the same forward decisions (K14's fold outcome); and the whole chain,
+`SoftminRound` and `SoftFlow` under autograd and a 4-step Adam run, agrees
+with the CPU's within 1e-4 of the largest gradient and 1e-3 on the weights
+(Adam normalises each step, so rounding moves a weight by up to lr times
+the relative gradient difference per step).
 """
 
 import dataclasses
@@ -642,3 +651,227 @@ def test_other_node_route_dbs_on_card_equal_cpu(dev):
         assert got.mpls_entries == want.mpls_entries
     assert solver.host_spf_calls == 0
     assert _cuda.FW_CLOSE.launches > before
+
+
+# -- differentiable TE (K14-K18) ----------------------------------------------
+
+
+def te_case(name, seed=3):
+    """(n, src, dst, w, up): a Clos or a grid with seeded weights, a pendant
+    node (gap exactly 0), one link down in one direction, and weights on
+    both sides of 32 (the candidate clamps' tie at F_INF)."""
+    from openr_tpu_torch.te import te_edge_arrays
+
+    rng = np.random.default_rng(seed)
+    base = fabric_edges(pods=2) if name == "clos" else grid_edges(6)
+    edges = [(a, b, int(rng.integers(1, 9))) for a, b, _ in base]
+    edges.append(("pendant", edges[0][0], 3))
+    dbs = build_adj_dbs(edges)
+    a, b = edges[1][:2]
+    dbs[a] = dataclasses.replace(dbs[a], adjacencies=[
+        dataclasses.replace(x, is_overloaded=True)
+        if x.other_node_name == b else x for x in dbs[a].adjacencies])
+    ls = LinkState("0")
+    for db in dbs.values():
+        ls.update_adjacency_database(db)
+    graph = compile_graph(ls)
+    src, dst, w, up = te_edge_arrays(graph)
+    w[np.flatnonzero(up)[:4]] = [31.0, 32.0, 33.5, 40.0]
+    return graph.n, src, dst, w, up
+
+
+def rel_err(got, want):
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def te_state(dev, name, tau, rounds=4, b=3):
+    from openr_tpu_torch.convert import te_inputs
+    from openr_tpu_torch.te import objective as to
+
+    n, src, dst, w, up = te_case(name)
+    rng = np.random.default_rng(5)
+    dem = (rng.uniform(0, 2, (b, n, n)) * (1 - np.eye(n))).astype(np.float32)
+    caps = rng.uniform(0.5, 2.0, len(src)).astype(np.float32)
+    inp = te_inputs(src, dst, w, up, dem, caps, dev)
+    we = to.edge_weights(inp["w"], inp["up"])
+    d = to.softmin_core(we, inp["graph"], tau, rounds)
+    return inp, we, d
+
+
+@pytest.mark.parametrize("name", ["clos", "grid"])
+@pytest.mark.parametrize("tau", [2.0, 0.5, 0.05])
+def test_softmin_round_kernels_equal_plain(dev, name, tau):
+    from openr_tpu_torch.te import kernels as tk
+
+    inp, we, d = te_state(dev, name, tau)
+    graph = inp["graph"]
+    before = (_cuda.SOFTMIN_ROUND.launches, _cuda.SOFTMIN_BWD.launches)
+    new, keep = tk.softmin_round(d, we, graph, tau)
+    new_p, _ = tk._softmin_round_plain(d, we, graph, tau)
+    fin = new_p < tk.F_INF / 2
+    assert torch.equal(new[~fin], new_p[~fin])
+    assert rel_err(new[fin], new_p[fin]) <= 1e-5
+    g = torch.randn(d.shape, device=dev,
+                    generator=torch.Generator(dev).manual_seed(1))
+    g_prev, g_we = tk.softmin_round_bwd(g, d, keep, we, graph, tau)
+    g_prev_p, g_we_p = tk._softmin_round_bwd_plain(g, d, keep, we, graph, tau)
+    torch.cuda.synchronize()
+    assert rel_err(g_prev, g_prev_p) <= 1e-5
+    assert rel_err(g_we, g_we_p) <= 1e-5
+    assert (_cuda.SOFTMIN_ROUND.launches, _cuda.SOFTMIN_BWD.launches) == (
+        before[0] + 1, before[1] + 3)
+
+
+@pytest.mark.parametrize("name", ["clos", "grid"])
+@pytest.mark.parametrize("tau", [2.0, 0.5, 0.05])
+@pytest.mark.parametrize("b", [3, 6])
+def test_soft_flow_kernels_equal_plain(dev, name, tau, b):
+    """b = 6 takes the flow kernels' second pass over scenarios (4 a
+    pass)."""
+    from openr_tpu_torch.te import kernels as tk
+
+    inp, we, d = te_state(dev, name, tau, rounds=inp_rounds(name), b=b)
+    graph, up, caps = inp["graph"], inp["up"], inp["caps"]
+    p = tk.soft_gate(d, we, up, graph, tau)
+    p_p = tk._soft_gate_plain(d, we, up, graph, tau)
+    assert rel_err(p, p_p) <= 1e-5
+    x = inp["demands"]
+    xsum, xsum_p = torch.zeros_like(x), torch.zeros_like(x)
+    x1 = tk.soft_flow_round(p, x, xsum, graph)
+    x1_p = tk._soft_flow_round_plain(p, x, xsum_p, graph)
+    assert rel_err(x1, x1_p) <= 1e-5 and torch.equal(xsum, xsum_p)
+    util = tk.soft_flow_util(p, xsum, caps, graph)
+    assert rel_err(util, tk._soft_flow_util_plain(p, xsum, caps, graph)) \
+        <= 1e-5
+    g_util = torch.randn(util.shape, device=dev,
+                         generator=torch.Generator(dev).manual_seed(2))
+    g_p, g_p_p = torch.empty_like(p), torch.empty_like(p)
+    lam = tk.soft_flow_bwd_round(p, g_util, caps, None, x1, g_p, graph, True)
+    lam_p = tk._soft_flow_bwd_round_plain(p, g_util, caps, None, x1, g_p_p,
+                                          graph, True)
+    lam = tk.soft_flow_bwd_round(p, g_util, caps, lam, x, g_p, graph, False)
+    lam_p = tk._soft_flow_bwd_round_plain(p, g_util, caps, lam_p, x, g_p_p,
+                                          graph, False)
+    assert rel_err(lam, lam_p) <= 1e-5 and rel_err(g_p, g_p_p) <= 1e-5
+    g_d, g_we = tk.soft_gate_bwd(g_p, d, we, up, graph, tau)
+    g_d_p, g_we_p = tk._soft_gate_bwd_plain(g_p_p, d, we, up, graph, tau)
+    torch.cuda.synchronize()
+    assert rel_err(g_d, g_d_p) <= 1e-5 and rel_err(g_we, g_we_p) <= 1e-5
+
+
+def inp_rounds(name):
+    return 6 if name == "clos" else 8
+
+
+def test_te_step_kernels_equal_plain(dev):
+    from openr_tpu_torch.te import kernels as tk
+    from openr_tpu_torch.te.optimizer import TeOptConfig
+
+    gen = torch.Generator(dev).manual_seed(3)
+    util = torch.rand((4, 3000), device=dev, generator=gen) * 3
+    mask = torch.tensor([1.0, 1.0, 0.0, 1.0], device=dev)
+    loss, lse = tk.te_mlu(util, mask, 0.25)
+    loss_p, lse_p = tk._te_mlu_plain(util, mask, 0.25)
+    assert rel_err(loss, loss_p) <= 1e-6 and rel_err(lse, lse_p) <= 1e-6
+    g_loss = torch.ones(1, device=dev)
+    g = tk.te_mlu_bwd(g_loss, util, lse, mask, 0.25)
+    assert rel_err(g, tk._te_mlu_bwd_plain(g_loss, util, lse, mask, 0.25)) \
+        <= 1e-5
+    assert not bool(g[2].any())
+    e = 3000
+    w = torch.rand(e, device=dev, generator=gen) * 60 + 1
+    m = torch.randn(e, device=dev, generator=gen) * 1e-2
+    v = torch.rand(e, device=dev, generator=gen) * 1e-4
+    gr = torch.randn(e, device=dev, generator=gen)
+    up = torch.rand(e, device=dev, generator=gen) > 0.1
+    hp = tk.adam_hparams(TeOptConfig(), 5)
+    state = [t.clone() for t in (w, m, v)]
+    row, row_p = torch.empty(e, device=dev), torch.empty(e, device=dev)
+    tk.te_adam(*state, gr, up, row, hp)
+    plain = [t.clone() for t in (w, m, v)]
+    tk._te_adam_plain(*plain, gr, up, row_p, hp)
+    for a, b in zip(state + [row], plain + [row_p]):
+        assert rel_err(a, b) <= 1e-6
+
+
+@pytest.mark.parametrize("name", ["clos", "grid"])
+def test_te_autograd_on_card_equals_cpu(dev, name):
+    """SoftminRound and SoftFlow under autograd (K14-K17 and their launch
+    counts) against the same chain on the CPU's plain versions."""
+    from openr_tpu_torch.te import objective as to
+
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        inp, _, _ = te_state(device, name, 0.5, rounds=0, b=5)
+        w = inp["w"].clone().requires_grad_(True)
+        we = to.edge_weights(w, inp["up"])
+        util = to.utilization_core(we, inp["up"], inp["demands"],
+                                   inp["caps"], inp["graph"], 0.5, 24)
+        (g,) = torch.autograd.grad(util.sum(), w)
+        out[device.type] = (util.detach().cpu(), g.cpu())
+    assert rel_err(out["cuda"][0], out["cpu"][0]) <= 1e-5
+    assert rel_err(out["cuda"][1], out["cpu"][1]) <= 1e-4
+
+
+def test_adam_solve_on_card_equals_cpu(dev):
+    """Four Adam steps on a Clos with seeded metrics, on the card and on the
+    CPU. No pendant node and no weight at 32 here: a triangle gap of
+    exactly 0 (a node with one out-edge) is a tie that float32 rounding may
+    decide either way once D is computed in another order, and Adam turns
+    a flipped half-gradient on a small component into a different step."""
+    from openr_tpu_torch.convert import te_inputs
+    from openr_tpu_torch.te import te_edge_arrays
+    from openr_tpu_torch.te.optimizer import TeOptConfig, adam_solve
+
+    rng = np.random.default_rng(4)
+    edges = [(a, b, int(rng.integers(1, 10))) for a, b, _ in
+             fabric_edges(pods=2)]
+    ls = LinkState("0")
+    for db in build_adj_dbs(edges).values():
+        ls.update_adjacency_database(db)
+    graph = compile_graph(ls)
+    src, dst, w, up = te_edge_arrays(graph)
+    n = graph.n
+    dem = (rng.uniform(0, 2, (3, n, n)) * (1 - np.eye(n))).astype(np.float32)
+    caps = rng.uniform(0.5, 2.0, len(src)).astype(np.float32)
+    runs = {}
+    for device in (dev, torch.device("cpu")):
+        inp = te_inputs(src, dst, w, up, dem, caps, device)
+        mask = torch.tensor([1.0, 0.0, 1.0], device=device)
+        before = _cuda.TE_STEP.launches
+        runs[device.type] = adam_solve(
+            inp["w"], inp["demands"], mask, inp["caps"], inp["graph"],
+            inp["up"], TeOptConfig(), 16, 4)
+        if device.type == "cuda":
+            assert _cuda.TE_STEP.launches - before == 3 * 4
+    (_, wh_k, ls_k), (_, wh_c, ls_c) = runs["cuda"], runs["cpu"]
+    assert float((wh_k.cpu() - wh_c).abs().max()) <= 1e-3
+    assert rel_err(ls_k, ls_c) <= 1e-4
+
+
+def test_te_service_on_card_equals_cpu(dev):
+    """The acceptance fixture (one scenario): 6.0 -> 2.0 on the card with
+    the CPU run's proposal; at the bench's 4 scenarios the worst scenario
+    scales the elephant, and the card's scores still equal the CPU's."""
+    from openr_tpu_torch.te import TeService, congested_clos_fixture
+
+    edges, spec = congested_clos_fixture()
+    for params, scores in (({"steps": 48, "seed": 0}, (6.0, 2.0)),
+                           ({"steps": 48, "scenarios": 4}, None)):
+        reports = []
+        for device in (dev, "cpu"):
+            ls = LinkState("0")
+            for db in build_adj_dbs(edges).values():
+                ls.update_adjacency_database(db)
+            svc = TeService("l0_0", {"0": ls}, device=device)
+            reports.append(svc.optimize(dict(params, demands=spec)))
+            assert svc.counters.get("decision.te.fallback_runs", 0) == 0
+        card, cpu = reports
+        assert card["degraded"] is False and card["improved"] is True
+        for key in ("initial_max_util", "optimized_max_util",
+                    "weight_changes", "top_links"):
+            assert card[key] == cpu[key], key
+        if scores is not None:
+            assert (card["initial_max_util"],
+                    card["optimized_max_util"]) == scores

@@ -56,6 +56,8 @@ def test_every_module_imports_without_jax_or_openr_tpu():
     assert "openr_tpu_torch.solver.delta" in mods
     assert "openr_tpu_torch.apsp.kernels" in mods
     assert "openr_tpu_torch.apsp.state" in mods
+    for mod in ("kernels", "objective", "optimizer", "scenarios", "service"):
+        assert f"openr_tpu_torch.te.{mod}" in mods
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run(
         [sys.executable, "-c", _IMPORT_ALL, *mods],
@@ -129,21 +131,23 @@ def _c_params(source: str, symbol: str):
 
 @pytest.mark.parametrize("kernel", KERNELS, ids=lambda k: k.name)
 def test_kernel_bindings_match_their_c_entry_points(kernel):
-    """Each ctypes binding has one c_void_p per pointer parameter and one
-    c_int per int parameter of its C entry point, the stream last: nvcc is
-    absent here, so this is the check that runs before the card does."""
+    """Each ctypes binding has one c_void_p per pointer parameter, one c_int
+    per int and one c_float per float parameter of its C entry point, the
+    stream last: nvcc is absent here, so this is the check that runs before
+    the card does."""
     import ctypes
 
+    scalar = {"int": ctypes.c_int, "float": ctypes.c_float}
     source = kernel.source.read_text()
     assert kernel.entries
     for symbol, argtypes in kernel.entries.items():
         params = _c_params(source, symbol)
         assert params[-1] == "void*", symbol  # the stream
+        assert all(p.endswith("*") or p in scalar for p in params), params
         want = [
-            ctypes.c_void_p if p.endswith("*") else ctypes.c_int
+            ctypes.c_void_p if p.endswith("*") else scalar[p]
             for p in params
         ]
-        assert all(p.endswith("*") or p == "int" for p in params), params
         assert argtypes == want, symbol
 
 
@@ -191,3 +195,53 @@ def test_apsp_wrappers_run_plain_versions_on_cpu_tensors():
     assert torch.equal(d1, d) and counts.tolist() == [1, 0]
     assert [k.launches for k in _cuda.KERNELS] == before
     assert ApspState(4, device="cpu").device == torch.device("cpu")
+
+
+def test_te_wrappers_run_plain_versions_on_cpu_tensors(monkeypatch):
+    """K14-K18's wrappers on CPU tensors: plain versions, no launch; and
+    the TE entry points ask for the card by default."""
+    import numpy as np
+
+    from openr_tpu_torch.convert import te_graph
+    from openr_tpu_torch.ops import _cuda
+    from openr_tpu_torch.te import kernels as tk
+    from openr_tpu_torch.te import objective, optimizer
+
+    before = [k.launches for k in _cuda.KERNELS]
+    src, dst = np.array([0, 1, 1, 2]), np.array([1, 0, 2, 1])
+    graph = te_graph(src, dst, 3, "cpu")
+    we = torch.tensor([1.0, 1.0, 2.0, 2.0])
+    up = torch.ones(4, dtype=torch.bool)
+    d = torch.full((3, 3), tk.F_INF)
+    d.fill_diagonal_(0.0)
+    for _ in range(3):
+        d_prev = d
+        d, keep = tk.softmin_round(d_prev, we, graph, 0.05)
+    assert abs(float(d[0, 2]) - 3.0) < 1e-3 and keep.dtype == torch.uint8
+    tk.softmin_round_bwd(torch.ones(3, 3), d_prev, keep, we, graph, 0.05)
+    p = tk.soft_gate(d, we, up, graph, 0.05)
+    x = torch.ones((1, 3, 3))
+    xsum = torch.zeros_like(x)
+    x1 = tk.soft_flow_round(p, x, xsum, graph)
+    assert torch.equal(xsum, x) and x1.shape == x.shape
+    util = tk.soft_flow_util(p, xsum, torch.ones(4), graph)
+    g_p = torch.zeros_like(p)
+    tk.soft_flow_bwd_round(p, torch.ones_like(util), torch.ones(4), None, x,
+                           g_p, graph, first=True)
+    tk.soft_gate_bwd(g_p, d, we, up, graph, 0.05)
+    loss, lse = tk.te_mlu(util, torch.ones(1), 0.25)
+    tk.te_mlu_bwd(torch.ones(1), util, lse, torch.ones(1), 0.25)
+    w, row = we + 5.0, torch.empty(4)
+    tk.te_adam(w, torch.zeros(4), torch.zeros(4), torch.ones(4), up, row,
+               tk.adam_hparams(optimizer.TeOptConfig(), 0))
+    assert torch.equal(w, row) and bool((w < we + 5.0).all())
+    assert [k.launches for k in _cuda.KERNELS] == before
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        objective.softmin_distances(we.numpy(), src, dst, up.numpy(), 1.0,
+                                    3, 2)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        optimizer.optimize_weights(src, dst, up.numpy(), we.numpy(),
+                                   np.ones((1, 3, 3), np.float32),
+                                   np.ones(4, np.float32), 3)
