@@ -90,10 +90,35 @@ Phases, one JSON line each:
                all-pairs borrow (K11), the initial scores equal the CPU
                run's (a failed card run raises: the service has no CPU
                fallback)
+  te_pendant   a measurement, not a path: adam_solve on the pendant-node
+               TE input (seeded Clos and grid, weights 31-40), card
+               against CPU: the weight gaps (the pendant's in-edge apart),
+               and per softmin round the fold outcomes and gap == 0 sets
+               of the card's chain against the CPU's
+  nccl         NCCL between cards: not measured (one card)
+  tile_wan     the destination-tiled layout on the north-star WAN over a
+               (1, 4) mesh of ranks sharing the card: K19 (tile round),
+               K20 (halo fold) and K21's entries (tile init, mark, reset,
+               changed columns) against their plain versions on one round
+               of the real state (exact); the cold tiled solve (D and
+               rounds equal to K1's) and event_wan's event on the tiles (D
+               equal to a cold K1 solve of the new weights; rounds,
+               inv_rounds, col_changed and num_changed equal to the plain
+               tiled warm); the halo bytes against the bytes the ring hops
+               copied; h, n_tile and e_tile; times
+  tile_clos    DeltaRouteBuilder over CudaSpfSolver(mesh=(1, 4) Mesh) on
+               the 9,556-node Clos through the seven events of
+               event_clos: every db equal to a mesh=None solver's and the
+               CPU oracle's; the halo counters; delta against full builds
+  mesh_rows    the batch-sharded row layout, a (4, 1) mesh on the WAN:
+               cold and event_wan's event, D and rounds equal to the
+               unsharded K1 / K5 path; 16 KSP2 prefixes of ksp_wan under a
+               (2, 1) mesh, the route db equal to the unsharded solver's
   kernels      one line for all kernels: launches, error, ms, bounds
 
 Every path (main_path, event_wan, event_clos, star_flap, ksp_wan,
-ksp_star, apsp_wan, lfa_clos, te_clos, te_service) runs with all launch
+ksp_star, apsp_wan, lfa_clos, te_clos, te_service, tile_wan, tile_clos,
+mesh_rows) runs with all launch
 counts set to 0 just before it and read just after, and fails if a kernel
 it drives was not launched. The (min,+) tile product of fw_minplus.cuh (K10 in the port's
 numbering) has no launch and no row of its own: it runs inside K11 and
@@ -153,6 +178,10 @@ TE_STEPS = 8
 TE_DEMANDS = 4096
 TE_CHAIN_PODS = 4
 TE_BORROW_PODS = 2
+# the multi-device layouts: a graph axis of 4 over the north-star WAN and
+# the Clos (ranks sharing the one card), a batch axis of 4 over the WAN
+TILE_G = 4
+ROW_B = 4
 
 
 def emit(obj) -> None:
@@ -429,6 +458,7 @@ def main() -> int:
 
     import numpy as np
 
+    from openr_tpu_torch import convert
     from openr_tpu_torch.apsp import kernels as fw
     from openr_tpu_torch.convert import te_inputs, to_device
     from openr_tpu_torch.lsdb import LinkState, PrefixState
@@ -437,6 +467,8 @@ def main() -> int:
     from openr_tpu_torch.ops.graph import (
         INF, _next_bucket, compile_edges, compile_graph,
     )
+    from openr_tpu_torch.parallel import make_mesh, tile_graph
+    from openr_tpu_torch.parallel.mesh import replicate
     from openr_tpu_torch.solver import (
         CudaSpfSolver, DeltaRouteBuilder, SpfSolver,
     )
@@ -756,6 +788,7 @@ def main() -> int:
     n_e = wan.e
     w_old = wan.w.copy()
     w_new, changed, inc, up_on_dag = wan_event(wan, d_k1, torch, np, INF)
+    wan_w_new = w_new  # the same event on the multi-device layouts
     n_inc = int(np.count_nonzero(w_new[changed] > w_old[changed]))
     n_dec = int(np.count_nonzero(w_new[changed] < w_old[changed]))
     idx, vals = spf.sell_patch_arrays(wan.sell, changed, w_new, 64)
@@ -1045,6 +1078,7 @@ def main() -> int:
             "rounds": solve.rounds_last,
         })
     clos_s = time.perf_counter() - t0
+    paths.resume()  # drops the last comparison builds' launches
     clos_launches = paths.read("event_clos", (K1, K3, K4, K5, K7))
     check(builder.delta_builds >= 6,
           f"only {builder.delta_builds} delta builds")
@@ -1839,6 +1873,7 @@ def main() -> int:
         lfa_per_event.append({"event": name, "used_delta": used,
                               "delta_ms": delta_ms, "full_ms": full_ms})
     lfa_s = time.perf_counter() - t0
+    paths.resume()  # drops the last comparison builds' launches
     lfa_launches = paths.read("lfa_clos", (K1, K4, K5, K7))
     check(lbuilder.delta_builds >= 1,
           f"no delta build under LFA ({lbuilder.full_builds} full)")
@@ -2225,7 +2260,453 @@ def main() -> int:
     })
     del fx_svc, b_svc, b_solver
 
-    # -- 17. kernels line, card, result ----------------------------------
+    # -- te_pendant: the pendant-node TE input, card against CPU --------
+    # (a measurement, not counted: ROADMAP queue 3 item 1)
+    t0 = time.perf_counter()
+    pendant = {}
+    for pname in ("clos", "grid"):
+        rng = np.random.default_rng(3)
+        base = fabric_edges(pods=2) if pname == "clos" else grid_edges(6)
+        p_edges = [(a, b, int(rng.integers(1, 9))) for a, b, _ in base]
+        p_edges.append(("pendant", p_edges[0][0], 3))
+        p_dbs = build_adj_dbs(p_edges)
+        a_, b_ = p_edges[1][:2]
+        p_dbs[a_] = dataclasses.replace(p_dbs[a_], adjacencies=[
+            dataclasses.replace(x, is_overloaded=True)
+            if x.other_node_name == b_ else x
+            for x in p_dbs[a_].adjacencies])
+        p_ls = LinkState("0")
+        for db_ in p_dbs.values():
+            p_ls.update_adjacency_database(db_)
+        p_g = compile_graph(p_ls)
+        p_src, p_dst, p_w, p_up = te_edge_arrays(p_g)
+        p_w[np.flatnonzero(p_up)[:4]] = [31.0, 32.0, 33.5, 40.0]
+        pn = p_g.n
+        in_edge = int(np.flatnonzero(p_dst == p_g.node_index["pendant"])[0])
+        rng = np.random.default_rng(5)
+        p_dem = (rng.uniform(0, 2, (3, pn, pn)) * (1 - np.eye(pn))).astype(
+            np.float32)
+        p_caps = rng.uniform(0.5, 2.0, len(p_src)).astype(np.float32)
+        runs, chains = {}, {}
+        for side, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            pin = te_inputs(p_src, p_dst, p_w, p_up, p_dem, p_caps, device)
+            _, wh_, ls_ = teopt.adam_solve(
+                pin["w"], pin["demands"],
+                torch.tensor([1.0, 0.0, 1.0], device=device), pin["caps"],
+                pin["graph"], pin["up"], teopt.TeOptConfig(), 16, 4)
+            runs[side] = (wh_.cpu(), ls_.cpu())
+            we_p = teo.edge_weights(pin["w"], pin["up"])
+            for tau in (2.0, 0.5, 0.05):
+                d_p = torch.full((pn, pn), tk.F_INF, device=device)
+                d_p.fill_diagonal_(0.0)
+                keeps, same_d = [], 0
+                for _ in range(40):
+                    new_p, keep_p = tk.softmin_round(d_p, we_p, pin["graph"],
+                                                     tau)
+                    if side == "card":
+                        # the plain version on the same D, on the card
+                        same_d += int((keep_p != tk._softmin_round_plain(
+                            d_p, we_p, pin["graph"], tau)[1]).sum())
+                    d_p = new_p
+                    gap_p, _ = tk._gate_score(d_p, we_p, pin["up"],
+                                              pin["graph"], tau)
+                    keeps.append((keep_p.cpu(), (gap_p == 0).cpu(),
+                                  d_p.cpu()))
+                chains[side, tau] = (keeps, same_d)
+        (wh_k, ls_k), (wh_c, ls_c) = runs["card"], runs["cpu"]
+        gap_w = (wh_k - wh_c).abs().max(dim=0).values
+        rest = torch.ones(len(gap_w), dtype=torch.bool)
+        rest[in_edge] = False
+        per_tau = {}
+        for tau in (2.0, 0.5, 0.05):
+            (kc, same_d), (kp, _) = chains["card", tau], chains["cpu", tau]
+            per_tau[str(tau)] = {
+                "keep_mismatch_card_vs_cpu_by_round": [
+                    int((a[0] != b[0]).sum()) for a, b in zip(kc, kp)],
+                "gap0_mismatch_card_vs_cpu_by_round": [
+                    int((a[1] != b[1]).sum()) for a, b in zip(kc, kp)],
+                "max_d_diff_last": float((kc[-1][2] - kp[-1][2]).abs().max()),
+                "keep_k14_vs_plain_same_d": same_d,
+            }
+        pendant[pname] = {
+            "n": pn, "edges": len(p_src), "pendant_in_edge": in_edge,
+            "max_weight_gap": float(gap_w.max()),
+            "max_weight_gap_edge": int(gap_w.argmax()),
+            "max_weight_gap_other_edges": float(gap_w[rest].max()),
+            "loss_rel_err": rel_err(ls_k, ls_c), "ties": per_tau,
+        }
+    emit({"phase": "te_pendant", "rounds": 16, "steps": 4,
+          "seconds": time.perf_counter() - t0, "cases": pendant,
+          "card": card})
+
+    # -- 17. tile_wan: the destination-tiled layout on the north-star WAN --
+    K19, K20, K21 = _cuda.TILE_ROUND, _cuda.TILE_FOLD, _cuda.TILE_MARK
+    emit({"phase": "nccl", "not_measured": (
+        "one card: the mesh's ranks share it, so a hop is a device copy; "
+        "NCCL send/recv between cards cannot run here"),
+        "device_count": torch.cuda.device_count(), "card": card})
+    t0 = time.perf_counter()
+    wkey = wan.sell.shape_key()
+    st_w = to_device(wan, dev)
+    d_ref, rounds_ref = spf._sell_solver_counted(
+        wkey, src_t, st_w["nbrs"], st_w["wgs"], st_w["ov"])
+    check(torch.equal(d_ref, d_k1), "K1 differs from its first run")
+    wgs_new = tuple(torch.as_tensor(a, device=dev)
+                    for a in wan.sell.patched_wg(wan_w_new[: wan.e]))
+    d_new, rounds_new = spf._sell_solver_counted(
+        wkey, src_t, st_w["nbrs"], wgs_new, st_w["ov"])
+    tmesh = make_mesh([dev] * TILE_G, (1, TILE_G))
+    tiling = tile_graph(wan, TILE_G)
+    tkey = tiling.shape_key() + (wan.n_pad,)
+    n_tile, h = tiling.n_tile, tiling.h
+    tops = convert.tiling_ranks(tiling, tmesh)
+    tsrc = convert.rank_sources(tmesh, wan_src)
+    tov = convert.rank_replicas(tmesh, wan.overloaded, bool)
+    targs = (tsrc, tops["src_l"], tops["hseg"], tops["hptr"], tops["w2"],
+             tops["hcols"], tov)
+    w2n = convert.rank_rows(tmesh, tiling.tile_weights(wan_w_new), np.int32)
+    wargs = (tsrc, tops["src_l"], tops["hseg"], tops["hptr"], w2n,
+             tops["w2"], tops["hcols"], tov, tov)
+    tile_setup_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    paths.start()
+    t0 = time.perf_counter()
+    d_t, rounds_t, cold_copies = spf._tile_solver(tkey, tmesh, *targs)
+    torch.cuda.synchronize()
+    d_tw, rounds_tw, inv_tw, cc_tw, num_tw, warm_copies = (
+        spf._tile_solver_warm(tkey, tmesh, *wargs, d_t))
+    num_tw = int(num_tw)
+    torch.cuda.synchronize()
+    tile_s = time.perf_counter() - t0
+    tile_launches = paths.read("tile_wan", (K19, K20, K21))
+    check(torch.equal(d_t.gather(dev), d_k1) and rounds_t == rounds_ref,
+          f"tiled cold D or rounds ({rounds_t}) differ from K1's "
+          f"({rounds_ref})")
+    check(torch.equal(d_tw.gather(dev), d_new),
+          "tiled warm D differs from a cold K1 solve of the new weights")
+    plain_w = spf._tile_solver_warm(tkey, tmesh, *wargs, d_t,
+                                    ops=spf.TILE_PLAIN)
+    check(torch.equal(plain_w[0].gather(dev), d_new)
+          and (rounds_tw, inv_tw, num_tw) == (plain_w[1], plain_w[2],
+                                              int(plain_w[4]))
+          and all(torch.equal(a, b) for a, b in zip(cc_tw, plain_w[3])),
+          f"tiled warm differs from its plain version: (rounds, inv, num) "
+          f"{(rounds_tw, inv_tw, num_tw)} vs {plain_w[1:3]} "
+          f"{int(plain_w[4])}")
+    plain_c = spf._tile_solver(tkey, tmesh, *targs, ops=spf.TILE_PLAIN)
+    check(torch.equal(plain_c[0].gather(dev), d_k1)
+          and plain_c[1] == rounds_t, "tiled cold differs from plain")
+    del plain_w, plain_c
+    # the unsharded warm path on the same event, for its round counts
+    wgs_u = tuple(a.clone() for a in st_w["wgs"])
+    d_uw, _, r_uw, inv_uw, cc_uw, num_uw = spf._sell_solver_warm(
+        wkey, src_t, st_w["nbrs"], wgs_u, st_w["ov"], idx_t, vals_t, inc_t,
+        d_k1)
+    check(torch.equal(d_uw, d_new) and torch.equal(torch.cat(cc_tw), cc_uw)
+          and int(num_uw) == num_tw,
+          "tiled warm columns differ from the sliced warm path's")
+
+    # K19, K20 and K21 alone, on one round of the real state: rank j's
+    # cold tile (the first round), its fixpoint with the event's seed mask
+    # and with a mark mask
+    j, s_l = 1, len(wan_src)
+    off = j * n_tile
+    rank = dict(sources=tsrc[0][j], overloaded=tov[0][j], offset=off,
+                src_l=tops["src_l"][0][j], hseg=tops["hseg"][0][j],
+                hptr=tops["hptr"][0][j], w2=tops["w2"][0][j], h=h)
+    dpt = d_t.blocks[0][j]
+    d0t = spf.tile_init(tsrc[0][j], off, n_tile)
+    err21 = max_abs_err(d0t, spf._tile_init_plain(tsrc[0][j], off, n_tile))
+    marks_t = (dpt % 3) == 0
+    variants = (({}, d0t), ({"w_new": w2n[0][j],
+                 "ov_new": tov[0][j]}, dpt),
+                ({"marks": marks_t}, dpt))
+    err19 = 0
+    for kw, dd in variants:
+        err19 = max(err19, max_abs_err(spf.tile_round(dd, **rank, **kw),
+                                       spf._tile_round_plain(dd, **rank,
+                                                             **kw)))
+    ctr_j = spf.tile_round(d0t, **rank)
+    rank0 = dict(rank, sources=tsrc[0][0], offset=0,
+                 src_l=tops["src_l"][0][0], hseg=tops["hseg"][0][0],
+                 hptr=tops["hptr"][0][0], w2=tops["w2"][0][0])
+    ctr_0 = spf.tile_round(spf.tile_init(tsrc[0][0], 0, n_tile), **rank0)
+    err20 = 0
+    for ctr, cols in ((ctr_j, tops["hcols"][0][j]),
+                      (ctr_0, tops["hcols"][0][0])):
+        f_k, f_p = (torch.zeros(1, dtype=torch.int32, device=dev)
+                    for _ in "kp")
+        out_k = spf.tile_fold(dpt.clone(), ctr, cols, j, f_k)
+        out_p = spf._tile_fold_plain(dpt.clone(), ctr, cols, j, f_p)
+        err20 = max(err20, max_abs_err(out_k, out_p), max_abs_err(f_k, f_p))
+    recv = spf.tile_fold(torch.full_like(dpt, INF), ctr_j,
+                         tops["hcols"][0][j], j)
+    for m in (None, marks_t):
+        f_k, f_p = (torch.zeros(1, dtype=torch.int32, device=dev)
+                    for _ in "kp")
+        m_k = spf.tile_mark(m, recv.clone(), dpt, f_k)
+        m_p = spf._tile_mark_plain(m, recv.clone(), dpt, f_p)
+        err21 = max(err21, max_abs_err(m_k, m_p), max_abs_err(f_k, f_p))
+    err21 = max(err21, max_abs_err(
+        spf.tile_reset(marks_t, dpt, tsrc[0][j], off),
+        spf._tile_reset_plain(marks_t, dpt, tsrc[0][j], off)))
+    dwt = d_tw.blocks[0][j]
+    outs = []
+    for fn in (spf.tile_col_changed, spf._tile_col_changed_plain):
+        cc = torch.zeros(n_tile, dtype=torch.bool, device=dev)
+        cnt = torch.zeros(1, dtype=torch.int32, device=dev)
+        fn(dwt, dpt, cc, cnt)
+        outs.append((cc, cnt))
+    err21 = max(err21, max_abs_err(outs[0][0], outs[1][0]),
+                max_abs_err(outs[0][1], outs[1][1]))
+    check(err19 == 0, f"K19 differs from its plain version: {err19}")
+    check(err20 == 0, f"K20 differs from its plain version: {err20}")
+    check(err21 == 0, f"K21 differs from its plain version: {err21}")
+
+    # times, each the median of CUDA-event-timed calls
+    ms_tc = time_ms(lambda: spf._tile_solver(tkey, tmesh, *targs), reps=5,
+                    warmup=1)
+    ms_tw = time_ms(lambda: spf._tile_solver_warm(tkey, tmesh, *wargs, d_t),
+                    reps=5, warmup=1)
+    ms_tcp = time_ms(lambda: spf._tile_solver(tkey, tmesh, *targs,
+                                              ops=spf.TILE_PLAIN),
+                     reps=3, warmup=1)
+    ms_k1w = time_ms(lambda: spf._sell_solver_counted(
+        wkey, src_t, st_w["nbrs"], st_w["wgs"], st_w["ov"]))
+    buf = torch.empty((s_l, h), dtype=torch.int32, device=dev)
+    ms19 = time_ms(lambda: spf.tile_round(d0t, **rank, out=buf))
+    plain_ms19 = time_ms(lambda: spf._tile_round_plain(d0t, **rank, out=buf))
+    fold_t = dpt.clone()
+    ms20 = time_ms(lambda: spf.tile_fold(fold_t, ctr_0, tops["hcols"][0][0],
+                                         j))
+    plain_ms20 = time_ms(lambda: spf._tile_fold_plain(
+        fold_t, ctr_0, tops["hcols"][0][0], j))
+    flag_t = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def fresh_cols():
+        return (torch.zeros(n_tile, dtype=torch.bool, device=dev),
+                torch.zeros(1, dtype=torch.int32, device=dev))
+
+    ms21_parts, plain21_parts = {}, {}
+    for name_, fn_k, fn_p, setup in (
+        ("init", lambda: spf.tile_init(tsrc[0][j], off, n_tile),
+         lambda: spf._tile_init_plain(tsrc[0][j], off, n_tile), None),
+        ("mark", lambda r: spf.tile_mark(marks_t, r, dpt, flag_t),
+         lambda r: spf._tile_mark_plain(marks_t, r, dpt, flag_t),
+         lambda: (recv.clone(),)),
+        ("reset", lambda: spf.tile_reset(marks_t, dpt, tsrc[0][j], off),
+         lambda: spf._tile_reset_plain(marks_t, dpt, tsrc[0][j], off), None),
+        ("col_changed",
+         lambda cc, cnt: spf.tile_col_changed(dwt, dpt, cc, cnt),
+         lambda cc, cnt: spf._tile_col_changed_plain(dwt, dpt, cc, cnt),
+         fresh_cols),
+    ):
+        ms21_parts[name_] = time_ms(fn_k, setup=setup)
+        plain21_parts[name_] = time_ms(fn_p, setup=setup)
+    ms21, plain_ms21 = sum(ms21_parts.values()), sum(plain21_parts.values())
+
+    # bounds: each input read once, each output written once
+    k_j = int(tiling.hptr[j][-1])
+    hc = tiling.hcols[0]
+    kept = int(np.count_nonzero((hc >= off) & (hc < off + n_tile)))
+    tile_b = 4 * s_l * n_tile
+    b19_ms, b19_by = bound(4 * s_l * h + tile_b + 8 * k_j + 4 * (h + 1)
+                           + 4 * s_l + n_tile, 3 * s_l * k_j, rate)
+    b20_ms, b20_by = bound(4 * h + 12 * s_l * kept, s_l * kept, rate)
+    diff = dwt != dpt
+    first = torch.where(diff.any(0), diff.int().argmax(0) + 1, s_l)
+    rows_read = int(first.sum())
+    b21_parts = {
+        "init": tile_b + 4 * s_l,
+        "mark": tile_b * 14 // 4,
+        "reset": tile_b * 9 // 4 + 4 * s_l,
+        "col_changed": 8 * rows_read + n_tile + 4,
+    }
+    b21_ms = sum(b21_parts.values()) / rate * 1e3
+    real_slots = (tiling.hcols != spf.TILE_PAD).sum(axis=1)
+    payload = (s_l * h + h) * 4
+    # the bytes the rings counted as they copied, against the halo count of
+    # the reference's solver (`_account_halo`: g - 1 hops a round, the warm
+    # solve's seed and mark exchanges besides, every rank's frontier a hop)
+    halo_cold = (TILE_G - 1) * rounds_t * TILE_G * payload
+    halo_warm = (TILE_G - 1) * (1 + inv_tw + rounds_tw) * TILE_G * payload
+    check((cold_copies.bytes, warm_copies.bytes) == (halo_cold, halo_warm),
+          f"the hops copied {cold_copies.bytes} and {warm_copies.bytes} "
+          f"bytes, the halo counts are {halo_cold} and {halo_warm}")
+    emit({
+        "phase": "tile_wan", "graph": f"wan_edges({WAN_N}, 4, 3)",
+        "mesh": [1, TILE_G], "sources": s_l, "n_pad": wan.n_pad,
+        "g": TILE_G, "n_tile": n_tile, "e_tile": tiling.e_tile, "h": h,
+        "real_edges": np.diff(tiling.hptr[:, [0, -1]], axis=1).ravel()
+        .tolist(), "real_slots": real_slots.tolist(),
+        "frontier_mib": s_l * h * 4 / 2**20, "tile_mib": tile_b / 2**20,
+        "rounds": rounds_t, "rounds_k1": rounds_ref,
+        "warm": {"rounds": rounds_tw, "inv_rounds": inv_tw,
+                 "num_changed": num_tw, "sliced_rounds": r_uw,
+                 "sliced_inv_rounds": inv_uw},
+        "equal_k1": True, "equal_cold_new_weights": True,
+        "equal_plain": True, "cold_ms": ms_tc, "warm_ms": ms_tw,
+        "cold_plain_ms": ms_tcp, "k1_cold_ms": ms_k1w,
+        "halo_bytes_cold": halo_cold, "halo_bytes_warm": halo_warm,
+        "hop_copies_cold": cold_copies._asdict(),
+        "hop_copies_warm": warm_copies._asdict(),
+        "k19_ms": ms19, "k20_ms": ms20, "k21_ms": ms21_parts,
+        "k21_plain_ms": plain21_parts, "setup_seconds": tile_setup_s,
+        "seconds": tile_s, "launches": tile_launches, "card": card,
+    })
+    for k, src_name, e, m_, pm, bm, bb in (
+        (K19, "tile_round.cu", err19, ms19, plain_ms19, b19_ms, b19_by),
+        (K20, "tile_fold.cu", err20, ms20, plain_ms20, b20_ms, b20_by),
+        (K21, "tile_mark.cu", err21, ms21, plain_ms21, b21_ms, "bytes"),
+    ):
+        results.append({
+            "name": k.name, "route": "cuda",
+            "source": f"openr_tpu_torch/ops/csrc/{src_name}",
+            "replaces": k.replaces, "launches": None, "max_abs_err": e,
+            "ms": m_, "plain_ms": pm, "bound_ms": bm, "bound_by": bb,
+            "library_ms": None,
+        })
+    del (d_t, d_tw, d_uw, wgs_u, tops, w2n, targs, wargs, buf, recv, outs,
+         d0t, ctr_j, ctr_0, fold_t, diff)
+
+    # -- 18. tile_clos: CudaSpfSolver on a (1, 4) mesh, DeltaPath on tiles -
+    me = "rsw0_0"
+    t0 = time.perf_counter()
+    tc_ls = [build_ls(clos_edges, LinkState, build_adj_dbs) for _ in "ab"]
+    cmesh = make_mesh([dev] * TILE_G, (1, TILE_G))
+    paths.start()
+    tbuilder = DeltaRouteBuilder(CudaSpfSolver(me, device=dev, mesh=cmesh))
+    tdb, _, used = tbuilder.build(me, {"0": tc_ls[1]}, clos_ps, None)
+    paths.pause()
+    check(not used, "tile_clos: the first build must be full")
+    tsolver = tbuilder.solver
+    tsolve = tsolver._solves[("0", me)][1]
+    check(tsolve._dev["kind"] == "tile2d", "tile_clos: not tiled")
+    flat = CudaSpfSolver(me, device=dev)
+    flat_db = flat.build_route_db(me, {"0": tc_ls[1]}, clos_ps)
+    want = SpfSolver(me).build_route_db(me, {"0": tc_ls[0]}, clos_ps)
+    for got in (tdb, flat_db):
+        check(got.unicast_entries == want.unicast_entries
+              and got.mpls_entries == want.mpls_entries,
+              "tile_clos: the first route db differs from the oracle")
+    tc_events = []
+    for name, edits, want_delta in clos_events():
+        for a, b, changes in edits:
+            edit_adjacency(tc_ls, a, b, **changes)
+        paths.resume()
+        t = time.perf_counter()
+        tdb, _, used = tbuilder.build(me, {"0": tc_ls[1]}, clos_ps, tdb)
+        delta_ms = (time.perf_counter() - t) * 1e3
+        paths.pause()
+        t = time.perf_counter()
+        flat_db = flat.build_route_db(me, {"0": tc_ls[1]}, clos_ps)
+        full_ms = (time.perf_counter() - t) * 1e3
+        want = SpfSolver(me).build_route_db(me, {"0": tc_ls[0]}, clos_ps)
+        for got in (tdb, flat_db):
+            check(got.unicast_entries == want.unicast_entries
+                  and got.mpls_entries == want.mpls_entries,
+                  f"tile_clos {name}: route db differs from the oracle "
+                  "or the mesh=None solver")
+        check(used == want_delta,
+              f"tile_clos {name}: used_delta {used}, want {want_delta}")
+        tc_events.append({
+            "event": name, "used_delta": used, "build_ms": delta_ms,
+            "flat_full_build_ms": full_ms, "warm": tsolve.last_solve_warm,
+            "rounds": tsolve.rounds_last,
+            "inv_rounds": tsolve.invalidation_rounds_last,
+            "halo_exchanges_last": tsolver.counters.get(
+                "decision.spf.halo_exchanges_last"),
+            "halo_bytes": tsolver.counters.get("decision.spf.halo_bytes"),
+        })
+    torch.cuda.synchronize()
+    paths.resume()  # drops the last comparison builds' launches
+    tc_launches = paths.read("tile_clos", (K3, K7, K19, K20, K21))
+    check(tbuilder.delta_builds >= 6 and tsolver.host_spf_calls == 0,
+          f"tile_clos: {tbuilder.delta_builds} delta builds, "
+          f"{tsolver.host_spf_calls} host SPF answers")
+    emit({
+        "phase": "tile_clos", "me": me, "mesh": [1, TILE_G],
+        "n_pad": tsolve.graph.n_pad, "h": tsolve._dev["tiling"].h,
+        "events": tc_events, "delta_builds": tbuilder.delta_builds,
+        "full_builds": tbuilder.full_builds,
+        "halo_bytes": tsolver.counters.get("decision.spf.halo_bytes"),
+        "halo_exchanges_last": tsolver.counters.get(
+            "decision.spf.halo_exchanges_last"),
+        "seconds": time.perf_counter() - t0, "launches": tc_launches,
+        "card": card,
+    })
+    del tbuilder, tsolver, tsolve, flat, tc_ls
+
+    # -- 19. mesh_rows: the batch-sharded row layout ---------------------
+    t0 = time.perf_counter()
+    rmesh = make_mesh([dev] * ROW_B, (ROW_B, 1))
+
+    def row_layout():
+        """The layout replicated over the mesh (one copy per device),
+        with fresh weight buckets, which the warm solve patches."""
+        return (replicate(rmesh, lambda d: st_w["nbrs"]),
+                replicate(rmesh, lambda d: tuple(a.clone()
+                                                 for a in st_w["wgs"])),
+                replicate(rmesh, lambda d: st_w["ov"]))
+
+    nb_r, wg_r, ov_r = row_layout()
+    paths.start()
+    d_r, rounds_r = spf._sell_solver_counted(wkey, src_t, nb_r, wg_r, ov_r,
+                                             mesh=rmesh)
+    d_rw, _, rounds_rw, inv_rw, cc_rw, num_rw = spf._sell_solver_warm(
+        wkey, src_t, nb_r, wg_r, ov_r, idx_t, vals_t, inc_t, d_r, mesh=rmesh)
+    torch.cuda.synchronize()
+    paths.pause()  # the comparisons and timings below are not counted
+    rows_s = time.perf_counter() - t0
+    check(torch.equal(d_r.gather(dev), d_k1) and rounds_r == rounds_ref,
+          "mesh_rows: the row-sharded cold solve differs from K1's")
+    check(torch.equal(d_rw.gather(dev), d_new)
+          and (rounds_rw, inv_rw) == (r_uw, inv_uw)
+          and torch.equal(cc_rw, cc_uw) and int(num_rw) == int(num_uw),
+          "mesh_rows: the row-sharded warm solve differs from the "
+          "unsharded one")
+
+    def rows_warm(nb, wg, ov):
+        return spf._sell_solver_warm(wkey, src_t, nb, wg, ov, idx_t, vals_t,
+                                     inc_t, d_r, mesh=rmesh)
+
+    ms_rc = time_ms(lambda: spf._sell_solver_counted(
+        wkey, src_t, nb_r, wg_r, ov_r, mesh=rmesh))
+    ms_rw = time_ms(rows_warm, setup=row_layout)
+    # KSP2 under a (2, 1) mesh: cold, row-sharded masked solves
+    kr_ls = build_ls(ksp_edges, LinkState, build_adj_dbs)
+    paths.resume()
+    kr = CudaSpfSolver("w0", device=dev, mesh=make_mesh([dev] * 2, (2, 1)))
+    t = time.perf_counter()
+    db_kr = kr.build_route_db("w0", {"0": kr_ls}, ksp_ps)
+    ms_kr = (time.perf_counter() - t) * 1e3
+    torch.cuda.synchronize()
+    rows_launches = paths.read("mesh_rows", (K1, K4, K5, K7, K8, K9))
+    ku = CudaSpfSolver("w0", device=dev)
+    db_ku = ku.build_route_db("w0", {"0": kr_ls}, ksp_ps)
+    check(db_kr.unicast_entries == db_ku.unicast_entries
+          and db_kr.mpls_entries == db_ku.mpls_entries
+          and len(db_kr.unicast_entries) == len(groups),
+          "mesh_rows: the meshed KSP2 route db differs from the unsharded")
+    krs = kr._solves[("0", "w0")][1]
+    check(krs.ksp_device_batches > 0 and krs.ksp_warm_batches == 0
+          and kr.host_spf_calls == 0, "mesh_rows: KSP did not run cold on "
+          "the card")
+    emit({
+        "phase": "mesh_rows", "graph": f"wan_edges({WAN_N}, 4, 3)",
+        "mesh": [ROW_B, 1], "rounds": rounds_r, "warm_rounds": rounds_rw,
+        "inv_rounds": inv_rw, "num_changed": int(num_rw),
+        "equal_k1": True, "equal_unsharded_warm": True,
+        "cold_ms": ms_rc, "warm_ms": ms_rw, "k1_cold_ms": ms_k1w,
+        "ksp": {"graph": f"wan_edges({KSP_WAN_N}, 4, 5)", "mesh": [2, 1],
+                "prefixes": len(groups), "route_build_ms": ms_kr,
+                "ksp_device_batches": krs.ksp_device_batches,
+                "equal_unsharded": True},
+        "seconds": rows_s, "launches": rows_launches, "card": card,
+    })
+    del d_r, d_rw, nb_r, wg_r, ov_r, kr, ku, krs, kr_ls, st_w, d_new
+
+    # -- 20. kernels line, card, result ----------------------------------
     for row in results:
         row["launches"] = paths.total(row["name"])
         row["launches_by_path"] = {

@@ -264,15 +264,16 @@ def fw_close(
         return _fw_close_plain(w, allow)
     d = w.clone()
     for k in range(nb):
-        FW_CLOSE.launch(d.data_ptr(), allow.data_ptr(), k, n, bsz,
+        FW_CLOSE.launch(dev, d.data_ptr(), allow.data_ptr(), k, n, bsz,
                         entry="fw_close_diag")
         if nb > 1:
-            FW_CLOSE.launch(d.data_ptr(), allow.data_ptr(), k, n, bsz,
+            FW_CLOSE.launch(dev, d.data_ptr(), allow.data_ptr(), k, n, bsz,
                             entry="fw_close_panels")
-            FW_CLOSE.launch(d.data_ptr(), allow.data_ptr(), k, n, bsz,
+            FW_CLOSE.launch(dev, d.data_ptr(), allow.data_ptr(), k, n, bsz,
                             entry="fw_close_outer")
     probe = torch.full((1,), _INT32_MAX, dtype=torch.int32, device=dev)
-    FW_CLOSE.launch(d.data_ptr(), probe.data_ptr(), n, entry="fw_close_probe")
+    FW_CLOSE.launch(dev, d.data_ptr(), probe.data_ptr(), n,
+                    entry="fw_close_probe")
     return d, probe[0]
 
 
@@ -305,11 +306,12 @@ def fw_seed(
     dirty = torch.empty(nb, dtype=torch.bool, device=dev)
     num = torch.empty(1, dtype=torch.int32, device=dev)
     FW_SEED.launch(
+        dev,
         d_prev.data_ptr(), w_new.data_ptr(), inc_u.data_ptr(),
         inc_v.data_ptr(), inc_w.data_ptr(), d0.data_ptr(),
         row_dirty.data_ptr(), p, n, entry="fw_seed_rows",
     )
-    FW_SEED.launch(row_dirty.data_ptr(), dirty.data_ptr(), num.data_ptr(),
+    FW_SEED.launch(dev, row_dirty.data_ptr(), dirty.data_ptr(), num.data_ptr(),
                    nb, bsz, entry="fw_seed_blocks")
     return d0, dirty, num
 
@@ -343,21 +345,21 @@ def fw_reclose(
     rowk = torch.empty((bsz, n), dtype=torch.int32, device=dev)
     dirty_new = torch.empty(nb, dtype=torch.bool, device=dev)
     counts = torch.empty(2, dtype=torch.int32, device=dev)
-    FW_RECLOSE.launch(dirty.data_ptr(), blk.data_ptr(), changed.data_ptr(),
-                      nb, kb, entry="fw_reclose_compact")
-    FW_RECLOSE.launch(d.data_ptr(), allow.data_ptr(), blk.data_ptr(),
+    FW_RECLOSE.launch(dev, dirty.data_ptr(), blk.data_ptr(),
+                      changed.data_ptr(), nb, kb, entry="fw_reclose_compact")
+    FW_RECLOSE.launch(dev, d.data_ptr(), allow.data_ptr(), blk.data_ptr(),
                       scratch.data_ptr(), kb, nb, bsz, entry="fw_reclose_rows")
-    FW_RECLOSE.launch(d.data_ptr(), scratch.data_ptr(), blk.data_ptr(),
+    FW_RECLOSE.launch(dev, d.data_ptr(), scratch.data_ptr(), blk.data_ptr(),
                       changed.data_ptr(), kb, nb, bsz,
                       entry="fw_reclose_rows_apply")
     for c in range(kb):
-        FW_RECLOSE.launch(d.data_ptr(), allow.data_ptr(), blk.data_ptr(),
+        FW_RECLOSE.launch(dev, d.data_ptr(), allow.data_ptr(), blk.data_ptr(),
                           colm.data_ptr(), rowk.data_ptr(), c, nb, bsz,
                           entry="fw_reclose_snapshot")
-        FW_RECLOSE.launch(d.data_ptr(), colm.data_ptr(), rowk.data_ptr(),
+        FW_RECLOSE.launch(dev, d.data_ptr(), colm.data_ptr(), rowk.data_ptr(),
                           blk.data_ptr(), changed.data_ptr(), c, nb, bsz,
                           entry="fw_reclose_step")
-    FW_RECLOSE.launch(dirty.data_ptr(), changed.data_ptr(),
+    FW_RECLOSE.launch(dev, dirty.data_ptr(), changed.data_ptr(),
                       dirty_new.data_ptr(), counts.data_ptr(), nb,
                       entry="fw_reclose_finish")
     return d, dirty_new, counts

@@ -6,6 +6,12 @@ Python values and numpy arrays, which `graph_from_arrays` turns into the
 port's `CompiledGraph`. `to_device` uploads the persistent tensors a solve
 reads.
 
+Under a solver mesh every rank of the (batch, graph) grid holds its own
+tensors on its device: `per_rank` builds such a grid, `rank_rows` the
+tiled layout's per-partition rows (one row of each [g, ...] array on each
+graph rank), and `tiling_ranks` carries a GraphTiling of either package
+across, its numpy arrays in, the port's per-rank tensors out.
+
 Traffic engineering's "weights" are the edge arrays, demands and
 capacities of `te.objective.te_edge_arrays` and `te.scenarios`, numpy in
 both packages: `te_inputs` uploads them with the two edge-range layouts
@@ -15,7 +21,7 @@ both packages: `te_inputs` uploads them with the two edge-range layouts
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -23,6 +29,7 @@ import torch
 from openr_tpu_torch.device import DeviceLike, resolve_device
 from openr_tpu_torch.ops.graph import CompiledGraph, SlicedEll
 from openr_tpu_torch.ops.spf import edge_csr
+from openr_tpu_torch.parallel.mesh import tile_hptr
 
 _SCALARS = ("n", "e", "n_pad", "e_pad")
 _ARRAYS = {"src": np.int32, "dst": np.int32, "w": np.int32, "overloaded": bool}
@@ -110,6 +117,68 @@ def to_device(
         "wgs": tuple(upload(a, np.int32, dev) for a in sell.wg)
         if sell else (),
     }
+
+
+def per_rank(mesh, make: Callable, key: Callable = None) -> List[List]:
+    """[b][g] grid of make(i, j, device) over the mesh's ranks. Ranks on one
+    device with the same key(i, j) share one value (default key: the
+    position, so nothing is shared)."""
+    key = key or (lambda i, j: (i, j))
+    made: Dict = {}
+    b, g = mesh.devices.shape
+    out = []
+    for i in range(b):
+        row = []
+        for j in range(g):
+            dev = mesh.devices[i, j]
+            k = (dev, key(i, j))
+            if k not in made:
+                made[k] = make(i, j, dev)
+            row.append(made[k])
+        out.append(row)
+    return out
+
+
+def rank_rows(mesh, a, dtype) -> List[List[torch.Tensor]]:
+    """Row j of the [g, ...] array `a` on every rank (i, j): the tiled
+    layout's P('graph', None) placement, one upload per device and row."""
+    return per_rank(mesh, lambda i, j, dev: upload(a[j], dtype, dev),
+                    key=lambda i, j: j)
+
+
+def rank_replicas(mesh, a, dtype) -> List[List[torch.Tensor]]:
+    """The whole array on every rank (P()), one upload per device."""
+    return per_rank(mesh, lambda i, j, dev: upload(a, dtype, dev),
+                    key=lambda i, j: None)
+
+
+def rank_sources(mesh, rows) -> List[List[torch.Tensor]]:
+    """Batch rank i's slice of the source rows on every rank (i, j)
+    (P('batch')); the batch must split evenly."""
+    rows = np.asarray(rows, dtype=np.int32)
+    b = mesh.devices.shape[0]
+    if len(rows) % b:
+        raise ValueError(f"{len(rows)} sources do not split over {b}")
+    s_l = len(rows) // b
+    return per_rank(
+        mesh, lambda i, j, dev: upload(rows[i * s_l : (i + 1) * s_l],
+                                       np.int32, dev),
+        key=lambda i, j: i)
+
+
+def tiling_ranks(tiling, mesh) -> Dict[str, List[List[torch.Tensor]]]:
+    """A GraphTiling's arrays (the port's, or the JAX package's: any object
+    with its fields; hptr is derived where it is missing) as per-rank int32
+    tensors: `src_l`, `hseg`, `w2` (the tiling's weights), `hcols` and
+    `hptr`, partition j's row on every graph rank j."""
+    hptr = getattr(tiling, "hptr", None)
+    if hptr is None:
+        counts = np.bincount(np.asarray(tiling.edge_tile), minlength=tiling.g)
+        hptr = tile_hptr(np.asarray(tiling.hseg), counts, int(tiling.h))
+    arrays = {"src_l": tiling.src_l, "hseg": tiling.hseg, "w2": tiling.w,
+              "hcols": tiling.hcols, "hptr": hptr}
+    return {name: rank_rows(mesh, np.asarray(a), np.int32)
+            for name, a in arrays.items()}
 
 
 @dataclass(frozen=True)

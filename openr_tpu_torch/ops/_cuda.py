@@ -13,9 +13,12 @@ library, which is built once, and count their launches apart. A source may
 include a local header (`#include "fw_minplus.cuh"`); the library's name
 hashes the header too, so editing it rebuilds every source that uses it. Every
 pointer and the stream are passed as `ctypes.c_void_p`, every int as
-`ctypes.c_int` and every float as `ctypes.c_float`; each entry point returns `cudaGetLastError()` and a
-non-zero code raises. Launches go
-on PyTorch's current stream.
+`ctypes.c_int` and every float as `ctypes.c_float`; each entry point
+returns `cudaGetLastError()` and a non-zero code raises. A launch names
+the card that holds its tensors and goes on that card's current stream,
+with that card current: the ranks of a mesh may lie on several cards, and
+PyTorch orders its own work on a card, the copies between cards among it,
+on the same streams.
 """
 
 from __future__ import annotations
@@ -92,13 +95,16 @@ class Kernel:
                 self._fns = fns
         return self._fns
 
-    def launch(self, *args, entry: Optional[str] = None) -> None:
-        """Launch one entry point (the first by default) on the current
-        stream; raises on a refused launch."""
+    def launch(self, device: torch.device, *args,
+               entry: Optional[str] = None) -> None:
+        """Launch one entry point (the first by default) on `device`, the
+        card that holds its tensors, on that card's current stream; raises
+        on a refused launch."""
         fns = self._bind()
         sym = entry or next(iter(self.entries))
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fns[sym](*args, stream)
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            rc = fns[sym](*args, stream)
         if rc != 0:
             raise RuntimeError(
                 f"CUDA kernel {sym} failed to launch: cudaError {rc}"
@@ -314,10 +320,34 @@ TE_STEP = Kernel(
     },
     "openr_tpu/te/optimizer.py:87,103 _loss_core, _adam_scan_core",
 )
+TILE_ROUND = Kernel(
+    "tile_round",
+    "tile_round.cu",
+    {"tile_round": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I]},
+    "openr_tpu/ops/spf.py:676,712 _tile_seg_min, _tile_relax",
+)
+TILE_FOLD = Kernel(
+    "tile_fold",
+    "tile_fold.cu",
+    {"tile_fold": [_P, _P, _P, _P, _I, _I, _I, _I]},
+    "openr_tpu/ops/spf.py:648,657 _tile_fold_min, _tile_halo_min",
+)
+TILE_MARK = Kernel(
+    "tile_mark",
+    "tile_mark.cu",
+    {
+        "tile_init": [_P, _P, _I, _I, _I],
+        "tile_mark": [_P, _P, _P, _P, _P, _I],
+        "tile_reset": [_P, _P, _P, _P, _I, _I, _I],
+        "tile_col_changed": [_P, _P, _P, _P, _I, _I],
+    },
+    "openr_tpu/ops/spf.py:688,784 _tile_d0_allow, _tile_solver_warm",
+)
 KERNELS = (
     SELL_RELAX, BF_RELAX, ECMP_TRIANGLE,
     SELL_PATCH, SELL_MARK, BF_MARK, DELTA_EXTRACT,
     SELL_MASK, SELL_RELAX_MASKED,
     FW_CLOSE, FW_SEED, FW_RECLOSE,
     SOFTMIN_ROUND, SOFTMIN_BWD, SOFT_FLOW, SOFT_FLOW_BWD, TE_STEP,
+    TILE_ROUND, TILE_FOLD, TILE_MARK,
 )

@@ -23,12 +23,31 @@ Nine hand-written CUDA kernels carry the device work (ops/csrc/):
   K8 sell_mask           KSP link-ignore masks: bit-mask build, warm seed
   K9 sell_relax_masked_round  K1's round with K8's per-column masks
 
+and three more carry the destination-tiled layout of a (batch, graph) mesh:
+
+  K19 tile_round          one tiled round: masked gather of the tile-local
+                          tails, clamped add, segment-min into the frontier
+  K20 tile_fold           fold one frontier into the columns a rank owns
+  K21 tile_mark           the tiled cold start, the warm path's marks and
+                          reset, and the changed columns
+
 The warm event path (an LSDB event answered from the previous fixpoint)
 is K5 -> K4 -> K5 reset -> K1 -> K7 on the sliced layout and K6 -> K2 ->
 K7 on the edge-list one: entries whose old shortest path may cross an
 increased edge are reset to INF (Ramalingam-Reps invalidation), everything
 else keeps its old distance, which is an upper bound of the new one, and
 the relaxation repairs the rest.
+
+Under a solver mesh (`parallel/mesh.py`) the same kernels run once per rank.
+With a graph axis of one, the source batch is split into row slices, one per
+batch rank, against layout arrays replicated on each rank's device (the
+reference's `_mesh_shardings` placements). With a graph axis above one, each
+rank keeps a [S/batch, n_pad/graph] tile of D and relaxes only the edges
+whose tail it owns (`parallel/mesh.py:GraphTiling`); between rounds the
+compact per-partition frontiers move one hop at a time around the graph
+ring and each rank folds them into its own columns (K19 -> K20 per hop, the
+halo exchange). One process drives every rank, as one jitted `shard_map`
+does in the reference.
 
 KSP's link-ignore re-solves (one batch row per destination, each with its
 own links at INF) are K8 build -> K9 cold on the sliced layout, or K8
@@ -47,7 +66,7 @@ the Dijkstra nexthop-union semantics of LinkState.cpp:855-871.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -64,6 +83,9 @@ from openr_tpu_torch.ops._cuda import (
     SELL_PATCH,
     SELL_RELAX,
     SELL_RELAX_MASKED,
+    TILE_FOLD,
+    TILE_MARK,
+    TILE_ROUND,
 )
 from openr_tpu_torch.ops.graph import INF, CompiledGraph, _next_bucket
 
@@ -112,6 +134,106 @@ def _check(name: str, t: torch.Tensor, dtype, ndim: int, device) -> None:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+# -- mesh placements --------------------------------------------------------
+
+
+def _on(x, device: torch.device):
+    """`x` on `device`: a replicated operand (a dict device -> copy) gives
+    its copy there, a tensor is moved (a no-op where it already lies), a
+    tuple maps over its items."""
+    if isinstance(x, dict):
+        return x[device]
+    if isinstance(x, tuple):
+        return tuple(_on(a, device) for a in x)
+    return x.to(device)
+
+
+def mesh_devices(mesh) -> List[torch.device]:
+    """The distinct devices of a mesh, in its order (a mesh may name one
+    device several times: ranks sharing a card)."""
+    out: List[torch.device] = []
+    for dev in mesh.devices.flat:
+        if dev not in out:
+            out.append(dev)
+    return out
+
+
+def batch_devices(mesh) -> List[torch.device]:
+    """The device of each batch rank of the row layout, graph rank 0: the
+    row layout replicates over 'graph' (P('batch'))."""
+    return [mesh.devices[i, 0] for i in range(mesh.shape["batch"])]
+
+
+def split_rows(x: torch.Tensor, parts: int) -> List[torch.Tensor]:
+    """`parts` equal row slices of x (contiguous): the 'batch' sharding."""
+    if x.shape[0] % parts:
+        raise ValueError(
+            f"{x.shape[0]} rows do not split over a batch axis of {parts}"
+        )
+    step = x.shape[0] // parts
+    return [x[i * step : (i + 1) * step].contiguous() for i in range(parts)]
+
+
+class Sharded:
+    """A row-major int32 matrix [S, N] held as a grid of blocks on a mesh:
+    blocks[i][j] holds row block i and column block j on
+    mesh.devices[i, j]. The row layout has one column block (its rank
+    (i, 0) holds whole rows); the tiled layout has `graph` of them."""
+
+    __slots__ = ("blocks",)
+
+    def __init__(self, blocks: List[List[torch.Tensor]]) -> None:
+        self.blocks = blocks
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        rows = sum(row[0].shape[0] for row in self.blocks)
+        return rows, sum(t.shape[1] for t in self.blocks[0])
+
+    def numpy(self) -> np.ndarray:
+        """The whole matrix on the host (an owned array)."""
+        return np.concatenate([
+            np.concatenate([t.cpu().numpy() for t in row], axis=1)
+            for row in self.blocks
+        ], axis=0)
+
+    def gather(self, device: torch.device) -> torch.Tensor:
+        """The whole matrix on `device`: an all-gather."""
+        return torch.cat([
+            torch.cat([t.to(device) for t in row], dim=1)
+            for row in self.blocks
+        ], dim=0).contiguous()
+
+    def rows(self, idx: Sequence[int], device: torch.device) -> torch.Tensor:
+        """Rows `idx` of the matrix, whole, gathered onto `device` (int32
+        [len(idx), N]); only those rows move."""
+        s_l = self.blocks[0][0].shape[0]
+        out = [
+            torch.cat([
+                t[r % s_l : r % s_l + 1].to(device)
+                for t in self.blocks[r // s_l]
+            ], dim=1)
+            for r in idx
+        ]
+        return torch.cat(out, dim=0).contiguous()
+
+
+def to_host(d) -> np.ndarray:
+    """A solve's distance matrix on the host: a tensor or a `Sharded`."""
+    if isinstance(d, Sharded):
+        return d.numpy()
+    return d.cpu().numpy()
+
+
+def _or_columns(col_changed: Sequence[torch.Tensor], device: torch.device):
+    """The OR over ranks of per-rank changed-column masks, on `device`,
+    and its popcount: the reference's pmax over 'batch' with its psum."""
+    out = col_changed[0].to(device)
+    for c in col_changed[1:]:
+        out = out | c.to(device)
+    return out, out.sum(dtype=torch.int32)
 
 
 # -- cold initial states and transit masks ---------------------------------
@@ -255,9 +377,10 @@ def _sell_relax_cuda(d0, sources, overloaded, nbrs, wgs, starts, bits):
                 nbr_k.data_ptr(), wg_k.data_ptr(),
             )
             if bits is None:
-                SELL_RELAX.launch(*args, int(bs), nk, dk, s)
+                SELL_RELAX.launch(d0.device, *args, int(bs), nk, dk, s)
             else:
                 SELL_RELAX_MASKED.launch(
+                    d0.device,
                     *args, bits[k].data_ptr(), int(bs), nk, dk, s,
                     bits[k].shape[2],
                 )
@@ -275,10 +398,29 @@ def _sell_fixpoint_core(sources, nbrs, wgs, overloaded, zero_end, starts):
 
 
 def _sell_solver_counted(
-    key: Tuple, sources, nbrs, wgs, overloaded
+    key: Tuple, sources, nbrs, wgs, overloaded, mesh=None
 ) -> Tuple[torch.Tensor, int]:
     """Cold sliced-ELL solve for the structure `key` (SlicedEll.shape_key()):
-    (D [S, n_pad] row-major and contiguous, relaxation rounds)."""
+    (D [S, n_pad] row-major and contiguous, relaxation rounds).
+
+    With a mesh, the sources split into one row slice per batch rank and
+    each rank solves its slice (K1) against the layout on its device
+    (nbrs, wgs and overloaded: dicts device -> copy, or tensors to move):
+    D comes back `Sharded`, and rounds is the most any rank ran, which is
+    the count of the reference's one loop over the whole batch (a rank that
+    has converged changes nothing in the rounds the others still run)."""
+    if mesh is not None:
+        shards, rounds = [], 0
+        for dev, src in zip(
+            batch_devices(mesh), split_rows(sources, mesh.shape["batch"])
+        ):
+            d, r = _sell_solver_counted(
+                key, src.to(dev), _on(nbrs, dev), _on(wgs, dev),
+                _on(overloaded, dev),
+            )
+            shards.append([d])
+            rounds = max(rounds, r)
+        return Sharded(shards), rounds
     zero_end, starts, _ = key
     d0 = _sell_d0(sources, overloaded.shape[0])
     d, rounds = _sell_relax(
@@ -360,6 +502,7 @@ def _bf_relax_cuda(d0, sources, overloaded, src_e, csr, w_rows):
     while True:
         flag.zero_()
         BF_RELAX.launch(
+            d0.device,
             cur.data_ptr(), nxt.data_ptr(), flag.data_ptr(),
             sources.data_ptr(), overloaded.data_ptr(), src_e.data_ptr(),
             csr.data_ptr(), w_rows.data_ptr(), w_stride, s, n,
@@ -426,6 +569,7 @@ def ecmp_triangle(
         return _ecmp_triangle_plain(d, ru, rv, ve, w, overloaded)
     out = torch.empty((e, t_cols), dtype=torch.bool, device=dev)
     ECMP_TRIANGLE.launch(
+        dev,
         d.data_ptr(), ru.data_ptr(), rv.data_ptr(), ve.data_ptr(),
         w.data_ptr(), overloaded.data_ptr(), out.data_ptr(), e, t_cols,
     )
@@ -478,6 +622,7 @@ def _sell_apply_patches(
         nk, dk = wg_k.shape
         if p and nk * dk:
             SELL_PATCH.launch(
+                dev,
                 wg_k.data_ptr(), patch_idx[k].data_ptr(),
                 patch_vals[k].data_ptr(), p, nk, dk,
             )
@@ -516,10 +661,22 @@ def _sell_apply_patches_plain(wgs, patch_idx, patch_vals):
 
 
 def _sell_solver_patched(
-    key: Tuple, sources, nbrs, wgs, overloaded, patch_idx, patch_vals
+    key: Tuple, sources, nbrs, wgs, overloaded, patch_idx, patch_vals,
+    mesh=None,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...], int]:
     """Patch the resident weights (K4), then solve cold (K1): (D [S, n_pad]
-    row-major, the patched wgs, rounds)."""
+    row-major, the patched wgs, rounds). With a mesh, wgs is a dict device
+    -> buckets: each device's copy is patched once, then every batch rank
+    solves its row slice (`_sell_solver_counted`)."""
+    if mesh is not None:
+        for dev in mesh_devices(mesh):
+            _sell_apply_patches(
+                wgs[dev], _on(patch_idx, dev), _on(patch_vals, dev)
+            )
+        d, rounds = _sell_solver_counted(
+            key, sources, nbrs, wgs, overloaded, mesh
+        )
+        return d, wgs, rounds
     wgs = _sell_apply_patches(wgs, patch_idx, patch_vals)
     d, rounds = _sell_solver_counted(key, sources, nbrs, wgs, overloaded)
     return d, wgs, rounds
@@ -572,6 +729,7 @@ def _sell_invalidate(
             nk, dk = nbr_k.shape
             if p and s and nk * dk:
                 SELL_MARK.launch(
+                    dev,
                     d_prev.data_ptr(), marks.data_ptr(), flag.data_ptr(),
                     nbr_k.data_ptr(), wg_k.data_ptr(),
                     inc_idx[k].data_ptr(), p, int(bs), nk, dk, s, n,
@@ -628,6 +786,7 @@ def _sell_mark_fixpoint(
             nk, dk = nbr_k.shape
             if nk and s:
                 SELL_MARK.launch(
+                    d_prev.device,
                     d_prev.data_ptr(), cur.data_ptr(), nxt.data_ptr(),
                     flag.data_ptr(), nbr_k.data_ptr(), wg_k.data_ptr(),
                     int(bs), nk, dk, s, n, entry="sell_mark_round",
@@ -673,6 +832,7 @@ def _sell_warm_d0(
         return _bf_warm_d0_plain(d_prev, marks, sources).t().contiguous()
     d0 = torch.empty((n, s), dtype=torch.int32, device=dev)
     SELL_MARK.launch(
+        dev,
         d_prev.data_ptr(), marks.data_ptr(), sources.data_ptr(),
         d0.data_ptr(), s, n, entry="sell_mark_reset",
     )
@@ -689,6 +849,7 @@ def _sell_solver_warm(
     patch_vals,  # int32 [B, P]
     inc_idx,  # int32 [B, P, 2]: increased edges and newly-overloaded out-edges
     d_prev,  # int32 [S, n_pad] row-major previous fixpoint
+    mesh=None,
 ):
     """Warm-start event solve on the sliced layout: invalidate against the
     OLD weights (K5 seed + rounds), patch (K4), reset to the repaired
@@ -696,8 +857,47 @@ def _sell_solver_warm(
     that moved (K7 columns). Returns (D [S, n_pad] row-major, wgs, rounds,
     inv_rounds, col_changed bool [n_pad], num_changed int32 scalar tensor).
     Rounds scale with the event's affected radius, not the graph's
-    diameter. d_prev is read, never written."""
+    diameter. d_prev is read, never written.
+
+    With a mesh, d_prev is the `Sharded` row layout of the previous solve
+    and nbrs, wgs and overloaded are dicts device -> copy. Every rank
+    invalidates its row slice against the OLD weights before any device's
+    copy is patched (ranks may share a device and so a copy), then each
+    rank resets and relaxes. D comes back `Sharded`; rounds and inv_rounds
+    are the most any rank ran (the reference's loops run over the whole
+    batch); col_changed is the OR over ranks, on the first mesh device."""
     zero_end, starts, _ = key
+    if mesh is not None:
+        devs = batch_devices(mesh)
+        srcs = split_rows(sources, len(devs))
+        inv = [
+            _sell_invalidate(
+                blk[0], _on(nbrs, dev), _on(wgs, dev), _on(inc_idx, dev),
+                zero_end, starts,
+            )
+            for dev, blk in zip(devs, d_prev.blocks)
+        ]
+        for dev in mesh_devices(mesh):
+            _sell_apply_patches(
+                wgs[dev], _on(patch_idx, dev), _on(patch_vals, dev)
+            )
+        shards, changed, rounds = [], [], 0
+        for dev, src, blk, (marks, _) in zip(devs, srcs, d_prev.blocks, inv):
+            src = src.to(dev)
+            d0 = _sell_warm_d0(blk[0], marks, src)
+            del marks
+            d, r = _sell_relax(
+                d0, src, _on(overloaded, dev), _on(nbrs, dev),
+                _on(wgs, dev), zero_end, starts,
+            )
+            d = d.t().contiguous()
+            changed.append(delta_columns(d, blk[0])[0])
+            shards.append([d])
+            rounds = max(rounds, r)
+        col_changed, num_changed = _or_columns(changed, devs[0])
+        inv_rounds = max(r for _, r in inv)
+        return (Sharded(shards), wgs, rounds, inv_rounds, col_changed,
+                num_changed)
     marks, inv_rounds = _sell_invalidate(
         d_prev, nbrs, wgs, inc_idx, zero_end, starts
     )
@@ -778,6 +978,7 @@ def _sell_mask_bits(
         bits = torch.zeros((nk, dk, words), dtype=torch.int32, device=dev)
         if m_k.shape[0] and nk * dk and s:
             SELL_MASK.launch(
+                dev,
                 m_k.data_ptr(), bits.data_ptr(), m_k.shape[0], nk, dk, s,
                 words, entry="sell_mask_build",
             )
@@ -841,6 +1042,7 @@ def _sell_mask_seed(
         nk, dk = nbr_k.shape
         if m_k.shape[0] and s and nk * dk:
             SELL_MASK.launch(
+                dev,
                 d_prev.data_ptr(), marks.data_ptr(), flag.data_ptr(),
                 nbr_k.data_ptr(), wg_k.data_ptr(), m_k.data_ptr(),
                 m_k.shape[0], int(bs), nk, dk, s, n, entry="sell_mask_seed",
@@ -957,6 +1159,7 @@ def _bf_invalidate(
         return marks, 0
     w_stride = 0 if w_new.dim() == 1 else w_new.shape[1]
     BF_MARK.launch(
+        dev,
         d_prev.data_ptr(), marks.data_ptr(), flag.data_ptr(),
         src_e.data_ptr(), csr.data_ptr(), w_new.data_ptr(),
         w_old.data_ptr(), w_stride, s, n, entry="bf_mark_seed",
@@ -968,6 +1171,7 @@ def _bf_invalidate(
     while True:
         flag.zero_()
         BF_MARK.launch(
+            dev,
             d_prev.data_ptr(), cur.data_ptr(), nxt.data_ptr(),
             flag.data_ptr(), src_e.data_ptr(), csr.data_ptr(),
             w_old.data_ptr(), s, n, entry="bf_mark_round",
@@ -1024,6 +1228,7 @@ def _bf_warm_d0(
     d0 = torch.empty_like(d_prev)
     if s * n:
         BF_MARK.launch(
+            dev,
             d_prev.data_ptr(), marks.data_ptr(), sources.data_ptr(),
             d0.data_ptr(), s, n, entry="bf_mark_reset",
         )
@@ -1114,6 +1319,7 @@ def delta_columns(
     count = torch.zeros((), dtype=torch.int32, device=dev)
     if n:
         DELTA_EXTRACT.launch(
+            dev,
             d.data_ptr(), d_prev.data_ptr(), col_changed.data_ptr(),
             count.data_ptr(), s, n, entry="delta_columns",
         )
@@ -1155,10 +1361,12 @@ def _delta_extract(
     nh = torch.empty((l_pad, cap), dtype=torch.bool, device=dev)
     if cap:
         DELTA_EXTRACT.launch(
+            dev,
             col_changed.data_ptr(), cols.data_ptr(), n, cap,
             entry="delta_compact",
         )
         DELTA_EXTRACT.launch(
+            dev,
             d.data_ptr(), cols.data_ptr(), nh_rows.data_ptr(),
             nh_ws.data_ptr(), dcols.data_ptr(), nh.data_ptr(), s, n, cap,
             l_pad, entry="delta_gather",
@@ -1174,6 +1382,575 @@ def _delta_extract_plain(col_changed, d, nh_rows, nh_ws, cap):
     dcols = d[:, cols.clamp(0, n - 1).long()]
     nh = (nh_ws[:, None] + dcols[nh_rows.long()]) == dcols[0][None, :]
     return cols, dcols, nh
+
+
+def _delta_extract_sharded(
+    col_changed: Sequence[torch.Tensor],  # bool per column block
+    d: Sharded,
+    nh_rows: torch.Tensor,  # int32 [L] on `device`
+    nh_ws: torch.Tensor,  # int32 [L] on `device`
+    *,
+    cap: int,
+    device: torch.device,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`_delta_extract` over a `Sharded` matrix, without assembling it:
+    each block compacts and gathers its own changed columns (K7, no
+    nexthop rows), only those columns move to `device`, and K7 runs once
+    more there over the [S, changed] matrix they form, for the nexthop
+    test. col_changed[j] is column block j's mask (ORed over the batch
+    ranks). Returns what `_delta_extract` returns on the whole matrix:
+    cols [cap] ascending, padded with n; dcols [S, cap]; nh [L, cap]."""
+    none = torch.empty(0, dtype=torch.int32, device=device)
+    n = d.shape[1]
+    parts, gcols, offset = [], [], 0
+    for j, cc in enumerate(col_changed):
+        width = d.blocks[0][j].shape[1]
+        num = int(cc.sum())
+        if num:
+            blocks = []
+            for row in d.blocks:
+                t = row[j]
+                cols, dcols, _ = _delta_extract(
+                    cc.to(t.device), t, none.to(t.device),
+                    none.to(t.device), cap=num,
+                )
+                blocks.append(dcols.to(device))
+            parts.append(torch.cat(blocks, dim=0))
+            gcols.append(cols.to(device) + offset)
+        offset += width
+    if not parts:
+        raise ValueError("no changed column to extract")
+    x = torch.cat(parts, dim=1).contiguous()
+    gcols = torch.cat(gcols)
+    num = x.shape[1]
+    pos, dcols, nh = _delta_extract(
+        torch.ones(num, dtype=torch.bool, device=device), x, nh_rows,
+        nh_ws, cap=cap,
+    )
+    cols = torch.where(
+        pos < num, gcols[pos.clamp_max(num - 1).long()], n
+    ).to(torch.int32)
+    return cols, dcols, nh
+
+
+# -- K19-K21: the destination-tiled layout ----------------------------------
+
+TILE_PAD = 1 << 30  # hcols sentinel of an unused frontier slot
+
+
+class HaloCopies(NamedTuple):
+    """The ring traffic of one tiled solve, counted where the copies are
+    made: hops around the graph ring, and the frontier bytes (ctr and
+    cols) every rank copied into the next one's buffers over them."""
+
+    hops: int
+    bytes: int
+
+
+def _tile_ids(offset: int, n_tile: int, device) -> torch.Tensor:
+    return offset + torch.arange(n_tile, dtype=torch.int32, device=device)
+
+
+def _tile_seg_min(vals: torch.Tensor, hseg: torch.Tensor, h: int):
+    """Per-frontier-slot minima of per-edge values [S_l, e_tile] -> [S_l,
+    h]; an empty slot gives the int32 maximum, clamped to INF."""
+    s_l = vals.shape[0]
+    out = torch.full((s_l, h), _INT32_MAX, dtype=torch.int32,
+                     device=vals.device)
+    out.scatter_reduce_(
+        1, hseg.long()[None, :].expand(s_l, -1), vals, reduce="amin"
+    )
+    return out.clamp_max(INF)
+
+
+def _tile_round_plain(d, sources, overloaded, offset, src_l, hseg, hptr, w2,
+                      h, *, w_new=None, ov_new=None, marks=None, out=None):
+    """Plain version of K19, `tile_round`'s signature, over every edge slot
+    of the partition with hseg (the padding edges weigh INF and land in the
+    padding slot h - 1); hptr is not read."""
+    n_tile = d.shape[1]
+    ids = _tile_ids(offset, n_tile, d.device)
+    allow = (~overloaded[offset : offset + n_tile])[None, :] | (
+        ids[None, :] == sources[:, None]
+    )
+    src = src_l.long()
+    vals = (torch.where(allow, d, INF)[:, src] + w2[None, :]).clamp_max(INF)
+    if w_new is not None:
+        newly_on = ov_new & ~overloaded
+        seed = (w_new > w2) | newly_on[offset + src]
+        vals = torch.where(seed[None, :], vals, INF)
+    if marks is not None:
+        vals = torch.where(marks[:, src], vals, INF)
+    ctr = _tile_seg_min(vals, hseg, h)
+    return ctr if out is None else out.copy_(ctr)
+
+
+def tile_round(
+    d: torch.Tensor,  # int32 [S_l, n_tile] this rank's tile
+    sources: torch.Tensor,  # int32 [S_l] this batch rank's sources
+    overloaded: torch.Tensor,  # bool [n_pad]
+    offset: int,  # first column of the tile (me * n_tile)
+    src_l: torch.Tensor,  # int32 [e_tile] tile-local tails
+    hseg: torch.Tensor,  # int32 [e_tile] frontier slot of each edge
+    hptr: torch.Tensor,  # int32 [h + 1] each slot's range of real edges
+    w2: torch.Tensor,  # int32 [e_tile] weights (INF on padding)
+    h: int,
+    *,
+    w_new: Optional[torch.Tensor] = None,  # int32 [e_tile]: seed mask
+    ov_new: Optional[torch.Tensor] = None,  # bool [n_pad]: seed mask
+    marks: Optional[torch.Tensor] = None,  # bool [S_l, n_tile]: mark mask
+    out: Optional[torch.Tensor] = None,  # int32 [S_l, h] to write into
+) -> torch.Tensor:
+    """K19, one tiled round up to the frontier (the reference's
+    `_tile_relax` body before the halo, and `_tile_solver_warm`'s seed and
+    mark exchanges): ctr [S_l, h], ctr[s, k] = min over the partition's
+    edges e in slot k of min(dt[s, src_l[e]] + w2[e], INF), INF for an
+    empty slot, where dt masks transit through an overloaded node that is
+    not the row's source. With w_new and ov_new only the seed edges count
+    (w_new[e] > w2[e], or a tail that is overloaded in ov_new and not in
+    `overloaded`); with marks only the edges whose tail is marked in the
+    row. The plain version walks hseg, the kernel hptr's real edges."""
+    dev = d.device
+    _check("d", d, torch.int32, 2, dev)
+    s_l, n_tile = d.shape
+    _check("sources", sources, torch.int32, 1, dev)
+    _check("overloaded", overloaded, torch.bool, 1, dev)
+    for name, t in (("src_l", src_l), ("hseg", hseg), ("w2", w2)):
+        _check(name, t, torch.int32, 1, dev)
+        if t.shape[0] != src_l.shape[0]:
+            raise ValueError(f"{name}: length differs from src_l")
+    _check("hptr", hptr, torch.int32, 1, dev)
+    if hptr.shape[0] != h + 1 or sources.shape[0] != s_l:
+        raise ValueError("hptr/sources do not match h/the tile")
+    if offset < 0 or offset + n_tile > overloaded.shape[0]:
+        raise ValueError(f"tile [{offset}, +{n_tile}) outside overloaded")
+    if (w_new is None) != (ov_new is None):
+        raise ValueError("w_new and ov_new come together")
+    if w_new is not None:
+        _check("w_new", w_new, torch.int32, 1, dev)
+        _check("ov_new", ov_new, torch.bool, 1, dev)
+        if w_new.shape != w2.shape or ov_new.shape != overloaded.shape:
+            raise ValueError("w_new/ov_new do not match w2/overloaded")
+    if marks is not None:
+        _check("marks", marks, torch.bool, 2, dev)
+        if marks.shape != d.shape:
+            raise ValueError("marks do not match the tile")
+    if out is not None:
+        _check("out", out, torch.int32, 2, dev)
+        if tuple(out.shape) != (s_l, h):
+            raise ValueError(f"out must be [{s_l}, {h}]")
+    if dev.type != "cuda":
+        return _tile_round_plain(d, sources, overloaded, offset, src_l, hseg,
+                                 hptr, w2, h, w_new=w_new, ov_new=ov_new,
+                                 marks=marks, out=out)
+    if out is None:
+        out = torch.empty((s_l, h), dtype=torch.int32, device=dev)
+    if s_l * h:
+        TILE_ROUND.launch(
+            dev,
+            d.data_ptr(), out.data_ptr(), sources.data_ptr(),
+            overloaded.data_ptr(), src_l.data_ptr(), hptr.data_ptr(),
+            w2.data_ptr(),
+            None if w_new is None else w_new.data_ptr(),
+            None if ov_new is None else ov_new.data_ptr(),
+            None if marks is None else marks.data_ptr(),
+            offset, s_l, n_tile, h,
+        )
+    return out
+
+
+def _tile_fold_plain(out, ctr, cols, me, flag=None):
+    n_tile = out.shape[1]
+    local = cols.long() - me * n_tile
+    keep = (local >= 0) & (local < n_tile)
+    idx = local[keep]
+    new = torch.minimum(out[:, idx], ctr[:, keep])
+    if flag is not None and bool((new != out[:, idx]).any()):
+        flag.fill_(1)
+    out[:, idx] = new
+    return out
+
+
+def tile_fold(
+    out: torch.Tensor,  # int32 [S_l, n_tile], folded into in place
+    ctr: torch.Tensor,  # int32 [S_l, h] a frontier
+    cols: torch.Tensor,  # int32 [h] its columns (1 << 30: unused)
+    me: int,  # this rank's graph index
+    flag: Optional[torch.Tensor] = None,  # int32 [1], set where out drops
+) -> torch.Tensor:
+    """K20, the reference's `_tile_fold_min` in place: out[s, cols[k] - me *
+    n_tile] = min(that, ctr[s, k]) for the slots whose column this rank
+    owns; the others, the sentinel among them, are dropped before ctr is
+    read. A partition's slots name distinct columns, so one fold has no
+    write conflict. Sets flag[0] = 1 when an entry went down, the
+    reference's any(new_d != d). Returns out."""
+    dev = out.device
+    _check("out", out, torch.int32, 2, dev)
+    _check("ctr", ctr, torch.int32, 2, dev)
+    _check("cols", cols, torch.int32, 1, dev)
+    s_l, n_tile = out.shape
+    h = cols.shape[0]
+    if tuple(ctr.shape) != (s_l, h):
+        raise ValueError(f"ctr must be [{s_l}, {h}]")
+    if flag is not None:
+        _check("flag", flag, torch.int32, 1, dev)
+    if dev.type != "cuda":
+        return _tile_fold_plain(out, ctr, cols, me, flag)
+    if s_l * h:
+        TILE_FOLD.launch(
+            dev,
+            out.data_ptr(), ctr.data_ptr(), cols.data_ptr(),
+            None if flag is None else flag.data_ptr(),
+            me * n_tile, s_l, n_tile, h,
+        )
+    return out
+
+
+def tile_init(sources: torch.Tensor, offset: int, n_tile: int):
+    """K21 tile_init: the cold tile [S_l, n_tile] of the reference's
+    `_tile_d0_allow`, INF with each source's own column pinned to 0 where
+    the tile holds it (the transit mask is K19's, computed in the
+    kernel)."""
+    dev = sources.device
+    _check("sources", sources, torch.int32, 1, dev)
+    s_l = sources.shape[0]
+    if dev.type != "cuda":
+        return _tile_init_plain(sources, offset, n_tile)
+    d0 = torch.empty((s_l, n_tile), dtype=torch.int32, device=dev)
+    if s_l * n_tile:
+        TILE_MARK.launch(dev, d0.data_ptr(), sources.data_ptr(), offset, s_l,
+                         n_tile, entry="tile_init")
+    return d0
+
+
+def tile_reset(marks: torch.Tensor, dp: torch.Tensor, sources: torch.Tensor,
+               offset: int) -> torch.Tensor:
+    """K21 tile_reset: where(marks, INF, dp) with the sources re-pinned to
+    0 where the tile holds their column (a source outside it is dropped)."""
+    dev = dp.device
+    _check("dp", dp, torch.int32, 2, dev)
+    _check("marks", marks, torch.bool, 2, dev)
+    _check("sources", sources, torch.int32, 1, dev)
+    s_l, n_tile = dp.shape
+    if marks.shape != dp.shape or sources.shape[0] != s_l:
+        raise ValueError("marks/sources do not match dp")
+    if dev.type != "cuda":
+        return _tile_reset_plain(marks, dp, sources, offset)
+    d0 = torch.empty_like(dp)
+    if s_l * n_tile:
+        TILE_MARK.launch(dev, d0.data_ptr(), marks.data_ptr(), dp.data_ptr(),
+                         sources.data_ptr(), offset, s_l, n_tile,
+                         entry="tile_reset")
+    return d0
+
+
+def tile_mark(m: Optional[torch.Tensor], recv: torch.Tensor,
+              dp: torch.Tensor, flag: torch.Tensor,
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K21 tile_mark: new_m = m | ((recv == dp) & (dp < INF)) (m None: no
+    marks yet, the seed), with flag[0] = 1 where an entry was newly
+    marked, the reference's any(new_m != m). recv is reset to INF for the
+    next exchange. Returns new_m (into `out` when given)."""
+    dev = dp.device
+    _check("dp", dp, torch.int32, 2, dev)
+    _check("recv", recv, torch.int32, 2, dev)
+    _check("flag", flag, torch.int32, 1, dev)
+    if m is not None:
+        _check("m", m, torch.bool, 2, dev)
+    for t in (recv, m, out):
+        if t is not None and t.shape != dp.shape:
+            raise ValueError("m/recv/out do not match dp")
+    if out is None:
+        out = torch.empty(dp.shape, dtype=torch.bool, device=dev)
+    _check("out", out, torch.bool, 2, dev)
+    if dev.type != "cuda":
+        return _tile_mark_plain(m, recv, dp, flag, out)
+    if dp.numel():
+        TILE_MARK.launch(dev, None if m is None else m.data_ptr(),
+                         recv.data_ptr(), dp.data_ptr(), out.data_ptr(),
+                         flag.data_ptr(), dp.numel(), entry="tile_mark")
+    return out
+
+
+def tile_col_changed(d: torch.Tensor, dp: torch.Tensor,
+                     col_changed: torch.Tensor, count: torch.Tensor) -> None:
+    """K21 tile_col_changed: col_changed[t] |= any(d[:, t] != dp[:, t]),
+    and count[0] += 1 for each column this call newly sets: run rank after
+    rank over the batch ranks of a column block, it gives their OR (the
+    reference's pmax over 'batch') and its popcount."""
+    dev = d.device
+    _check("d", d, torch.int32, 2, dev)
+    _check("dp", dp, torch.int32, 2, dev)
+    _check("col_changed", col_changed, torch.bool, 1, dev)
+    _check("count", count, torch.int32, 1, dev)
+    s_l, n_tile = d.shape
+    if dp.shape != d.shape or col_changed.shape[0] != n_tile:
+        raise ValueError("dp/col_changed do not match d")
+    if dev.type != "cuda":
+        _tile_col_changed_plain(d, dp, col_changed, count)
+        return
+    if n_tile:
+        TILE_MARK.launch(dev, d.data_ptr(), dp.data_ptr(),
+                         col_changed.data_ptr(), count.data_ptr(), s_l, n_tile,
+                         entry="tile_col_changed")
+
+
+def _tile_init_plain(sources, offset: int, n_tile: int) -> torch.Tensor:
+    ids = _tile_ids(offset, n_tile, sources.device)
+    return torch.full((sources.shape[0], n_tile), INF, dtype=torch.int32,
+                      device=sources.device).masked_fill_(
+        ids[None, :] == sources[:, None], 0)
+
+
+def _tile_reset_plain(marks, dp, sources, offset: int) -> torch.Tensor:
+    ids = _tile_ids(offset, dp.shape[1], dp.device)
+    return torch.where(marks, INF, dp).masked_fill_(
+        ids[None, :] == sources[:, None], 0)
+
+
+def _tile_mark_plain(m, recv, dp, flag, out=None) -> torch.Tensor:
+    hit = (recv == dp) & (dp < INF)
+    new = hit if m is None else m | hit
+    if bool((hit if m is None else hit & ~m).any()):
+        flag.fill_(1)
+    recv.fill_(INF)
+    return new if out is None else out.copy_(new)
+
+
+def _tile_col_changed_plain(d, dp, col_changed, count) -> None:
+    hit = (d != dp).any(dim=0) & ~col_changed
+    count += hit.sum(dtype=torch.int32)
+    col_changed |= hit
+
+
+class TileOps(NamedTuple):
+    """The per-rank steps of the tiled solves: the kernels' wrappers
+    (`TILE_KERNELS`), or the plain versions on any device (`TILE_PLAIN`,
+    the comparison of a whole tiled solve on the card)."""
+
+    round: Callable
+    fold: Callable
+    init: Callable
+    mark: Callable
+    reset: Callable
+    col_changed: Callable
+
+
+TILE_KERNELS = TileOps(tile_round, tile_fold, tile_init, tile_mark,
+                       tile_reset, tile_col_changed)
+TILE_PLAIN = TileOps(_tile_round_plain, _tile_fold_plain, _tile_init_plain,
+                     _tile_mark_plain, _tile_reset_plain,
+                     _tile_col_changed_plain)
+
+
+class _Flags:
+    """The change flag of a tiled round: one int32 per distinct device of
+    the mesh, shared by the ranks there. `any()` reads each once, 4 bytes:
+    the reference's psum over ('batch', 'graph'), once a round."""
+
+    def __init__(self, mesh) -> None:
+        self.by_dev = {
+            dev: torch.zeros(1, dtype=torch.int32, device=dev)
+            for dev in mesh_devices(mesh)
+        }
+
+    def zero(self) -> None:
+        for f in self.by_dev.values():
+            f.zero_()
+
+    def any(self) -> bool:
+        return any([bool(f.item()) for f in self.by_dev.values()])
+
+
+class _Ring:
+    """The frontier buffers of one tiled solve, allocated once: per rank
+    two ctr [S_l, h] and two cols [h] buffers, written in turn (K19 writes
+    ctr[0]; hop k copies parity k % 2 of rank j into parity (k + 1) % 2 of
+    rank j + 1, so no hop overwrites what it reads). `copies` counts the
+    hops it made and the bytes they moved."""
+
+    def __init__(self, mesh, s_l: int, h: int) -> None:
+        b, g = mesh.shape["batch"], mesh.shape["graph"]
+        self.copies = HaloCopies(0, 0)
+        self.ctr = [[[torch.empty((s_l, h), dtype=torch.int32,
+                                  device=mesh.devices[i, j])
+                      for _ in range(2)] for j in range(g)]
+                    for i in range(b)]
+        self.cols = [[[torch.empty(h, dtype=torch.int32,
+                                   device=mesh.devices[i, j])
+                       for _ in range(2)] for j in range(g)]
+                     for i in range(b)]
+
+    def halo(self, hcols, n_tile: int, dst, flags: Optional[_Flags],
+             ops: TileOps = TILE_KERNELS) -> None:
+        """The halo exchange of one round: each rank folds its own frontier
+        (its K19 output in ctr[i][j][0], columns hcols[i][j]) into dst[i][j]
+        (K20), then the frontiers rotate g - 1 hops around each batch row's
+        graph ring and every rank folds each one that passes. A hop is a
+        copy into the next rank's buffer: across cards a peer copy, on one
+        card a device copy of the same bytes."""
+        b, g = len(dst), len(dst[0])
+
+        def fold(p):
+            for i in range(b):
+                for j in range(g):
+                    cols = hcols[i][j] if p == 0 else self.cols[i][j][p % 2]
+                    ops.fold(dst[i][j], self.ctr[i][j][p % 2], cols, j,
+                             None if flags is None
+                             else flags.by_dev[dst[i][j].device])
+
+        fold(0)
+        for hop in range(g - 1):
+            p, q = hop % 2, (hop + 1) % 2
+            moved = 0
+            for i in range(b):
+                for j in range(g):
+                    k = (j + 1) % g
+                    src_cols = hcols[i][j] if hop == 0 else self.cols[i][j][p]
+                    self.ctr[i][k][q].copy_(self.ctr[i][j][p])
+                    self.cols[i][k][q].copy_(src_cols)
+                    moved += 4 * (self.ctr[i][k][q].numel() + src_cols.numel())
+            self.copies = HaloCopies(self.copies.hops + 1,
+                                     self.copies.bytes + moved)
+            fold(hop + 1)
+
+
+def _tile_relax(mesh, d0, sources, overloaded, src_l, hseg, hptr, w2, hcols,
+                n_pad: int, ops: TileOps = TILE_KERNELS):
+    """The tiled relaxation from the per-rank initial tiles d0 [b][g] to the
+    global fixpoint; returns (tiles [b][g], rounds, HaloCopies). Each round
+    launches every rank's K19 on the old tiles before any fold lands, then
+    folds the halo into the tiles in place and reads the change flag once.
+    That is Jacobi across ranks: K19 has read each old tile into its
+    frontier before a fold is queued, and a rank's folds touch only its own
+    tile, on the stream of the device its K19 ran on. Capped at n_pad
+    rounds. The operands are nested lists [b][g] of each rank's tensors on
+    its device. The tiles of d0 are folded into and returned."""
+    s_l, n_tile = d0[0][0].shape
+    h = hcols[0][0].shape[0]
+    b, g = len(d0), len(d0[0])
+    ring = _Ring(mesh, s_l, h)
+    flags = _Flags(mesh)
+    rounds = 0
+    while True:
+        flags.zero()
+        for i in range(b):
+            for j in range(g):
+                ops.round(d0[i][j], sources[i][j], overloaded[i][j],
+                          j * n_tile, src_l[i][j], hseg[i][j], hptr[i][j],
+                          w2[i][j], h, out=ring.ctr[i][j][0])
+        ring.halo(hcols, n_tile, d0, flags, ops)
+        rounds += 1
+        if not flags.any() or rounds >= n_pad:
+            return d0, rounds, ring.copies
+
+
+def _tile_check_key(key: Tuple, mesh, src_l) -> Tuple[int, int, int, int]:
+    g, n_tile, e_tile, h, n_pad = key
+    if mesh.shape["graph"] != g or len(src_l[0]) != g:
+        raise ValueError(f"mesh {dict(mesh.shape)} does not match g = {g}")
+    if len(src_l) != mesh.shape["batch"]:
+        raise ValueError("operands do not match the mesh's batch axis")
+    return g, n_tile, h, n_pad
+
+
+def _tile_solver(key: Tuple, mesh, sources, src_l, hseg, hptr, w2, hcols,
+                 overloaded, ops: TileOps = TILE_KERNELS):
+    """Cold destination-tiled solve for key = GraphTiling.shape_key() +
+    (n_pad,): (D `Sharded` [b][g] tiles [S/batch, n_pad/graph], rounds,
+    the `HaloCopies` its ring made).
+    Every operand is a nested list [b][g] of rank (i, j)'s tensor on
+    mesh.devices[i, j]: its batch slice of the sources, partition j's
+    src_l, hseg, hptr, w2 and hcols, and the [n_pad] overload mask. The
+    cold tile is K21's tile_init; the rounds are K19 and the halo's K20
+    (`_tile_relax`). `ops` picks the kernels or the plain versions."""
+    g, n_tile, h, n_pad = _tile_check_key(key, mesh, src_l)
+    d0 = [[ops.init(sources[i][j], j * n_tile, n_tile) for j in range(g)]
+          for i in range(len(src_l))]
+    tiles, rounds, copies = _tile_relax(mesh, d0, sources, overloaded, src_l,
+                                        hseg, hptr, w2, hcols, n_pad, ops)
+    return Sharded(tiles), rounds, copies
+
+
+def _tile_solver_warm(key: Tuple, mesh, sources, src_l, hseg, hptr, w2_new,
+                      w2_old, hcols, ov_new, ov_old, d_prev: Sharded,
+                      ops: TileOps = TILE_KERNELS):
+    """Warm event on the tiled layout, the reference's `_tile_solver_warm`:
+    (D `Sharded`, rounds, inv_rounds, col_changed, num_changed), and the
+    `HaloCopies` of the seed, mark and relax rings together.
+
+    Invalidation runs receiver-side on the frontier machinery: the seed
+    exchange is K19 over the seed edges (w2_new > w2_old, or a tail newly
+    overloaded) with the OLD weights and transit mask, folded (K20) into an
+    INF tile, then K21 tile_mark against d_prev; a decrease-only event
+    seeds nothing and skips the mark rounds whole. Each mark round is K19
+    over the marked tails, the halo into the INF tile, and tile_mark, all
+    ranks Jacobi. Then tile_reset, and `_tile_relax` with the NEW weights
+    and mask. col_changed is a list over graph ranks of bool [n_tile], each
+    the OR over the batch ranks that share the column block (K21
+    tile_col_changed, rank after rank); num_changed an int32 scalar
+    tensor, their popcounts summed, on the first mesh device. The
+    operands are nested lists [b][g] as `_tile_solver` takes them; d_prev
+    is read, never written. `ops` picks the kernels or the plain
+    versions."""
+    g, n_tile, h, n_pad = _tile_check_key(key, mesh, src_l)
+    b = len(src_l)
+    dp = d_prev.blocks
+    s_l = dp[0][0].shape[0]
+    ring = _Ring(mesh, s_l, h)
+    flags = _Flags(mesh)
+    recv = [[torch.full_like(t, INF) for t in row] for row in dp]
+    ranks = [(i, j) for i in range(b) for j in range(g)]
+
+    def exchange(marks):
+        for i, j in ranks:
+            seed = {} if marks is not None else {
+                "w_new": w2_new[i][j], "ov_new": ov_new[i][j]}
+            ops.round(dp[i][j], sources[i][j], ov_old[i][j], j * n_tile,
+                      src_l[i][j], hseg[i][j], hptr[i][j], w2_old[i][j], h,
+                      marks=None if marks is None else marks[i][j],
+                      out=ring.ctr[i][j][0], **seed)
+        ring.halo(hcols, n_tile, recv, None, ops)
+
+    flags.zero()
+    exchange(None)
+    m = [[ops.mark(None, recv[i][j], dp[i][j], flags.by_dev[dp[i][j].device])
+          for j in range(g)] for i in range(b)]
+    m_nxt = [[torch.empty_like(t) for t in row] for row in m]
+    changed = flags.any()  # any_seed
+    inv_rounds = 0
+    while changed and inv_rounds < n_pad:
+        flags.zero()
+        exchange(m)
+        for i, j in ranks:
+            ops.mark(m[i][j], recv[i][j], dp[i][j],
+                     flags.by_dev[dp[i][j].device], out=m_nxt[i][j])
+        m, m_nxt = m_nxt, m
+        inv_rounds += 1
+        changed = flags.any()
+    mark_copies = ring.copies
+    del m_nxt, recv, ring
+    d0 = [[ops.reset(m[i][j], dp[i][j], sources[i][j], j * n_tile)
+           for j in range(g)] for i in range(b)]
+    del m
+    tiles, rounds, copies = _tile_relax(mesh, d0, sources, ov_new, src_l,
+                                        hseg, hptr, w2_new, hcols, n_pad, ops)
+    col_changed, num_changed = [], None
+    dev0 = mesh.devices[0, 0]
+    for j in range(g):
+        cc = torch.zeros(n_tile, dtype=torch.bool, device=mesh.devices[0, j])
+        cnt = torch.zeros(1, dtype=torch.int32, device=cc.device)
+        for i in range(b):
+            dev = mesh.devices[i, j]
+            cc, cnt = cc.to(dev), cnt.to(dev)
+            ops.col_changed(tiles[i][j], dp[i][j], cc, cnt)
+        col_changed.append(cc)
+        num_changed = cnt.to(dev0) if num_changed is None else (
+            num_changed + cnt.to(dev0))
+    return (Sharded(tiles), rounds, inv_rounds, col_changed,
+            num_changed.reshape(()),
+            HaloCopies(mark_copies.hops + copies.hops,
+                       mark_copies.bytes + copies.bytes))
 
 
 # -- public entry points ---------------------------------------------------
@@ -1207,6 +1984,7 @@ def sell_fixpoint_masked(
     device_arrays=None,  # optional (nbrs, wgs, ov) already on `device`
     d_prev=None,  # optional int32 [S, n_pad] base fixpoint on `device`
     device: DeviceLike = "cuda",
+    mesh=None,  # optional solver mesh: sources split over 'batch'
 ) -> torch.Tensor:
     """Per-row link-ignore solve on the sliced layout: D [S, n_pad].
 
@@ -1217,7 +1995,32 @@ def sell_fixpoint_masked(
     UNPENALIZED base fixpoint for the same sources and weights (row-major,
     contiguous), the penalized solve warm-starts by increase invalidation
     (`_sell_solver_vw_warm`) instead of relaxing from INF: sound because
-    masking only raises weights."""
+    masking only raises weights.
+
+    With a mesh, every batch rank solves its row slice of the sources and
+    of mask_positions, cold (K8 build + K9), against device_arrays given as
+    dicts device -> copy (or the layout uploaded to each device); D comes
+    back `Sharded`. The warm form has no mesh variant, as in the
+    reference."""
+    if mesh is not None:
+        if d_prev is not None:
+            raise ValueError("the warm-seeded masked solve takes no mesh")
+        devs = batch_devices(mesh)
+        b = len(devs)
+        if len(sources) % b:
+            raise ValueError(f"{len(sources)} sources do not split over {b}")
+        s_l = len(sources) // b
+        shards = []
+        for i, dev in enumerate(devs):
+            arrays = None
+            if device_arrays is not None:
+                arrays = tuple(_on(a, dev) for a in device_arrays)
+            shards.append([sell_fixpoint_masked(
+                sell, np.asarray(sources)[i * s_l : (i + 1) * s_l],
+                overloaded, mask_positions[i * s_l : (i + 1) * s_l],
+                device_arrays=arrays, device=dev,
+            )])
+        return Sharded(shards)
     dev = resolve_device(device)
     masks = tuple(
         torch.as_tensor(a, device=dev)
@@ -1262,11 +2065,31 @@ def batched_spf(
 
 
 def batched_spf_vw(
-    graph: CompiledGraph, source_rows, w_rows, device: DeviceLike = "cuda"
+    graph: CompiledGraph, source_rows, w_rows, device: DeviceLike = "cuda",
+    mesh=None,
 ) -> torch.Tensor:
     """Batched solve with per-row weight vectors (shape [S, e_pad], or
     [1, e_pad] shared by every row). Positions past graph.e are padding
-    and must hold INF, as they do in graph.w."""
+    and must hold INF, as they do in graph.w. With a mesh, the sources and
+    the weight rows split over 'batch' (S must be a multiple of the batch
+    axis) and D comes back `Sharded`."""
+    if mesh is not None:
+        devs = batch_devices(mesh)
+        rows = np.asarray(source_rows)
+        w_rows = np.asarray(w_rows)
+        b = len(devs)
+        if len(rows) % b:
+            raise ValueError(f"{len(rows)} sources do not split over {b}")
+        s_l = len(rows) // b
+        return Sharded([
+            [batched_spf_vw(
+                graph, rows[i * s_l : (i + 1) * s_l],
+                w_rows if w_rows.shape[0] == 1
+                else w_rows[i * s_l : (i + 1) * s_l],
+                device=dev,
+            )]
+            for i, dev in enumerate(devs)
+        ])
     dev = resolve_device(device)
     with record_function("spf.batched_vw"):
         return _bf_fixpoint_vw_core(

@@ -45,6 +45,16 @@ warm solve invalidates it too. A source outside the batch that the matrix
 cannot answer (APSP off, or the area past the cap) is answered by the
 LinkState's own Dijkstra, and each such answer is counted in
 `host_spf_calls`.
+
+With a solver mesh (`parallel/mesh.py`, a (batch, graph) grid of devices)
+the same solves run on every rank. A graph axis above one that divides
+n_pad takes the destination-tiled layout: each rank keeps a [S/batch,
+n_pad/graph] tile of D, the rounds exchange frontiers around the graph ring
+(K19, K20; K21 for the cold tile and the warm path's marks), cold and warm,
+with DeltaPath (`_tile_solve_resident`), and the ring's traffic lands in
+`halo_bytes` and `halo_exchanges_last`. Otherwise the source batch is split
+into row slices over 'batch' against replicated layout buffers. KSP's
+masked solves run cold and row-sharded under a mesh, as in the reference.
 """
 
 from __future__ import annotations
@@ -56,7 +66,14 @@ import numpy as np
 import torch
 
 from openr_tpu_torch.apsp import ApspState
-from openr_tpu_torch.convert import to_device, upload
+from openr_tpu_torch.convert import (
+    rank_replicas,
+    rank_rows,
+    rank_sources,
+    tiling_ranks,
+    to_device,
+    upload,
+)
 from openr_tpu_torch.device import DeviceLike, resolve_device
 from openr_tpu_torch.lsdb.link_state import Link, LinkState, Path
 from openr_tpu_torch.ops.graph import (
@@ -72,15 +89,29 @@ from openr_tpu_torch.ops.spf import (
     _bf_solver_warm,
     _bf_warm_vw_core,
     _delta_extract,
+    _delta_extract_sharded,
     _sell_apply_patches,
     _sell_solver_counted,
     _sell_solver_patched,
     _sell_solver_warm,
+    _tile_solver,
+    _tile_solver_warm,
+    HaloCopies,
+    Sharded,
     batched_spf,
     batched_spf_vw,
     ecmp_triangle,
     sell_fixpoint_masked,
     sell_patch_arrays,
+    to_host,
+)
+from openr_tpu_torch.parallel.mesh import (
+    Mesh,
+    plan_degraded_mesh,
+    replicate,
+    resolve_mesh,
+    sharded_batched_spf,
+    tile_graph,
 )
 from openr_tpu_torch.solver.cpu import Metric, SpfSolver
 
@@ -263,10 +294,15 @@ class _AreaSolve:
         warm_start: bool = True,
         apsp_max_nodes: int = 0,
         apsp_audit_interval: int = 0,
+        mesh: Optional[Mesh] = None,
     ) -> None:
         self.link_state = link_state
         self.me = me
-        self.device = device
+        # under a mesh the sources split over 'batch' and, with a graph
+        # axis above one, D is tiled; host-side work (the delta extraction,
+        # the nexthop mask) lands on the mesh's first device
+        self.mesh = mesh
+        self.device = device if mesh is None else mesh.devices[0, 0]
         self.warm_start = warm_start
         self.graph: CompiledGraph = compile_graph(link_state)
         # resident all-pairs matrix: closed at the first consumer read,
@@ -311,13 +347,19 @@ class _AreaSolve:
         self._delta_cols_synced = 0
         self._delta_bytes_synced = 0
         self._delta_extracts_synced = 0
+        # halo exchange of the tiled layout: ring hops of the last solve and
+        # the frontier bytes they moved, cumulative
+        self.halo_bytes = 0
+        self.halo_exchanges_last: Optional[int] = None
+        self._halo_synced = 0
         # KSP: device batches of link-ignore re-solves, and those of them
         # warm-started from the base row (decision.spf.ksp_warm_batches)
         self.ksp_device_batches = 0
         self.ksp_warm_batches = 0
         self._ksp_warm_synced = 0
         self._dev: Optional[dict] = None
-        self._d_dev: Optional[torch.Tensor] = None
+        # the distance matrix: a tensor, or `Sharded` under a mesh
+        self._d_dev = None
         self._d_host: Optional[np.ndarray] = None
         self._nh_links: Optional[List[str]] = None
         self._nh_mask: Optional[np.ndarray] = None
@@ -330,9 +372,34 @@ class _AreaSolve:
         event patches it in place). An owned copy: on the CPU device the
         tensor's numpy view would alias the solver's own buffer."""
         if self._d_host is None:
-            self._d_host = self._d_dev.cpu().numpy().copy()
+            self._d_host = to_host(self._d_dev).copy()
             self.d2h_bytes += self._d_host.nbytes
         return self._d_host
+
+    def _batch_pad(self, n: int, minimum: int = 8) -> int:
+        """Source-batch pad: a power-of-two bucket, rounded up to a multiple
+        of the mesh's batch axis so the row slices are equal."""
+        s_pad = _next_bucket(n, minimum=minimum)
+        if self.mesh is not None:
+            s_pad += (-s_pad) % self.mesh.shape["batch"]
+        return s_pad
+
+    def _place(self, make):
+        """A persistent layout buffer: make(device) on the solve's device,
+        or under a mesh one copy per distinct mesh device (a dict)."""
+        if self.mesh is None:
+            return make(self.device)
+        return replicate(self.mesh, make)
+
+    def _ov0(self) -> torch.Tensor:
+        """The resident overload mask on the solve's (first) device."""
+        st = self._dev
+        if st is None:
+            return upload(self.graph.overloaded, bool, self.device)
+        ov = st["ov"]
+        if isinstance(ov, list):  # tiled: one per rank
+            return ov[0][0]
+        return ov[self.device] if isinstance(ov, dict) else ov
 
     def _source_rows(self) -> np.ndarray:
         """Node ids of the batch, bucket-padded; padding rows repeat me's
@@ -340,7 +407,7 @@ class _AreaSolve:
         rows = np.array(
             [self.graph.node_index[s] for s in self.sources], dtype=np.int32
         )
-        s_pad = _next_bucket(len(rows), minimum=8)
+        s_pad = self._batch_pad(len(rows), minimum=8)
         return np.concatenate(
             [rows, np.full(s_pad - len(rows), rows[0], dtype=np.int32)]
         )
@@ -363,8 +430,16 @@ class _AreaSolve:
         self._last_solve_delta = None  # set by a qualifying warm solve
         t0 = time.perf_counter()
         self.h2d_bytes += rows.nbytes
-        if self.graph.sell is not None:
+        if self._use_tiled():
+            self._d_dev, self.rounds_last = self._tile_solve_resident(rows)
+        elif self.graph.sell is not None:
             self._d_dev, self.rounds_last = self._sell_solve_resident(rows)
+        elif self.mesh is not None:
+            # the edge-list layout under a mesh: cold, row-sharded, rounds
+            # untracked, as in the reference
+            self._d_dev = sharded_batched_spf(self.graph, rows, self.mesh)
+            self.rounds_last = None
+            self.full_solves += 1
         else:
             self._d_dev, self.rounds_last = self._bf_solve_resident(rows)
         # the round loops read a flag from the card every round, so the wall
@@ -439,13 +514,12 @@ class _AreaSolve:
             st = self._dev = {
                 "kind": "sell",
                 "src_ref": g.src,
-                "nbrs": tuple(
-                    upload(a, np.int32, self.device) for a in sell.nbr
-                ),
-                "wgs": tuple(
-                    upload(a, np.int32, self.device) for a in sell.wg
-                ),
-                "ov": upload(g.overloaded, bool, self.device),
+                "nbrs": self._place(lambda dev: tuple(
+                    upload(a, np.int32, dev) for a in sell.nbr)),
+                "wgs": self._place(lambda dev: tuple(
+                    upload(a, np.int32, dev) for a in sell.wg)),
+                "ov": self._place(
+                    lambda dev: upload(g.overloaded, bool, dev)),
                 "w_host": g.w.copy(),
                 "w_ver": g.version,
                 "ov_host": g.overloaded.copy(),
@@ -473,7 +547,8 @@ class _AreaSolve:
                     ov_seed_edges = ov_seed_edges[
                         st["w_host"][ov_seed_edges] < INF
                     ]
-                st["ov"] = upload(g.overloaded, bool, self.device)
+                st["ov"] = self._place(
+                    lambda dev: upload(g.overloaded, bool, dev))
                 st["ov_host"] = g.overloaded.copy()
                 self.h2d_bytes += g.overloaded.nbytes
             # the previous fixpoint describes the same problem only for the
@@ -536,6 +611,7 @@ class _AreaSolve:
                             vals_t,
                             torch.as_tensor(inc_idx, device=self.device),
                             self._d_dev,
+                            mesh=self.mesh,
                         )
                         self.incremental_solves += 1
                         self.invalidation_rounds_last = inv_rounds
@@ -552,6 +628,7 @@ class _AreaSolve:
                             st["ov"],
                             idx_t,
                             vals_t,
+                            mesh=self.mesh,
                         )
                         self.full_solves += 1
                         return d, rounds
@@ -563,13 +640,16 @@ class _AreaSolve:
                     width = max(len(sel) for sel in per_bucket)
                     idx, vals = sell_patch_arrays(sell, changed, g.w, width)
                     self.h2d_bytes += idx.nbytes + vals.nbytes
-                    st["wgs"] = _sell_apply_patches(
-                        st["wgs"],
-                        torch.as_tensor(idx, device=self.device),
-                        torch.as_tensor(vals, device=self.device),
-                    )
+                    for wgs in (st["wgs"].values() if self.mesh is not None
+                                else (st["wgs"],)):
+                        _sell_apply_patches(
+                            wgs,
+                            torch.as_tensor(idx, device=wgs[0].device),
+                            torch.as_tensor(vals, device=wgs[0].device),
+                        )
         d, rounds = _sell_solver_counted(
-            sell.shape_key(), rows_t, st["nbrs"], st["wgs"], st["ov"]
+            sell.shape_key(), rows_t, st["nbrs"], st["wgs"], st["ov"],
+            mesh=self.mesh,
         )
         self.full_solves += 1
         return d, rounds
@@ -652,6 +732,112 @@ class _AreaSolve:
         self.full_solves += 1
         return d, None
 
+    def _use_tiled(self) -> bool:
+        """The destination-tiled layout serves when the mesh has a graph
+        axis above one that divides n_pad; a graph axis of one has nothing
+        to tile, and the row-sharded layouts keep it."""
+        return (
+            self.mesh is not None
+            and self.mesh.shape["graph"] > 1
+            and self.graph.n_pad % self.mesh.shape["graph"] == 0
+        )
+
+    def _account_halo(self, copies: HaloCopies) -> None:
+        """Fold one tiled solve's ring traffic, as its ring counted the
+        copies, into the halo counters: per hop every rank forwarded its
+        frontier (ctr [S_l, h] int32) and its slot -> column map ([h]
+        int32)."""
+        self.halo_exchanges_last = copies.hops
+        self.halo_bytes += copies.bytes
+
+    def _tile_solve_resident(self, rows: np.ndarray):
+        """Destination-tiled solve against resident per-rank buffers:
+        (D `Sharded` [b][g] tiles [s_pad / batch, n_pad / graph], rounds).
+
+        Each rank holds its tile and its partition's slice of the tiled
+        edge arrays; no device holds the full destination axis. A weight or
+        overload event uploads the whole [g, e_tile] tiled weights (the
+        layout's patch unit) and answers warm (`_tile_solver_warm`: the
+        device classifies increases against the resident weights; a newly
+        overloaded node's out-edges seed like increases, and the repair
+        uses the new transit mask). A structural rebuild or a source-batch
+        change solves cold."""
+        g = self.graph
+        mesh = self.mesh
+        g_ax = mesh.shape["graph"]
+        st = self._dev
+        if st is None or st["kind"] != "tile2d" or st["src_ref"] is not g.src:
+            tiling = tile_graph(g, g_ax)
+            st = self._dev = {
+                "kind": "tile2d",
+                "src_ref": g.src,
+                "tiling": tiling,
+                **tiling_ranks(tiling, mesh),
+                "ov": rank_replicas(mesh, g.overloaded, bool),
+                "w_host": g.w.copy(),
+                "w_ver": g.version,
+                "ov_host": g.overloaded.copy(),
+                "rows": rows.copy(),
+            }
+            self.h2d_bytes += (
+                tiling.src_l.nbytes + tiling.hseg.nbytes + tiling.w.nbytes
+                + tiling.hcols.nbytes + tiling.hptr.nbytes
+                + g.overloaded.nbytes
+            )
+        else:
+            tiling = st["tiling"]
+            ov_changed = not np.array_equal(st["ov_host"], g.overloaded)
+            rows_same = np.array_equal(st["rows"], rows)
+            st["rows"] = rows.copy()
+            changed = self._changed_edges(st)
+            if (
+                self.warm_start
+                and rows_same
+                and (len(changed) or ov_changed)
+                and self._d_dev is not None
+            ):
+                w2_new = rank_rows(mesh, tiling.tile_weights(g.w), np.int32)
+                self.h2d_bytes += tiling.w.nbytes
+                ov_new = st["ov"]
+                if ov_changed:
+                    ov_new = rank_replicas(mesh, g.overloaded, bool)
+                    self.h2d_bytes += g.overloaded.nbytes
+                delta_ok = not ov_changed and self._delta_ok(changed, rows)
+                d, rounds, inv_rounds, col_changed, num_changed, copies = (
+                    _tile_solver_warm(
+                        tiling.shape_key() + (g.n_pad,), mesh,
+                        rank_sources(mesh, rows), st["src_l"], st["hseg"],
+                        st["hptr"], w2_new, st["w2"], st["hcols"], ov_new,
+                        st["ov"], self._d_dev,
+                    )
+                )
+                st["w2"] = w2_new
+                st["w_host"] = g.w.copy()
+                st["ov"] = ov_new
+                st["ov_host"] = g.overloaded.copy()
+                self.incremental_solves += 1
+                self.invalidation_rounds_last = inv_rounds
+                # the seed exchange, then one ring per mark and relax round
+                self._account_halo(copies)
+                self._finish_delta(col_changed, num_changed, d, delta_ok)
+                return d, rounds
+            if len(changed):
+                st["w2"] = rank_rows(mesh, tiling.tile_weights(g.w), np.int32)
+                st["w_host"] = g.w.copy()
+                self.h2d_bytes += tiling.w.nbytes
+            if ov_changed:
+                st["ov"] = rank_replicas(mesh, g.overloaded, bool)
+                st["ov_host"] = g.overloaded.copy()
+                self.h2d_bytes += g.overloaded.nbytes
+        d, rounds, copies = _tile_solver(
+            tiling.shape_key() + (g.n_pad,), mesh, rank_sources(mesh, rows),
+            st["src_l"], st["hseg"], st["hptr"], st["w2"], st["hcols"],
+            st["ov"],
+        )
+        self.full_solves += 1
+        self._account_halo(copies)
+        return d, rounds
+
     def _finish_delta(self, col_changed, num_changed, d_dev, delta_ok) -> None:
         """Complete a qualifying warm solve's DeltaPath extraction: read the
         changed-column count (4 bytes), size a compacted `_delta_extract`
@@ -679,13 +865,20 @@ class _AreaSolve:
         cap = _next_bucket(num, minimum=8)
         t0 = time.perf_counter()
         self.h2d_bytes += nh_rows.nbytes + nh_ws.nbytes
-        cols_d, dcols_d, nh_d = _delta_extract(
-            col_changed,
-            d_dev,
-            torch.as_tensor(nh_rows, device=self.device),
-            torch.as_tensor(nh_ws, device=self.device),
-            cap=cap,
-        )
+        nh_rows_t = torch.as_tensor(nh_rows, device=self.device)
+        nh_ws_t = torch.as_tensor(nh_ws, device=self.device)
+        if isinstance(d_dev, Sharded):
+            # only the changed columns leave their ranks (per column block:
+            # the tiled layout's graph ranks, or the row layout's one)
+            cols_d, dcols_d, nh_d = _delta_extract_sharded(
+                col_changed if isinstance(col_changed, list)
+                else [col_changed],
+                d_dev, nh_rows_t, nh_ws_t, cap=cap, device=self.device,
+            )
+        else:
+            cols_d, dcols_d, nh_d = _delta_extract(
+                col_changed, d_dev, nh_rows_t, nh_ws_t, cap=cap
+            )
         cols = cols_d.cpu().numpy().copy()
         dcols = dcols_d.cpu().numpy().copy()
         nh = nh_d.cpu().numpy().copy()
@@ -764,13 +957,13 @@ class _AreaSolve:
                     np.asarray(a, dtype=np.int32), device=self.device
                 )
 
+            d, ru, rv = self._d_dev, np.zeros(len(rows)), rows
+            if isinstance(d, Sharded):
+                # only me's row and the up-link rows leave their ranks
+                d = d.rows([0, *rows], self.device)
+                rv = np.arange(1, len(rows) + 1)
             mask = ecmp_triangle(
-                self._d_dev,
-                up(np.zeros(len(rows))),
-                up(rows),
-                up(ids),
-                up(ws),
-                self._dev["ov"],
+                d, up(ru), up(rv), up(ids), up(ws), self._ov0(),
             )
             self._nh_mask = mask.cpu().numpy().copy()
             self._nh_links = names
@@ -829,15 +1022,48 @@ class _AreaSolve:
                     ig.update(path)
             ignores.append(ig)
 
-        # the batch is padded to a power of two; filler rows solve
-        # unpenalized
-        s_pad = _next_bucket(len(todo), minimum=1)
+        # the batch is padded to a power of two (and to a multiple of the
+        # mesh's batch axis); filler rows solve unpenalized
+        s_pad = self._batch_pad(len(todo), minimum=1)
         sources = np.full(s_pad, idx[self.me], dtype=np.int32)
         st = self._dev
         warm_prev = None
-        if self.warm_start and self._d_dev is not None:
+        if self.warm_start and self.mesh is None and self._d_dev is not None:
             warm_prev = self._d_dev[0:1].expand(s_pad, -1).contiguous()
-        if self.graph.sell is not None:
+        if self.mesh is not None:
+            # cold and row-sharded, as in the reference: the tiled layout
+            # keeps no sliced buffers, so its masked solve uploads them
+            if self.graph.sell is not None:
+                mask_positions = []
+                for ig in ignores:
+                    pos = []
+                    for link in ig:
+                        pos.extend(self.graph.link_edges[link])
+                    mask_positions.append(pos)
+                mask_positions.extend([[] for _ in range(s_pad - len(todo))])
+                d_dev = sell_fixpoint_masked(
+                    self.graph.sell,
+                    sources,
+                    self.graph.overloaded,
+                    mask_positions,
+                    device_arrays=(
+                        (st["nbrs"], st["wgs"], st["ov"])
+                        if st is not None and st["kind"] == "sell" else None
+                    ),
+                    mesh=self.mesh,
+                )
+            else:
+                w_rows = np.tile(self.graph.w, (s_pad, 1))
+                for row, ig in enumerate(ignores):
+                    for link in ig:
+                        fwd, rev = self.graph.link_edges[link]
+                        w_rows[row, fwd] = INF
+                        w_rows[row, rev] = INF
+                self.h2d_bytes += w_rows.nbytes
+                d_dev = batched_spf_vw(
+                    self.graph, sources, w_rows, mesh=self.mesh
+                )
+        elif self.graph.sell is not None:
             # sliced layout: the ignores become per-column masks on the
             # resident buffers (uploaded as [Mk, 3] lists, not counted in
             # h2d_bytes, as the reference does not count them)
@@ -886,7 +1112,7 @@ class _AreaSolve:
                 )
         # the penalized rows are consumed on the host by the greedy
         # back-trace: a real copy-back
-        d_rows = d_dev.cpu().numpy()
+        d_rows = to_host(d_dev)
         self.d2h_bytes += d_rows.nbytes
         self.ksp_device_batches += 1
 
@@ -992,7 +1218,11 @@ class CudaSpfSolver(SpfSolver):
     apsp_max_nodes: areas of up to this many nodes keep a resident
     all-pairs matrix, which answers sources outside the batch (0: off).
     apsp_audit_interval: shadow-audit every Nth close of that matrix
-    against the numpy Floyd–Warshall (0: never)."""
+    against the numpy Floyd–Warshall (0: never).
+    mesh: None (one device), a `parallel.Mesh`, or a (batch, graph) shape
+    laid over the first batch * graph cards; resolved here, so a shape that
+    does not fit the cards fails at construction. Its devices must be of
+    `device`'s type."""
 
     def __init__(
         self,
@@ -1001,10 +1231,19 @@ class CudaSpfSolver(SpfSolver):
         warm_start: bool = True,
         apsp_max_nodes: int = 0,
         apsp_audit_interval: int = 0,
+        mesh=None,
         **kwargs,
     ) -> None:
         super().__init__(*args, **kwargs)
         self.device = resolve_device(device)
+        self.mesh = resolve_mesh(mesh, self.device)
+        if self.mesh is not None and any(
+            d.type != self.device.type for d in self.mesh.devices.flat
+        ):
+            raise ValueError(
+                f"mesh devices {list(self.mesh.devices.flat)} are not "
+                f"{self.device.type} devices"
+            )
         self.warm_start = warm_start
         self.apsp_max_nodes = apsp_max_nodes
         self.apsp_audit_interval = apsp_audit_interval
@@ -1046,6 +1285,7 @@ class CudaSpfSolver(SpfSolver):
             warm_start=self.warm_start,
             apsp_max_nodes=self.apsp_max_nodes,
             apsp_audit_interval=self.apsp_audit_interval,
+            mesh=self.mesh,
         )
         self.device_solves += solve.device_solves
         self._sync_spf_counters(solve, 0, 0)
@@ -1100,6 +1340,16 @@ class CudaSpfSolver(SpfSolver):
         if d_bytes:
             solve._delta_bytes_synced = solve.delta_bytes
             self._bump("decision.spf.delta_bytes", d_bytes)
+        # the tiled layout's halo traffic: ring hops of the last solve
+        # (gauge) and the frontier bytes moved between ranks (cumulative)
+        d_halo = solve.halo_bytes - solve._halo_synced
+        if d_halo:
+            solve._halo_synced = solve.halo_bytes
+            self._bump("decision.spf.halo_bytes", d_halo)
+        if solve.halo_exchanges_last is not None:
+            counters["decision.spf.halo_exchanges_last"] = (
+                solve.halo_exchanges_last
+            )
         if (
             solve.delta_extracts > solve._delta_extracts_synced
             and solve.delta_extract_ms_last is not None
@@ -1217,6 +1467,26 @@ class CudaSpfSolver(SpfSolver):
         if not solve.ensure_apsp():
             return None
         return solve.apsp.d[: g.n, : g.n]
+
+    def degrade_mesh(self) -> bool:
+        """Partial-mesh degradation: move to the largest strictly smaller
+        (batch, graph) mesh over the devices still answering a probe.
+        Returns whether one was installed; False when none is left (no
+        mesh, or a one-device mesh). Warm state cannot be re-tiled across
+        mesh shapes (tile ownership and frontier slots follow the
+        factorization), so every cached solve is dropped and the next event
+        solves cold on the new mesh."""
+        if self.mesh is None:
+            return False
+        new_mesh = plan_degraded_mesh(self.mesh)
+        if new_mesh is None:
+            return False
+        self.mesh = new_mesh
+        self._solves.clear()
+        counters = self._ensure_counters()
+        self._bump("decision.spf.mesh_degradations")
+        counters["decision.spf.mesh_devices"] = int(new_mesh.devices.size)
+        return True
 
     def invalidate_warm_state(self) -> None:
         """Drop every cached device solve: the next build_route_db compiles

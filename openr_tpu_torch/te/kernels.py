@@ -359,6 +359,7 @@ def softmin_round(d: torch.Tensor, we: torch.Tensor, graph: TeGraph,
     out = torch.empty_like(d)
     keep = torch.empty(d.shape, dtype=torch.uint8, device=dev)
     SOFTMIN_ROUND.launch(
+        dev,
         d.data_ptr(), we.data_ptr(), graph.dst.data_ptr(),
         graph.out_ptr.data_ptr(), graph.out_perm.data_ptr(), out.data_ptr(),
         keep.data_ptr(), graph.n, f32(tau),
@@ -389,6 +390,7 @@ def softmin_round_bwd(g_new, d_prev, keep, we, graph: TeGraph, tau: float):
     g_we = torch.empty_like(we)
     tau = f32(tau)
     SOFTMIN_BWD.launch(
+        dev,
         g_new.data_ptr(), d_prev.data_ptr(), keep.data_ptr(), we.data_ptr(),
         graph.dst.data_ptr(), graph.out_ptr.data_ptr(),
         graph.out_perm.data_ptr(), g_prev.data_ptr(), coef.data_ptr(),
@@ -396,12 +398,13 @@ def softmin_round_bwd(g_new, d_prev, keep, we, graph: TeGraph, tau: float):
         entry="softmin_bwd_rows",
     )
     SOFTMIN_BWD.launch(
+        dev,
         d_prev.data_ptr(), we.data_ptr(), graph.src.data_ptr(),
         graph.in_ptr.data_ptr(), graph.in_perm.data_ptr(), coef.data_ptr(),
         mstab.data_ptr(), g_prev.data_ptr(), n, tau,
         entry="softmin_bwd_pull",
     )
-    SOFTMIN_BWD.launch(partial.data_ptr(), g_we.data_ptr(), graph.e, nc,
+    SOFTMIN_BWD.launch(dev, partial.data_ptr(), g_we.data_ptr(), graph.e, nc,
                        entry="softmin_bwd_edges")
     return g_prev, g_we
 
@@ -417,6 +420,7 @@ def soft_gate(d, we, up, graph: TeGraph, tau: float) -> torch.Tensor:
         return _soft_gate_plain(d, we, up, graph, tau)
     p = torch.empty((graph.e, graph.n), dtype=torch.float32, device=dev)
     SOFT_FLOW.launch(
+        dev,
         d.data_ptr(), we.data_ptr(), up.data_ptr(), graph.dst.data_ptr(),
         graph.out_ptr.data_ptr(), graph.out_perm.data_ptr(), p.data_ptr(),
         graph.n, f32(tau), entry="soft_gate",
@@ -438,6 +442,7 @@ def soft_flow_round(p, x, xsum: Optional[torch.Tensor],
         return _soft_flow_round_plain(p, x, xsum, graph)
     x_next = torch.empty_like(x)
     SOFT_FLOW.launch(
+        dev,
         p.data_ptr(), x.data_ptr(),
         xsum.data_ptr() if xsum is not None else None, x_next.data_ptr(),
         graph.src.data_ptr(), graph.in_ptr.data_ptr(),
@@ -457,6 +462,7 @@ def soft_flow_util(p, xsum, caps, graph: TeGraph) -> torch.Tensor:
         return _soft_flow_util_plain(p, xsum, caps, graph)
     util = torch.empty((b, graph.e), dtype=torch.float32, device=dev)
     SOFT_FLOW.launch(
+        dev,
         p.data_ptr(), xsum.data_ptr(), caps.data_ptr(), graph.src.data_ptr(),
         util.data_ptr(), graph.n, graph.e, b, entry="soft_flow_util",
     )
@@ -484,6 +490,7 @@ def soft_flow_bwd_round(p, g_util, caps, lam_next, x_r, g_p,
                                           g_p, graph, first)
     lam = torch.empty_like(x_r)
     SOFT_FLOW_BWD.launch(
+        dev,
         p.data_ptr(), g_util.data_ptr(), caps.data_ptr(),
         lam_next.data_ptr() if lam_next is not None else None,
         x_r.data_ptr(), g_p.data_ptr(), lam.data_ptr(), graph.dst.data_ptr(),
@@ -512,16 +519,18 @@ def soft_gate_bwd(g_p, d, we, up, graph: TeGraph, tau: float):
     partial = torch.empty((graph.e, nc), dtype=torch.float32, device=dev)
     g_we = torch.empty_like(we)
     SOFT_FLOW_BWD.launch(
+        dev,
         g_p.data_ptr(), d.data_ptr(), we.data_ptr(), up.data_ptr(),
         graph.dst.data_ptr(), graph.out_ptr.data_ptr(),
         graph.out_perm.data_ptr(), g_d.data_ptr(), partial.data_ptr(), n,
         nc, f32(tau), entry="soft_gate_bwd_rows",
     )
     SOFT_FLOW_BWD.launch(
+        dev,
         g_p.data_ptr(), graph.in_ptr.data_ptr(), graph.in_perm.data_ptr(),
         g_d.data_ptr(), n, entry="soft_gate_bwd_pull",
     )
-    SOFT_FLOW_BWD.launch(partial.data_ptr(), g_we.data_ptr(), graph.e, nc,
+    SOFT_FLOW_BWD.launch(dev, partial.data_ptr(), g_we.data_ptr(), graph.e, nc,
                          entry="soft_gate_bwd_edges")
     return g_d, g_we
 
@@ -542,7 +551,7 @@ def te_mlu(util, mask, tau_obj: float):
         return _te_mlu_plain(util, mask, tau_obj)
     loss = torch.empty(1, dtype=torch.float32, device=dev)
     lse = torch.empty(b, dtype=torch.float32, device=dev)
-    TE_STEP.launch(util.data_ptr(), mask.data_ptr(), lse.data_ptr(),
+    TE_STEP.launch(dev, util.data_ptr(), mask.data_ptr(), lse.data_ptr(),
                    loss.data_ptr(), b, e, f32(tau_obj), entry="te_mlu")
     return loss, lse
 
@@ -556,7 +565,7 @@ def te_mlu_bwd(g_loss, util, lse, mask, tau_obj: float) -> torch.Tensor:
     if dev.type != "cuda":
         return _te_mlu_bwd_plain(g_loss, util, lse, mask, tau_obj)
     g_util = torch.empty_like(util)
-    TE_STEP.launch(g_loss.data_ptr(), util.data_ptr(), lse.data_ptr(),
+    TE_STEP.launch(dev, g_loss.data_ptr(), util.data_ptr(), lse.data_ptr(),
                    mask.data_ptr(), g_util.data_ptr(), b, e, f32(tau_obj),
                    entry="te_mlu_bwd")
     return g_util
@@ -584,7 +593,7 @@ def te_adam(w, m, v, g, up, w_row, hp: Tuple[float, ...]) -> None:
     if dev.type != "cuda":
         _te_adam_plain(w, m, v, g, up, w_row, hp)
         return
-    TE_STEP.launch(w.data_ptr(), m.data_ptr(), v.data_ptr(), g.data_ptr(),
+    TE_STEP.launch(dev, w.data_ptr(), m.data_ptr(), v.data_ptr(), g.data_ptr(),
                    up.data_ptr(), w_row.data_ptr(), e, *hp, entry="te_adam")
 
 

@@ -25,7 +25,15 @@ given the same forward decisions (K14's fold outcome); and the whole chain,
 `SoftminRound` and `SoftFlow` under autograd and a 4-step Adam run, agrees
 with the CPU's within 1e-4 of the largest gradient and 1e-3 on the weights
 (Adam normalises each step, so rounding moves a weight by up to lr times
-the relative gradient difference per step).
+the relative gradient difference per step). On the pendant-node input of
+ROADMAP queue 3 item 1 the strict cases are expected failures with their
+measured gaps, beside the cases that pin what does hold. The tiled layout's
+kernels (K19 tile round, K20 halo fold, K21's four entries) against their
+plain versions at odd shapes, and the tiled and row-sharded solves on a
+mesh of ranks sharing the card against the same on the CPU, exactly. With
+two cards or more, the same meshes with their ranks spread over the cards
+against one card, and route dbs on such meshes against the CPU's; with one
+card those tests skip.
 """
 
 import dataclasses
@@ -656,10 +664,11 @@ def test_other_node_route_dbs_on_card_equal_cpu(dev):
 # -- differentiable TE (K14-K18) ----------------------------------------------
 
 
-def te_case(name, seed=3):
+def te_case(name, seed=3, in_edge=False):
     """(n, src, dst, w, up): a Clos or a grid with seeded weights, a pendant
     node (gap exactly 0), one link down in one direction, and weights on
-    both sides of 32 (the candidate clamps' tie at F_INF)."""
+    both sides of 32 (the candidate clamps' tie at F_INF); with in_edge,
+    also the position of the one edge into the pendant node."""
     from openr_tpu_torch.te import te_edge_arrays
 
     rng = np.random.default_rng(seed)
@@ -677,6 +686,10 @@ def te_case(name, seed=3):
     graph = compile_graph(ls)
     src, dst, w, up = te_edge_arrays(graph)
     w[np.flatnonzero(up)[:4]] = [31.0, 32.0, 33.5, 40.0]
+    if in_edge:
+        pendant = graph.node_index["pendant"]
+        return (graph.n, src, dst, w, up,
+                int(np.flatnonzero(dst == pendant)[0]))
     return graph.n, src, dst, w, up
 
 
@@ -875,3 +888,476 @@ def test_te_service_on_card_equals_cpu(dev):
         if scores is not None:
             assert (card["initial_max_util"],
                     card["optimized_max_util"]) == scores
+
+
+# -- the pendant-node TE input (ROADMAP queue 3, item 1) ---------------------
+
+
+def pendant_adam(device, name, rounds=16, steps=4):
+    """4 Adam steps on te_case(name) with 3 scenarios, the middle one
+    masked: the input of the CPU cases in tests/test_torch_te.py. Returns
+    (weight trajectory, losses, the edge into the pendant node)."""
+    from openr_tpu_torch.convert import te_inputs
+    from openr_tpu_torch.te.optimizer import TeOptConfig, adam_solve
+
+    n, src, dst, w, up, in_edge = te_case(name, in_edge=True)
+    rng = np.random.default_rng(5)
+    dem = (rng.uniform(0, 2, (3, n, n)) * (1 - np.eye(n))).astype(np.float32)
+    caps = rng.uniform(0.5, 2.0, len(src)).astype(np.float32)
+    inp = te_inputs(src, dst, w, up, dem, caps, device)
+    mask = torch.tensor([1.0, 0.0, 1.0], device=device)
+    _, wh, ls = adam_solve(inp["w"], inp["demands"], mask, inp["caps"],
+                           inp["graph"], inp["up"], TeOptConfig(), rounds,
+                           steps)
+    return wh.cpu(), ls.cpu(), in_edge
+
+
+# measured on an NVIDIA H100 80GB HBM3 (700 W): the largest weight gap,
+# all of it on the edge into the pendant node
+_CARD_PENDANT_GAPS = {"clos": 0.483, "grid": 2.06}
+
+
+@pytest.mark.parametrize("name", ["clos", "grid"])
+def test_adam_solve_on_the_pendant_case_card_equals_cpu(dev, name, request):
+    """adam_solve on te_case, the card against the CPU, at PERF.md's
+    tolerances (5e-3 on the weights, 1e-4 on the losses). It fails on the
+    edge into the pendant node alone, as the CPU path fails against the
+    reference (tests/test_torch_te.py): that edge's gradient is at float32
+    rounding level, and Adam normalises it to a step of up to lr."""
+    request.node.add_marker(pytest.mark.xfail(strict=True, reason=(
+        f"the pendant's in-edge departs by {_CARD_PENDANT_GAPS[name]} "
+        "(rounding-level gradient, Adam-normalised); ROADMAP queue 3 "
+        "item 1")))
+    card, cpu = pendant_adam(dev, name), pendant_adam("cpu", name)
+    assert float((card[0] - cpu[0]).abs().max()) <= 5e-3
+    assert rel_err(card[1], cpu[1]) <= 1e-4
+
+
+@pytest.mark.parametrize("name", ["clos", "grid"])
+def test_the_pendant_case_card_departs_on_the_pendant_edge_alone(dev, name):
+    """The finding behind the strict xfail above: every weight but the edge
+    into the pendant node within 5e-3 of the CPU's over 4 steps, and the
+    losses within 1e-4."""
+    card, cpu = pendant_adam(dev, name), pendant_adam("cpu", name)
+    rest = torch.ones(card[0].shape[1], dtype=torch.bool)
+    rest[card[2]] = False
+    assert float((card[0] - cpu[0])[:, rest].abs().max()) <= 5e-3
+    assert rel_err(card[1], cpu[1]) <= 1e-4
+
+
+def softmin_chain(device, name, tau, rounds=40):
+    """K14's chain of rounds from the cold D on te_case (on the CPU: the
+    plain version's): per round the fold outcome and the gate's gap == 0
+    set, both on the CPU."""
+    from openr_tpu_torch.convert import te_inputs
+    from openr_tpu_torch.te import kernels as tk
+    from openr_tpu_torch.te import objective as to
+
+    n, src, dst, w, up = te_case(name)
+    inp = te_inputs(src, dst, w, up, np.zeros((1, n, n), np.float32),
+                    np.ones(len(src), np.float32), device)
+    we = to.edge_weights(inp["w"], inp["up"])
+    d = torch.full((n, n), tk.F_INF, device=device)
+    d.fill_diagonal_(0.0)
+    out = []
+    for _ in range(rounds):
+        d, keep = tk.softmin_round(d, we, inp["graph"], tau)
+        gap, _ = tk._gate_score(d, we, inp["up"], inp["graph"], tau)
+        out.append((keep.cpu(), (gap == 0).cpu()))
+    return out
+
+
+@pytest.mark.parametrize("tau", [2.0, 0.5, 0.05])
+@pytest.mark.parametrize("name", ["clos", "grid"])
+def test_tie_sets_of_the_card_chain_equal_the_cpu_chain(dev, name, tau,
+                                                        request):
+    """The forward decisions the backward reads, bit for bit, round by
+    round over 40 rounds: K14's recorded fold outcome and the gate's
+    gap == 0 set along the card's chain against the plain versions' along
+    the CPU's. At tau 0.5 the chains' D differ by one float32 spacing
+    after about a dozen rounds and near-converged entries tie on one side
+    and not the other (as the CPU path's do against the reference's)."""
+    if tau == 0.5:
+        request.node.add_marker(pytest.mark.xfail(strict=True, reason={
+            "clos": "measured: up to 530 fold outcomes a round (round 30) "
+                    "and up to 7 gap == 0 entries differ from round 20 on",
+            "grid": "measured: up to 2 fold outcomes and 1 gap == 0 entry "
+                    "differ in rounds 12-14",
+        }[name] + "; D one float32 spacing apart"))
+    card, cpu = softmin_chain(dev, name, tau), softmin_chain("cpu", name, tau)
+    for r, ((k_a, g_a), (k_b, g_b)) in enumerate(zip(card, cpu)):
+        assert torch.equal(k_a, k_b), ("fold outcome", r)
+        assert torch.equal(g_a, g_b), ("gap == 0", r)
+
+
+@pytest.mark.xfail(strict=True, reason=(
+    "measured: 16,715 fold outcomes over 40 rounds at tau 2.0 on the Clos: "
+    "the plain version's softmin on the card rounds otherwise (torch's exp "
+    "and index_add's atomic order), while a converged entry ties with "
+    "K14's own recomputation"))
+def test_k14_fold_outcome_equals_the_plain_version_on_the_same_d(dev):
+    """K14's recorded fold outcome against the plain version's on the same
+    D, on the card."""
+    from openr_tpu_torch.convert import te_inputs
+    from openr_tpu_torch.te import kernels as tk
+    from openr_tpu_torch.te import objective as to
+
+    n, src, dst, w, up = te_case("clos")
+    inp = te_inputs(src, dst, w, up, np.zeros((1, n, n), np.float32),
+                    np.ones(len(src), np.float32), dev)
+    we = to.edge_weights(inp["w"], inp["up"])
+    d = torch.full((n, n), tk.F_INF, device=dev)
+    d.fill_diagonal_(0.0)
+    for r in range(40):
+        new, keep = tk.softmin_round(d, we, inp["graph"], 2.0)
+        _, keep_p = tk._softmin_round_plain(d, we, inp["graph"], 2.0)
+        assert torch.equal(keep, keep_p), r
+        d = new
+
+
+# -- the tiled layout (K19-K21) ----------------------------------------------
+
+
+def tile_inputs(dev, name, g, s=6, seed=0):
+    """Partition j = 1 of a graph axis of g over a small graph, with a
+    random tile, an overloaded source and transit node, seed and mark
+    masks: (tiling, kwargs of tile_round, offset, d)."""
+    from openr_tpu_torch.parallel import tile_graph
+
+    edges, overloaded = GRAPHS[name]
+    graph = compile_edges(edges, overloaded_nodes=overloaded)
+    tiling = tile_graph(graph, g)
+    rng = np.random.default_rng(seed)
+    j = 1
+    n_tile = tiling.n_tile
+    sources = rng.choice(graph.n, s).astype(np.int32)
+    sources[0] = j * n_tile  # a source whose column this tile holds
+    d = rng.integers(0, 90, (s, n_tile)).astype(np.int32)
+    d[rng.random(d.shape) < 0.2] = INF
+    ov = graph.overloaded.copy()
+    ov[j * n_tile] = True
+    ov_new = ov.copy()
+    ov_new[j * n_tile + 1] = True
+    w_new = tiling.w[j].copy()
+    w_new[::3] = np.minimum(w_new[::3] + 2, INF)
+
+    def t(a, dtype=torch.int32):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(dtype)
+
+    base = dict(sources=t(sources), overloaded=t(ov, torch.bool),
+                offset=j * n_tile, src_l=t(tiling.src_l[j]),
+                hseg=t(tiling.hseg[j]), hptr=t(tiling.hptr[j]),
+                w2=t(tiling.w[j]), h=tiling.h)
+    masks = [{}, {"w_new": t(w_new), "ov_new": t(ov_new, torch.bool)},
+             {"marks": t(rng.random(d.shape) < 0.4, torch.bool)}]
+    return tiling, base, masks, t(d), j
+
+
+@pytest.mark.parametrize("g", [2, 8])
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_tile_round_and_fold_kernels_equal_plain(dev, name, g):
+    """K19 (plain, seed and mark masks) and K20 (own and foreign
+    frontiers) against their plain versions, on tiles whose h is not a
+    multiple of 32 on most graphs, and partitions with no edges at g = 8
+    on the small ones."""
+    tiling, base, masks, d, j = tile_inputs(dev, name, g)
+    for kw in masks:
+        before = _cuda.TILE_ROUND.launches
+        ctr = spf.tile_round(d, **base, **kw)
+        assert _cuda.TILE_ROUND.launches == before + 1
+        want = spf._tile_round_plain(d, **base, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(ctr, want)
+        for k in (j, (j + 1) % g):
+            cols = torch.as_tensor(tiling.hcols[k], device=dev)
+            flag, flag_p = (torch.zeros(1, dtype=torch.int32, device=dev)
+                            for _ in range(2))
+            out = spf.tile_fold(d.clone(), ctr, cols, j, flag)
+            out_p = spf._tile_fold_plain(d.clone(), ctr, cols, j, flag_p)
+            torch.cuda.synchronize()
+            assert torch.equal(out, out_p) and torch.equal(flag, flag_p)
+
+
+def test_tile_kernels_at_odd_shapes(dev):
+    """K19 with h = 13 and a partition without edges (all slots INF); K20
+    with every slot a sentinel and with nothing to lower; K21's entries
+    on a 5 x 7 tile."""
+    rng = np.random.default_rng(3)
+    d = torch.as_tensor(rng.integers(0, 50, (5, 7)).astype(np.int32),
+                        device=dev)
+    src = torch.as_tensor(np.array([7, 8, 3, 9, 13], np.int32), device=dev)
+    ov = torch.zeros(14, dtype=torch.bool, device=dev)
+    ov[9] = True
+    empty = torch.zeros(0, dtype=torch.int32, device=dev)
+    hptr = torch.zeros(14, dtype=torch.int32, device=dev)
+    ctr = spf.tile_round(d, src, ov, 7, empty, empty, hptr, empty, 13)
+    torch.cuda.synchronize()
+    assert ctr.shape == (5, 13) and bool((ctr == INF).all())
+    sentinel = torch.full((13,), spf.TILE_PAD, dtype=torch.int32, device=dev)
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    out = spf.tile_fold(d.clone(), torch.zeros_like(ctr), sentinel, 1, flag)
+    torch.cuda.synchronize()
+    assert torch.equal(out, d) and int(flag.item()) == 0
+    cols = torch.arange(7, 20, dtype=torch.int32, device=dev)
+    spf.tile_fold(out, ctr, cols, 1, flag)  # INF lowers nothing
+    assert torch.equal(out, d) and int(flag.item()) == 0
+    check_tile_mark_kernel(dev, d, src, 7)
+
+
+def check_tile_mark_kernel(dev, dp, src, offset):
+    """K21's four entries against their plain versions on one tile."""
+    s_l, n_tile = dp.shape
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(5)
+    recv_h = dp.cpu().clone()
+    recv_h[torch.as_tensor(rng.random(dp.shape) < 0.7)] += 1
+    m_h = torch.as_tensor(rng.random(dp.shape) < 0.2)
+    cc_h = torch.as_tensor(rng.random(n_tile) < 0.3)
+    got, want = {}, {}
+    for device, out in ((dev, got), (cpu, want)):
+        s_d, dp_d = src.to(device), dp.to(device)
+        out["init"] = spf.tile_init(s_d, offset, n_tile)
+        for m in (None, m_h.to(device)):
+            recv = recv_h.clone().to(device)  # tile_mark resets it
+            flag = torch.zeros(1, dtype=torch.int32, device=device)
+            new = spf.tile_mark(m, recv, dp_d, flag)
+            out["mark", m is None] = (new, int(flag.item()),
+                                      bool((recv == INF).all()))
+        out["reset"] = spf.tile_reset(m_h.to(device), dp_d, s_d, offset)
+        cc = cc_h.clone().to(device)
+        count = torch.zeros(1, dtype=torch.int32, device=device)
+        d2 = dp_d.clone()
+        d2[s_l - 1, ::2] += 1
+        spf.tile_col_changed(d2, dp_d, cc, count)
+        out["cols"] = (cc, int(count.item()))
+    torch.cuda.synchronize()
+    assert torch.equal(got["init"].cpu(), want["init"])
+    assert torch.equal(got["reset"].cpu(), want["reset"])
+    for key in (("mark", True), ("mark", False)):
+        assert torch.equal(got[key][0].cpu(), want[key][0])
+        assert got[key][1:] == want[key][1:]
+    assert torch.equal(got["cols"][0].cpu(), want["cols"][0])
+    assert got["cols"][1] == want["cols"][1]
+
+
+def tiled_case(name, g):
+    """A graph, its tiling on a graph axis of g, 16 sources and a warm
+    event (weights and one newly overloaded source)."""
+    from openr_tpu_torch.parallel import tile_graph
+
+    edges, overloaded = GRAPHS[name]
+    graph = compile_edges(edges, overloaded_nodes=overloaded)
+    tiling = tile_graph(graph, g)
+    rows = sources_for(graph, 14)[:16]
+    w_new, _, _ = event_for(graph, seed=1)
+    ov_new = graph.overloaded.copy()
+    ov_new[rows[3]] = True
+    return graph, tiling, rows, w_new, ov_new
+
+
+def tiled_run(devices, shape, graph, tiling, rows, w_new, ov_new):
+    """`_tile_solver`, then `_tile_solver_warm` on the event, on a mesh of
+    `devices`: (D, rounds, ring copies, warm D, rounds, inv_rounds,
+    col_changed, num_changed, warm ring copies), on the host."""
+    from openr_tpu_torch import convert
+    from openr_tpu_torch.parallel import make_mesh
+
+    key = tiling.shape_key() + (graph.n_pad,)
+    mesh = make_mesh(devices, shape)
+    ops = convert.tiling_ranks(tiling, mesh)
+    src = convert.rank_sources(mesh, rows)
+    ov = convert.rank_replicas(mesh, graph.overloaded, bool)
+    d, rounds, copies = spf._tile_solver(key, mesh, src, ops["src_l"],
+                                         ops["hseg"], ops["hptr"], ops["w2"],
+                                         ops["hcols"], ov)
+    dw = spf._tile_solver_warm(
+        key, mesh, src, ops["src_l"], ops["hseg"], ops["hptr"],
+        convert.rank_rows(mesh, tiling.tile_weights(w_new), np.int32),
+        ops["w2"], ops["hcols"],
+        convert.rank_replicas(mesh, ov_new, bool), ov, d)
+    return (d.numpy(), rounds, copies, dw[0].numpy(), dw[1], dw[2],
+            torch.cat([c.cpu() for c in dw[3]]).numpy(), int(dw[4]), dw[5])
+
+
+def assert_runs_equal(got, want):
+    for a, b in zip(got, want):
+        if isinstance(a, np.ndarray):
+            np.testing.assert_array_equal(a, b)
+        else:
+            assert a == b
+
+
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2)])
+@pytest.mark.parametrize("name", ["wan", "clos", "grid"])
+def test_tiled_solves_on_card_equal_cpu(dev, name, shape):
+    """`_tile_solver` and `_tile_solver_warm` on a mesh of ranks sharing
+    the card against the same on the CPU (the plain versions), all five
+    warm outputs, and D against K1's unsharded solve."""
+    case = tiled_case(name, shape[1])
+    n = shape[0] * shape[1]
+    card = tiled_run([dev] * n, shape, *case)
+    cpu = tiled_run([torch.device("cpu")] * n, shape, *case)
+    assert_runs_equal(card, cpu)
+    graph, rows = case[0], case[2]
+    want = spf.batched_spf(graph, rows, device=dev).cpu().numpy()
+    np.testing.assert_array_equal(card[0], want)
+
+
+# -- meshes across cards ------------------------------------------------------
+
+
+@pytest.fixture
+def cards(dev):
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two or more NVIDIA cards (device_count() is {n})")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def spread(cards, n):
+    """n mesh positions dealt over the cards in turn: neighbours on a ring
+    lie on different cards, and with more positions than cards a card
+    holds several ranks."""
+    return [cards[k % len(cards)] for k in range(n)]
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (1, 4), (2, 2), (2, 4)])
+@pytest.mark.parametrize("name", ["wan", "clos", "grid"])
+def test_tiled_solves_across_cards_equal_one_card(cards, name, shape):
+    """The tiled solves with the ranks spread over the cards: each rank's
+    kernels run on its own card and the ring hops are copies between
+    cards. Every output, the ring copies among them, equals the same mesh
+    on one card, and D equals K1's unsharded solve."""
+    case = tiled_case(name, shape[1])
+    n = shape[0] * shape[1]
+    got = tiled_run(spread(cards, n), shape, *case)
+    want = tiled_run([cards[0]] * n, shape, *case)
+    assert_runs_equal(got, want)
+    graph, rows = case[0], case[2]
+    k1 = spf.batched_spf(graph, rows, device=cards[0]).cpu().numpy()
+    np.testing.assert_array_equal(got[0], k1)
+
+
+@pytest.mark.parametrize("shape", [(2, 1), (4, 1), (2, 2)])
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_row_sharded_step_across_cards_equals_one_card(cards, name, shape):
+    """`sharded_spf_step` with the batch ranks spread over the cards (K1
+    on the sliced layout, K2 on the edge-list one, then K3 on each graph
+    rank's edge slice): D and the DAG equal the same mesh on one card,
+    and D equals the unsharded solve."""
+    from openr_tpu_torch.parallel import make_mesh, sharded_spf_step
+
+    edges, overloaded = GRAPHS[name]
+    graph = compile_edges(edges, overloaded_nodes=overloaded)
+    rows = np.arange(graph.n, dtype=np.int32)
+    n = shape[0] * shape[1]
+    out = []
+    for devices in (spread(cards, n), [cards[0]] * n):
+        d, dag = sharded_spf_step(graph, rows, make_mesh(devices, shape))
+        out.append((d.numpy()[: graph.n], [t.cpu() for t in dag]))
+    np.testing.assert_array_equal(out[0][0], out[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
+    want = spf.batched_spf(graph, rows, device=cards[0]).cpu().numpy()
+    np.testing.assert_array_equal(out[0][0], want[: graph.n])
+
+
+@pytest.mark.parametrize("shape", [(1, 4), (4, 1), (2, 2)])
+def test_mesh_route_db_across_cards_equals_cpu(cards, shape):
+    """CudaSpfSolver on a mesh spread over the cards, tiled and
+    row-sharded: route dbs cold and after a warm event equal the CPU
+    oracle's. With as many cards as ranks the mesh is the shape itself,
+    laid over distinct cards by `resolve_mesh`."""
+    from openr_tpu_torch.parallel import make_mesh
+
+    edges, _ = GRAPHS["clos"]
+    ls = LinkState("0")
+    for db in build_adj_dbs(edges).values():
+        ls.update_adjacency_database(db)
+    ps = PrefixState()
+    for i, node in enumerate(sorted(ls.node_names())):
+        ps.update_prefix_database(PrefixDatabase(
+            node, [PrefixEntry(IpPrefix(f"10.0.{i}.0/24"))], area="0"))
+    me = "rsw0_0"
+    n = shape[0] * shape[1]
+    mesh = shape if len(cards) >= n else make_mesh(spread(cards, n), shape)
+    solver = CudaSpfSolver(me, device=cards[0], mesh=mesh)
+    assert len(set(solver.mesh.devices.flat)) == min(n, len(cards))
+    for metric in (None, 7):
+        if metric is not None:
+            db = ls.get_adjacency_databases()["fsw0_1"]
+            ls.update_adjacency_database(dataclasses.replace(
+                db, adjacencies=[dataclasses.replace(a, metric=metric)
+                                 for a in db.adjacencies]))
+        got = solver.build_route_db(me, {"0": ls}, ps)
+        want = SpfSolver(me).build_route_db(me, {"0": ls}, ps)
+        assert got.unicast_entries == want.unicast_entries
+        assert got.mpls_entries == want.mpls_entries
+    assert solver.counters["decision.spf.incremental_solves"] == 1
+    solve = solver._solves[("0", me)][1]
+    np.testing.assert_array_equal(solve.d, solve.cold_reference_d())
+
+
+@pytest.mark.parametrize("shape", [(2, 1), (2, 2)])
+@pytest.mark.parametrize("name", ["wan", "extreme"])
+def test_ksp2_route_db_across_cards_equals_cpu(cards, name, shape):
+    """KSP2 under a mesh spread over the cards: the cold masked solves
+    split over the batch ranks (K8 and K9, or K2 per row on the edge-list
+    layout); the route db equals the CPU oracle's."""
+    from openr_tpu_torch.parallel import make_mesh
+
+    edges, ov = GRAPHS[name]
+    if name == "extreme":  # a ring through the leaves: second paths exist
+        leaves = sorted({b for _, b, _ in edges})
+        edges = edges + [(a, b, 2) for a, b in zip(leaves, leaves[1:])]
+    ls = LinkState("0")
+    for db in build_adj_dbs(edges, overloaded_nodes=ov).values():
+        ls.update_adjacency_database(db)
+    names = sorted(ls.node_names())
+    me = names[0]
+    ps = PrefixState()
+    for i, node in enumerate(names[1::max(1, len(names) // 6)]):
+        ps.update_prefix_database(PrefixDatabase(node, [PrefixEntry(
+            IpPrefix(f"10.0.{i}.0/24"),
+            forwarding_type=PrefixForwardingType.SR_MPLS,
+            forwarding_algorithm=PrefixForwardingAlgorithm.KSP2_ED_ECMP,
+        )], area="0"))
+    mesh = make_mesh(spread(cards, shape[0] * shape[1]), shape)
+    solver = CudaSpfSolver(me, device=cards[0], mesh=mesh)
+    got = solver.build_route_db(me, {"0": ls}, ps)
+    want = SpfSolver(me).build_route_db(me, {"0": ls}, ps)
+    assert got.unicast_entries == want.unicast_entries
+    assert got.mpls_entries == want.mpls_entries
+    assert solver._solves[("0", me)][1].ksp_device_batches >= 1
+
+
+@pytest.mark.parametrize("shape", [(1, 4), (4, 1)])
+def test_mesh_route_db_on_card_equals_cpu(dev, shape):
+    """CudaSpfSolver on a mesh of ranks sharing the card, tiled and
+    row-sharded: route dbs cold and after a warm event equal the CPU
+    oracle's, with the tile kernels launched on the tiled one."""
+    from openr_tpu_torch.parallel import make_mesh
+
+    edges, _ = GRAPHS["clos"]
+    ls = LinkState("0")
+    for db in build_adj_dbs(edges).values():
+        ls.update_adjacency_database(db)
+    ps = PrefixState()
+    for i, node in enumerate(sorted(ls.node_names())):
+        ps.update_prefix_database(PrefixDatabase(
+            node, [PrefixEntry(IpPrefix(f"10.0.{i}.0/24"))], area="0"))
+    me = "rsw0_0"
+    mesh = make_mesh([dev] * 4, shape)
+    solver = CudaSpfSolver(me, device=dev, mesh=mesh)
+    before = _cuda.TILE_ROUND.launches
+    for metric in (None, 7):
+        if metric is not None:
+            db = ls.get_adjacency_databases()["fsw0_1"]
+            ls.update_adjacency_database(dataclasses.replace(
+                db, adjacencies=[dataclasses.replace(a, metric=metric)
+                                 for a in db.adjacencies]))
+        got = solver.build_route_db(me, {"0": ls}, ps)
+        want = SpfSolver(me).build_route_db(me, {"0": ls}, ps)
+        assert got.unicast_entries == want.unicast_entries
+        assert got.mpls_entries == want.mpls_entries
+    assert solver.counters["decision.spf.incremental_solves"] == 1
+    assert (_cuda.TILE_ROUND.launches > before) == (shape[1] > 1)

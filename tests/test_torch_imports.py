@@ -58,6 +58,8 @@ def test_every_module_imports_without_jax_or_openr_tpu():
     assert "openr_tpu_torch.apsp.state" in mods
     for mod in ("kernels", "objective", "optimizer", "scenarios", "service"):
         assert f"openr_tpu_torch.te.{mod}" in mods
+    assert "openr_tpu_torch.parallel" in mods
+    assert "openr_tpu_torch.parallel.mesh" in mods
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run(
         [sys.executable, "-c", _IMPORT_ALL, *mods],
@@ -245,3 +247,47 @@ def test_te_wrappers_run_plain_versions_on_cpu_tensors(monkeypatch):
         optimizer.optimize_weights(src, dst, up.numpy(), we.numpy(),
                                    np.ones((1, 3, 3), np.float32),
                                    np.ones(4, np.float32), 3)
+
+
+def test_tile_wrappers_run_plain_versions_on_cpu_tensors(monkeypatch):
+    """K19-K21's wrappers and the tiled solve on CPU tensors: plain
+    versions, no launch; and a mesh shape asks for the card by default."""
+    import numpy as np
+
+    from openr_tpu_torch import convert, parallel
+    from openr_tpu_torch.ops import _cuda, spf
+    from openr_tpu_torch.ops.graph import INF, compile_edges
+
+    before = [k.launches for k in _cuda.KERNELS]
+    graph = compile_edges([("a", "b", 1), ("b", "c", 2), ("c", "d", 3)])
+    mesh = parallel.make_mesh([torch.device("cpu")] * 2, (1, 2))
+    tiling = parallel.tile_graph(graph, 2)
+    ops = convert.tiling_ranks(tiling, mesh)
+    src = convert.rank_sources(
+        mesh, np.full(8, graph.node_index["a"], dtype=np.int32))
+    ov = convert.rank_replicas(mesh, graph.overloaded, bool)
+    d, rounds, _ = spf._tile_solver(
+        tiling.shape_key() + (graph.n_pad,), mesh, src, ops["src_l"],
+        ops["hseg"], ops["hptr"], ops["w2"], ops["hcols"], ov)
+    src_row = d.numpy()[0]
+    assert [int(src_row[graph.node_index[x]]) for x in "abcd"] == [0, 1, 3, 6]
+    assert rounds == 4
+    n_tile = tiling.n_tile
+    dp = d.blocks[0][0]
+    flag = torch.zeros(1, dtype=torch.int32)
+    recv = dp.clone()
+    marks = spf.tile_mark(None, recv, dp, flag)
+    assert bool(flag.item()) and bool((recv == INF).all())
+    d0 = spf.tile_reset(marks, dp, src[0][0], 0)
+    assert bool((d0[dp > 0] == INF).all()) and bool((d0[dp == 0] == 0).all())
+    cc = torch.zeros(n_tile, dtype=torch.bool)
+    count = torch.zeros(1, dtype=torch.int32)
+    spf.tile_col_changed(d0, dp, cc, count)
+    assert int(count.item()) == int(cc.sum()) > 0
+    assert [k.launches for k in _cuda.KERNELS] == before
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        parallel.resolve_mesh((1, 1))
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        parallel.make_mesh()

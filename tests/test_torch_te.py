@@ -42,6 +42,8 @@ from openr_tpu.te import objective as jo
 from openr_tpu.te import optimizer as jopt
 from openr_tpu.te import scenarios as jsc
 from openr_tpu.topology import build_adj_dbs as j_build_adj_dbs
+from openr_tpu.topology import fabric_edges as j_fabric
+from openr_tpu.topology import grid_edges as j_grid
 from openr_tpu_torch.convert import te_graph, te_inputs
 from openr_tpu_torch.lsdb import LinkState as TLinkState
 from openr_tpu_torch.ops.graph import compile_graph as t_compile_graph
@@ -405,6 +407,107 @@ def test_adam_solve_matches_jax_for_8_steps(plain):
     assert torch.equal(w_hist[:, ~inp["up"]], inp["w"][~inp["up"]].expand(
         8, -1))  # down links never move
     assert bool((w_hist >= 1).all() and (w_hist <= 64).all())
+
+
+def pendant_case(name, seed=3):
+    """The card tests' `te_case` (tests/test_torch_cuda.py): a Clos or a
+    6x6 grid with seeded metrics 1-8, a pendant node, one link down in one
+    direction and four weights at 31, 32, 33.5 and 40, not divided by 8;
+    with 3 scenarios (the middle one masked), 16 rounds. Returns the
+    inputs and the one edge into the pendant node (weight 31 here)."""
+    rng = np.random.default_rng(seed)
+    base = j_fabric(pods=2) if name == "clos" else j_grid(6)
+    edges = [(a, b, int(rng.integers(1, 9))) for a, b, _ in base]
+    edges.append(("pendant", edges[0][0], 3))
+    graph = j_compile_graph(
+        graphs(edges, JLinkState, j_build_adj_dbs, down=edges[1][:2]))
+    src, dst, w, up = jo.te_edge_arrays(graph)
+    w[np.flatnonzero(up)[:4]] = [31.0, 32.0, 33.5, 40.0]
+    n = graph.n
+    rng = np.random.default_rng(5)
+    dem = (rng.uniform(0, 2, (3, n, n)) * (1 - np.eye(n))).astype(np.float32)
+    caps = rng.uniform(0.5, 2.0, len(src)).astype(np.float32)
+    (pendant_edge,) = np.flatnonzero(dst == graph.node_index["pendant"])
+    return n, src, dst, w, up, dem, caps, int(pendant_edge)
+
+
+def pendant_runs(name, plain=False, steps=4, rounds=16):
+    n, src, dst, w, up, dem, caps, pe = pendant_case(name)
+    mask = np.array([1.0, 0.0, 1.0], np.float32)
+    cfg = jopt.TeOptConfig()
+    _, wh, ls = jopt._adam_solver(
+        jnp.asarray(w), jnp.asarray(dem), jnp.asarray(mask),
+        jnp.asarray(caps), jnp.asarray(src), jnp.asarray(dst),
+        jnp.asarray(up), cfg.lr, cfg.beta1, cfg.beta2, cfg.eps, cfg.tau0,
+        cfg.tau_min, cfg.tau_obj, cfg.w_min, cfg.w_max, n=n, rounds=rounds,
+        steps=steps)
+    inp = te_inputs(src, dst, w, up, dem, caps, "cpu")
+    _, w_hist, losses = topt.adam_solve(
+        inp["w"], inp["demands"], torch.tensor(mask), inp["caps"],
+        inp["graph"], inp["up"], topt.TeOptConfig(), rounds, steps,
+        plain=plain)
+    return (np.asarray(wh), np.asarray(ls)), (w_hist.numpy(),
+                                              losses.numpy()), pe
+
+
+# measured on this input (CPU): the largest weight gap over the 4 steps,
+# all of it on the edge into the pendant node (every other weight within
+# 1e-5); see test_the_pendant_case_departs_on_the_pendant_edge_alone
+_PENDANT_GAPS = {("clos", False): 0.78, ("clos", True): 1.29,
+                 ("grid", False): 0.0205, ("grid", True): 2.06}
+
+
+@pytest.mark.parametrize("plain", [False, True], ids=["kernels", "plain"])
+@pytest.mark.parametrize("name", ["clos", "grid"])
+def test_adam_solve_on_the_pendant_case_matches_jax(name, plain, request):
+    """Four Adam steps of the port's CPU path against the reference's
+    `_adam_solver` on the card tests' pendant-node input, at PERF.md's
+    tolerances: 5e-3 on the weights, 1e-4 on the losses. It fails on the
+    edge into the pendant node alone: its gradient is at float32 rounding
+    level in both packages and of either sign, and Adam normalises it to a
+    step of up to lr = 0.4 (ROADMAP queue 3, item 1)."""
+    request.node.add_marker(pytest.mark.xfail(strict=True, reason=(
+        f"the pendant's in-edge departs by {_PENDANT_GAPS[name, plain]} "
+        "(rounding-level gradient, Adam-normalised); ROADMAP queue 3 "
+        "item 1")))
+    (wh, ls), (w_hist, losses), _ = pendant_runs(name, plain)
+    np.testing.assert_allclose(w_hist, wh, rtol=0, atol=5e-3)
+    np.testing.assert_allclose(losses, ls, rtol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["clos", "grid"])
+def test_the_pendant_case_departs_on_the_pendant_edge_alone(name):
+    """The finding behind the strict xfail above: on the pendant-node input
+    every weight but the one edge into the pendant node stays within 5e-3
+    of the reference's over 4 steps, and the losses within 1e-4; at the
+    first step that edge's gradient is below 1e-7 of the largest in both
+    packages (float32 rounding: every path to the pendant takes that edge,
+    so its weight moves all their candidates alike, and only the softmin's
+    loop terms through the pendant, about exp(-34 / tau), reach it), while
+    the other edges' gradients agree within 1e-4 of the largest."""
+    (wh, ls), (w_hist, losses), pe = pendant_runs(name)
+    rest = np.ones(wh.shape[1], dtype=bool)
+    rest[pe] = False
+    np.testing.assert_allclose(w_hist[:, rest], wh[:, rest], rtol=0,
+                               atol=5e-3)
+    np.testing.assert_allclose(losses, ls, rtol=1e-4)
+    n, src, dst, w, up, dem, caps, _ = pendant_case(name)
+    mask = np.array([1.0, 0.0, 1.0], np.float32)
+    cfg = topt.TeOptConfig()
+    _, g_j = jax.jit(jax.value_and_grad(jopt._loss_core),
+                     static_argnames=("n", "rounds"))(
+        jnp.asarray(w), dem, mask, caps, src, dst, up, cfg.tau0,
+        cfg.tau_obj, n=n, rounds=16)
+    g_j = np.asarray(g_j)
+    inp = te_inputs(src, dst, w, up, dem, caps, "cpu")
+    wt = inp["w"].clone().requires_grad_(True)
+    loss = topt._loss(wt, inp["demands"], torch.tensor(mask), inp["caps"],
+                      inp["graph"], inp["up"], cfg.tau0, cfg.tau_obj, 16)
+    (g_t,) = torch.autograd.grad(loss, wt)
+    g_t = g_t.numpy()
+    top = np.abs(g_j).max()
+    assert abs(g_j[pe]) < 1e-7 * top and abs(g_t[pe]) < 1e-7 * top
+    assert np.abs(g_t[rest] - g_j[rest]).max() <= 1e-4 * top
 
 
 def test_anneal_and_adam_constants_are_float32():
