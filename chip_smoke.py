@@ -27,7 +27,10 @@ Phases, one JSON line each:
                extraction (K7) and the edge-list warm solve (K6, K2, K7);
                D equals a cold K1 solve on the patched weights and the
                plain versions' results
-  k4 .. k7     each event kernel against its plain version on that event
+  k4 .. k7     each event kernel against its plain version on that event;
+               K7 also per stage (columns, compaction, gather) and its
+               launches a call, its columns equal to torch.nonzero_static's
+               (the compaction's library call) on the same flags
   event_clos   DeltaRouteBuilder for rsw0_0 on the Clos through six remote
                events (delta path) and one at rsw0_0 (full path); every db
                equals the CPU oracle's, and a delta event copies back only
@@ -42,7 +45,9 @@ Phases, one JSON line each:
                prefixes through CudaSpfSolver, warm and cold, and again
                after a link on a first path goes down: route dbs equal the
                CPU oracle's
-  k8 / k9      those kernels' times, bounds and plain times
+  k8 / k9      those kernels' times, bounds and plain times; K8's build
+               (beside index_put_, its library call) and seed apart, and
+               its launches a call (one each, for all buckets)
   ksp_star     KSP2 on the star with a ring through its leaves (edge-list
                layout): K6's per-row seed against its plain version, and
                route dbs warm (K6, K2) and cold (K2 per row)
@@ -990,9 +995,29 @@ def main() -> int:
     check(bool(np.all(np.diff(cols_h[:num]) > 0))
           and bool(np.all(cols_h[num:] == n_pad)),
           "K7 columns are not ascending and padded with n_pad")
+    # the compaction against the one library call that computes it exactly
+    # (jnp.nonzero(size=cap, fill_value=n) of the reference), on the same
+    # flags: the like-for-like yardstick of K7's compaction stage
+    def nonzero7():
+        return torch.nonzero_static(cc_w, size=cap, fill_value=n_pad)
+
+    check(torch.equal(nonzero7().flatten().to(torch.int32), cols),
+          "K7's columns differ from torch.nonzero_static's")
+    l0 = K7.launches
+    k7()
+    per_call7 = K7.launches - l0
+    check(per_call7 == 3, f"K7 launched {per_call7} times a call, not 3")
     ms7 = time_ms(k7)
+    stages7 = {
+        "columns_ms": time_ms(lambda: spf.delta_columns(d_w, d_prev)),
+        "compact_ms": time_ms(lambda: spf._delta_compact(cc_w, cap)),
+        "gather_ms": time_ms(
+            lambda: spf._delta_gather(cols, d_w, nh_rows, nh_ws)),
+    }
     plain_ms7 = time_ms(k7_plain)
-    lib_ms7 = time_ms(lambda: torch.nonzero(cc_w))
+    lib_ms7 = time_ms(nonzero7)
+    # the device's share of those times: 10 calls under torch.profiler
+    prof7 = profile_window(lambda: [k7() for _ in range(10)])
     l_pad = nh_rows.shape[0]
     b7_ms, b7_by = bound(
         8 * s_rows * n_pad + 2 * n_pad + 4
@@ -1000,8 +1025,10 @@ def main() -> int:
         s_rows * n_pad + n_pad, rate,
     )
     emit({"phase": "k7_delta_extract", "num_changed": num, "cap": cap,
-          "equal_plain": True, "ms": ms7, "plain_ms": plain_ms7,
-          "nonzero_ms": lib_ms7, "bound_ms": b7_ms, "card": card})
+          "equal_plain": True, "equal_nonzero_static": True, "ms": ms7,
+          **stages7, "launches_per_call": per_call7,
+          "plain_ms": plain_ms7, "nonzero_static_ms": lib_ms7,
+          "bound_ms": b7_ms, "profile_10_calls": prof7, "card": card})
 
     warm_ms = time_ms(sell_warm, setup=fresh_wgs)
     warm_bf_ms = time_ms(bf_warm)
@@ -1022,6 +1049,8 @@ def main() -> int:
             "ms": m_, "plain_ms": pm, "bound_ms": bm, "bound_by": bb,
             "library_ms": lm,
         })
+    # K7's library call (nonzero_static) does the compaction stage's work
+    results[-1].update(stages7, launches_per_call=per_call7)
     del (st, d_w, d_bf, d_cold, plain, m5p, d05p, m6p, d06p, out7, out7p,
          d05, d06, wk, wp, wgs_w, wgs_run)
 
@@ -1175,7 +1204,9 @@ def main() -> int:
     kst = to_device(kg, dev)
     knb, kwg, kov = kst["nbrs"], kst["wgs"], kst["ov"]
     ksrc = torch.as_tensor(ksp_src, device=dev)
-    kmasks = tuple(torch.as_tensor(m, device=dev) for m in masks_h)
+    # one upload of every bucket's entries, as sell_fixpoint_masked does
+    kpacked, koffsets = spf.sell_mask_packed(kg.sell, positions)
+    kmasks = spf.mask_views(torch.as_tensor(kpacked, device=dev), koffsets)
     kkey = kg.sell.shape_key()
     kstarts = kg.sell.starts
     # the unpenalized base fixpoint of the batch (me's base row in the 16
@@ -1273,9 +1304,20 @@ def main() -> int:
     del d_warm_p, d9
     ksp_inputs_s = time.perf_counter() - t0
 
+    l0 = K8.launches
+    k8()
+    per_call8 = K8.launches - l0
+    check(per_call8 == 2,
+          f"K8 launched {per_call8} times for a build and a seed, not 2")
     ms8 = time_ms(k8)
+    stages8 = {
+        "build_ms": time_ms(lambda: spf._sell_mask_bits(kmasks, knb, s_k)),
+        "seed_ms": time_ms(lambda: spf._sell_mask_seed(
+            base, knb, kwg, kmasks, kstarts)),
+    }
     plain_ms8 = time_ms(k8_plain, reps=5, warmup=1)
     lib_ms8 = time_ms(index_put8)
+    prof8 = profile_window(lambda: [k8() for _ in range(10)])
     ms9 = time_ms(k9, setup=fresh_d0)
     plain_ms9 = time_ms(k9_plain, setup=fresh_d0, reps=3, warmup=1)
     cold_vw_ms = time_ms(cold_vw)
@@ -1309,7 +1351,10 @@ def main() -> int:
         "equal_index_put": True, "warm_equals_cold": True,
         "base_rounds": base_rounds, "masked_rounds": r9,
         "warm_rounds": warm_rounds, "warm_inv_rounds": warm_inv,
-        "k8_ms": ms8, "k8_plain_ms": plain_ms8, "k8_index_put_ms": lib_ms8,
+        "k8_ms": ms8, "k8_build_ms": stages8["build_ms"],
+        "k8_seed_ms": stages8["seed_ms"], "k8_launches_per_call": per_call8,
+        "k8_profile_10_calls": prof8,
+        "k8_plain_ms": plain_ms8, "k8_index_put_ms": lib_ms8,
         "k8_bound_ms": b8_ms, "k9_ms": ms9, "k9_plain_ms": plain_ms9,
         "k9_bound_ms": b9_ms, "cold_masked_solve_ms": cold_vw_ms,
         "warm_masked_solve_ms": warm_vw_ms, "base_solve_ms": base_ms,
@@ -1320,7 +1365,8 @@ def main() -> int:
         "source": "openr_tpu_torch/ops/csrc/sell_mask.cu",
         "replaces": K8.replaces, "launches": None, "max_abs_err": err8,
         "ms": ms8, "plain_ms": plain_ms8, "bound_ms": b8_ms,
-        "bound_by": b8_by, "library_ms": lib_ms8,
+        "bound_by": b8_by, "library_ms": lib_ms8,  # index_put_: the build's
+        **stages8, "launches_per_call": per_call8,
     })
     results.append({
         "name": K9.name, "route": "cuda",

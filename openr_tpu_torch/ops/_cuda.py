@@ -100,11 +100,21 @@ class Kernel:
         """Launch one entry point (the first by default) on `device`, the
         card that holds its tensors, on that card's current stream; raises
         on a refused launch."""
-        fns = self._bind()
+        fns = self._fns or self._bind()
         sym = entry or next(iter(self.entries))
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            rc = fns[sym](*args, stream)
+        # the small kernels are host-bound, so the launch reads the raw
+        # stream (torch.cuda.current_stream() and the device context cost
+        # more host time than the kernels) and switches the card only when
+        # another one is current
+        prev = torch.cuda.current_device()
+        idx = prev if device.index is None else device.index
+        if prev != idx:
+            torch.cuda.set_device(idx)
+        try:
+            rc = fns[sym](*args, torch._C._cuda_getCurrentRawStream(idx))
+        finally:
+            if prev != idx:
+                torch.cuda.set_device(prev)
         if rc != 0:
             raise RuntimeError(
                 f"CUDA kernel {sym} failed to launch: cudaError {rc}"
@@ -210,7 +220,7 @@ DELTA_EXTRACT = Kernel(
     "delta_extract.cu",
     {
         "delta_columns": [_P, _P, _P, _P, _I, _I],
-        "delta_compact": [_P, _P, _I, _I],
+        "delta_compact": [_P, _P, _P, _I, _I, _I],
         "delta_gather": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I],
     },
     "openr_tpu/ops/spf.py:907 _delta_extract",
@@ -219,8 +229,8 @@ SELL_MASK = Kernel(
     "sell_mask",
     "sell_mask.cu",
     {
-        "sell_mask_build": [_P, _P, _I, _I, _I, _I, _I],
-        "sell_mask_seed": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I],
+        "sell_mask_build": [_P, _P, _P, _I, _I, _I, _I],
+        "sell_mask_seed": [_P, _P, _P, _P, _I, _I, _I, _I],
     },
     "openr_tpu/ops/spf.py:933,970 _sell_solver_vw, _sell_solver_vw_warm",
 )

@@ -5,30 +5,49 @@
 // `num_changed` outputs of `_sell_solver_warm` and `_bf_warm_core`. Three
 // entry points over the row-major [S, n] int32 distance matrices:
 //
-//   columns  one thread per column t: col_changed[t] = any_s d[s, t] !=
-//            dp[s, t], and *count += 1 for each changed column (the host
-//            reads that 4-byte count to size the extraction)
-//   compact  one block: cols[0 .. cap) = the changed columns in ASCENDING
-//            order, padded with n, exactly `jnp.nonzero(col_changed,
-//            size=cap, fill_value=n)` (an atomic-counter compaction would
-//            give another order)
+//   columns  col_changed[t] = any_s d[s, t] != dp[s, t], and *count += the
+//            number of changed columns (the host reads that 4-byte count
+//            to size the extraction)
+//   compact  cols[0 .. cap) = the changed columns in ASCENDING order,
+//            padded with n, exactly `jnp.nonzero(col_changed, size=cap,
+//            fill_value=n)` (an atomic-counter compaction would give
+//            another order)
 //   gather   dcols[s, c] = d[s, clip(cols[c], 0, n - 1)] and
 //            nh[l, c] = nh_ws[l] + dcols[nh_rows[l], c] == dcols[0, c]
 //            (the reference's formula: unclamped, no reachability term,
 //            int32 wrap-around; the host applies the overloaded-neighbour
-//            rule as the reference's _finish_delta does)
+//            rule as the reference's _finish_delta does). The caller checks
+//            nh_rows against [0, S); the kernel clamps them into it, so a
+//            bad row cannot read outside d.
 //
 // Bound on the card: device-memory bytes. `columns` reads both matrices
-// once (2 x 4 x S x n bytes: 128 MB on the 100k-node WAN at S = 128); the
+// once (2 x 4 x S x n bytes: 134 MB on the 100k-node WAN at S = 128); the
 // compaction reads n flag bytes and `gather` moves O(cap x (S + L)) words.
+// None of the three needs the host between them: the wrapper launches all
+// three without reading anything back.
 //
-// Design against that bound: in `columns` consecutive threads take
-// consecutive columns and walk down the S rows, so every load of a warp is
-// one coalesced 128-byte line of each matrix; a column stops at its first
-// difference. `compact` gives each of its 1,024 threads one contiguous
-// segment of flags: count, one block-wide prefix sum in shared memory,
-// then each thread writes its segment's hits at its offset, which keeps the
-// order. `gather` is one thread per output word.
+// Design against that bound:
+//   columns  a block owns 32 x V consecutive columns (V = 4 when the rows
+//            are 16-byte aligned, else 1) and its 8 warps split the S rows;
+//            a lane loads V columns of d and of dp with one vector load
+//            each, four rows at a time, so 8 independent loads are in
+//            flight a thread. A lane stops once all its V columns differ.
+//            The warps OR their column masks in shared memory; one atomic
+//            a block adds the block's count.
+//   compact  a single-pass, order-keeping stream compaction over the whole
+//            card (the decoupled look-back of Merrill and Garland, as CUB's
+//            DeviceSelect): a block takes the next tile of 4,096 flags by a
+//            ticket (tiles start in order, so a block only ever waits on a
+//            running one), each thread loads 16 flags with one 16-byte
+//            load, the block scans its counts in shared memory, publishes
+//            its aggregate, and warp 0 looks back over 32 predecessors'
+//            status words at a time until it finds an inclusive prefix.
+//            A status word holds its flag and its value together, so one
+//            64-bit relaxed store publishes both. The status array and the
+//            ticket are zeroed on the stream for each call (a memset in the
+//            entry point, not a PyTorch fill: the stage is host-bound). The
+//            last tile writes the fill.
+//   gather   one thread per output word.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -36,51 +55,179 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kScanThreads = 1024;
+constexpr int kRowGroups = kThreads / 32;  // columns: warps over the rows
+constexpr int kFlagsPerThread = 16;        // compact: one 16-byte load
+constexpr int kTile = kThreads * kFlagsPerThread;
+constexpr unsigned long long kAggregate = 1ull << 32;
+constexpr unsigned long long kInclusive = 2ull << 32;
 
-__global__ void delta_columns_kernel(const int32_t* __restrict__ d,
-                                     const int32_t* __restrict__ dp,
-                                     uint8_t* __restrict__ col_changed,
-                                     int32_t* __restrict__ count, int S,
-                                     int n) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n) return;
-  uint8_t c = 0;
-  for (int s = 0; s < S; ++s) {
-    const long long i = (long long)s * n + t;
-    if (d[i] != dp[i]) {
-      c = 1;
-      break;
+template <int V>
+struct Vec;
+template <>
+struct Vec<4> {
+  using T = int4;
+  __device__ static unsigned differ(T a, T b) {
+    return (unsigned)(a.x != b.x) | (unsigned)(a.y != b.y) << 1 |
+           (unsigned)(a.z != b.z) << 2 | (unsigned)(a.w != b.w) << 3;
+  }
+};
+template <>
+struct Vec<1> {
+  using T = int32_t;
+  __device__ static unsigned differ(T a, T b) { return a != b; }
+};
+
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+    delta_columns_kernel(const int32_t* __restrict__ d,
+                         const int32_t* __restrict__ dp,
+                         uint8_t* __restrict__ col_changed,
+                         int32_t* __restrict__ count, int S, int n) {
+  using T = typename Vec<V>::T;
+  constexpr int kCols = 32 * V;
+  constexpr unsigned kAll = (1u << V) - 1;
+  __shared__ unsigned lane_mask[32];
+  const int lane = threadIdx.x & 31;
+  const int grp = threadIdx.x >> 5;
+  if (threadIdx.x < 32) lane_mask[threadIdx.x] = 0;
+  __syncthreads();
+  const long long c0 = (long long)blockIdx.x * kCols + (long long)lane * V;
+  unsigned m = 0;
+  if (c0 < n) {
+    const T* a = reinterpret_cast<const T*>(d + c0);
+    const T* b = reinterpret_cast<const T*>(dp + c0);
+    const long long row = (long long)n / V;  // one row, in vectors
+    int s = grp;
+    for (; s + 3 * kRowGroups < S && m != kAll; s += 4 * kRowGroups) {
+      T x[4], y[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const long long i = (long long)(s + u * kRowGroups) * row;
+        x[u] = __ldg(a + i);
+        y[u] = __ldg(b + i);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) m |= Vec<V>::differ(x[u], y[u]);
+    }
+    for (; s < S && m != kAll; s += kRowGroups) {
+      const long long i = (long long)s * row;
+      m |= Vec<V>::differ(__ldg(a + i), __ldg(b + i));
     }
   }
-  col_changed[t] = c;
-  if (c) atomicAdd(count, 1);
+  if (m) atomicOr(&lane_mask[lane], m);
+  __syncthreads();
+  const long long t = (long long)blockIdx.x * kCols + threadIdx.x;
+  uint8_t c = 0;
+  if (threadIdx.x < kCols && t < n) {
+    c = (lane_mask[threadIdx.x / V] >> (threadIdx.x % V)) & 1;
+    col_changed[t] = c;
+  }
+  const int changed = __syncthreads_count(c);
+  if (threadIdx.x == 0 && changed) atomicAdd(count, changed);
 }
 
-__global__ void delta_compact_kernel(const uint8_t* __restrict__ flags,
-                                     int32_t* __restrict__ cols, int n,
-                                     int cap) {
-  __shared__ int32_t scan[kScanThreads];
-  const int tid = threadIdx.x;
-  const int seg = (n + kScanThreads - 1) / kScanThreads;
-  const int lo = min(tid * seg, n);
-  const int hi = min(lo + seg, n);
-  int cnt = 0;
-  for (int t = lo; t < hi; ++t) cnt += flags[t] != 0;
-  scan[tid] = cnt;
+__device__ __forceinline__ unsigned long long load_status(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_status(unsigned long long* p,
+                                             unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+// bit k set where byte k of w is not 0 (k = 0 .. 3)
+__device__ __forceinline__ unsigned byte_bits(unsigned w) {
+  return (unsigned)((w & 0xffu) != 0) | (unsigned)((w & 0xff00u) != 0) << 1 |
+         (unsigned)((w & 0xff0000u) != 0) << 2 |
+         (unsigned)((w & 0xff000000u) != 0) << 3;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    delta_compact_kernel(const uint8_t* __restrict__ flags,
+                         int32_t* __restrict__ cols,
+                         unsigned long long* __restrict__ status,
+                         unsigned* __restrict__ ticket, int n, int cap,
+                         int tiles) {
+  __shared__ int tile_s, prefix_s;
+  __shared__ int warp_total[kThreads / 32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) tile_s = (int)atomicAdd(ticket, 1u);
   __syncthreads();
-  for (int off = 1; off < kScanThreads; off <<= 1) {  // inclusive scan
-    const int x = tid >= off ? scan[tid - off] : 0;
-    __syncthreads();
-    scan[tid] += x;
-    __syncthreads();
+  const int tile = tile_s;
+  const long long base =
+      (long long)tile * kTile + (long long)threadIdx.x * kFlagsPerThread;
+  unsigned bits = 0;  // bit k: flag base + k is set
+  if (base + kFlagsPerThread <= n &&
+      (reinterpret_cast<uintptr_t>(flags + base) & 15) == 0) {
+    const uint4 v = *reinterpret_cast<const uint4*>(flags + base);
+    bits = byte_bits(v.x) | byte_bits(v.y) << 4 | byte_bits(v.z) << 8 |
+           byte_bits(v.w) << 12;
+  } else {
+    for (int k = 0; k < kFlagsPerThread && base + k < n; ++k)
+      bits |= (unsigned)(flags[base + k] != 0) << k;
   }
-  int pos = scan[tid] - cnt;
-  for (int t = lo; t < hi && pos < cap; ++t) {
-    if (flags[t]) cols[pos++] = t;
+  const int cnt = __popc(bits);
+  int incl = cnt;  // inclusive scan over the warp
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += y;
   }
-  for (int c = scan[kScanThreads - 1] + tid; c < cap; c += kScanThreads) {
-    cols[c] = n;  // fill_value
+  if (lane == 31) warp_total[warp] = incl;
+  __syncthreads();
+  int before = 0, total = 0;  // this warp's offset, the tile's count
+#pragma unroll
+  for (int w = 0; w < kThreads / 32; ++w) {
+    before += w < warp ? warp_total[w] : 0;
+    total += warp_total[w];
+  }
+  if (warp == 0) {
+    int prefix = 0;
+    if (tile == 0) {
+      if (lane == 0) store_status(status, kInclusive | (unsigned)total);
+    } else {
+      if (lane == 0) store_status(status + tile, kAggregate | (unsigned)total);
+      for (int end = tile - 1;; end -= 32) {
+        const int p = end - lane;  // lane 0 is the nearest predecessor
+        unsigned long long st = kInclusive;  // before tile 0: prefix 0
+        if (p >= 0) {
+          do {
+            st = load_status(status + p);
+          } while ((st >> 32) == 0);
+        }
+        const unsigned found =
+            __ballot_sync(0xffffffffu, (st >> 32) == (kInclusive >> 32));
+        const int stop = found ? __ffs(found) - 1 : 31;
+        int v = lane <= stop ? (int)(unsigned)st : 0;
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          v += __shfl_xor_sync(0xffffffffu, v, off);
+        prefix += v;
+        if (found) break;
+      }
+      if (lane == 0)
+        store_status(status + tile, kInclusive | (unsigned)(prefix + total));
+    }
+    if (lane == 0) prefix_s = prefix;
+  }
+  __syncthreads();
+  int pos = prefix_s + before + incl - cnt;
+  while (bits && pos < cap) {
+    const int k = __ffs(bits) - 1;
+    cols[pos++] = (int32_t)(base + k);
+    bits &= bits - 1;
+  }
+  if (tile == tiles - 1) {
+    for (int c = prefix_s + total + threadIdx.x; c < cap; c += kThreads)
+      cols[c] = n;  // fill_value
   }
 }
 
@@ -99,28 +246,53 @@ __global__ void delta_gather_kernel(
     return;
   }
   const int l = row - S;
-  const unsigned sum = (unsigned)nh_ws[l] +
-                       (unsigned)d[(long long)nh_rows[l] * n + col];
+  const int r = min(max(nh_rows[l], 0), S - 1);
+  const unsigned sum =
+      (unsigned)nh_ws[l] + (unsigned)d[(long long)r * n + col];
   nh[(long long)l * cap + c] = (uint8_t)((int)sum == d[col]);
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 }  // namespace
 
+// count: zeroed here, on the stream, before the kernel adds to it
 extern "C" int delta_columns(const void* d, const void* dp, void* col_changed,
                              void* count, int S, int n, void* stream) {
   if (n == 0) return 0;
-  const int blocks = (n + kThreads - 1) / kThreads;
-  delta_columns_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)d, (const int32_t*)dp, (uint8_t*)col_changed,
-      (int32_t*)count, S, n);
+  cudaStream_t st = (cudaStream_t)stream;
+  const cudaError_t rc = cudaMemsetAsync(count, 0, sizeof(int32_t), st);
+  if (rc != cudaSuccess) return (int)rc;
+  if (n % 4 == 0 && aligned16(d) && aligned16(dp)) {
+    const int blocks = (n + 127) / 128;
+    delta_columns_kernel<4><<<blocks, kThreads, 0, st>>>(
+        (const int32_t*)d, (const int32_t*)dp, (uint8_t*)col_changed,
+        (int32_t*)count, S, n);
+  } else {
+    const int blocks = (n + 31) / 32;
+    delta_columns_kernel<1><<<blocks, kThreads, 0, st>>>(
+        (const int32_t*)d, (const int32_t*)dp, (uint8_t*)col_changed,
+        (int32_t*)count, S, n);
+  }
   return (int)cudaGetLastError();
 }
 
-extern "C" int delta_compact(const void* flags, void* cols, int n, int cap,
-                             void* stream) {
-  if (cap == 0) return 0;
-  delta_compact_kernel<<<1, kScanThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)flags, (int32_t*)cols, n, cap);
+// status: `tiles` 8-byte words, then the ticket (tiles = ceil(n / 4096),
+// which the wrapper also computes to size the array); zeroed here, on the
+// stream, for each call
+extern "C" int delta_compact(const void* flags, void* cols, void* status,
+                             int n, int cap, int tiles, void* stream) {
+  if (cap == 0 || n == 0) return 0;
+  if (tiles != (n + kTile - 1) / kTile) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const cudaError_t rc =
+      cudaMemsetAsync(status, 0, sizeof(unsigned long long) * (tiles + 1), st);
+  if (rc != cudaSuccess) return (int)rc;
+  delta_compact_kernel<<<tiles, kThreads, 0, st>>>(
+      (const uint8_t*)flags, (int32_t*)cols, (unsigned long long*)status,
+      (unsigned*)((unsigned long long*)status + tiles), n, cap, tiles);
   return (int)cudaGetLastError();
 }
 

@@ -943,6 +943,29 @@ def sell_mask_arrays(sell, mask_positions) -> List[np.ndarray]:
     return masks
 
 
+def sell_mask_packed(
+    sell, mask_positions
+) -> Tuple[np.ndarray, np.ndarray]:
+    """`sell_mask_arrays` laid end to end for one upload: (int32 [sum Mk,
+    3] the per-bucket arrays in bucket order, int64 [nb + 1] offsets;
+    bucket k's entries are rows offsets[k]:offsets[k + 1]). `mask_views`
+    turns the uploaded array back into the per-bucket arrays K8 takes."""
+    masks = sell_mask_arrays(sell, mask_positions)
+    offsets = np.zeros(len(masks) + 1, dtype=np.int64)
+    offsets[1:] = np.cumsum([m.shape[0] for m in masks])
+    return np.concatenate(masks), offsets
+
+
+def mask_views(
+    packed: torch.Tensor, offsets: np.ndarray
+) -> Tuple[torch.Tensor, ...]:
+    """The per-bucket [Mk, 3] views of a packed mask array: consecutive
+    rows of one buffer, which K8's launches read as one array."""
+    return tuple(
+        packed[int(a) : int(b)] for a, b in zip(offsets[:-1], offsets[1:])
+    )
+
+
 def _check_masks(masks, nbrs, dev) -> None:
     if len(masks) != len(nbrs):
         raise ValueError("masks and nbrs differ in bucket count")
@@ -951,6 +974,40 @@ def _check_masks(masks, nbrs, dev) -> None:
         _check(f"nbrs[{k}]", nbr_k, torch.int32, 2, dev)
         if m_k.shape[1] != 3:
             raise ValueError(f"masks[{k}] must be [M, 3]")
+
+
+_MASK_BUCKETS = 64  # sell_mask.cu kMaxBuckets: the layout has at most 44
+
+
+def _mask_launch_args(masks, nbrs, wgs, starts, words: int):
+    """What one K8 launch over every bucket takes: (entries, the host table
+    of sell_mask.cu, M). `entries` is the buckets' [Mk, 3] lists as one
+    int32 [M, 3] array: their own memory where they lie end to end (the
+    views of `mask_views`), else a concatenation. Table row k: (first
+    entry, nk, dk, row0, first word of its bit mask, nbr, wg, 0)."""
+    nb = len(masks)
+    if nb > _MASK_BUCKETS:
+        raise ValueError(f"K8 takes at most {_MASK_BUCKETS} buckets, got {nb}")
+    rows, first, word = [], 0, 0
+    base, adjacent = None, True
+    for k, (m_k, nbr_k) in enumerate(zip(masks, nbrs)):
+        nk, dk = nbr_k.shape
+        ptrs = (0, 0)
+        if wgs is not None:
+            if wgs[k].shape != nbr_k.shape:
+                raise ValueError(f"wgs[{k}] and nbrs[{k}] differ in shape")
+            ptrs = (nbr_k.data_ptr(), wgs[k].data_ptr())
+        rows.append((first, nk, dk, starts[k] if starts else 0, word, *ptrs,
+                     0))
+        if m_k.shape[0]:
+            if base is None:
+                base = m_k  # the first bucket with entries starts at 0
+            elif m_k.data_ptr() != base.data_ptr() + 12 * first:
+                adjacent = False
+        first += m_k.shape[0]
+        word += nk * dk * words
+    entries = base if adjacent else torch.cat(list(masks))
+    return entries, np.array(rows, dtype=np.int64).reshape(nb, 8), first
 
 
 def _sell_mask_bits(
@@ -963,7 +1020,9 @@ def _sell_mask_bits(
     [r, j, c // 32] set means slot (r, j) weighs INF for column c. An entry
     with any index out of range is dropped, as the reference's mode="drop"
     scatter drops it (the host never sends a negative index). The kernels
-    read the words as uint32; bit 31 is the int32 sign bit."""
+    read the words as uint32; bit 31 is the int32 sign bit. On the card
+    the masks are views of one zeroed buffer, filled by one launch over
+    every bucket's entries, with no host sync."""
     dev = masks[0].device if masks else torch.device("cpu")
     _check_masks(masks, nbrs, dev)
     if dev.type != "cuda":
@@ -972,18 +1031,21 @@ def _sell_mask_bits(
             for m_k, nbr_k in zip(masks, nbrs)
         )
     words = _mask_words(s)
-    out = []
-    for m_k, nbr_k in zip(masks, nbrs):
-        nk, dk = nbr_k.shape
-        bits = torch.zeros((nk, dk, words), dtype=torch.int32, device=dev)
-        if m_k.shape[0] and nk * dk and s:
-            SELL_MASK.launch(
-                dev,
-                m_k.data_ptr(), bits.data_ptr(), m_k.shape[0], nk, dk, s,
-                words, entry="sell_mask_build",
-            )
-        out.append(bits)
-    return tuple(out)
+    entries, table, m_total = _mask_launch_args(masks, nbrs, None, None, words)
+    size = int(table[-1, 4]) + int(table[-1, 1] * table[-1, 2]) * words
+    if m_total and s:
+        flat = torch.empty(size, dtype=torch.int32, device=dev)  # zeroed there
+        SELL_MASK.launch(
+            dev,
+            entries.data_ptr(), flat.data_ptr(), table.ctypes.data,
+            len(masks), m_total, s, words, entry="sell_mask_build",
+        )
+    else:
+        flat = torch.zeros(size, dtype=torch.int32, device=dev)
+    return tuple(
+        flat.as_strided((nk, dk, words), (dk * words, words, 1), word0)
+        for _, nk, dk, _, word0, *_ in table.tolist()
+    )
 
 
 def _sell_mask_bits_plain(m_k, nk, dk, s):
@@ -1027,8 +1089,9 @@ def _sell_mask_seed(
     DAG. Its rules are the reference's, and differ from the build's:
     validity is tested on the row only (row < 1 << 29), then row and slot
     are clipped into the bucket and the column into [0, S), not dropped.
-    `seeded` is read from the kernel's flag, so no mark round runs when
-    nothing was seeded."""
+    `seeded` is read from the kernel's flag (the one host sync), so no mark
+    round runs when nothing was seeded. On the card one launch seeds every
+    bucket."""
     dev = d_prev.device
     _check("d_prev", d_prev, torch.int32, 2, dev)
     _check_masks(masks, nbrs, dev)
@@ -1036,18 +1099,24 @@ def _sell_mask_seed(
     if dev.type != "cuda":
         marks = _sell_mask_seed_plain(d_prev, nbrs, wgs, masks, starts)
         return marks, bool(marks.any())
-    marks = torch.zeros((s, n), dtype=torch.bool, device=dev)
-    flag = torch.zeros(1, dtype=torch.int32, device=dev)
-    for bs, nbr_k, wg_k, m_k in zip(starts, nbrs, wgs, masks):
-        nk, dk = nbr_k.shape
-        if m_k.shape[0] and s and nk * dk:
-            SELL_MASK.launch(
-                dev,
-                d_prev.data_ptr(), marks.data_ptr(), flag.data_ptr(),
-                nbr_k.data_ptr(), wg_k.data_ptr(), m_k.data_ptr(),
-                m_k.shape[0], int(bs), nk, dk, s, n, entry="sell_mask_seed",
-            )
-    return marks, bool(flag.item())
+    for k, wg_k in enumerate(wgs):
+        _check(f"wgs[{k}]", wg_k, torch.int32, 2, dev)
+    entries, table, m_total = _mask_launch_args(
+        masks, nbrs, wgs, starts, 0
+    )
+    if not (m_total and s):
+        return torch.zeros((s, n), dtype=torch.bool, device=dev), False
+    # the marks and the int32 flag in one buffer, zeroed by the entry point
+    # (the flag 4-aligned; the kernel sets it to 1, so its first byte reads
+    # as the bool)
+    at = (s * n + 3) // 4 * 4
+    buf = torch.empty(at + 4, dtype=torch.bool, device=dev)
+    SELL_MASK.launch(
+        dev,
+        d_prev.data_ptr(), buf.data_ptr(), entries.data_ptr(),
+        table.ctypes.data, len(masks), m_total, s, n, entry="sell_mask_seed",
+    )
+    return buf.as_strided((s, n), (n, 1)), bool(buf[at])
 
 
 def _sell_mask_seed_plain(d_prev, nbrs, wgs, masks, starts):
@@ -1316,14 +1385,18 @@ def delta_columns(
         col_changed = (d != d_prev).any(dim=0)
         return col_changed, col_changed.sum(dtype=torch.int32)
     col_changed = torch.empty(n, dtype=torch.bool, device=dev)
-    count = torch.zeros((), dtype=torch.int32, device=dev)
-    if n:
-        DELTA_EXTRACT.launch(
-            dev,
-            d.data_ptr(), d_prev.data_ptr(), col_changed.data_ptr(),
-            count.data_ptr(), s, n, entry="delta_columns",
-        )
+    if not n:
+        return col_changed, torch.zeros((), dtype=torch.int32, device=dev)
+    count = torch.empty((), dtype=torch.int32, device=dev)  # zeroed there
+    DELTA_EXTRACT.launch(
+        dev,
+        d.data_ptr(), d_prev.data_ptr(), col_changed.data_ptr(),
+        count.data_ptr(), s, n, entry="delta_columns",
+    )
     return col_changed, count
+
+
+_COMPACT_TILE = 4096  # delta_extract.cu kTile: flags per look-back tile
 
 
 def _delta_extract(
@@ -1340,38 +1413,75 @@ def _delta_extract(
     distance columns; nh bool [L, cap], nh[l, c] = nh_ws[l] +
     dcols[nh_rows[l], c] == dcols[0, c], the reference's unclamped formula
     with no reachability term). The host applies the overloaded-neighbour
-    rule, as the reference does."""
+    rule, as the reference does.
+
+    nh_rows must lie in [0, S). On the CPU that is checked here; on the card
+    the caller checks its host copy (`check_nh_rows`): reading the device
+    copy would make the host wait for the card, and the extraction queues
+    its two launches with no host sync. The kernel clamps a bad row into
+    [0, S)."""
     dev = d.device
     _check("col_changed", col_changed, torch.bool, 1, dev)
     _check("d", d, torch.int32, 2, dev)
     _check("nh_rows", nh_rows, torch.int32, 1, dev)
     _check("nh_ws", nh_ws, torch.int32, 1, dev)
     s, n = d.shape
-    l_pad = nh_rows.shape[0]
-    if col_changed.shape[0] != n or nh_ws.shape[0] != l_pad:
+    if col_changed.shape[0] != n or nh_ws.shape[0] != nh_rows.shape[0]:
         raise ValueError("col_changed/nh_ws do not match d/nh_rows")
     if cap < 0 or n == 0:
         raise ValueError(f"bad cap {cap} or empty d")
-    if l_pad and (int(nh_rows.min()) < 0 or int(nh_rows.max()) >= s):
-        raise ValueError(f"nh_rows outside [0, {s})")
     if dev.type != "cuda":
+        check_nh_rows(nh_rows.numpy(), s)
         return _delta_extract_plain(col_changed, d, nh_rows, nh_ws, cap)
+    cols = _delta_compact(col_changed, cap)
+    return (cols, *_delta_gather(cols, d, nh_rows, nh_ws))
+
+
+def check_nh_rows(nh_rows: np.ndarray, s: int) -> None:
+    """Raise ValueError unless every up-link row lies in [0, s): the rows
+    `_delta_extract` takes, checked on the host."""
+    if len(nh_rows) and (nh_rows.min() < 0 or nh_rows.max() >= s):
+        raise ValueError(f"nh_rows outside [0, {s})")
+
+
+def _delta_compact(col_changed: torch.Tensor, cap: int) -> torch.Tensor:
+    """K7's compaction on the card: cols int32 [cap], the set columns of
+    col_changed ascending, padded with n: `torch.nonzero_static(col_changed,
+    size=cap, fill_value=n)` flattened. One launch; the entry point zeroes
+    the look-back status words and the ticket for each call."""
+    dev = col_changed.device
+    n = col_changed.shape[0]
     cols = torch.empty(cap, dtype=torch.int32, device=dev)
-    dcols = torch.empty((s, cap), dtype=torch.int32, device=dev)
-    nh = torch.empty((l_pad, cap), dtype=torch.bool, device=dev)
-    if cap:
+    if cap and n:
+        tiles = -(-n // _COMPACT_TILE)
+        status = torch.empty(tiles + 1, dtype=torch.int64, device=dev)
         DELTA_EXTRACT.launch(
             dev,
-            col_changed.data_ptr(), cols.data_ptr(), n, cap,
-            entry="delta_compact",
+            col_changed.data_ptr(), cols.data_ptr(), status.data_ptr(), n,
+            cap, tiles, entry="delta_compact",
         )
+    return cols
+
+
+def _delta_gather(
+    cols: torch.Tensor, d: torch.Tensor, nh_rows: torch.Tensor,
+    nh_ws: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K7's gather on the card: (dcols int32 [S, cap], nh bool [L, cap]) of
+    the columns `_delta_compact` gave. One launch."""
+    dev = d.device
+    s, n = d.shape
+    cap, l_pad = cols.shape[0], nh_rows.shape[0]
+    dcols = torch.empty((s, cap), dtype=torch.int32, device=dev)
+    nh = torch.empty((l_pad, cap), dtype=torch.bool, device=dev)
+    if cap and s:
         DELTA_EXTRACT.launch(
             dev,
             d.data_ptr(), cols.data_ptr(), nh_rows.data_ptr(),
             nh_ws.data_ptr(), dcols.data_ptr(), nh.data_ptr(), s, n, cap,
             l_pad, entry="delta_gather",
         )
-    return cols, dcols, nh
+    return dcols, nh
 
 
 def _delta_extract_plain(col_changed, d, nh_rows, nh_ws, cap):
@@ -1990,12 +2100,12 @@ def sell_fixpoint_masked(
 
     mask_positions[i] lists edge positions (dst-sorted, e.g. from
     CompiledGraph.link_edges) whose weight becomes INF for batch row i
-    only; `sell_mask_arrays` packs them per bucket. device_arrays (an area
-    solve's resident buffers) saves uploading the layout. With d_prev, the
-    UNPENALIZED base fixpoint for the same sources and weights (row-major,
-    contiguous), the penalized solve warm-starts by increase invalidation
-    (`_sell_solver_vw_warm`) instead of relaxing from INF: sound because
-    masking only raises weights.
+    only; `sell_mask_packed` packs them per bucket, for one upload.
+    device_arrays (an area solve's resident buffers) saves uploading the
+    layout. With d_prev, the UNPENALIZED base fixpoint for the same sources
+    and weights (row-major, contiguous), the penalized solve warm-starts by
+    increase invalidation (`_sell_solver_vw_warm`) instead of relaxing from
+    INF: sound because masking only raises weights.
 
     With a mesh, every batch rank solves its row slice of the sources and
     of mask_positions, cold (K8 build + K9), against device_arrays given as
@@ -2022,10 +2132,8 @@ def sell_fixpoint_masked(
             )])
         return Sharded(shards)
     dev = resolve_device(device)
-    masks = tuple(
-        torch.as_tensor(a, device=dev)
-        for a in sell_mask_arrays(sell, mask_positions)
-    )
+    packed, offsets = sell_mask_packed(sell, mask_positions)
+    masks = mask_views(torch.as_tensor(packed, device=dev), offsets)
     if device_arrays is not None:
         nbrs, wgs, ov = device_arrays
     else:

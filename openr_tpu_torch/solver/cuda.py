@@ -100,6 +100,7 @@ from openr_tpu_torch.ops.spf import (
     Sharded,
     batched_spf,
     batched_spf_vw,
+    check_nh_rows,
     ecmp_triangle,
     sell_fixpoint_masked,
     sell_patch_arrays,
@@ -862,6 +863,13 @@ class _AreaSolve:
         nh_ws = np.full(l_pad, INF, dtype=np.int32)  # padding never matches
         nh_rows[: len(rows_l)] = rows_l
         nh_ws[: len(ws_l)] = ws_l
+        try:  # on the host copy: K7 reads the device copy unchecked
+            check_nh_rows(nh_rows, d_dev.shape[0])
+        except ValueError:
+            # the solve has moved the resident weights but not D: the next
+            # solve starts cold
+            self._d_dev = None
+            raise
         cap = _next_bucket(num, minimum=8)
         t0 = time.perf_counter()
         self.h2d_bytes += nh_rows.nbytes + nh_ws.nbytes

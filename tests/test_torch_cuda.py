@@ -409,7 +409,7 @@ def test_sell_mask_and_masked_relax_kernels_equal_plain(dev, name, s):
     m_t = [torch.as_tensor(m, device=dev) for m in masks]
     before = _cuda.SELL_MASK.launches
     bits = spf._sell_mask_bits(m_t, st["nbrs"], s)
-    assert _cuda.SELL_MASK.launches - before == len(m_t)
+    assert _cuda.SELL_MASK.launches - before == 1  # one for every bucket
     for m, b, nbr_k in zip(m_t, bits, st["nbrs"]):
         assert torch.equal(b, spf._sell_mask_bits_plain(m, *nbr_k.shape, s))
     d0 = spf._sell_d0(src, g.n_pad)
@@ -459,6 +459,209 @@ def test_masked_solve_warm_equals_cold(dev, name, s):
     assert torch.equal(cold.cpu(), cpu)
     for a, want in zip(st["wgs"], g.sell.wg):  # the base weights stay
         assert np.array_equal(a.cpu().numpy(), want)
+
+
+# -- K7 and K8 at odd shapes, and what they cost the host -------------------
+
+
+def delta_case(case):
+    """(d_prev, d, cap list) on the CPU for one K7 case: d_prev seeded
+    int32 [S, n], d equal to it but in the changed columns, where one
+    seeded row differs."""
+    tile = spf._COMPACT_TILE
+    rng = np.random.default_rng(sum(map(ord, case)))
+    s, n = {
+        "many_tiles": (4, 40 * tile + 123), "tile_edges": (5, 5 * tile),
+        "none": (3, 3 * tile + 5), "all": (3, 3 * tile + 5),
+        "n1": (2, 1), "n3": (4, 3), "n4097": (9, 4097),
+        "sharded_width": (128, 37), "unaligned": (8, 2 * tile),
+    }[case]
+    if case == "many_tiles":
+        changed = np.flatnonzero(rng.random(n) < 0.03)
+    elif case == "tile_edges":  # both sides of every tile and load boundary
+        edges = np.arange(tile, n, tile)
+        changed = np.concatenate([[0, 15, 16, n - 1], edges - 1, edges])
+    elif case == "none":
+        changed = np.zeros(0, dtype=np.int64)
+    elif case in ("all", "n1", "n3", "sharded_width"):
+        changed = np.arange(n)
+    else:
+        changed = np.flatnonzero(rng.random(n) < 0.5)
+    d_prev = rng.integers(0, INF, size=(s, n), dtype=np.int32)
+    d = d_prev.copy()
+    rows = rng.integers(0, s, size=len(changed))
+    d[rows, changed] = d_prev[rows, changed] + 1
+    num = len(np.unique(changed))
+    caps = sorted({0, max(num - 1, 0), num, num + 5, 2 * n + 3})
+    return torch.as_tensor(d_prev), torch.as_tensor(d), caps
+
+
+def on_card(t, dev, offset=0):
+    """t on the card, `offset` int32 elements into its allocation (a
+    contiguous tensor whose rows are not 16-byte aligned)."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=dev)
+    out = buf[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("case", [
+    "many_tiles", "tile_edges", "none", "all", "n1", "n3", "n4097",
+    "sharded_width", "unaligned",
+])
+def test_delta_extract_kernel_cases(dev, case):
+    """K7's columns pass, compaction and gather against their plain versions
+    and against `torch.nonzero_static`: n over 40 look-back tiles, changed
+    columns either side of every tile and 16-flag load boundary, none and
+    all changed, odd widths (1, 3, 4,097: the scalar path), the [S, num]
+    all-changed matrix `_delta_extract_sharded` builds, rows and flags not
+    16-byte aligned, and cap below, equal to and above the changed count."""
+    d_prev, d, caps = delta_case(case)
+    off = 1 if case == "unaligned" else 0
+    dp_c, d_c = on_card(d_prev, dev, off), on_card(d, dev, off)
+    cc, num = spf.delta_columns(d_c, dp_c)
+    want_cc = (d != d_prev).any(dim=0)
+    torch.cuda.synchronize()
+    assert torch.equal(cc.cpu(), want_cc) and int(num) == int(want_cc.sum())
+    if case == "unaligned":  # flags one byte off their allocation
+        cc = on_card(want_cc, dev, 1)
+    n = d.shape[1]
+    nh_rows = torch.tensor([d.shape[0] - 1, 0, 0], dtype=torch.int32,
+                           device=dev)
+    nh_ws = torch.tensor([1, 0, INF], dtype=torch.int32, device=dev)
+    for cap in caps:
+        cols = spf._delta_compact(cc, cap)
+        lib = torch.nonzero_static(cc, size=cap, fill_value=n).flatten()
+        out = spf._delta_extract(cc, d_c, nh_rows, nh_ws, cap=cap)
+        want = spf._delta_extract_plain(want_cc, d, nh_rows.cpu(),
+                                        nh_ws.cpu(), cap)
+        torch.cuda.synchronize()
+        assert torch.equal(cols.cpu(), lib.to(torch.int32).cpu()), cap
+        assert torch.equal(out[0], cols), cap
+        for a, b in zip(out, want):
+            assert torch.equal(a.cpu(), b), cap
+
+
+def mask_cases(g, s, seed):
+    """Per-bucket [Mk, 3] lists for K8 at batch width s: seeded entries in
+    range, the first of them twice (a duplicate), one entry out of range
+    in the row only, one in the slot only, one in the column only, a
+    padding row; the second bucket left empty."""
+    rng = np.random.default_rng(seed)
+    masks = []
+    for k, nbr_k in enumerate(g.sell.nbr):
+        nk, dk = nbr_k.shape
+        if k == 1:
+            masks.append(np.zeros((0, 3), dtype=np.int32))
+            continue
+        m = 4 * s + 8
+        real = np.stack([rng.integers(0, nk, m), rng.integers(0, dk, m),
+                         rng.integers(0, s, m)], axis=1)
+        odd = [real[0], [nk, 0, 0], [0, dk, 0], [0, 0, s],
+               [spf.PATCH_PAD] * 3]
+        masks.append(np.concatenate([real, odd]).astype(np.int32))
+    return masks
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["separate", "packed"])
+@pytest.mark.parametrize("s", [1, 31, 32, 33, 65])
+def test_sell_mask_kernel_cases(dev, s, packed):
+    """K8's build and seed, one launch each for all buckets, against their
+    plain versions: entries out of range in each dimension (the build
+    drops them, the seed clips all but the padding row), duplicates, batch
+    widths around the 32-column word (S in 1, 31, 32, 33, 65), an empty
+    bucket, the masks as separate tensors or as views of one upload."""
+    g = compile_edges(*GRAPHS["wan"])
+    assert len(g.sell.nbr) > 2
+    masks = mask_cases(g, s, seed=s)
+    st = to_device(g, dev)
+    if packed:
+        sizes = np.cumsum([0] + [len(m) for m in masks])
+        m_t = spf.mask_views(
+            torch.as_tensor(np.concatenate(masks), device=dev), sizes)
+    else:
+        m_t = [torch.as_tensor(m, device=dev) for m in masks]
+    rows = np.resize(sources_for(g), s).astype(np.int32)
+    base = spf.sell_fixpoint(g.sell, rows, g.sell.wg, g.overloaded,
+                             device=dev)
+    before = _cuda.SELL_MASK.launches
+    bits = spf._sell_mask_bits(m_t, st["nbrs"], s)
+    assert _cuda.SELL_MASK.launches - before == 1
+    marks, seeded = spf._sell_mask_seed(base, st["nbrs"], st["wgs"], m_t,
+                                        g.sell.starts)
+    assert _cuda.SELL_MASK.launches - before == 2
+    want = spf._sell_mask_seed_plain(base, st["nbrs"], st["wgs"], m_t,
+                                     g.sell.starts)
+    torch.cuda.synchronize()
+    for m, b, nbr_k in zip(m_t, bits, st["nbrs"]):
+        assert torch.equal(b, spf._sell_mask_bits_plain(m, *nbr_k.shape, s))
+    assert torch.equal(marks, want) and seeded == bool(want.any())
+    assert seeded
+
+
+def test_delta_extract_and_mask_build_never_sync(dev):
+    """K7 (columns, and the extraction with its cap given) and K8's build
+    queue their work without a host sync: under sync debug mode "error"
+    any PyTorch call that waits for the card raises."""
+    d_prev, d, _ = delta_case("many_tiles")
+    d_prev, d = d_prev.to(dev), d.to(dev)
+    g = compile_edges(*GRAPHS["wan"])
+    st = to_device(g, dev)
+    m_t = [torch.as_tensor(m, device=dev) for m in mask_cases(g, 33, 0)]
+    nh_rows = torch.tensor([1, 2, 0, 0], dtype=torch.int32, device=dev)
+    nh_ws = torch.tensor([3, 1, INF, INF], dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cc, num = spf.delta_columns(d, d_prev)
+        out = spf._delta_extract(cc, d, nh_rows, nh_ws, cap=8192)
+        bits = spf._sell_mask_bits(m_t, st["nbrs"], 33)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    with pytest.raises(RuntimeError):  # the mode does catch a sync
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            int(num)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    want = spf._delta_extract_plain(cc.cpu(), d.cpu(), nh_rows.cpu(),
+                                    nh_ws.cpu(), 8192)
+    for a, b in zip(out, want):
+        assert torch.equal(a.cpu(), b)
+    for m, b, nbr_k in zip(m_t, bits, st["nbrs"]):
+        assert torch.equal(b, spf._sell_mask_bits_plain(m, *nbr_k.shape, 33))
+
+
+def test_delta_extract_and_mask_launches_per_call(dev):
+    """Launches per call: K7's columns pass 1, its extraction 2 (compaction
+    and gather; none when cap is 0); K8's build 1 and its seed 1 whatever
+    the bucket count."""
+    d_prev, d, _ = delta_case("many_tiles")
+    d_prev, d = d_prev.to(dev), d.to(dev)
+    nh = torch.zeros(8, dtype=torch.int32, device=dev)
+    k7 = _cuda.DELTA_EXTRACT
+    before = k7.launches
+    cc, _ = spf.delta_columns(d, d_prev)
+    assert k7.launches - before == 1
+    spf._delta_extract(cc, d, nh, nh, cap=1024)
+    assert k7.launches - before == 3
+    spf._delta_extract(cc, d, nh, nh, cap=0)
+    assert k7.launches - before == 3
+    g = compile_edges(*GRAPHS["wan"])
+    st = to_device(g, dev)
+    rows = sources_for(g)
+    s = len(rows)
+    positions, _ = ksp_masks(g, s)
+    packed, offsets = spf.sell_mask_packed(g.sell, positions)
+    m_t = spf.mask_views(torch.as_tensor(packed, device=dev), offsets)
+    base = spf.sell_fixpoint(g.sell, rows, g.sell.wg, g.overloaded,
+                             device=dev)
+    k8 = _cuda.SELL_MASK
+    before = k8.launches
+    spf._sell_mask_bits(m_t, st["nbrs"], s)
+    assert k8.launches - before == 1
+    spf._sell_mask_seed(base, st["nbrs"], st["wgs"], m_t, g.sell.starts)
+    assert k8.launches - before == 2 and len(m_t) > 2
 
 
 @pytest.mark.parametrize("name", sorted(GRAPHS))

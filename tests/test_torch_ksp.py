@@ -168,6 +168,53 @@ def test_mask_arrays_equal_reference(monkeypatch):
     assert any((a[:, 0] == tspf.PATCH_PAD).any() for a in got)
 
 
+def test_packed_masks_equal_the_reference_arrays_end_to_end(monkeypatch):
+    """`sell_mask_packed` lays the reference's per-bucket arrays (captured
+    from its solver call) end to end, with offsets at the reference's
+    bucket boundaries; `mask_views` of one upload gives back each bucket's
+    array, and K8's launch arguments read those views as one array (no
+    concatenation) with one table row per bucket."""
+    _, jg, tg, links, rows, picks = wan_case(8)
+    positions = [[p for i in pk for p in links[i][2]] for pk in picks]
+    seen = {}
+
+    def capture(key, mesh=None):
+        def solve(sources, nbrs, wgs, masks, overloaded):
+            seen["masks"] = [np.asarray(m) for m in masks]
+            return jnp.zeros((len(rows), jg.n_pad), dtype=jnp.int32)
+        return solve
+
+    monkeypatch.setattr(jspf, "_sell_solver_vw", capture)
+    jspf.sell_fixpoint_masked(jg.sell, rows, jg.overloaded, positions)
+    want = seen["masks"]
+    packed, offsets = tspf.sell_mask_packed(tg.sell, positions)
+    assert packed.dtype == np.int32 and packed.shape[1] == 3
+    np.testing.assert_array_equal(packed, np.concatenate(want))
+    np.testing.assert_array_equal(
+        offsets, np.cumsum([0] + [len(m) for m in want]))
+    up = torch.as_tensor(packed)
+    views = tspf.mask_views(up, offsets)
+    assert len(views) == len(want) == len(tg.sell.nbr)
+    for v, m in zip(views, want):
+        assert v.is_contiguous()
+        np.testing.assert_array_equal(v.numpy(), m)
+    nbrs = [t32(a) for a in tg.sell.nbr]
+    wgs = [t32(a) for a in tg.sell.wg]
+    entries, table, m_total = tspf._mask_launch_args(
+        views, nbrs, wgs, tg.sell.starts, 2)
+    assert entries.data_ptr() == up.data_ptr() and m_total == len(packed)
+    words = np.cumsum([0] + [a.size * 2 for a in tg.sell.nbr])[:-1]
+    for k, (nbr_k, start) in enumerate(zip(tg.sell.nbr, tg.sell.starts)):
+        assert table[k, :5].tolist() == [offsets[k], *nbr_k.shape, start,
+                                         words[k]]
+        assert table[k, 5:7].tolist() == [nbrs[k].data_ptr(),
+                                          wgs[k].data_ptr()]
+    # separate tensors are concatenated into one array of the same rows
+    entries, _, _ = tspf._mask_launch_args(
+        [t32(m) for m in want], nbrs, wgs, tg.sell.starts, 2)
+    np.testing.assert_array_equal(entries.numpy(), packed)
+
+
 def raw_masks(tg, s, seed):
     """Per-bucket [Mk, 3] mask lists as the solver would send them, plus a
     padding entry, an entry out of range in the slot only and one out of

@@ -510,6 +510,66 @@ def test_the_pendant_case_departs_on_the_pendant_edge_alone(name):
     assert np.abs(g_t[rest] - g_j[rest]).max() <= 1e-4 * top
 
 
+def reference_pendant_run(name, variant):
+    """The reference's `_adam_solver` on `pendant_case` as `pendant_runs`
+    calls it (variant "as_is"), or on the same input changed only at
+    float32 rounding: "scenarios_reversed" (the three scenarios and the
+    mask in reverse order), "edge_order" (the edge arrays in a seeded
+    order, the trajectory put back in the original one: other segment-sum
+    orders), "demands_ulp" (every demand times 1 + 2**-23). Returns the
+    weight trajectory [4, E], the losses and the pendant's in-edge."""
+    n, src, dst, w, up, dem, caps, pe = pendant_case(name)
+    mask = np.array([1.0, 0.0, 1.0], np.float32)
+    order = np.arange(len(src))
+    if variant == "scenarios_reversed":
+        dem, mask = dem[::-1].copy(), mask[::-1].copy()
+    elif variant == "edge_order":
+        order = np.random.default_rng(0).permutation(len(src))
+    elif variant == "demands_ulp":
+        dem = dem * np.float32(1 + 2 ** -23)
+    cfg = jopt.TeOptConfig()
+    _, wh, ls = jopt._adam_solver(
+        jnp.asarray(w[order]), jnp.asarray(dem), jnp.asarray(mask),
+        jnp.asarray(caps[order]), jnp.asarray(src[order]),
+        jnp.asarray(dst[order]), jnp.asarray(up[order]), cfg.lr, cfg.beta1,
+        cfg.beta2, cfg.eps, cfg.tau0, cfg.tau_min, cfg.tau_obj, cfg.w_min,
+        cfg.w_max, n=n, rounds=16, steps=4)
+    w_hist = np.empty_like(np.asarray(wh))
+    w_hist[:, order] = np.asarray(wh)
+    return w_hist, np.asarray(ls), pe
+
+
+# measured on this input (CPU), the reference against itself, the largest
+# gap on the pendant's in-edge over the 4 steps: Clos 0.0431 (scenarios
+# reversed), 0.777 (edge order), 0.432 (demands one spacing up); grid
+# 0.00215, 0.0125, 2.07. Every other weight within 1.3e-5, the losses
+# within 2e-7 relative.
+@pytest.mark.parametrize("name", ["clos", "grid"])
+def test_the_reference_departs_from_itself_on_the_pendant_edge(name):
+    """ROADMAP queue 3 item 1, settled: the reference's own `_adam_solver`,
+    run on the pendant-node input and on the same input changed only at
+    float32 rounding (another scenario order, another edge order, every
+    demand one spacing up), departs from itself on the edge into the
+    pendant node alone, beyond PERF.md's 5e-3 on the weights and by as
+    much as the port departs from it (0.0205 to 2.06): the gradient of that
+    edge is at rounding level and Adam turns its sign into a step of up to
+    lr. Every other weight and the losses stay within PERF.md's tolerances
+    (5e-3, 1e-4) in every variant. The port's strict xfails stand."""
+    w0, ls0, pe = reference_pendant_run(name, "as_is")
+    rest = np.ones(w0.shape[1], dtype=bool)
+    rest[pe] = False
+    gaps = {}
+    for variant in ("scenarios_reversed", "edge_order", "demands_ulp"):
+        wv, lv, _ = reference_pendant_run(name, variant)
+        np.testing.assert_allclose(wv[:, rest], w0[:, rest], rtol=0,
+                                   atol=5e-3)
+        np.testing.assert_allclose(lv, ls0, rtol=1e-4)
+        gaps[variant] = float(np.abs(wv[:, pe] - w0[:, pe]).max())
+    assert all(g > 0 for g in gaps.values()), gaps
+    assert max(gaps.values()) > 5e-3, gaps
+    assert max(gaps.values()) >= _PENDANT_GAPS[name, False] / 2, gaps
+
+
 def test_anneal_and_adam_constants_are_float32():
     cfg = topt.TeOptConfig(tau0=2.0, tau_min=0.05)
     taus = [topt.anneal_tau(cfg, i, 48) for i in range(48)]

@@ -339,6 +339,76 @@ def test_event_ops_never_launch_kernels_on_cpu(graph):
     assert [k.launches for k in _cuda.KERNELS] == before
 
 
+def test_nh_rows_are_checked_on_the_host():
+    """K7 reads its up-link rows unchecked on the card (checking the device
+    copy would make the host wait for the card), so the rows are checked
+    where they are host numpy: `check_nh_rows`, and on CPU tensors
+    `_delta_extract` itself, both raising ValueError as the reference's
+    bounds do not (a JAX gather clamps)."""
+    tspf.check_nh_rows(np.array([0, 3, 1], dtype=np.int32), 4)
+    tspf.check_nh_rows(np.zeros(0, dtype=np.int32), 4)
+    for bad in ([0, 4], [-1, 2]):
+        with pytest.raises(ValueError, match="nh_rows"):
+            tspf.check_nh_rows(np.array(bad, dtype=np.int32), 4)
+    d = t32([[0, 1, 2], [1, 0, 1]])
+    cc = torch.tensor([False, True, True])
+    with pytest.raises(ValueError, match="nh_rows"):
+        tspf._delta_extract(cc, d, t32([1, 2]), t32([1, 1]), cap=4)
+    cols, dcols, nh = tspf._delta_extract(cc, d, t32([1, 0]), t32([1, 1]),
+                                          cap=4)
+    jout = jspf._delta_extract(jnp.asarray(cc.numpy()), jnp.asarray(d),
+                               jnp.asarray([1, 0], dtype=jnp.int32),
+                               jnp.asarray([1, 1], dtype=jnp.int32), cap=4)
+    for a, b in zip(jout, (cols, dcols, nh)):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+
+
+def test_a_bad_up_link_row_raises_before_the_delta_is_used(monkeypatch,
+                                                          request):
+    """The solver checks its up-link rows on the host before K7 runs: a row
+    outside the batch raises ValueError on device="cpu" and no extraction
+    is counted. The failed solve moved the resident weights but not D, so
+    the next solve is cold: its route db is the JAX package's and its D
+    the cold fixpoint."""
+    from test_torch_event_path import Pair
+    from test_torch_memory import release_memory
+    from test_torch_solver import canon
+
+    # this file keeps JAX's compiled executables between tests; the solvers
+    # here compile more, handed back when the test ends
+    request.addfinalizer(release_memory)
+    pair = Pair(grid_edges(6), "g0_0", {"g5_5": ["10.1.0.0/16"]})
+    pair.build()
+    solve = pair.solve("port")
+    true_rows = solve._nh_link_arrays
+
+    def bad_rows():
+        names, rows, ws, ids = true_rows()
+        return names, rows[:-1] + [solve.d.shape[0]], ws, ids
+
+    def corner_metric(metric):  # moves the corner's column
+        pair.set_adj("g4_5", "g5_5", metric=metric)
+        pair.set_adj("g5_4", "g5_5", metric=metric)
+
+    monkeypatch.setattr(solve, "_nh_link_arrays", bad_rows)
+    corner_metric(7)
+    extracts = solve.delta_extracts
+    port = pair.solvers["port"]
+    with pytest.raises(ValueError, match="nh_rows"):
+        port.build_route_db("g0_0", {"0": pair.ls["port"]}, pair.ps["port"])
+    assert solve.delta_extracts == extracts
+    monkeypatch.setattr(solve, "_nh_link_arrays", true_rows)
+    corner_metric(8)
+    full = solve.full_solves
+    dbs = {name: solver.build_route_db("g0_0", {"0": pair.ls[name]},
+                                       pair.ps[name])
+           for name, solver in pair.solvers.items()}
+    assert canon(dbs["port"].unicast_entries) == canon(
+        dbs["jax"].unicast_entries)
+    assert solve.full_solves == full + 1 and not solve.last_solve_warm
+    np.testing.assert_array_equal(solve.d, solve.cold_reference_d())
+
+
 def test_event_wrappers_check_inputs():
     d = t32([[0, 1], [1, 0]])
     with pytest.raises(ValueError):
