@@ -28,9 +28,12 @@ Phases, one JSON line each:
                D equals a cold K1 solve on the patched weights and the
                plain versions' results
   k4 .. k7     each event kernel against its plain version on that event;
-               K7 also per stage (columns, compaction, gather) and its
-               launches a call, its columns equal to torch.nonzero_static's
-               (the compaction's library call) on the same flags
+               K4 beside index_put_ (its library call), with its launches
+               a call (one for all buckets) and 10 calls under the
+               profiler; K7 also per stage (columns, compaction, gather)
+               and its launches a call, its columns equal to
+               torch.nonzero_static's (the compaction's library call) on
+               the same flags
   event_clos   DeltaRouteBuilder for rsw0_0 on the Clos through six remote
                events (delta path) and one at rsw0_0 (full path); every db
                equals the CPU oracle's, and a delta event copies back only
@@ -75,13 +78,16 @@ Phases, one JSON line each:
                seeded rsw->rsw demands in 4 scenarios, 128 rounds: first,
                not counted, one launch each of K14 (softmin round), K15
                (its backward), K16 (gate, flow round, utilization), K17
-               (adjoint round, gate backward) and K18 (MLU, seed, Adam)
-               against their plain versions on the card at a mid-anneal tau
-               (0.5) from the D of 128 rounds, with times; then, counted,
-               adam_solve for 8 steps (per-step ms, launches per step, peak
-               memory, first and last loss, all finite); then two steps
-               under torch.profiler (device busy share, kernel time by
-               name); then, not counted,
+               (scale, adjoint round, gate backward) and K18 (MLU, seed,
+               Adam) against their plain versions on the card at a
+               mid-anneal tau (0.5) from the D of 128 rounds, with times
+               (K17's adjoint round timed alone, one launch with the
+               scale given, its scale apart); then, counted, adam_solve
+               for 8 steps (per-step ms, launches per step, peak memory,
+               first and last loss, all finite, the last beside the
+               earlier adjoint round's); then one step under
+               torch.profiler (device busy share, kernel time by name);
+               then, not counted,
                8 steps on fabric_edges(4) (260 nodes, seeded metrics)
                against the plain versions differentiated by autograd on
                the card
@@ -119,7 +125,10 @@ Phases, one JSON line each:
                cold and event_wan's event, D and rounds equal to the
                unsharded K1 / K5 path; 16 KSP2 prefixes of ksp_wan under a
                (2, 1) mesh, the route db equal to the unsharded solver's
-  kernels      one line for all kernels: launches, error, ms, bounds
+  kernels      one line for all kernels: launches, error, ms, bounds;
+               what `ms` times (`timed_unit`) and the kernel's launches
+               in one such call, counted beside its timing
+               (`launches_per_call`)
 
 Every path (main_path, event_wan, event_clos, star_flap, ksp_wan,
 ksp_star, apsp_wan, lfa_clos, te_clos, te_service, tile_wan, tile_clos,
@@ -182,11 +191,50 @@ TE_CLOS_NODES = 3956
 TE_STEPS = 8
 TE_DEMANDS = 4096
 TE_CHAIN_PODS = 4
+# te_clos's last loss on an H100 80GB HBM3 with the earlier adjoint round
+# (one thread a column, dividing g_util by the capacity per column): the
+# redesigned round sums in the same order, so equal bits show it
+LOSS_LAST_COLUMN_ROUND = 4.251302719116211
 TE_BORROW_PODS = 2
 # the multi-device layouts: a graph axis of 4 over the north-star WAN and
 # the Clos (ranks sharing the one card), a batch axis of 4 over the WAN
 TILE_G = 4
 ROW_B = 4
+
+
+# what each kernel's `ms` in the kernels line times; its launches in one
+# such call are counted beside it (`launches_per_call`), so that `ms` and
+# the kernel's path `launches` can be set in one unit
+TIMED_UNIT = {
+    "sell_relax_round": "a cold solve (WAN, 128 sources): a launch a "
+                        "bucket a round",
+    "bf_relax_round": "a cold edge-list solve (WAN): a launch a round",
+    "ecmp_triangle": "one call (grid 32)",
+    "sell_apply_patches": "one call (WAN event, every bucket)",
+    "sell_mark": "the WAN event's invalidation and warm start: the seed, a "
+                 "launch a bucket a mark round, the reset",
+    "bf_mark": "the WAN event's edge-list invalidation and warm start: the "
+               "seed, a launch a mark round, the reset",
+    "delta_extract": "one extraction (WAN event): columns, compaction, "
+                     "gather",
+    "sell_mask": "KSP's masks (50k WAN): the build and the seed",
+    "sell_relax_masked_round": "a masked cold solve (50k WAN, KSP batch): a "
+                               "launch a bucket a round",
+    "fw_close": "a cold close (n_pad 4,096): diagonal, panels and outer a "
+                "block, the probe",
+    "fw_seed": "one seed (n_pad 4,096)",
+    "fw_reclose": "one re-close round (the event's dirty blocks)",
+    "softmin_round": "one softmin round (te_clos)",
+    "softmin_round_bwd": "one softmin round's backward (te_clos): rows, "
+                         "pull, edges",
+    "soft_flow": "one flow round (te_clos)",
+    "soft_flow_bwd": "one adjoint round, the scale given (te_clos)",
+    "te_step": "one Adam step (te_clos's [E])",
+    "tile_round": "one tile round of one rank (WAN on (1, 4))",
+    "tile_fold": "one halo fold of one rank (WAN on (1, 4))",
+    "tile_mark": "init, mark, reset and changed columns of one rank (WAN on "
+                 "(1, 4)), one call each",
+}
 
 
 def emit(obj) -> None:
@@ -233,6 +281,16 @@ def time_ms(fn, reps: int = 7, warmup: int = 2, setup=None) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def launches_a_call(kernel, fn, setup=None) -> int:
+    """`kernel`'s launches in one call of `fn`, read from its count before
+    and after (`setup`, if given, makes the call's arguments first): the
+    timed unit of the kernel's `ms`, in launches."""
+    args = setup() if setup else ()
+    l0 = kernel.launches
+    fn(*args)
+    return kernel.launches - l0
 
 
 def profile_window(fn) -> dict:
@@ -666,6 +724,9 @@ def main() -> int:
               f"K1 row {i} differs from LinkState Dijkstra")
     oracle_s = time.perf_counter() - t0
     del wan_ls
+    per_call1 = launches_a_call(K1, k1)
+    check(per_call1 == rounds * len(wan.sell.nbr),
+          f"K1 launched {per_call1} times a solve, not a bucket a round")
     ms = time_ms(k1)
     plain_ms = time_ms(k1_plain, reps=5, warmup=1)
     s_cols = len(wan_src)
@@ -694,6 +755,7 @@ def main() -> int:
         "launches": None, "max_abs_err": err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None, "rounds": rounds,
+        "launches_per_call": per_call1,
     })
     del d_plain
 
@@ -719,6 +781,9 @@ def main() -> int:
           f"K2 differs from its plain version: err {err2}")
     check(torch.equal(d_k2, d_k1), "K2 differs from K1's D")
     check(torch.equal(d_wan_vw, d_k1), "batched_spf_vw differs from K1's D")
+    per_call2 = launches_a_call(K2, k2)
+    check(per_call2 == rounds2,
+          f"K2 launched {per_call2} times a solve, not once a round")
     ms2 = time_ms(k2)
     plain_ms2 = time_ms(k2_plain, reps=5, warmup=1)
     # per round: D read and written once, src + w of the real edges, csr, ov
@@ -738,6 +803,7 @@ def main() -> int:
         "launches": None, "max_abs_err": err2,
         "ms": ms2, "plain_ms": plain_ms2, "bound_ms": b2_ms,
         "bound_by": b2_by, "library_ms": None, "rounds": rounds2,
+        "launches_per_call": per_call2,
     })
     del d_k2, d_k2_plain, st
 
@@ -766,6 +832,8 @@ def main() -> int:
     from_a = torch.as_tensor(grid.src[: grid.e] == a, device=dev)
     first_hops = int(dag[: grid.e][from_a, z].sum())
     check(first_hops == 2, f"corner-to-corner ECMP first hops {first_hops}")
+    per_call3 = launches_a_call(K3, k3)
+    check(per_call3 == 1, f"K3 launched {per_call3} times a call, not 1")
     ms3 = time_ms(k3, reps=9)
     plain_ms3 = time_ms(k3_plain, reps=9)
     e3, t3 = grid.e_pad, grid.n_pad
@@ -785,7 +853,7 @@ def main() -> int:
         "replaces": _cuda.ECMP_TRIANGLE.replaces,
         "launches": None, "max_abs_err": err3,
         "ms": ms3, "plain_ms": plain_ms3, "bound_ms": b3_ms,
-        "bound_by": b3_by, "library_ms": None,
+        "bound_by": b3_by, "library_ms": None, "launches_per_call": per_call3,
     })
 
     # -- 7. event_wan: one LSDB event on the north-star fixpoint ---------
@@ -895,7 +963,12 @@ def main() -> int:
         for a, (ij, v) in zip(wk, lib_idx):
             a.index_put_(ij, v)
 
-    ms4 = time_ms(lambda: spf._sell_apply_patches(wk, idx_t, vals_t))
+    def k4():
+        return spf._sell_apply_patches(wk, idx_t, vals_t)
+
+    per_call4 = launches_a_call(K4, k4)
+    check(per_call4 == 1, f"K4 launched {per_call4} times a call, not 1")
+    ms4 = time_ms(k4)
     plain_ms4 = time_ms(lambda: spf._sell_apply_patches_plain(
         wp, idx_t, vals_t))
     lib_ms4 = time_ms(index_put)
@@ -904,10 +977,6 @@ def main() -> int:
     # written once
     b4_ms, b4_by = bound(12 * idx.shape[0] * idx.shape[1] + 4 * n_valid,
                          2 * n_valid, rate)
-    emit({"phase": "k4_sell_apply_patches", "patches": n_valid,
-          "buckets": len(wk), "equal_plain": True, "ms": ms4,
-          "plain_ms": plain_ms4, "index_put_ms": lib_ms4, "card": card})
-
     # K5: seed + mark fixpoint + reset, against the OLD buckets
     inv_args = (d_prev, st["nbrs"], wgs_old, inc_t, wan.sell.zero_end,
                 wan.sell.starts)
@@ -931,6 +1000,7 @@ def main() -> int:
           f"K5 differs from its plain version: err {err5}, rounds "
           f"{r5} vs {r5p}")
     n_marked = int(m5.sum())
+    per_call5 = launches_a_call(K5, k5)
     ms5 = time_ms(k5)
     plain_ms5 = time_ms(k5_plain, reps=3, warmup=1)
     # per round: marks read and written once, the buckets read once; the
@@ -940,7 +1010,8 @@ def main() -> int:
         r5 * 2 * slots * s_rows + 2 * s_rows * n_pad, rate,
     )
     emit({"phase": "k5_sell_mark", "rounds": r5, "marked": n_marked,
-          "equal_plain": True, "ms": ms5, "plain_ms": plain_ms5,
+          "equal_plain": True, "ms": ms5, "launches_per_call": per_call5,
+          "plain_ms": plain_ms5,
           "bound_ms": b5_ms, "card": card})
 
     # K6: the same event on the edge-list layout
@@ -961,6 +1032,9 @@ def main() -> int:
           f"K6 differs from its plain version: err {err6}, rounds "
           f"{r6} vs {r6p}")
     check(torch.equal(m6, m5), "K6 marks differ from K5's")
+    per_call6 = launches_a_call(K6, k6)
+    check(per_call6 == r6 + 2, f"K6 launched {per_call6} times a call, not "
+          "the seed, a mark round each and the reset")
     ms6 = time_ms(k6)
     plain_ms6 = time_ms(k6_plain, reps=3, warmup=1)
     # seed: D once, the real edges' src + two weights, csr; per round:
@@ -972,7 +1046,8 @@ def main() -> int:
         (1 + r6) * 3 * n_e * s_rows, rate,
     )
     emit({"phase": "k6_bf_mark", "rounds": r6, "equal_plain": True,
-          "equal_k5_marks": True, "ms": ms6, "plain_ms": plain_ms6,
+          "equal_k5_marks": True, "ms": ms6, "launches_per_call": per_call6,
+          "plain_ms": plain_ms6,
           "bound_ms": b6_ms, "card": card})
 
     # K7: the changed columns and their extraction
@@ -1003,9 +1078,7 @@ def main() -> int:
 
     check(torch.equal(nonzero7().flatten().to(torch.int32), cols),
           "K7's columns differ from torch.nonzero_static's")
-    l0 = K7.launches
-    k7()
-    per_call7 = K7.launches - l0
+    per_call7 = launches_a_call(K7, k7)
     check(per_call7 == 3, f"K7 launched {per_call7} times a call, not 3")
     ms7 = time_ms(k7)
     stages7 = {
@@ -1018,6 +1091,7 @@ def main() -> int:
     lib_ms7 = time_ms(nonzero7)
     # the device's share of those times: 10 calls under torch.profiler
     prof7 = profile_window(lambda: [k7() for _ in range(10)])
+    prof4 = profile_window(lambda: [k4() for _ in range(10)])
     l_pad = nh_rows.shape[0]
     b7_ms, b7_by = bound(
         8 * s_rows * n_pad + 2 * n_pad + 4
@@ -1029,6 +1103,10 @@ def main() -> int:
           **stages7, "launches_per_call": per_call7,
           "plain_ms": plain_ms7, "nonzero_static_ms": lib_ms7,
           "bound_ms": b7_ms, "profile_10_calls": prof7, "card": card})
+    emit({"phase": "k4_sell_apply_patches", "patches": n_valid,
+          "buckets": len(wk), "equal_plain": True, "ms": ms4,
+          "launches_per_call": per_call4, "plain_ms": plain_ms4,
+          "index_put_ms": lib_ms4, "profile_10_calls": prof4, "card": card})
 
     warm_ms = time_ms(sell_warm, setup=fresh_wgs)
     warm_bf_ms = time_ms(bf_warm)
@@ -1036,21 +1114,25 @@ def main() -> int:
           "warm_rounds": rounds_w, "cold_ms": ms, "cold_rounds": rounds,
           "warm_edge_list_ms": warm_bf_ms, "cold_edge_list_ms": ms2,
           "card": card})
-    for name, k, e, m_, pm, lm, bm, bb in (
-        ("sell_patch.cu", K4, err4, ms4, plain_ms4, lib_ms4, b4_ms, b4_by),
-        ("sell_mark.cu", K5, err5, ms5, plain_ms5, None, b5_ms, b5_by),
-        ("bf_mark.cu", K6, err6, ms6, plain_ms6, None, b6_ms, b6_by),
-        ("delta_extract.cu", K7, err7, ms7, plain_ms7, lib_ms7, b7_ms, b7_by),
+    for name, k, e, m_, pm, lm, bm, bb, lpc in (
+        ("sell_patch.cu", K4, err4, ms4, plain_ms4, lib_ms4, b4_ms, b4_by,
+         per_call4),
+        ("sell_mark.cu", K5, err5, ms5, plain_ms5, None, b5_ms, b5_by,
+         per_call5),
+        ("bf_mark.cu", K6, err6, ms6, plain_ms6, None, b6_ms, b6_by,
+         per_call6),
+        ("delta_extract.cu", K7, err7, ms7, plain_ms7, lib_ms7, b7_ms, b7_by,
+         per_call7),
     ):
         results.append({
             "name": k.name, "route": "cuda",
             "source": f"openr_tpu_torch/ops/csrc/{name}",
             "replaces": k.replaces, "launches": None, "max_abs_err": e,
             "ms": m_, "plain_ms": pm, "bound_ms": bm, "bound_by": bb,
-            "library_ms": lm,
+            "library_ms": lm, "launches_per_call": lpc,
         })
     # K7's library call (nonzero_static) does the compaction stage's work
-    results[-1].update(stages7, launches_per_call=per_call7)
+    results[-1].update(stages7)
     del (st, d_w, d_bf, d_cold, plain, m5p, d05p, m6p, d06p, out7, out7p,
          d05, d06, wk, wp, wgs_w, wgs_run)
 
@@ -1304,9 +1386,7 @@ def main() -> int:
     del d_warm_p, d9
     ksp_inputs_s = time.perf_counter() - t0
 
-    l0 = K8.launches
-    k8()
-    per_call8 = K8.launches - l0
+    per_call8 = launches_a_call(K8, k8)
     check(per_call8 == 2,
           f"K8 launched {per_call8} times for a build and a seed, not 2")
     ms8 = time_ms(k8)
@@ -1318,6 +1398,9 @@ def main() -> int:
     plain_ms8 = time_ms(k8_plain, reps=5, warmup=1)
     lib_ms8 = time_ms(index_put8)
     prof8 = profile_window(lambda: [k8() for _ in range(10)])
+    per_call9 = launches_a_call(K9, k9, setup=fresh_d0)
+    check(per_call9 == r9 * len(kg.sell.nbr),
+          f"K9 launched {per_call9} times a solve, not a bucket a round")
     ms9 = time_ms(k9, setup=fresh_d0)
     plain_ms9 = time_ms(k9_plain, setup=fresh_d0, reps=3, warmup=1)
     cold_vw_ms = time_ms(cold_vw)
@@ -1374,6 +1457,7 @@ def main() -> int:
         "replaces": K9.replaces, "launches": None, "max_abs_err": err9,
         "ms": ms9, "plain_ms": plain_ms9, "bound_ms": b9_ms,
         "bound_by": b9_by, "library_ms": None, "rounds": r9,
+        "launches_per_call": per_call9,
     })
     del (kst, knb, kwg, kov, base, d_cold, d_warm, bits, bits_p, wv_p,
          lib_full)
@@ -1785,6 +1869,10 @@ def main() -> int:
     # product counts one operation per (i, j, m): its add and min are one
     # DPX instruction (__viaddmin_s32) at the int32 lane rate
     w_t, allow_t = dense(asolve.graph)
+    per_call11 = launches_a_call(K11, lambda: fw.fw_close(w_t, allow_t))
+    nb11 = fw.fw_block_shape(w_t.shape[0])[0]
+    check(per_call11 == (3 * nb11 if nb11 > 1 else 1) + 1, f"K11 launched "
+          f"{per_call11} times a close, not 3 a block and the probe")
     ms11 = time_ms(lambda: fw.fw_close(w_t, allow_t), reps=5, warmup=1)
     plain_ms11 = time_ms(lambda: fw._fw_close_plain(w_t, allow_t), reps=1,
                          warmup=0)
@@ -1797,6 +1885,8 @@ def main() -> int:
     err12 = max(max_abs_err(d0_2, d0p), max_abs_err(dirty_2, dirtyp))
     check(err12 == 0 and int(num_2) == int(nump) == dirty02,
           f"K12 differs from its plain version: {err12}")
+    per_call12 = launches_a_call(K12, lambda: fw.fw_seed(*seed_args))
+    check(per_call12 == 2, f"K12 launched {per_call12} times a seed, not 2")
     ms12 = time_ms(lambda: fw.fw_seed(*seed_args))
     plain_ms12 = time_ms(lambda: fw._fw_seed_plain(*seed_args), reps=3,
                          warmup=1)
@@ -1833,6 +1923,9 @@ def main() -> int:
     check(err13 == 0 and counts13.tolist() == [int(num13p), int(ch13p)],
           f"K13 differs from its plain version: {err13}")
     del d13, d13p
+    per_call13 = launches_a_call(K13, k13, setup=fresh_round)
+    check(per_call13 == 2 * kb2 + 4, f"K13 launched {per_call13} times a "
+          "round, not 2 a dirty block and 4")
     ms13 = time_ms(k13, setup=fresh_round, reps=5)
     plain_ms13 = time_ms(k13_plain, setup=fresh_round, reps=1, warmup=0)
     # rule (a) and rule (b) are each a B * N^2 product per dirty block
@@ -1858,17 +1951,20 @@ def main() -> int:
                 "plain_ms": plain_ms13, "bound_ms": b13_ms},
         "card": card,
     })
-    for name, k, e, m_, pm, bm, bb in (
-        ("fw_close.cu", K11, err11, ms11, plain_ms11, b11_ms, b11_by),
-        ("fw_seed.cu", K12, err12, ms12, plain_ms12, b12_ms, b12_by),
-        ("fw_reclose.cu", K13, err13, ms13, plain_ms13, b13_ms, b13_by),
+    for name, k, e, m_, pm, bm, bb, lpc in (
+        ("fw_close.cu", K11, err11, ms11, plain_ms11, b11_ms, b11_by,
+         per_call11),
+        ("fw_seed.cu", K12, err12, ms12, plain_ms12, b12_ms, b12_by,
+         per_call12),
+        ("fw_reclose.cu", K13, err13, ms13, plain_ms13, b13_ms, b13_by,
+         per_call13),
     ):
         results.append({
             "name": k.name, "route": "cuda",
             "source": f"openr_tpu_torch/ops/csrc/{name}",
             "replaces": k.replaces, "launches": None, "max_abs_err": e,
             "ms": m_, "plain_ms": pm, "bound_ms": bm, "bound_by": bb,
-            "library_ms": None,
+            "library_ms": None, "launches_per_call": lpc,
         })
     del (asolver, asolve, apsp, apsp_ls, w_t, allow_t, seed2,
          d_prev2, w_new2, allow2, d0_2, d0p, d_prev, w_prev, w_new, cold)
@@ -2052,39 +2148,59 @@ def main() -> int:
 
     # times at this size: the kernels, their plain versions, their bounds
     te_ms, te_plain_ms, te_bound, te_lib = {}, {}, {}, {}
-    te_ms["K14"] = time_ms(lambda: tk.softmin_round(d_run, we, graph, tau))
+    # K17's timed unit: one adjoint round with the scale given, as
+    # SoftFlow's backward runs it; the scale, once a backward, apart
+    c_k = tk.soft_flow_bwd_scale(g_util, caps_t)
+    te_calls = {  # each kernel's timed call and its launches in that call
+        "K14": (K14, lambda: tk.softmin_round(d_run, we, graph, tau), 1),
+        "K15": (K15, lambda: tk.softmin_round_bwd(g_new, d_run, keep, we,
+                                                  graph, tau), 3),
+        "K16": (K16, lambda: tk.soft_flow_round(p_k, x0, xs_k, graph), 1),
+        "K17": (K17, lambda: tk.soft_flow_adjoint_round(
+            p_k, c_k, lam_k, x0, gpk, graph, False), 1),
+        "K18": (K18, lambda: tk.te_adam(*ad_k[:3], g_w, up_t, ad_k[3], hp),
+                1),
+    }
+    te_per_call = {}
+    for key, (k, fn, want) in te_calls.items():
+        te_per_call[key] = launches_a_call(k, fn)
+        check(te_per_call[key] == want, f"{key} launched "
+              f"{te_per_call[key]} times a timed call, not {want}")
+    te_ms["K14"] = time_ms(te_calls["K14"][1])
     te_plain_ms["K14"] = time_ms(
         lambda: tk._softmin_round_plain(d_run, we, graph, tau), reps=3,
         warmup=1)
-    te_ms["K15"] = time_ms(
-        lambda: tk.softmin_round_bwd(g_new, d_run, keep, we, graph, tau))
+    te_ms["K15"] = time_ms(te_calls["K15"][1])
     te_plain_ms["K15"] = time_ms(
         lambda: tk._softmin_round_bwd_plain(g_new, d_run, keep, we, graph,
                                             tau), reps=3, warmup=1)
-    te_ms["K16"] = time_ms(lambda: tk.soft_flow_round(p_k, x0, xs_k, graph))
+    te_ms["K16"] = time_ms(te_calls["K16"][1])
     te_plain_ms["K16"] = time_ms(
         lambda: tk._soft_flow_round_plain(p_k, x0, None, graph), reps=3,
         warmup=1)
-    te_ms["K17"] = time_ms(lambda: tk.soft_flow_bwd_round(
-        p_k, g_util, caps_t, lam_k, x0, gpk, graph, False))
+    te_ms["K17"] = time_ms(te_calls["K17"][1])
     te_plain_ms["K17"] = time_ms(lambda: tk._soft_flow_bwd_round_plain(
         p_k, g_util, caps_t, lam_k, x0, gpk.clone(), graph, False), reps=3,
         warmup=1)
-    te_ms["K18"] = time_ms(lambda: tk.te_adam(*ad_k[:3], g_w, up_t, ad_k[3],
-                                              hp))
+    te_ms["K18"] = time_ms(te_calls["K18"][1])
     te_plain_ms["K18"] = time_ms(
         lambda: tk._te_adam_plain(*ad_p[:3], g_w, up_t, ad_p[3], hp))
-    side_ms = {
-        "K16_gate": time_ms(lambda: tk.soft_gate(d_run, we, up_t, graph,
-                                                 tau)),
-        "K16_util": time_ms(lambda: tk.soft_flow_util(p_k, xs_k, caps_t,
-                                                      graph)),
-        "K17_gate_bwd": time_ms(lambda: tk.soft_gate_bwd(
+    side_calls = {  # the other entries of K16-K18, each once a step
+        "K16_gate": (K16, lambda: tk.soft_gate(d_run, we, up_t, graph,
+                                               tau)),
+        "K16_util": (K16, lambda: tk.soft_flow_util(p_k, xs_k, caps_t,
+                                                    graph)),
+        "K17_scale": (K17, lambda: tk.soft_flow_bwd_scale(g_util, caps_t)),
+        "K17_gate_bwd": (K17, lambda: tk.soft_gate_bwd(
             gpk.clone(), d_run, we, up_t, graph, tau)),
-        "K18_mlu": time_ms(lambda: tk.te_mlu(util_k, mask_t, cfg.tau_obj)),
-        "K18_mlu_bwd": time_ms(lambda: tk.te_mlu_bwd(
+        "K18_mlu": (K18, lambda: tk.te_mlu(util_k, mask_t, cfg.tau_obj)),
+        "K18_mlu_bwd": (K18, lambda: tk.te_mlu_bwd(
             one, util_k, lse_k, mask_t, cfg.tau_obj)),
     }
+    side_ms, side_launches = {}, {}
+    for name_, (k, fn) in side_calls.items():
+        side_launches[name_] = launches_a_call(k, fn)
+        side_ms[name_] = time_ms(fn)
     # the library yardstick of the Adam step: PyTorch's fused Adam on [E]
     # (the port never calls it)
     lib_w = inp["w"].clone().requires_grad_(True)
@@ -2113,7 +2229,7 @@ def main() -> int:
     te_bound["K18"] = bound(33 * e_t, 0, rate)
     gate_share = float((p_k > 0).float().mean())
     del (d_run, new_k, keep, g_new, p_k, x0, xs_k, x1_k, util_k, g_util,
-         gpk, lam_k, ad_k, ad_p)
+         gpk, lam_k, ad_k, ad_p, c_k)
     torch.cuda.empty_cache()
     te_checks_s = time.perf_counter() - t0
 
@@ -2136,9 +2252,9 @@ def main() -> int:
     check(peak_gb < 48, f"te_clos peak memory {peak_gb:.1f} GiB")
     moved = int((w_hist[-1] != inp["w"]).sum())
     del w_fin, w_hist, losses
-    # two more steps under torch.profiler, outside the counted run
+    # one more step under torch.profiler, outside the counted run
     te_profile = profile_window(lambda: teopt.adam_solve(
-        inp["w"], dem_t, mask_t, caps_t, graph, up_t, cfg, te_rounds, 2))
+        inp["w"], dem_t, mask_t, caps_t, graph, up_t, cfg, te_rounds, 1))
     del dem_t, inp, we, mask_t
     torch.cuda.empty_cache()
 
@@ -2189,20 +2305,26 @@ def main() -> int:
         "k17_rel_err": err17,
         "seconds": te_solve_s, "step_ms": te_solve_s * 1e3 / TE_STEPS,
         "launches": te_launches, "launches_per_step": per_step,
+        "launches_per_call": te_per_call,
         "kernel_ms": te_ms, "plain_ms": te_plain_ms, "side_ms": side_ms,
+        "side_launches_per_call": side_launches,
         "est_kernel_ms_per_step": {
-            "K14": te_ms["K14"] * per_step[K14.name],
-            "K15": te_ms["K15"] * per_step[K15.name] / 3,
-            "K16": te_ms["K16"] * (per_step[K16.name] - 2)
-            + side_ms["K16_gate"] + side_ms["K16_util"],
-            "K17": te_ms["K17"] * (per_step[K17.name] - 3)
-            + side_ms["K17_gate_bwd"],
-            "K18": te_ms["K18"] + side_ms["K18_mlu"] + side_ms["K18_mlu_bwd"],
+            key: te_ms[key] * (per_step[k.name] - sum(
+                n_ for name_, n_ in side_launches.items()
+                if name_.startswith(key))) / max(te_per_call[key], 1)
+            + sum(ms_ for name_, ms_ in side_ms.items()
+                  if name_.startswith(key))
+            for key, k in (("K14", K14), ("K15", K15), ("K16", K16),
+                           ("K17", K17), ("K18", K18))
         },
         "d_unreached_share": d_run_unreached / (n_t * n_t),
-        "gate_nonzero_share": gate_share, "profiled_2_steps": te_profile,
+        "gate_nonzero_share": gate_share, "profiled_1_step": te_profile,
         "peak_memory_gib": peak_gb, "loss_first": float(losses_h[0]),
-        "loss_last": float(losses_h[-1]), "weights_moved": moved,
+        "loss_last": float(losses_h[-1]),
+        "loss_last_column_round": LOSS_LAST_COLUMN_ROUND,
+        "loss_last_equal_column_round":
+            float(losses_h[-1]) == LOSS_LAST_COLUMN_ROUND,
+        "weights_moved": moved,
         "chain": {"graph": f"fabric_edges({TE_CHAIN_PODS})", "n": ch_g.n,
                   "rounds": ch_rounds, "steps": TE_STEPS,
                   "max_weight_err": chain_w_err,
@@ -2222,7 +2344,10 @@ def main() -> int:
             "ms": te_ms[key],
             "plain_ms": te_plain_ms[key], "bound_ms": te_bound[key][0],
             "bound_by": te_bound[key][1], "library_ms": te_lib.get(key),
+            "launches_per_call": te_per_call[key],
         })
+    results[-2].update(scale_ms=side_ms["K17_scale"],
+                       gate_bwd_ms=side_ms["K17_gate_bwd"])
 
     # -- 16. te_service: the TE service on the card ----------------------
     t0 = time.perf_counter()
@@ -2520,9 +2645,13 @@ def main() -> int:
     ms_k1w = time_ms(lambda: spf._sell_solver_counted(
         wkey, src_t, st_w["nbrs"], st_w["wgs"], st_w["ov"]))
     buf = torch.empty((s_l, h), dtype=torch.int32, device=dev)
+    per_call19 = launches_a_call(
+        K19, lambda: spf.tile_round(d0t, **rank, out=buf))
     ms19 = time_ms(lambda: spf.tile_round(d0t, **rank, out=buf))
     plain_ms19 = time_ms(lambda: spf._tile_round_plain(d0t, **rank, out=buf))
     fold_t = dpt.clone()
+    per_call20 = launches_a_call(
+        K20, lambda: spf.tile_fold(fold_t, ctr_0, tops["hcols"][0][0], j))
     ms20 = time_ms(lambda: spf.tile_fold(fold_t, ctr_0, tops["hcols"][0][0],
                                          j))
     plain_ms20 = time_ms(lambda: spf._tile_fold_plain(
@@ -2533,7 +2662,7 @@ def main() -> int:
         return (torch.zeros(n_tile, dtype=torch.bool, device=dev),
                 torch.zeros(1, dtype=torch.int32, device=dev))
 
-    ms21_parts, plain21_parts = {}, {}
+    ms21_parts, plain21_parts, per_call21 = {}, {}, 0
     for name_, fn_k, fn_p, setup in (
         ("init", lambda: spf.tile_init(tsrc[0][j], off, n_tile),
          lambda: spf._tile_init_plain(tsrc[0][j], off, n_tile), None),
@@ -2547,9 +2676,14 @@ def main() -> int:
          lambda cc, cnt: spf._tile_col_changed_plain(dwt, dpt, cc, cnt),
          fresh_cols),
     ):
+        per_call21 += launches_a_call(K21, fn_k, setup=setup)
         ms21_parts[name_] = time_ms(fn_k, setup=setup)
         plain21_parts[name_] = time_ms(fn_p, setup=setup)
     ms21, plain_ms21 = sum(ms21_parts.values()), sum(plain21_parts.values())
+    for key, got, want in (("K19", per_call19, 1), ("K20", per_call20, 1),
+                           ("K21", per_call21, 4)):
+        check(got == want,
+              f"{key} launched {got} times a timed call, not {want}")
 
     # bounds: each input read once, each output written once
     k_j = int(tiling.hptr[j][-1])
@@ -2600,17 +2734,20 @@ def main() -> int:
         "k21_plain_ms": plain21_parts, "setup_seconds": tile_setup_s,
         "seconds": tile_s, "launches": tile_launches, "card": card,
     })
-    for k, src_name, e, m_, pm, bm, bb in (
-        (K19, "tile_round.cu", err19, ms19, plain_ms19, b19_ms, b19_by),
-        (K20, "tile_fold.cu", err20, ms20, plain_ms20, b20_ms, b20_by),
-        (K21, "tile_mark.cu", err21, ms21, plain_ms21, b21_ms, "bytes"),
+    for k, src_name, e, m_, pm, bm, bb, lpc in (
+        (K19, "tile_round.cu", err19, ms19, plain_ms19, b19_ms, b19_by,
+         per_call19),
+        (K20, "tile_fold.cu", err20, ms20, plain_ms20, b20_ms, b20_by,
+         per_call20),
+        (K21, "tile_mark.cu", err21, ms21, plain_ms21, b21_ms, "bytes",
+         per_call21),
     ):
         results.append({
             "name": k.name, "route": "cuda",
             "source": f"openr_tpu_torch/ops/csrc/{src_name}",
             "replaces": k.replaces, "launches": None, "max_abs_err": e,
             "ms": m_, "plain_ms": pm, "bound_ms": bm, "bound_by": bb,
-            "library_ms": None,
+            "library_ms": None, "launches_per_call": lpc,
         })
     del (d_t, d_tw, d_uw, wgs_u, tops, w2n, targs, wargs, buf, recv, outs,
          d0t, ctr_j, ctr_0, fold_t, diff)
@@ -2758,6 +2895,9 @@ def main() -> int:
         row["launches_by_path"] = {
             path: counts[row["name"]] for path, counts in paths.by_path.items()
         }
+        row["timed_unit"] = TIMED_UNIT[row["name"]]
+        check(row["launches_per_call"] > 0,
+              f"{row['name']} launched no time in its timed call")
         check(row["launches"] > 0, f"{row['name']} never launched")
     check(len(results) == len(_cuda.KERNELS), "a kernel has no row")
     emit({"kernels": results})

@@ -192,7 +192,7 @@ ECMP_TRIANGLE = Kernel(
 SELL_PATCH = Kernel(
     "sell_apply_patches",
     "sell_patch.cu",
-    {"sell_apply_patches": [_P, _P, _P, _I, _I, _I]},
+    {"sell_apply_patches": [_P, _P, _P, _I, _I]},
     "openr_tpu/ops/spf.py:303 _sell_apply_patches",
 )
 SELL_MARK = Kernel(
@@ -310,8 +310,9 @@ SOFT_FLOW_BWD = Kernel(
     "soft_flow_bwd",
     "te_flow.cu",
     {
-        "soft_flow_bwd_round": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                _I, _I, _I],
+        "soft_flow_bwd_round": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                _I, _I],
+        "soft_flow_bwd_scale": [_P, _P, _P, _I, _I],
         "soft_gate_bwd_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                _F],
         "soft_gate_bwd_pull": [_P, _P, _P, _P, _I],

@@ -27,9 +27,12 @@
 //                        pull x_{r+1}, and xsum += x_r (xsum may be null:
 //                        the backward's recomputation)
 //   soft_flow_util       K16, one block per edge: util[b, e]
-//   soft_flow_bwd_round  K17, one thread per (u, t): the adjoint round
-//                          g_ef[b, e, t] = g_util[b, e] / max(caps, 1e-9)
-//                                          + lam_next[b, dst_e, t]
+//   soft_flow_bwd_scale  K17, once per backward: c[b, e] = g_util[b, e]
+//                        / max(caps[e], 1e-9), the same correctly rounded
+//                        division the rounds once made for every column
+//   soft_flow_bwd_round  K17, a block per (u, kCols columns), 4 columns a
+//                        thread: the adjoint round
+//                          g_ef[b, e, t] = c[b, e] + lam_next[b, dst_e, t]
 //                          lam[b, u, t]  = sum over out-edges p * g_ef
 //                          g_p[e, t]    += sum_b x_r[b, u, t] * g_ef
 //                        (lam_next null stands for lam_R = 0; `first` sets
@@ -58,6 +61,20 @@
 // every gather of a row is coalesced; one thread handles all scenarios
 // (chunks of kB), so p is read once per round, not B times; nothing scatters,
 // so no atomics and no nondeterministic order.
+//
+// The adjoint round, measured at 3,956 nodes, 63,840 edges and B = 4 on an
+// H100 by timing variants of the one-thread-per-column round that divided
+// per column, each with one cost taken out: the division cost 0.5 ms of
+// 4.15, the lam_next gather 1.1 ms, g_p's read 0.7 ms; ordering the grid
+// node-fastest made it 0.5 ms slower (the node order of a Clos keeps a
+// pod's rows together, so column chunks fastest already share the gathered
+// rows in L2). So the scale is hoisted into one launch per backward (the same
+// __fdiv_rn on the same operands: the values do not change by a bit), a
+// block stages its node's out-edges in shared memory, a thread moves 4
+// columns with 16-byte loads, and the column chunks stay fastest.
+// Each (u, t) sums over out-edges in out_perm order and over b in order with
+// the same round-to-nearest intrinsics, so a round equals the one-thread-
+// per-column round bit for bit.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -69,6 +86,8 @@ constexpr float kFInf = 1.0e9f;
 constexpr int kThreads = 256;
 constexpr int kMaxN = 65535;
 constexpr int kB = 4;  // scenarios per pass of a thread
+constexpr int kCols = 4 * kThreads;  // columns of an adjoint-round block
+constexpr int kStage = 128;  // out-edges an adjoint-round block stages
 
 __device__ __forceinline__ float gate_score(float we_e, bool up_e,
                                            float d_dst, float d_src,
@@ -180,48 +199,138 @@ __global__ void __launch_bounds__(kThreads) soft_flow_util_kernel(
   }
 }
 
+// K17's adjoint round. A block owns one node u and kCols consecutive
+// columns, 4 a thread: 16-byte loads and stores along t where n is a
+// multiple of 4 and the rows are 16-byte aligned (kVec), else columns
+// kThreads apart. u's out-edges are staged in shared memory kStage at a
+// time (the row offsets of p and g_p, of lam_next's gathered row, and the
+// scale c[b, e]), so no thread chases out_perm -> e -> dst per edge. g_p
+// is read again after its own write when nb > kB: the helpers take plain
+// pointers, so its loads are not read-only-cache loads.
+template <bool kVec>
+__device__ __forceinline__ void load4(const float* row, int c0, int n,
+                                      float (&v)[4]) {
+  if (kVec) {
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (c0 < n) x = *reinterpret_cast<const float4*>(row + c0);
+    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int t = c0 + q * kThreads;
+      v[q] = t < n ? row[t] : 0.f;
+    }
+  }
+}
+
+template <bool kVec>
+__device__ __forceinline__ void store4(float* row, int c0, int n,
+                                       const float (&v)[4]) {
+  if (kVec) {
+    if (c0 < n) {
+      *reinterpret_cast<float4*>(row + c0) =
+          make_float4(v[0], v[1], v[2], v[3]);
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int t = c0 + q * kThreads;
+      if (t < n) row[t] = v[q];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) soft_flow_bwd_scale_kernel(
+    const float* __restrict__ g_util, const float* __restrict__ caps,
+    float* __restrict__ c, int e_count, int total) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= total) return;
+  c[i] = __fdiv_rn(g_util[i], fmaxf(caps[i % e_count], 1e-9f));
+}
+
+template <bool kVec>
 __global__ void __launch_bounds__(kThreads) soft_flow_bwd_round_kernel(
-    const float* __restrict__ p, const float* __restrict__ g_util,
-    const float* __restrict__ caps, const float* __restrict__ lam_next,
-    const float* __restrict__ x_r, float* __restrict__ g_p,
-    float* __restrict__ lam, const int32_t* __restrict__ dst,
-    const int32_t* __restrict__ out_ptr, const int32_t* __restrict__ out_perm,
-    int n, int e_count, int nb, int first) {
+    const float* __restrict__ p, const float* __restrict__ c,
+    const float* __restrict__ lam_next, const float* __restrict__ x_r,
+    float* __restrict__ g_p, float* __restrict__ lam,
+    const int32_t* __restrict__ dst, const int32_t* __restrict__ out_ptr,
+    const int32_t* __restrict__ out_perm, int n, int e_count, int nb,
+    int first) {
+  __shared__ long long s_row[kStage];  // e * n: p's and g_p's row
+  __shared__ long long s_dst[kStage];  // dst_e * n: lam_next's row
+  __shared__ float s_c[kB][kStage];
   const int u = blockIdx.y;
-  const int t = blockIdx.x * kThreads + threadIdx.x;
-  if (t >= n) return;
+  const int c0 = blockIdx.x * kCols + (kVec ? 4 * threadIdx.x : threadIdx.x);
   const long long nn = (long long)n * n;
-  const long long ut = (long long)u * n + t;
+  const long long un = (long long)u * n;
   const int beg = out_ptr[u];
   const int end = out_ptr[u + 1];
   for (int b0 = 0; b0 < nb; b0 += kB) {
     const int nbk = min(kB, nb - b0);
-    float xr[kB];
-    float acc[kB] = {0.f, 0.f, 0.f, 0.f};
+    const bool set = first && b0 == 0;
+    float xr[kB][4], acc[kB][4];
 #pragma unroll
-    for (int j = 0; j < kB; ++j) xr[j] = j < nbk ? x_r[(b0 + j) * nn + ut] : 0.f;
-    for (int k = beg; k < end; ++k) {
-      const int e = out_perm[k];
-      const float pe = p[(long long)e * n + t];
-      const float cap = fmaxf(caps[e], 1e-9f);
-      const long long wt = (long long)dst[e] * n + t;
-      float gp = 0.f;
+    for (int j = 0; j < kB; ++j) {
+      if (j < nbk) {
+        load4<kVec>(x_r + (b0 + j) * nn + un, c0, n, xr[j]);
+      } else {
 #pragma unroll
-      for (int j = 0; j < kB; ++j) {
-        if (j < nbk) {
-          const int b = b0 + j;
-          float g = __fdiv_rn(g_util[(long long)b * e_count + e], cap);
-          if (lam_next != nullptr) g = __fadd_rn(g, lam_next[b * nn + wt]);
-          acc[j] = __fadd_rn(acc[j], __fmul_rn(pe, g));
-          gp = __fadd_rn(gp, __fmul_rn(xr[j], g));
+        for (int q = 0; q < 4; ++q) xr[j][q] = 0.f;
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
+    }
+    for (int k0 = beg; k0 < end; k0 += kStage) {
+      const int m = min(kStage, end - k0);
+      __syncthreads();  // the previous stage has been read
+      for (int i = threadIdx.x; i < m; i += kThreads) {
+        const int e = out_perm[k0 + i];
+        s_row[i] = (long long)e * n;
+        s_dst[i] = (long long)dst[e] * n;
+#pragma unroll
+        for (int j = 0; j < kB; ++j) {
+          s_c[j][i] = j < nbk ? c[(long long)(b0 + j) * e_count + e] : 0.f;
         }
       }
-      const long long i = (long long)e * n + t;
-      g_p[i] = (first && b0 == 0) ? gp : __fadd_rn(g_p[i], gp);
+      __syncthreads();
+      for (int i = 0; i < m; ++i) {
+        float pe[4];
+        float gp[4] = {0.f, 0.f, 0.f, 0.f};
+        load4<kVec>(p + s_row[i], c0, n, pe);
+#pragma unroll
+        for (int j = 0; j < kB; ++j) {
+          if (j < nbk) {
+            const float cj = s_c[j][i];
+            float g[4];
+            if (lam_next != nullptr) {
+              load4<kVec>(lam_next + (b0 + j) * nn + s_dst[i], c0, n,
+                                 g);
+#pragma unroll
+              for (int q = 0; q < 4; ++q) g[q] = __fadd_rn(cj, g[q]);
+            } else {
+#pragma unroll
+              for (int q = 0; q < 4; ++q) g[q] = cj;
+            }
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              acc[j][q] = __fadd_rn(acc[j][q], __fmul_rn(pe[q], g[q]));
+              gp[q] = __fadd_rn(gp[q], __fmul_rn(xr[j][q], g[q]));
+            }
+          }
+        }
+        float* row = g_p + s_row[i];
+        if (!set) {
+          float old[4];
+          load4<kVec>(row, c0, n, old);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) gp[q] = __fadd_rn(old[q], gp[q]);
+        }
+        store4<kVec>(row, c0, n, gp);
+      }
     }
 #pragma unroll
     for (int j = 0; j < kB; ++j) {
-      if (j < nbk) lam[(b0 + j) * nn + ut] = acc[j];
+      if (j < nbk) store4<kVec>(lam + (b0 + j) * nn + un, c0, n, acc[j]);
     }
   }
 }
@@ -304,6 +413,8 @@ bool bad_n(int n) { return n < 1 || n > kMaxN; }
 
 dim3 rows_grid(int n) { return dim3((n + kThreads - 1) / kThreads, n); }
 
+bool aligned16(const void* ptr) { return ((uintptr_t)ptr & 15) == 0; }
+
 }  // namespace
 
 extern "C" int soft_gate(const void* d, const void* we, const void* up,
@@ -342,19 +453,41 @@ extern "C" int soft_flow_util(const void* p, const void* xsum,
   return (int)cudaGetLastError();
 }
 
-extern "C" int soft_flow_bwd_round(const void* p, const void* g_util,
-                                   const void* caps, const void* lam_next,
-                                   const void* x_r, void* g_p, void* lam,
-                                   const void* dst, const void* out_ptr,
-                                   const void* out_perm, int n, int e, int nb,
-                                   int first, void* stream) {
-  if (bad_n(n) || nb < 1) return (int)cudaErrorInvalidValue;
-  soft_flow_bwd_round_kernel<<<rows_grid(n), kThreads, 0,
+extern "C" int soft_flow_bwd_scale(const void* g_util, const void* caps,
+                                   void* c, int e, int nb, void* stream) {
+  if (nb < 1 || e < 0 || (long long)nb * e > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  if (e == 0) return 0;
+  const int total = nb * e;
+  soft_flow_bwd_scale_kernel<<<(total + kThreads - 1) / kThreads, kThreads, 0,
                                (cudaStream_t)stream>>>(
-      (const float*)p, (const float*)g_util, (const float*)caps,
-      (const float*)lam_next, (const float*)x_r, (float*)g_p, (float*)lam,
-      (const int32_t*)dst, (const int32_t*)out_ptr, (const int32_t*)out_perm,
-      n, e, nb, first);
+      (const float*)g_util, (const float*)caps, (float*)c, e, total);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int soft_flow_bwd_round(const void* p, const void* c,
+                                   const void* lam_next, const void* x_r,
+                                   void* g_p, void* lam, const void* dst,
+                                   const void* out_ptr, const void* out_perm,
+                                   int n, int e, int nb, int first,
+                                   void* stream) {
+  if (bad_n(n) || nb < 1) return (int)cudaErrorInvalidValue;
+  const bool vec = n % 4 == 0 && aligned16(p) && aligned16(x_r) &&
+                   aligned16(g_p) && aligned16(lam) &&
+                   (lam_next == nullptr || aligned16(lam_next));
+  const dim3 grid((n + kCols - 1) / kCols, n);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (vec) {
+    soft_flow_bwd_round_kernel<true><<<grid, kThreads, 0, st>>>(
+        (const float*)p, (const float*)c, (const float*)lam_next,
+        (const float*)x_r, (float*)g_p, (float*)lam, (const int32_t*)dst,
+        (const int32_t*)out_ptr, (const int32_t*)out_perm, n, e, nb, first);
+  } else {
+    soft_flow_bwd_round_kernel<false><<<grid, kThreads, 0, st>>>(
+        (const float*)p, (const float*)c, (const float*)lam_next,
+        (const float*)x_r, (float*)g_p, (float*)lam, (const int32_t*)dst,
+        (const int32_t*)out_ptr, (const int32_t*)out_perm, n, e, nb, first);
+  }
   return (int)cudaGetLastError();
 }
 

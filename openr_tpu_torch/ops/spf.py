@@ -607,26 +607,40 @@ def _sell_apply_patches(
     copy of every bucket per event. A patch whose row or slot lies outside
     its bucket is dropped, as JAX's mode="drop" does: padding rows carry
     PATCH_PAD (the host never sends a negative index or two patches for one
-    slot)."""
+    slot). On the card one launch patches every bucket."""
     dev = patch_idx.device
     _check("patch_idx", patch_idx, torch.int32, 3, dev)
     _check("patch_vals", patch_vals, torch.int32, 2, dev)
     b, p, two = patch_idx.shape
     if two != 2 or tuple(patch_vals.shape) != (b, p) or b != len(wgs):
         raise ValueError("patch_idx/patch_vals do not match the buckets")
-    for k, wg_k in enumerate(wgs):
-        _check(f"wgs[{k}]", wg_k, torch.int32, 2, dev)
+    table = _patch_table(wgs, dev)
     if dev.type != "cuda":
         return _sell_apply_patches_plain(wgs, patch_idx, patch_vals)
-    for k, wg_k in enumerate(wgs):
-        nk, dk = wg_k.shape
-        if p and nk * dk:
-            SELL_PATCH.launch(
-                dev,
-                wg_k.data_ptr(), patch_idx[k].data_ptr(),
-                patch_vals[k].data_ptr(), p, nk, dk,
-            )
+    if p and b:
+        SELL_PATCH.launch(
+            dev, patch_idx.data_ptr(), patch_vals.data_ptr(),
+            table.ctypes.data, b, p,
+        )
     return tuple(wgs)
+
+
+_PATCH_BUCKETS = 64  # sell_patch.cu kMaxBuckets: the layout has at most 44
+
+
+def _patch_table(wgs: Sequence[torch.Tensor], dev) -> np.ndarray:
+    """K4's host table, int64 [nb, 4]: row k is (wgs[k]'s data pointer, nk,
+    dk, 0), which sell_patch.cu copies into its kernel parameter. Checks
+    every bucket in the same one pass; raises above _PATCH_BUCKETS."""
+    if len(wgs) > _PATCH_BUCKETS:
+        raise ValueError(
+            f"K4 takes at most {_PATCH_BUCKETS} buckets, got {len(wgs)}"
+        )
+    rows = []
+    for k, wg_k in enumerate(wgs):
+        _check(f"wgs[{k}]", wg_k, torch.int32, 2, dev)
+        rows.append((wg_k.data_ptr(), *wg_k.shape, 0))
+    return np.array(rows, dtype=np.int64).reshape(len(wgs), 4)
 
 
 def sell_patch_arrays(

@@ -13,7 +13,8 @@ utilization. Five hand-written CUDA kernels carry it (ops/csrc/):
   K15 softmin_round_bwd  its backward: g_new -> (g_prev, g_we)
   K16 soft_flow          the gate (p, once per step), a flow round for all
                          scenarios, and the utilization
-  K17 soft_flow_bwd      the adjoint flow round, and the gate's backward
+  K17 soft_flow_bwd      the adjoint rounds' scale (once per backward),
+                         the adjoint flow round, and the gate's backward
                          down to (g_D, g_we)
   K18 te_step            the logsumexp MLU with its masked mean, its
                          gradient seed, and the Adam update
@@ -285,6 +286,20 @@ def _soft_flow_bwd_round_plain(p, g_util, caps, lam_next, x_r, g_p,
     return _seg_sum(p[None] * g_ef, src, graph.n, dim=1)
 
 
+def _soft_flow_bwd_scale_plain(g_util, caps) -> torch.Tensor:
+    """K17 scale's plain version: c [B, E] = g_util / max(caps, 1e-9)."""
+    return g_util / caps.clamp_min(1e-9)
+
+
+def _soft_flow_adjoint_round_plain(p, c, lam_next, x_r, g_p,
+                                   graph: TeGraph, first: bool):
+    """K17 round's plain version with the scale c [B, E] given: the round
+    of `_soft_flow_bwd_round_plain` with g_util = c over unit capacities (c
+    / 1 is c exactly)."""
+    return _soft_flow_bwd_round_plain(p, c, torch.ones_like(c[0]), lam_next,
+                                      x_r, g_p, graph, first)
+
+
 def _soft_gate_bwd_plain(g_p, d, we, up, graph: TeGraph, tau: float):
     """K17 gate's plain version: (g_d [N, N], g_we [E]) from g_p [E, N].
     The softmax-ratio rule g_score = (g_p - sum g_p p) / denom where denom >
@@ -469,35 +484,62 @@ def soft_flow_util(p, xsum, caps, graph: TeGraph) -> torch.Tensor:
     return util
 
 
-def soft_flow_bwd_round(p, g_util, caps, lam_next, x_r, g_p,
-                        graph: TeGraph, first: bool) -> torch.Tensor:
-    """One adjoint flow round (K17): returns lam [B, N, N]; g_p [E, N] is
-    set (`first`) or added to in place. lam_next None stands for 0."""
+def soft_flow_bwd_scale(g_util, caps) -> torch.Tensor:
+    """The adjoint rounds' scale (K17), once per backward: c [B, E] =
+    g_util / max(caps, 1e-9)."""
+    dev = g_util.device
+    _check("g_util", g_util, torch.float32, 2, dev)
+    b, e = g_util.shape
+    _check_edges("caps", caps, e, torch.float32, dev)
+    if dev.type != "cuda":
+        return _soft_flow_bwd_scale_plain(g_util, caps)
+    c = torch.empty_like(g_util)
+    SOFT_FLOW_BWD.launch(dev, g_util.data_ptr(), caps.data_ptr(),
+                         c.data_ptr(), e, b, entry="soft_flow_bwd_scale")
+    return c
+
+
+def soft_flow_adjoint_round(p, c, lam_next, x_r, g_p, graph: TeGraph,
+                            first: bool) -> torch.Tensor:
+    """One adjoint flow round (K17) with the scale c [B, E] of
+    `soft_flow_bwd_scale`: returns lam [B, N, N]; g_p [E, N] is set
+    (`first`) or added to in place. lam_next None stands for 0."""
     dev = p.device
     _check_graph(graph, dev)
     _check("p", p, torch.float32, 2, dev)
     _check("g_p", g_p, torch.float32, 2, dev)
+    if p.shape != (graph.e, graph.n) or g_p.shape != p.shape:
+        raise ValueError(f"p and g_p must be [{graph.e}, {graph.n}]")
     b = _check_batch("x_r", x_r, graph.n, dev)
     if lam_next is not None and _check_batch(
             "lam_next", lam_next, graph.n, dev) != b:
         raise ValueError("lam_next and x_r differ in scenarios")
-    _check("g_util", g_util, torch.float32, 2, dev)
-    if g_util.shape != (b, graph.e):
-        raise ValueError(f"g_util must be [{b}, {graph.e}]")
-    _check_edges("caps", caps, graph.e, torch.float32, dev)
+    _check("c", c, torch.float32, 2, dev)
+    if c.shape != (b, graph.e):
+        raise ValueError(f"c must be [{b}, {graph.e}]")
     if dev.type != "cuda":
-        return _soft_flow_bwd_round_plain(p, g_util, caps, lam_next, x_r,
-                                          g_p, graph, first)
+        return _soft_flow_adjoint_round_plain(p, c, lam_next, x_r, g_p,
+                                              graph, first)
     lam = torch.empty_like(x_r)
     SOFT_FLOW_BWD.launch(
         dev,
-        p.data_ptr(), g_util.data_ptr(), caps.data_ptr(),
+        p.data_ptr(), c.data_ptr(),
         lam_next.data_ptr() if lam_next is not None else None,
         x_r.data_ptr(), g_p.data_ptr(), lam.data_ptr(), graph.dst.data_ptr(),
         graph.out_ptr.data_ptr(), graph.out_perm.data_ptr(), graph.n,
         graph.e, b, int(first), entry="soft_flow_bwd_round",
     )
     return lam
+
+
+def soft_flow_bwd_round(p, g_util, caps, lam_next, x_r, g_p,
+                        graph: TeGraph, first: bool) -> torch.Tensor:
+    """One adjoint flow round (K17) from g_util and caps: the scale, then
+    the round (two launches on the card; `SoftFlow` takes the scale once per
+    backward). Returns lam [B, N, N]; g_p [E, N] is set (`first`) or added
+    to in place. lam_next None stands for 0."""
+    return soft_flow_adjoint_round(p, soft_flow_bwd_scale(g_util, caps),
+                                   lam_next, x_r, g_p, graph, first)
 
 
 def soft_gate_bwd(g_p, d, we, up, graph: TeGraph, tau: float):
@@ -658,7 +700,7 @@ class SoftFlow(torch.autograd.Function):
     def backward(ctx, g_util):
         d, we, up, caps, p, *kept = ctx.saved_tensors
         graph, rounds = ctx.graph, ctx.rounds
-        g_util = g_util.contiguous()
+        c = soft_flow_bwd_scale(g_util.contiguous(), caps)
         g_p = torch.empty_like(p)
         lam = None
         for k in reversed(range(len(kept))):
@@ -666,8 +708,8 @@ class SoftFlow(torch.autograd.Function):
             count = min(FLOW_CHECKPOINT, rounds - r0)
             xs = _flow_rounds(p, kept[k], None, graph, count - 1)
             for j in reversed(range(count)):
-                lam = soft_flow_bwd_round(p, g_util, caps, lam, xs[j], g_p,
-                                          graph, first=r0 + j == rounds - 1)
+                lam = soft_flow_adjoint_round(p, c, lam, xs[j], g_p, graph,
+                                              first=r0 + j == rounds - 1)
             del xs
         g_d, g_we = soft_gate_bwd(g_p, d, we, up, graph, ctx.tau)
         return g_d, g_we, None, None, None, None, None, None

@@ -213,13 +213,75 @@ def test_sell_patch_kernel_equals_plain(dev, name):
     before = _cuda.SELL_PATCH.launches
     spf._sell_apply_patches(wk, torch.as_tensor(idx, device=dev),
                             torch.as_tensor(vals, device=dev))
-    assert _cuda.SELL_PATCH.launches - before == len(wk)
+    assert _cuda.SELL_PATCH.launches - before == 1
     spf._sell_apply_patches_plain(wp, torch.as_tensor(idx, device=dev),
                                   torch.as_tensor(vals, device=dev))
     torch.cuda.synchronize()
     for a, b, want in zip(wk, wp, g.sell.patched_wg(w_new[: g.e])):
         assert torch.equal(a, b)
         assert np.array_equal(a.cpu().numpy(), want)
+
+
+PATCH_CASES = {
+    "three_buckets": ([(50, 4), (20, 8), (3, 32)], 64),
+    "64_buckets": ([(1 + k % 37, 1 + k % 9) for k in range(64)], 64),
+    "empty_buckets": ([(10, 4), (0, 8), (5, 0), (7, 3)], 16),
+    "no_patches": ([(10, 4), (6, 2)], 0),
+    "wide_list": ([(100, 4), (30, 16)], 200),
+}
+
+
+def patch_case(shapes, p, seed):
+    """Buckets of the given (nk, dk) shapes with seeded weights, and [nb, p]
+    patch lists: distinct in-range slots in each bucket, then a row out of
+    range, a slot out of range and both (dropped), then PATCH_PAD rows."""
+    rng = np.random.default_rng(seed)
+    wgs = [rng.integers(1, 100, size=s, dtype=np.int32) for s in shapes]
+    idx = np.full((len(shapes), p, 2), spf.PATCH_PAD, dtype=np.int32)
+    vals = rng.integers(100, 200, size=(len(shapes), p), dtype=np.int32)
+    for k, (nk, dk) in enumerate(shapes):
+        slots = rng.permutation(nk * dk)[: p // 2]
+        rows = [(q // dk, q % dk) for q in slots]
+        rows += [(nk, 0), (0, dk), (nk + 7, dk + 3)]
+        rows = rows[:p]
+        if rows:
+            idx[k, : len(rows)] = rows
+    return wgs, idx, vals
+
+
+@pytest.mark.parametrize("case", sorted(PATCH_CASES))
+def test_sell_patch_kernel_cases(dev, case):
+    """K4 patches every bucket in one launch (none without patches),
+    bit for bit as its plain version: up to 64 buckets, empty buckets,
+    rows and slots out of range in every bucket, lists wider than a
+    block."""
+    shapes, p = PATCH_CASES[case]
+    wgs, idx, vals = patch_case(shapes, p, seed=len(shapes) + p)
+    idx_t = torch.as_tensor(idx, device=dev)
+    vals_t = torch.as_tensor(vals, device=dev)
+    wk = tuple(torch.as_tensor(w, device=dev) for w in wgs)
+    wp = tuple(torch.as_tensor(w, device=dev) for w in wgs)
+    before = _cuda.SELL_PATCH.launches
+    out = spf._sell_apply_patches(wk, idx_t, vals_t)
+    assert _cuda.SELL_PATCH.launches - before == (1 if p else 0)
+    spf._sell_apply_patches_plain(wp, idx_t, vals_t)
+    torch.cuda.synchronize()
+    changed = 0
+    for a, b, w, o in zip(wk, wp, wgs, out):
+        assert o is a and torch.equal(a, b)
+        changed += int((a.cpu().numpy() != w).sum())
+    assert changed > 0 or p == 0
+
+
+def test_sell_patch_kernel_refuses_65_buckets(dev):
+    wgs, idx, vals = patch_case([(4, 2)] * 65, 8, 0)
+    before = _cuda.SELL_PATCH.launches
+    with pytest.raises(ValueError, match="at most 64 buckets"):
+        spf._sell_apply_patches(
+            tuple(torch.as_tensor(w, device=dev) for w in wgs),
+            torch.as_tensor(idx, device=dev),
+            torch.as_tensor(vals, device=dev))
+    assert _cuda.SELL_PATCH.launches == before
 
 
 @pytest.mark.parametrize("name", sell_graphs())
@@ -974,6 +1036,112 @@ def test_soft_flow_kernels_equal_plain(dev, name, tau, b):
     g_d_p, g_we_p = tk._soft_gate_bwd_plain(g_p_p, d, we, up, graph, tau)
     torch.cuda.synchronize()
     assert rel_err(g_d, g_d_p) <= 1e-5 and rel_err(g_we, g_we_p) <= 1e-5
+
+
+ADJOINT_CASES = {
+    # name: (n, scenarios, out-edges of the hub node 0, misaligned rows)
+    "n1_b1": (1, 1, 0, False),
+    "n3_b3": (3, 3, 150, False),
+    "n37_b5": (37, 5, 150, False),
+    "n256_b4": (256, 4, 150, False),
+    "n256_b4_misaligned": (256, 4, 150, True),
+    "n1028_b6": (1028, 6, 300, False),
+    "n1030_b4": (1030, 4, 150, False),
+}
+
+
+def adjoint_case(dev, n, b, hub, misaligned, seed=0):
+    """A seeded TE graph on n nodes (1 to 3 out-edges a node, node n - 1
+    without any where n > 1, the hub node 0 with `hub` more, repeats
+    allowed, edge order shuffled; n = 1 has one self-loop) and the adjoint
+    round's inputs. With `misaligned`, x_r and lam_next start 4 bytes into
+    their buffers, so no row is 16-byte aligned."""
+    from openr_tpu_torch.convert import te_graph
+
+    rng = np.random.default_rng(seed)
+    pairs = [(0, 0)] if n == 1 else []
+    for u in range(n - 1):
+        pairs += [(u, int(v)) for v in rng.integers(0, n, rng.integers(1, 4))]
+    pairs += [(0, int(v)) for v in rng.integers(0, n, hub)]
+    pairs = np.array(pairs)[rng.permutation(len(pairs))]
+    graph = te_graph(pairs[:, 0], pairs[:, 1], n, dev)
+    e = graph.e
+    gen = torch.Generator(dev).manual_seed(seed)
+
+    def batch(t):
+        if not misaligned:
+            return t
+        out = torch.empty(t.numel() + 1, device=dev)[1:].view(t.shape)
+        return out.copy_(t)
+
+    p = torch.rand((e, n), device=dev, generator=gen)
+    p[p < 0.2] = 0.0
+    x_r = torch.rand((b, n, n), device=dev, generator=gen)
+    lam_next = torch.randn((b, n, n), device=dev, generator=gen)
+    return {
+        "graph": graph, "p": p, "x_r": batch(x_r),
+        "lam_next": batch(lam_next),
+        "g_util": torch.randn((b, e), device=dev, generator=gen),
+        "caps": torch.rand(e, device=dev, generator=gen) * 1.5 + 0.5,
+        "g_p": torch.randn((e, n), device=dev, generator=gen),
+    }
+
+
+@pytest.mark.parametrize("lam_given", [False, True],
+                         ids=["lam_none", "lam_next"])
+@pytest.mark.parametrize("first", [True, False])
+@pytest.mark.parametrize("case", sorted(ADJOINT_CASES))
+def test_adjoint_round_kernel_cases(dev, case, first, lam_given):
+    """K17's adjoint round against its plain version within 1e-5 of the
+    largest magnitude: widths 1, 3, 37 and 1,030 (the scalar path) and 256
+    and 1,028 (16-byte rows), misaligned rows, 1 to 6 scenarios (a second
+    pass at 5 and 6), a node without out-edges, a hub staged in two or
+    three passes (128 out-edges a pass), g_p set or added to, lam_next
+    given or 0. Two launches a call (scale and round); the round alone
+    with the scale given is one, with the same bits."""
+    from openr_tpu_torch.te import kernels as tk
+
+    n, b, hub, misaligned = ADJOINT_CASES[case]
+    a = adjoint_case(dev, n, b, hub, misaligned)
+    graph, lam_next = a["graph"], a["lam_next"] if lam_given else None
+    g_p, g_p_p = a["g_p"].clone(), a["g_p"].clone()
+    before = _cuda.SOFT_FLOW_BWD.launches
+    lam = tk.soft_flow_bwd_round(a["p"], a["g_util"], a["caps"], lam_next,
+                                 a["x_r"], g_p, graph, first)
+    assert _cuda.SOFT_FLOW_BWD.launches - before == 2
+    lam_p = tk._soft_flow_bwd_round_plain(a["p"], a["g_util"], a["caps"],
+                                          lam_next, a["x_r"], g_p_p, graph,
+                                          first)
+    torch.cuda.synchronize()
+    assert rel_err(lam, lam_p) <= 1e-5 and rel_err(g_p, g_p_p) <= 1e-5
+    c = tk.soft_flow_bwd_scale(a["g_util"], a["caps"])
+    assert torch.equal(c, a["g_util"] / a["caps"].clamp_min(1e-9))
+    g_p2 = a["g_p"].clone()
+    before = _cuda.SOFT_FLOW_BWD.launches
+    lam2 = tk.soft_flow_adjoint_round(a["p"], c, lam_next, a["x_r"], g_p2,
+                                      graph, first)
+    assert _cuda.SOFT_FLOW_BWD.launches - before == 1
+    assert torch.equal(lam2, lam) and torch.equal(g_p2, g_p)
+
+
+@pytest.mark.parametrize("n", [256, 1028])
+def test_adjoint_round_paths_agree_bit_for_bit(dev, n):
+    """The 16-byte path and the scalar path (taken for misaligned rows) of
+    K17's adjoint round sum in the same order: equal bits."""
+    from openr_tpu_torch.te import kernels as tk
+
+    a = adjoint_case(dev, n, 4, 150, False)
+    m = adjoint_case(dev, n, 4, 150, True)
+    assert torch.equal(a["x_r"], m["x_r"]) and m["x_r"].data_ptr() % 16
+    outs = []
+    for case in (a, m):
+        g_p = case["g_p"].clone()
+        lam = tk.soft_flow_bwd_round(case["p"], case["g_util"], case["caps"],
+                                     case["lam_next"], case["x_r"], g_p,
+                                     case["graph"], False)
+        outs.append((lam, g_p))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
 
 
 def inp_rounds(name):

@@ -316,6 +316,69 @@ def test_soft_flow_backward_matches_autograd(topo, tau):
     assert rel_err(g_we2.numpy(), g_we.numpy()) <= 1e-5
 
 
+@pytest.mark.parametrize("first", [True, False])
+@pytest.mark.parametrize("lam_given", [False, True],
+                         ids=["lam_none", "lam_next"])
+def test_the_hoisted_scale_gives_the_adjoint_round_bit_for_bit(first,
+                                                             lam_given):
+    """K17's scale taken once (`soft_flow_bwd_scale`, then
+    `soft_flow_adjoint_round`) against the round that divides g_util by
+    the capacities itself (`_soft_flow_bwd_round_plain`): the same lam and
+    g_p bit for bit, and so through the public round's CPU path."""
+    n, graph, _, _, _ = mid_anneal(TOPOLOGIES[0].values[0], 0.5)
+    rng = np.random.default_rng(9)
+    b = 5
+
+    def f32(*shape, lo=None):
+        a = (rng.uniform(lo, 2, shape) if lo is not None
+             else rng.standard_normal(shape))
+        return torch.tensor(a, dtype=torch.float32)
+
+    p, x_r = f32(graph.e, n, lo=0), f32(b, n, n, lo=0)
+    g_util, caps = f32(b, graph.e), f32(graph.e, lo=0.5)
+    caps[0] = 0.0  # the clamp to 1e-9
+    lam_next = f32(b, n, n) if lam_given else None
+    g_p0 = f32(graph.e, n)
+    c = tk.soft_flow_bwd_scale(g_util, caps)
+    assert torch.equal(c, g_util / caps.clamp_min(1e-9))
+    runs = []
+    for fn, args in (
+            (tk._soft_flow_bwd_round_plain, (p, g_util, caps)),
+            (tk.soft_flow_adjoint_round, (p, c)),
+            (tk.soft_flow_bwd_round, (p, g_util, caps))):
+        g_p = g_p0.clone()
+        lam = fn(*args, lam_next, x_r, g_p, graph, first)
+        runs.append((lam, g_p))
+    for lam, g_p in runs[1:]:
+        assert torch.equal(lam, runs[0][0]) and torch.equal(g_p, runs[0][1])
+
+
+def test_soft_flow_backward_equals_the_per_round_division():
+    """SoftFlow's backward (the scale once, then the adjoint rounds over
+    recomputed flows) against the loop it replaced, every round dividing
+    g_util by the capacities: the same g_D and g_we bit for bit."""
+    n, graph, we, up_t, d = mid_anneal(TOPOLOGIES[0].values[0], 0.5, 6)
+    rng = np.random.default_rng(10)
+    dem = torch.tensor(rng.uniform(0, 2, (3, n, n)), dtype=torch.float32)
+    caps = torch.tensor(rng.uniform(0.5, 2, graph.e), dtype=torch.float32)
+    g_util = torch.tensor(rng.standard_normal((3, graph.e)),
+                          dtype=torch.float32)
+    rounds, tau = 7, 0.5
+    d_k, we_k = d.clone().requires_grad_(True), we.clone().requires_grad_(True)
+    util = tk.SoftFlow.apply(d_k, we_k, up_t, dem, caps, graph, tau, rounds)
+    got = torch.autograd.grad(util, (d_k, we_k), g_util)
+    p = tk._soft_gate_plain(d, we, up_t, graph, tau)
+    xs = [dem.masked_fill(torch.eye(n, dtype=torch.bool), 0.0)]
+    for _ in range(rounds - 1):
+        xs.append(tk._soft_flow_round_plain(p, xs[-1], None, graph))
+    g_p, lam = torch.empty_like(p), None
+    for r in reversed(range(rounds)):
+        lam = tk._soft_flow_bwd_round_plain(p, g_util, caps, lam, xs[r], g_p,
+                                            graph, r == rounds - 1)
+    want = tk._soft_gate_bwd_plain(g_p, d, we, up_t, graph, tau)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 @pytest.mark.parametrize("checkpoint", [1, 3, 7, 9])
 def test_flow_checkpoints_do_not_change_the_gradient(monkeypatch, checkpoint):
     """SoftFlow keeps one flow in FLOW_CHECKPOINT and recomputes the rest:

@@ -304,6 +304,50 @@ def test_patches_out_of_range_are_dropped():
     np.testing.assert_array_equal(np.asarray(jw), wg.numpy())
 
 
+@pytest.mark.parametrize("name", ["grid4", "grid6", "wan", "clos"])
+def test_patch_table_drives_k4_like_the_plain_version(name):
+    """K4's host table has one row (data pointer, nk, dk, 0) per bucket, in
+    bucket order; and the plain version applies an event from
+    `sell_patch_arrays`, with a row and a slot out of range, as the JAX
+    package does."""
+    jg = jgraph.compile_edges(GRAPHS[name])
+    tg = graph_from_arrays(graph_arrays(jg))
+    rng = np.random.default_rng(len(name))
+    changed = rng.choice(tg.e, size=min(12, tg.e), replace=False)
+    w_new = tg.w.copy()
+    w_new[changed] += rng.integers(1, 9, size=len(changed))
+    idx, vals = tspf.sell_patch_arrays(tg.sell, changed, w_new, SLOTS)
+    idx[0, -1] = [tg.sell.nbr[0].shape[0] + 3, 0]  # row out of range
+    idx[-1, -1] = [0, tg.sell.nbr[-1].shape[1]]  # slot out of range
+    wgs = to_device(tg, CPU)["wgs"]
+    table = tspf._patch_table(wgs, CPU)
+    assert table.dtype == np.int64 and table.shape == (len(wgs), 4)
+    assert table.tolist() == [
+        [wg.data_ptr(), *wg.shape, 0] for wg in wgs
+    ]
+    plain = tspf._sell_apply_patches_plain(
+        tuple(wg.clone() for wg in wgs), t32(idx), t32(vals))
+    want = jspf._sell_apply_patches(
+        tuple(jnp.asarray(wg.numpy()) for wg in wgs), jnp.asarray(idx),
+        jnp.asarray(vals))
+    for got, ref in zip(plain, want):
+        np.testing.assert_array_equal(np.asarray(ref), got.numpy())
+
+
+def test_k4_takes_at_most_64_buckets():
+    """sell_patch.cu's table holds 64 buckets (the sliced layout has at most
+    44): the wrapper patches 64 and refuses 65, on the CPU as on the
+    card."""
+    wgs = tuple(t32([[k, k]]) for k in range(64))
+    idx = t32(np.zeros((64, 1, 2)))
+    tspf._sell_apply_patches(wgs, idx, t32(np.full((64, 1), 9)))
+    assert all(wg.tolist() == [[9, k]] for k, wg in enumerate(wgs))
+    with pytest.raises(ValueError, match="at most 64 buckets"):
+        tspf._sell_apply_patches(wgs + (t32([[0]]),),
+                                 t32(np.zeros((65, 1, 2))),
+                                 t32(np.zeros((65, 1))))
+
+
 def test_invalidation_seed_clips_rows_below_the_pad():
     """K5's seed clips a row or slot outside the bucket into it (only rows
     at or above 1 << 29 are padding), as the reference's seeding does,
