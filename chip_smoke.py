@@ -191,9 +191,11 @@ TE_CLOS_NODES = 3956
 TE_STEPS = 8
 TE_DEMANDS = 4096
 TE_CHAIN_PODS = 4
-# te_clos's last loss on an H100 80GB HBM3 with the earlier adjoint round
-# (one thread a column, dividing g_util by the capacity per column): the
-# redesigned round sums in the same order, so equal bits show it
+# te_clos's last loss on an H100 80GB HBM3 with the first designs of K15,
+# K16 and K17 (one thread a column; K17 divided g_util by the capacity per
+# column): the redesigned K15 (softmin backward), K16 (flow round) and
+# K17 (adjoint round) sum in the same orders, and K15's quotient by tau has
+# the correctly rounded bits, so equal bits show it
 LOSS_LAST_COLUMN_ROUND = 4.251302719116211
 TE_BORROW_PODS = 2
 # the multi-device layouts: a graph axis of 4 over the north-star WAN and
@@ -2089,6 +2091,15 @@ def main() -> int:
     te_cmp("K15", gk[0], gp[0])
     te_cmp("K15", gk[1], gp[1])
     del gk, gp
+    # K15 divides by tau through tau's reciprocal: at this run's
+    # temperatures, exp of that quotient has the bits of exp of the
+    # correctly rounded division at every exponent K15 can meet
+    div_taus = sorted({tk.f32(tau)} | {
+        tk.f32(teopt.anneal_tau(cfg, i, TE_STEPS)) for i in range(TE_STEPS)})
+    div_differ = {repr(t_): tk.softmin_div_check(t_, dev) for t_ in div_taus}
+    check(not any(div_differ.values()),
+          f"K15's quotient differs from the correctly rounded one: "
+          f"{div_differ}")
     p_k = tk.soft_gate(d_run, we, up_t, graph, tau)
     p_p = tk._soft_gate_plain(d_run, we, up_t, graph, tau)
     err16 = {"gate": te_cmp("K16", p_k, p_p)}
@@ -2302,6 +2313,7 @@ def main() -> int:
         "rounds": te_rounds, "steps": TE_STEPS,
         "setup_seconds": te_setup_s, "kernel_checks_seconds": te_checks_s,
         "max_rel_err": te_err, "max_abs_err": te_abs, "k16_rel_err": err16,
+        "k15_quotient_differ": div_differ,
         "k17_rel_err": err17,
         "seconds": te_solve_s, "step_ms": te_solve_s * 1e3 / TE_STEPS,
         "launches": te_launches, "launches_per_step": per_step,

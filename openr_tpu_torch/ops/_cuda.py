@@ -288,13 +288,22 @@ SOFTMIN_BWD = Kernel(
     "softmin_round_bwd",
     "te_softmin.cu",
     {
-        "softmin_bwd_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                             _I, _F],
-        "softmin_bwd_pull": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _F],
+        "softmin_bwd_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                             _F],
+        "softmin_bwd_pull": [_P, _P, _P, _P, _P, _P, _P, _I, _F],
         "softmin_bwd_edges": [_P, _P, _I, _I],
     },
     "openr_tpu/te/objective.py:72,94 _segment_softmin, "
     "_softmin_fixpoint_core (jax.grad)",
+)
+# not a kernel of the path: the check that K15's quotient by tau gives the
+# bits of the correctly rounded division (every exponent K15 can meet);
+# shares K14's and K15's library and counts its own launches
+SOFTMIN_DIV_CHECK = Kernel(
+    "softmin_div_check",
+    "te_softmin.cu",
+    {"softmin_div_check": [_F, _P]},
+    "none (a check of softmin_round_bwd's arithmetic)",
 )
 SOFT_FLOW = Kernel(
     "soft_flow",

@@ -23,9 +23,10 @@
 //
 //   soft_gate            K16, one thread per (u, t): denom, then p for each
 //                        out-edge (once per optimizer step)
-//   soft_flow_round      K16, one thread per (v, t), all B scenarios: the
-//                        pull x_{r+1}, and xsum += x_r (xsum may be null:
-//                        the backward's recomputation)
+//   soft_flow_round      K16, a block per (v, kCols columns), 4 columns a
+//                        thread, all B scenarios: the pull x_{r+1}, and
+//                        xsum += x_r (xsum may be null: the backward's
+//                        recomputation)
 //   soft_flow_util       K16, one block per edge: util[b, e]
 //   soft_flow_bwd_scale  K17, once per backward: c[b, e] = g_util[b, e]
 //                        / max(caps[e], 1e-9), the same correctly rounded
@@ -75,6 +76,25 @@
 // Each (u, t) sums over out-edges in out_perm order and over b in order with
 // the same round-to-nearest intrinsics, so a round equals the one-thread-
 // per-column round bit for bit.
+//
+// The flow round as first designed (one thread per (v, t), each thread
+// chasing in_perm -> e -> src_e, 4-byte loads) took 1.54-1.57 ms at 3,956
+// nodes, 63,840 edges and B = 4 on an H100, against a 0.601 ms bound.
+// Scratch variants of it, each with one cost taken out, timed on the card:
+// the gather of x[b, src_e, t] cost 0.25 ms (x read from v's own row
+// instead: 1.30); 4 columns a thread with 16-byte loads saved 0.18; staging
+// the in-edges in shared memory alone saved nothing (the chase hits L1);
+// the grid node-fastest cost 0.08 more. The redesign stages v's in-edges
+// (e * n, src_e * n) in shared memory, moves 4 columns a thread with
+// 16-byte loads of p's row and of x's gathered rows, and loads x without
+// waiting on p: 1.24 ms. Its own variants: column chunks fastest 1.27-1.29
+// (with 4 columns a thread, node-fastest now wins: one chunk of every
+// node's rows is in flight at once), skipping an edge whose 4 p values are
+// all 0 1.34 (te_clos has 0.05% zeros; the skip makes x's loads wait on
+// p's), __ldg loads 1.24, 128-thread blocks 1.26, the edge loop unrolled
+// twice 1.30. Each (v, t) still adds over in-edges in in_perm order, only
+// where p[e, t] is not 0, and over b in order: the bits of the first
+// design.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -86,8 +106,8 @@ constexpr float kFInf = 1.0e9f;
 constexpr int kThreads = 256;
 constexpr int kMaxN = 65535;
 constexpr int kB = 4;  // scenarios per pass of a thread
-constexpr int kCols = 4 * kThreads;  // columns of an adjoint-round block
-constexpr int kStage = 128;  // out-edges an adjoint-round block stages
+constexpr int kCols = 4 * kThreads;  // columns of a flow or adjoint block
+constexpr int kStage = 128;  // edges a flow- or adjoint-round block stages
 
 __device__ __forceinline__ float gate_score(float we_e, bool up_e,
                                            float d_dst, float d_src,
@@ -140,73 +160,12 @@ __global__ void __launch_bounds__(kThreads) soft_gate_kernel(
   }
 }
 
-__global__ void __launch_bounds__(kThreads) soft_flow_round_kernel(
-    const float* __restrict__ p, const float* __restrict__ x,
-    float* __restrict__ xsum, float* __restrict__ x_next,
-    const int32_t* __restrict__ src, const int32_t* __restrict__ in_ptr,
-    const int32_t* __restrict__ in_perm, int n, int nb) {
-  const int v = blockIdx.y;
-  const int t = blockIdx.x * kThreads + threadIdx.x;
-  if (t >= n) return;
-  const long long nn = (long long)n * n;
-  const long long vt = (long long)v * n + t;
-  const int beg = in_ptr[v];
-  const int end = in_ptr[v + 1];
-  for (int b0 = 0; b0 < nb; b0 += kB) {
-    const int nbk = min(kB, nb - b0);
-    float acc[kB] = {0.f, 0.f, 0.f, 0.f};
-    for (int k = beg; k < end; ++k) {
-      const int e = in_perm[k];
-      const float pe = p[(long long)e * n + t];
-      if (pe == 0.f) continue;
-      const long long ut = (long long)src[e] * n + t;
-#pragma unroll
-      for (int j = 0; j < kB; ++j) {
-        if (j < nbk) {
-          acc[j] = __fadd_rn(acc[j], __fmul_rn(pe, x[(b0 + j) * nn + ut]));
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kB; ++j) {
-      if (j < nbk) {
-        const long long i = (b0 + j) * nn + vt;
-        x_next[i] = acc[j];
-        if (xsum != nullptr) xsum[i] = __fadd_rn(xsum[i], x[i]);
-      }
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads) soft_flow_util_kernel(
-    const float* __restrict__ p, const float* __restrict__ xsum,
-    const float* __restrict__ caps, const int32_t* __restrict__ src,
-    float* __restrict__ util, int n, int e_count, int nb) {
-  __shared__ float red[kThreads / 32];
-  const int e = blockIdx.x;
-  const long long nn = (long long)n * n;
-  const float* pe = p + (long long)e * n;
-  const long long u_row = (long long)src[e] * n;
-  const float cap = fmaxf(caps[e], 1e-9f);
-  for (int b = 0; b < nb; ++b) {
-    const float* xs = xsum + b * nn + u_row;
-    float acc = 0.f;
-    for (int t = threadIdx.x; t < n; t += kThreads) {
-      acc = __fadd_rn(acc, __fmul_rn(pe[t], xs[t]));
-    }
-    acc = block_sum(acc, red);
-    if (threadIdx.x == 0) util[(long long)b * e_count + e] = __fdiv_rn(acc, cap);
-  }
-}
-
-// K17's adjoint round. A block owns one node u and kCols consecutive
-// columns, 4 a thread: 16-byte loads and stores along t where n is a
-// multiple of 4 and the rows are 16-byte aligned (kVec), else columns
-// kThreads apart. u's out-edges are staged in shared memory kStage at a
-// time (the row offsets of p and g_p, of lam_next's gathered row, and the
-// scale c[b, e]), so no thread chases out_perm -> e -> dst per edge. g_p
-// is read again after its own write when nb > kB: the helpers take plain
-// pointers, so its loads are not read-only-cache loads.
+// K16's flow round and K17's adjoint round: a block owns one node and
+// kCols consecutive columns, 4 a thread: 16-byte loads and stores along t
+// where n is a multiple of 4 and the rows are 16-byte aligned (kVec), else
+// columns kThreads apart. The helpers take plain pointers: K17 reads g_p
+// again after its own write when nb > kB, so its loads are not
+// read-only-cache loads.
 template <bool kVec>
 __device__ __forceinline__ void load4(const float* row, int c0, int n,
                                       float (&v)[4]) {
@@ -240,6 +199,102 @@ __device__ __forceinline__ void store4(float* row, int c0, int n,
   }
 }
 
+// K16's flow round. v's in-edges are staged in shared memory kStage at a
+// time (the row offsets of p and of x's gathered row); the grid runs node
+// fastest. A column adds only where its p is not 0, as the one-column
+// round did, so the bits are the same for every x, not only finite ones.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads) soft_flow_round_kernel(
+    const float* __restrict__ p, const float* __restrict__ x,
+    float* __restrict__ xsum, float* __restrict__ x_next,
+    const int32_t* __restrict__ src, const int32_t* __restrict__ in_ptr,
+    const int32_t* __restrict__ in_perm, int n, int nb) {
+  __shared__ long long s_row[kStage];  // e * n: p's row
+  __shared__ long long s_src[kStage];  // src_e * n: x's gathered row
+  const int v = blockIdx.x;
+  const int c0 = blockIdx.y * kCols + (kVec ? 4 * threadIdx.x : threadIdx.x);
+  const long long nn = (long long)n * n;
+  const long long vn = (long long)v * n;
+  const int beg = in_ptr[v];
+  const int end = in_ptr[v + 1];
+  int staged = -1;  // the first edge of the staged in-edges
+  for (int b0 = 0; b0 < nb; b0 += kB) {
+    const int nbk = min(kB, nb - b0);
+    float acc[kB][4];
+#pragma unroll
+    for (int j = 0; j < kB; ++j) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
+    }
+    for (int k0 = beg; k0 < end; k0 += kStage) {
+      const int m = min(kStage, end - k0);
+      if (k0 != staged) {
+        __syncthreads();  // the previous stage has been read
+        for (int i = threadIdx.x; i < m; i += kThreads) {
+          const int e = in_perm[k0 + i];
+          s_row[i] = (long long)e * n;
+          s_src[i] = (long long)src[e] * n;
+        }
+        __syncthreads();
+        staged = k0;
+      }
+      for (int i = 0; i < m; ++i) {
+        float pe[4];
+        load4<kVec>(p + s_row[i], c0, n, pe);
+#pragma unroll
+        for (int j = 0; j < kB; ++j) {
+          if (j < nbk) {
+            float xv[4];
+            load4<kVec>(x + (b0 + j) * nn + s_src[i], c0, n, xv);
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              if (pe[q] != 0.f) {
+                acc[j][q] = __fadd_rn(acc[j][q], __fmul_rn(pe[q], xv[q]));
+              }
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kB; ++j) {
+      if (j < nbk) {
+        const long long row = (b0 + j) * nn + vn;
+        store4<kVec>(x_next + row, c0, n, acc[j]);
+        if (xsum != nullptr) {
+          float xs[4], xv[4];
+          load4<kVec>(xsum + row, c0, n, xs);
+          load4<kVec>(x + row, c0, n, xv);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) xs[q] = __fadd_rn(xs[q], xv[q]);
+          store4<kVec>(xsum + row, c0, n, xs);
+        }
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) soft_flow_util_kernel(
+    const float* __restrict__ p, const float* __restrict__ xsum,
+    const float* __restrict__ caps, const int32_t* __restrict__ src,
+    float* __restrict__ util, int n, int e_count, int nb) {
+  __shared__ float red[kThreads / 32];
+  const int e = blockIdx.x;
+  const long long nn = (long long)n * n;
+  const float* pe = p + (long long)e * n;
+  const long long u_row = (long long)src[e] * n;
+  const float cap = fmaxf(caps[e], 1e-9f);
+  for (int b = 0; b < nb; ++b) {
+    const float* xs = xsum + b * nn + u_row;
+    float acc = 0.f;
+    for (int t = threadIdx.x; t < n; t += kThreads) {
+      acc = __fadd_rn(acc, __fmul_rn(pe[t], xs[t]));
+    }
+    acc = block_sum(acc, red);
+    if (threadIdx.x == 0) util[(long long)b * e_count + e] = __fdiv_rn(acc, cap);
+  }
+}
+
 __global__ void __launch_bounds__(kThreads) soft_flow_bwd_scale_kernel(
     const float* __restrict__ g_util, const float* __restrict__ caps,
     float* __restrict__ c, int e_count, int total) {
@@ -248,6 +303,9 @@ __global__ void __launch_bounds__(kThreads) soft_flow_bwd_scale_kernel(
   c[i] = __fdiv_rn(g_util[i], fmaxf(caps[i % e_count], 1e-9f));
 }
 
+// K17's adjoint round. u's out-edges are staged in shared memory kStage at
+// a time (the row offsets of p and g_p, of lam_next's gathered row, and the
+// scale c[b, e]), so no thread chases out_perm -> e -> dst per edge.
 template <bool kVec>
 __global__ void __launch_bounds__(kThreads) soft_flow_bwd_round_kernel(
     const float* __restrict__ p, const float* __restrict__ c,
@@ -434,11 +492,22 @@ extern "C" int soft_flow_round(const void* p, const void* x, void* xsum,
                                const void* in_ptr, const void* in_perm, int n,
                                int nb, void* stream) {
   if (bad_n(n) || nb < 1) return (int)cudaErrorInvalidValue;
-  soft_flow_round_kernel<<<rows_grid(n), kThreads, 0,
-                           (cudaStream_t)stream>>>(
-      (const float*)p, (const float*)x, (float*)xsum, (float*)x_next,
-      (const int32_t*)src, (const int32_t*)in_ptr, (const int32_t*)in_perm, n,
-      nb);
+  const bool vec = n % 4 == 0 && aligned16(p) && aligned16(x) &&
+                   aligned16(x_next) &&
+                   (xsum == nullptr || aligned16(xsum));
+  const dim3 grid(n, (n + kCols - 1) / kCols);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (vec) {
+    soft_flow_round_kernel<true><<<grid, kThreads, 0, st>>>(
+        (const float*)p, (const float*)x, (float*)xsum, (float*)x_next,
+        (const int32_t*)src, (const int32_t*)in_ptr, (const int32_t*)in_perm,
+        n, nb);
+  } else {
+    soft_flow_round_kernel<false><<<grid, kThreads, 0, st>>>(
+        (const float*)p, (const float*)x, (float*)xsum, (float*)x_next,
+        (const int32_t*)src, (const int32_t*)in_ptr, (const int32_t*)in_perm,
+        n, nb);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -59,6 +59,7 @@ from openr_tpu_torch.ops._cuda import (
     SOFT_FLOW,
     SOFT_FLOW_BWD,
     SOFTMIN_BWD,
+    SOFTMIN_DIV_CHECK,
     SOFTMIN_ROUND,
     TE_STEP,
 )
@@ -399,8 +400,9 @@ def softmin_round_bwd(g_new, d_prev, keep, we, graph: TeGraph, tau: float):
         return _softmin_round_bwd_plain(g_new, d_prev, keep, we, graph, tau)
     nc = _chunks(n)
     g_prev = torch.empty_like(d_prev)
-    coef = torch.empty_like(d_prev)
-    mstab = torch.empty_like(d_prev)
+    # (coef, m) of every (u, t) side by side: the pull gathers 8 bytes an
+    # in-edge
+    cm = torch.empty((n, n, 2), dtype=torch.float32, device=dev)
     partial = torch.empty((graph.e, nc), dtype=torch.float32, device=dev)
     g_we = torch.empty_like(we)
     tau = f32(tau)
@@ -408,20 +410,35 @@ def softmin_round_bwd(g_new, d_prev, keep, we, graph: TeGraph, tau: float):
         dev,
         g_new.data_ptr(), d_prev.data_ptr(), keep.data_ptr(), we.data_ptr(),
         graph.dst.data_ptr(), graph.out_ptr.data_ptr(),
-        graph.out_perm.data_ptr(), g_prev.data_ptr(), coef.data_ptr(),
-        mstab.data_ptr(), partial.data_ptr(), n, nc, tau,
+        graph.out_perm.data_ptr(), g_prev.data_ptr(), cm.data_ptr(),
+        partial.data_ptr(), n, nc, tau,
         entry="softmin_bwd_rows",
     )
     SOFTMIN_BWD.launch(
         dev,
         d_prev.data_ptr(), we.data_ptr(), graph.src.data_ptr(),
-        graph.in_ptr.data_ptr(), graph.in_perm.data_ptr(), coef.data_ptr(),
-        mstab.data_ptr(), g_prev.data_ptr(), n, tau,
+        graph.in_ptr.data_ptr(), graph.in_perm.data_ptr(), cm.data_ptr(),
+        g_prev.data_ptr(), n, tau,
         entry="softmin_bwd_pull",
     )
     SOFTMIN_BWD.launch(dev, partial.data_ptr(), g_we.data_ptr(), graph.e, nc,
                        entry="softmin_bwd_edges")
     return g_prev, g_we
+
+
+def softmin_div_check(tau: float, device="cuda") -> int:
+    """On the card: the count of exponents a (every float a <= 0 with |a|
+    <= 2^32, the domain of K15's -(x - m)) at which K15's exp(a / tau),
+    its quotient taken from tau's reciprocal, differs in its bits from exp
+    of the correctly rounded division. 0 means K15 computes the bits of
+    `__fdiv_rn` for this tau. There is no CPU version: it checks the
+    card's arithmetic."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError("softmin_div_check checks the card's arithmetic")
+    count = torch.zeros(1, dtype=torch.int64, device=dev)
+    SOFTMIN_DIV_CHECK.launch(dev, f32(tau), count.data_ptr())
+    return int(count.item())
 
 
 def soft_gate(d, we, up, graph: TeGraph, tau: float) -> torch.Tensor:

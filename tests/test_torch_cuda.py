@@ -1050,29 +1050,45 @@ ADJOINT_CASES = {
 }
 
 
-def adjoint_case(dev, n, b, hub, misaligned, seed=0):
-    """A seeded TE graph on n nodes (1 to 3 out-edges a node, node n - 1
-    without any where n > 1, the hub node 0 with `hub` more, repeats
-    allowed, edge order shuffled; n = 1 has one self-loop) and the adjoint
-    round's inputs. With `misaligned`, x_r and lam_next start 4 bytes into
-    their buffers, so no row is 16-byte aligned."""
+def hub_graph(dev, n, hub_out, hub_in, seed=0):
+    """A seeded TE graph on n nodes: 1 to 3 out-edges a node, node n - 1
+    without out-edges and, where n > 2, node n - 2 without in-edges; the
+    hub node 0 with `hub_out` more out-edges and `hub_in` more in-edges
+    (repeats allowed, edge order shuffled); n = 1 has one self-loop."""
     from openr_tpu_torch.convert import te_graph
 
     rng = np.random.default_rng(seed)
-    pairs = [(0, 0)] if n == 1 else []
-    for u in range(n - 1):
-        pairs += [(u, int(v)) for v in rng.integers(0, n, rng.integers(1, 4))]
-    pairs += [(0, int(v)) for v in rng.integers(0, n, hub)]
-    pairs = np.array(pairs)[rng.permutation(len(pairs))]
-    graph = te_graph(pairs[:, 0], pairs[:, 1], n, dev)
+    if n == 1:
+        pairs = np.array([(0, 0)])
+    else:
+        targets = np.array([v for v in range(n) if n < 3 or v != n - 2])
+        pairs = []
+        for u in range(n - 1):
+            pairs += [(u, int(v)) for v in
+                      rng.choice(targets, rng.integers(1, 4))]
+        pairs += [(0, int(v)) for v in rng.choice(targets, hub_out)]
+        pairs += [(int(u), 0) for u in rng.integers(0, n - 1, hub_in)]
+        pairs = np.array(pairs)[rng.permutation(len(pairs))]
+    return te_graph(pairs[:, 0], pairs[:, 1], n, dev)
+
+
+def misaligned(t):
+    """A copy of t that starts 4 bytes into its buffer: no row of it is
+    16-byte aligned."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    return out.view(t.shape).copy_(t)
+
+
+def adjoint_case(dev, n, b, hub, mis, seed=0):
+    """`hub_graph` with `hub` more out-edges from node 0 and none more into
+    it, and the adjoint round's inputs; with `mis`, x_r and lam_next are
+    `misaligned`."""
+    graph = hub_graph(dev, n, hub, 0, seed)
     e = graph.e
     gen = torch.Generator(dev).manual_seed(seed)
 
     def batch(t):
-        if not misaligned:
-            return t
-        out = torch.empty(t.numel() + 1, device=dev)[1:].view(t.shape)
-        return out.copy_(t)
+        return misaligned(t) if mis else t
 
     p = torch.rand((e, n), device=dev, generator=gen)
     p[p < 0.2] = 0.0
@@ -1140,6 +1156,189 @@ def test_adjoint_round_paths_agree_bit_for_bit(dev, n):
                                      case["lam_next"], case["x_r"], g_p,
                                      case["graph"], False)
         outs.append((lam, g_p))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+
+
+SOFTMIN_BWD_CASES = {
+    # name: (n, out-edges and in-edges of the hub node 0, misaligned D)
+    "n1": (1, 0, 0, False),
+    "n3": (3, 150, 150, False),
+    "n37": (37, 150, 300, False),
+    "n256": (256, 150, 150, False),
+    "n256_misaligned": (256, 300, 150, True),
+    "n1028": (1028, 300, 300, False),
+    "n1030": (1030, 150, 300, False),
+}
+
+
+def softmin_bwd_case(dev, n, hub_out, hub_in, mis, seed=0):
+    """K15's inputs on `hub_graph`: D of small integers (ties) with F_INF
+    entries and a zero diagonal, weights 1 to 40 (at or below 32 a
+    candidate through an F_INF entry totals F_INF exactly: the clamps'
+    quarter), keep 0, 1 or 2, and g_new with zero rows and rows whose keep
+    is all 2 (c = 0 there)."""
+    from openr_tpu_torch.te import kernels as tk
+
+    graph = hub_graph(dev, n, hub_out, hub_in, seed)
+    rng = np.random.default_rng(seed + 1)
+    d = rng.integers(0, 12, (n, n)).astype(np.float32)
+    d[rng.random((n, n)) < 0.15] = tk.F_INF
+    np.fill_diagonal(d, 0.0)
+    keep = rng.integers(0, 3, (n, n)).astype(np.uint8)
+    g = rng.standard_normal((n, n)).astype(np.float32)
+    rows = rng.choice(n, max(1, n // 8), replace=False)
+    g[rows[::2]] = 0.0
+    keep[rows[1::2]] = 2
+    we = rng.integers(1, 41, graph.e).astype(np.float32)
+    d_t = torch.as_tensor(d, device=dev)
+    return {
+        "graph": graph, "d": misaligned(d_t) if mis else d_t,
+        "keep": torch.as_tensor(keep, device=dev),
+        "g_new": torch.as_tensor(g, device=dev),
+        "we": torch.as_tensor(we, device=dev),
+    }
+
+
+@pytest.mark.parametrize("tau", [2.0, 0.5])
+@pytest.mark.parametrize("case", sorted(SOFTMIN_BWD_CASES))
+def test_softmin_bwd_kernel_cases(dev, case, tau):
+    """K15 against its plain version within 1e-5 of the largest magnitude:
+    widths 1, 3, 37 and 1,030 (the pull's scalar path) and 256 and 1,028
+    (16-byte rows), a misaligned D (the scalar path at 256), a node
+    without out-edges and one without in-edges, a hub whose out- and
+    in-edges are staged in two or three passes (128 edges a pass), keep 0,
+    1 and 2, F_INF candidates at weights up to 32 (the clamps' quarter),
+    rows whose c is 0. Three launches a call (rows, pull, edges); a second
+    call gives the same bits."""
+    from openr_tpu_torch.te import kernels as tk
+
+    n = SOFTMIN_BWD_CASES[case][0]
+    a = softmin_bwd_case(dev, *SOFTMIN_BWD_CASES[case])
+    args = (a["g_new"], a["d"], a["keep"], a["we"], a["graph"], tau)
+    before = _cuda.SOFTMIN_BWD.launches
+    g_prev, g_we = tk.softmin_round_bwd(*args)
+    assert _cuda.SOFTMIN_BWD.launches - before == 3
+    g_prev2, g_we2 = tk.softmin_round_bwd(*args)
+    g_prev_p, g_we_p = tk._softmin_round_bwd_plain(*args)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(g_prev).all())
+    # one node has only its diagonal, whose gradient is 0
+    assert n == 1 or bool(g_prev.abs().max() > 0)
+    assert rel_err(g_prev, g_prev_p) <= 1e-5
+    assert rel_err(g_we, g_we_p) <= 1e-5
+    assert torch.equal(g_prev, g_prev2) and torch.equal(g_we, g_we2)
+
+
+@pytest.mark.parametrize("n", [256, 1028])
+def test_softmin_bwd_paths_agree_bit_for_bit(dev, n):
+    """K15's pull reads D with 16-byte loads where its rows are aligned and
+    column by column where not, in the same order: equal bits."""
+    from openr_tpu_torch.te import kernels as tk
+
+    a = softmin_bwd_case(dev, n, 150, 300, False)
+    m = dict(a, d=misaligned(a["d"]))
+    assert torch.equal(a["d"], m["d"]) and m["d"].data_ptr() % 16
+    outs = [tk.softmin_round_bwd(c["g_new"], c["d"], c["keep"], c["we"],
+                                 c["graph"], 0.5) for c in (a, m)]
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+
+
+def test_softmin_quotient_bits_equal_the_correctly_rounded_division(dev):
+    """K15 divides by tau through tau's reciprocal (a product and two fused
+    corrections) where the first design used __fdiv_rn: at every
+    temperature of the annealing schedules of 8 and 48 steps and at the
+    tests' 2.0, 0.5 and 0.05, exp of the two quotients has the same bits
+    for every exponent K15 can meet (each float a <= 0, |a| <= 2^32)."""
+    from openr_tpu_torch.te import kernels as tk
+    from openr_tpu_torch.te.optimizer import TeOptConfig, anneal_tau
+
+    cfg = TeOptConfig()
+    taus = sorted({tk.f32(anneal_tau(cfg, i, s)) for s in (8, 48)
+                   for i in range(s)} | {2.0, 0.5, 0.05})
+    before = _cuda.SOFTMIN_DIV_CHECK.launches
+    differ = {tau: tk.softmin_div_check(tau, dev) for tau in taus}
+    assert differ == {tau: 0 for tau in taus}
+    assert _cuda.SOFTMIN_DIV_CHECK.launches - before == len(taus)
+    with pytest.raises(ValueError):
+        tk.softmin_div_check(0.5, "cpu")
+
+
+FLOW_CASES = {
+    # name: (n, scenarios, in-edges of the hub node 0, misaligned x)
+    "n1_b1": (1, 1, 0, False),
+    "n3_b2": (3, 2, 150, False),
+    "n37_b5": (37, 5, 150, False),
+    "n256_b4": (256, 4, 150, False),
+    "n256_b4_misaligned": (256, 4, 300, True),
+    "n1028_b6": (1028, 6, 300, False),
+    "n1030_b3": (1030, 3, 300, False),
+}
+
+
+def flow_case(dev, n, b, hub_in, mis, seed=0):
+    """K16's round inputs on `hub_graph`: p with zeros and all-zero rows,
+    x and xsum non-negative (x misaligned with `mis`)."""
+    graph = hub_graph(dev, n, 3, hub_in, seed)
+    rng = np.random.default_rng(seed + 2)
+    p = rng.random((graph.e, n)).astype(np.float32)
+    p[p < 0.2] = 0.0
+    p[rng.random(graph.e) < 0.1] = 0.0
+    x = rng.random((b, n, n)).astype(np.float32)
+    xs = rng.random((b, n, n)).astype(np.float32)
+    x_t = torch.as_tensor(x, device=dev)
+    return {
+        "graph": graph, "p": torch.as_tensor(p, device=dev),
+        "x": misaligned(x_t) if mis else x_t,
+        "xsum": torch.as_tensor(xs, device=dev),
+    }
+
+
+@pytest.mark.parametrize("xsum_given", [True, False],
+                         ids=["xsum", "xsum_none"])
+@pytest.mark.parametrize("case", sorted(FLOW_CASES))
+def test_soft_flow_round_kernel_cases(dev, case, xsum_given):
+    """K16's flow round against its plain version within 1e-5 of the
+    largest magnitude (xsum exactly: one add an entry): widths 1 to 1,030,
+    1 to 6 scenarios (a second pass at 5 and 6), misaligned x (the scalar
+    path), xsum given or None, all-zero p rows, a hub whose in-edges are
+    staged in two or three passes. One launch a call; a second call gives
+    the same bits."""
+    from openr_tpu_torch.te import kernels as tk
+
+    a = flow_case(dev, *FLOW_CASES[case])
+    graph, p, x = a["graph"], a["p"], a["x"]
+    xs = a["xsum"].clone() if xsum_given else None
+    xs2 = a["xsum"].clone() if xsum_given else None
+    xs_p = a["xsum"].clone() if xsum_given else None
+    before = _cuda.SOFT_FLOW.launches
+    x1 = tk.soft_flow_round(p, x, xs, graph)
+    assert _cuda.SOFT_FLOW.launches - before == 1
+    x1_2 = tk.soft_flow_round(p, x, xs2, graph)
+    x1_p = tk._soft_flow_round_plain(p, x, xs_p, graph)
+    torch.cuda.synchronize()
+    assert FLOW_CASES[case][0] == 1 or bool(x1.abs().max() > 0)
+    assert rel_err(x1, x1_p) <= 1e-5
+    assert torch.equal(x1, x1_2)
+    if xsum_given:
+        assert torch.equal(xs, xs_p) and torch.equal(xs2, xs_p)
+
+
+@pytest.mark.parametrize("n", [256, 1028])
+def test_soft_flow_round_paths_agree_bit_for_bit(dev, n):
+    """K16's flow round moves 4 columns with 16-byte loads where the rows
+    are aligned and columns kThreads apart where not, in the same order:
+    equal bits, x_next and xsum."""
+    from openr_tpu_torch.te import kernels as tk
+
+    a = flow_case(dev, n, 4, 300, False)
+    x_m = misaligned(a["x"])
+    assert torch.equal(a["x"], x_m) and x_m.data_ptr() % 16
+    outs = []
+    for x in (a["x"], x_m):
+        xs = a["xsum"].clone()
+        outs.append((tk.soft_flow_round(a["p"], x, xs, a["graph"]), xs))
     assert torch.equal(outs[0][0], outs[1][0])
     assert torch.equal(outs[0][1], outs[1][1])
 

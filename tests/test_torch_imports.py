@@ -11,7 +11,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from openr_tpu_torch.ops._cuda import KERNELS
+from openr_tpu_torch.ops._cuda import KERNELS, SOFTMIN_DIV_CHECK
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "openr_tpu_torch"
@@ -131,7 +131,8 @@ def _c_params(source: str, symbol: str):
     return [" ".join(p.split()[:-1]) for p in m.group(1).split(",")]
 
 
-@pytest.mark.parametrize("kernel", KERNELS, ids=lambda k: k.name)
+@pytest.mark.parametrize("kernel", [*KERNELS, SOFTMIN_DIV_CHECK],
+                         ids=lambda k: k.name)
 def test_kernel_bindings_match_their_c_entry_points(kernel):
     """Each ctypes binding has one c_void_p per pointer parameter, one c_int
     per int and one c_float per float parameter of its C entry point, the
