@@ -82,7 +82,11 @@ Phases, one JSON line each:
                Adam) against their plain versions on the card at a
                mid-anneal tau (0.5) from the D of 128 rounds, with times
                (K17's adjoint round timed alone, one launch with the
-               scale given, its scale apart); then, counted, adam_solve
+               scale given; each entry run once a step apart, with its
+               bound); K14's (D', keep) and the gate backward's outputs
+               against the sha256 digests of the first designs; the
+               quotient by tau against the correctly rounded division at
+               the run's temperatures; then, counted, adam_solve
                for 8 steps (per-step ms, launches per step, peak memory,
                first and last loss, all finite, the last beside the
                earlier adjoint round's); then one step under
@@ -128,7 +132,8 @@ Phases, one JSON line each:
   kernels      one line for all kernels: launches, error, ms, bounds;
                what `ms` times (`timed_unit`) and the kernel's launches
                in one such call, counted beside its timing
-               (`launches_per_call`)
+               (`launches_per_call`); for K16-K18 the entries run once a
+               step (`side`: ms, bound, launches a call)
 
 Every path (main_path, event_wan, event_clos, star_flap, ksp_wan,
 ksp_star, apsp_wan, lfa_clos, te_clos, te_service, tile_wan, tile_clos,
@@ -147,6 +152,7 @@ package.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import os
 import statistics
@@ -197,6 +203,17 @@ TE_CHAIN_PODS = 4
 # K17 (adjoint round) sum in the same orders, and K15's quotient by tau has
 # the correctly rounded bits, so equal bits show it
 LOSS_LAST_COLUMN_ROUND = 4.251302719116211
+# sha256 digests, on an H100 80GB HBM3 with the first designs of K14 (one
+# thread a column) and of K17's gate backward (one thread a column, a block
+# reduction an out-edge), at te_clos's state with tau 0.5 (`digest`): K14's
+# (D', keep) on the D of te_rounds rounds, and the gate backward's (g_d,
+# g_we, the overwritten g_p) on that D and the g_p of two seeded adjoint
+# rounds. The redesigns sum in the same orders and divide by tau with the
+# correctly rounded bits, so equal digests show it
+K14_DIGEST_FIRST_DESIGN = (
+    "44a775da155787da790e22d298afb3decc3eb1e84d608079a4d3868b05a9f445")
+GATE_BWD_DIGEST_FIRST_DESIGN = (
+    "3ac6d31c030ff082ddf18c22bfd38842a091955e2646582e0cc5251a73d86ff5")
 TE_BORROW_PODS = 2
 # the multi-device layouts: a graph axis of 4 over the north-star WAN and
 # the Clos (ranks sharing the one card), a batch axis of 4 over the WAN
@@ -326,6 +343,15 @@ def profile_window(fn) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {"wall_ms": wall_ms, "device_ms": busy,
             "busy_share": busy / wall_ms, "top_ms": dict(top)}
+
+
+def digest(*tensors) -> str:
+    """sha256 of the tensors' bytes, one after the other, as they lie on the
+    host (row-major)."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy())
+    return h.hexdigest()
 
 
 def max_abs_err(a, b) -> int:
@@ -2078,6 +2104,9 @@ def main() -> int:
         return te_err[key]
 
     new_k, keep = tk.softmin_round(d_run, we, graph, tau)
+    k14_digest = digest(new_k, keep)
+    check(k14_digest == K14_DIGEST_FIRST_DESIGN,
+          f"K14's (D', keep) differ from the first design's: {k14_digest}")
     new_p, _ = tk._softmin_round_plain(d_run, we, graph, tau)
     fin = new_p < tk.F_INF / 2
     check(torch.equal(new_k[~fin], new_p[~fin]),
@@ -2091,14 +2120,14 @@ def main() -> int:
     te_cmp("K15", gk[0], gp[0])
     te_cmp("K15", gk[1], gp[1])
     del gk, gp
-    # K15 divides by tau through tau's reciprocal: at this run's
-    # temperatures, exp of that quotient has the bits of exp of the
-    # correctly rounded division at every exponent K15 can meet
+    # K14-K17 divide by tau through tau's reciprocal before an exp: at
+    # this run's temperatures, exp of that quotient has the bits of exp of
+    # the correctly rounded division at every exponent they can meet
     div_taus = sorted({tk.f32(tau)} | {
         tk.f32(teopt.anneal_tau(cfg, i, TE_STEPS)) for i in range(TE_STEPS)})
     div_differ = {repr(t_): tk.softmin_div_check(t_, dev) for t_ in div_taus}
     check(not any(div_differ.values()),
-          f"K15's quotient differs from the correctly rounded one: "
+          f"the quotient by tau differs from the correctly rounded one: "
           f"{div_differ}")
     p_k = tk.soft_gate(d_run, we, up_t, graph, tau)
     p_p = tk._soft_gate_plain(d_run, we, up_t, graph, tau)
@@ -2129,7 +2158,13 @@ def main() -> int:
     te_cmp("K17", lam_k, lam_p)
     err17 = {"round": te_cmp("K17", gpk, gpp)}
     del lam_p
-    gd_k = tk.soft_gate_bwd(gpk.clone(), d_run, we, up_t, graph, tau)
+    g_gap = gpk.clone()
+    gd_k = tk.soft_gate_bwd(g_gap, d_run, we, up_t, graph, tau)
+    gate_bwd_digest = digest(gd_k[0], gd_k[1], g_gap)
+    del g_gap
+    check(gate_bwd_digest == GATE_BWD_DIGEST_FIRST_DESIGN,
+          f"the gate backward's (g_d, g_we, g_p) differ from the first "
+          f"design's: {gate_bwd_digest}")
     gd_p = tk._soft_gate_bwd_plain(gpp, d_run, we, up_t, graph, tau)
     te_cmp("K17", gd_k[0], gd_p[0])
     err17["gate"] = te_cmp("K17", gd_k[1], gd_p[1])
@@ -2202,16 +2237,23 @@ def main() -> int:
         "K16_util": (K16, lambda: tk.soft_flow_util(p_k, xs_k, caps_t,
                                                     graph)),
         "K17_scale": (K17, lambda: tk.soft_flow_bwd_scale(g_util, caps_t)),
-        "K17_gate_bwd": (K17, lambda: tk.soft_gate_bwd(
-            gpk.clone(), d_run, we, up_t, graph, tau)),
+        "K17_gate_bwd": (K17, lambda g: tk.soft_gate_bwd(
+            g, d_run, we, up_t, graph, tau)),
         "K18_mlu": (K18, lambda: tk.te_mlu(util_k, mask_t, cfg.tau_obj)),
         "K18_mlu_bwd": (K18, lambda: tk.te_mlu_bwd(
             one, util_k, lse_k, mask_t, cfg.tau_obj)),
     }
+    # the gate backward overwrites g_p: each call gets a fresh copy, made
+    # outside the timed span
+    side_setup = {"K17_gate_bwd": lambda: (gpk.clone(),)}
     side_ms, side_launches = {}, {}
     for name_, (k, fn) in side_calls.items():
-        side_launches[name_] = launches_a_call(k, fn)
-        side_ms[name_] = time_ms(fn)
+        setup = side_setup.get(name_)
+        side_launches[name_] = launches_a_call(k, fn, setup)
+        want = 3 if name_ == "K17_gate_bwd" else 1
+        check(side_launches[name_] == want, f"{name_} launched "
+              f"{side_launches[name_]} times a call, not {want}")
+        side_ms[name_] = time_ms(fn, setup=setup)
     # the library yardstick of the Adam step: PyTorch's fused Adam on [E]
     # (the port never calls it)
     lib_w = inp["w"].clone().requires_grad_(True)
@@ -2238,6 +2280,26 @@ def main() -> int:
     te_bound["K17"] = bound(12 * e_t * n_t + 12 * b_t * nn_t
                             + 4 * b_t * e_t + topo, 0, rate)
     te_bound["K18"] = bound(33 * e_t, 0, rate)
+    # the entries once a step: the gate (K16): D, we, up and the edge
+    # layout in, p out, E*N exp; the utilization (K16): p, B xsum, caps and
+    # src in, B util out; the scale (K17): B g_util and caps in, B c out;
+    # the gate backward (K17): g_p, D, we, up and the layouts in, g_p
+    # (overwritten), g_d and g_we out, E*N exp; the MLU (K18): B util and
+    # the mask in, B lse and the loss out, B*E exp; its seed (K18): the
+    # loss, B util, B lse and the mask in, B g_util out, B*E exp
+    side_bound = {
+        "K16_gate": bound(4 * nn_t + 4 * e_t * n_t + 5 * e_t + topo,
+                          e_t * n_t, rate, _MUFU_OPS_PER_S),
+        "K16_util": bound(4 * e_t * n_t + 4 * b_t * nn_t + 8 * e_t
+                          + 4 * b_t * e_t, 0, rate),
+        "K17_scale": bound(8 * b_t * e_t + 4 * e_t, 0, rate),
+        "K17_gate_bwd": bound(8 * e_t * n_t + 8 * nn_t + 9 * e_t + topo,
+                              e_t * n_t, rate, _MUFU_OPS_PER_S),
+        "K18_mlu": bound(4 * b_t * e_t + 12 * b_t + 4, b_t * e_t, rate,
+                         _MUFU_OPS_PER_S),
+        "K18_mlu_bwd": bound(8 * b_t * e_t + 8 * b_t + 4, b_t * e_t, rate,
+                             _MUFU_OPS_PER_S),
+    }
     gate_share = float((p_k > 0).float().mean())
     del (d_run, new_k, keep, g_new, p_k, x0, xs_k, x1_k, util_k, g_util,
          gpk, lam_k, ad_k, ad_p, c_k)
@@ -2313,12 +2375,14 @@ def main() -> int:
         "rounds": te_rounds, "steps": TE_STEPS,
         "setup_seconds": te_setup_s, "kernel_checks_seconds": te_checks_s,
         "max_rel_err": te_err, "max_abs_err": te_abs, "k16_rel_err": err16,
-        "k15_quotient_differ": div_differ,
+        "tau_quotient_differ": div_differ,
+        "k14_digest": k14_digest, "gate_bwd_digest": gate_bwd_digest,
         "k17_rel_err": err17,
         "seconds": te_solve_s, "step_ms": te_solve_s * 1e3 / TE_STEPS,
         "launches": te_launches, "launches_per_step": per_step,
         "launches_per_call": te_per_call,
         "kernel_ms": te_ms, "plain_ms": te_plain_ms, "side_ms": side_ms,
+        "side_bound_ms": {k_: b_[0] for k_, b_ in side_bound.items()},
         "side_launches_per_call": side_launches,
         "est_kernel_ms_per_step": {
             key: te_ms[key] * (per_step[k.name] - sum(
@@ -2357,9 +2421,14 @@ def main() -> int:
             "plain_ms": te_plain_ms[key], "bound_ms": te_bound[key][0],
             "bound_by": te_bound[key][1], "library_ms": te_lib.get(key),
             "launches_per_call": te_per_call[key],
+            # the entries run once a step: time, bound, launches a call
+            "side": {
+                name_[4:]: {"ms": side_ms[name_], "bound_ms": b_[0],
+                            "bound_by": b_[1],
+                            "launches_per_call": side_launches[name_]}
+                for name_, b_ in side_bound.items()
+                if name_.startswith(key)},
         })
-    results[-2].update(scale_ms=side_ms["K17_scale"],
-                       gate_bwd_ms=side_ms["K17_gate_bwd"])
 
     # -- 16. te_service: the TE service on the card ----------------------
     t0 = time.perf_counter()

@@ -296,9 +296,10 @@ SOFTMIN_BWD = Kernel(
     "openr_tpu/te/objective.py:72,94 _segment_softmin, "
     "_softmin_fixpoint_core (jax.grad)",
 )
-# not a kernel of the path: the check that K15's quotient by tau gives the
-# bits of the correctly rounded division (every exponent K15 can meet);
-# shares K14's and K15's library and counts its own launches
+# not a kernel of the path: the check that the TE kernels' quotient by tau
+# gives exp the bits of the correctly rounded division (every exponent
+# K14-K17 can meet); shares K14's and K15's library and counts its own
+# launches
 SOFTMIN_DIV_CHECK = Kernel(
     "softmin_div_check",
     "te_softmin.cu",

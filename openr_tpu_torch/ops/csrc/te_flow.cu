@@ -38,21 +38,43 @@
 //                          g_p[e, t]    += sum_b x_r[b, u, t] * g_ef
 //                        (lam_next null stands for lam_R = 0; `first` sets
 //                        g_p instead of adding to it)
-//   soft_gate_bwd_rows   K17, one thread per (u, t): the softmax-ratio rule
+//   soft_gate_bwd_rows   K17, a block per (u, 256 columns), a column a
+//                        thread: the softmax-ratio rule
 //                        g_score = (g_p - sum_e g_p score / denom) / denom
 //                        where denom > 1e-20, else 0; masked like the score;
 //                        through exp and max(gap, 0) (half at gap == 0,
 //                        which a node with one out-edge gives exactly); the
 //                        gap's gradient overwrites g_p, its row sum is
-//                        -g_D[u, t], and a block per (u, 256 columns)
-//                        reduces it over its columns into partial[e, chunk]
-//   soft_gate_bwd_pull   K17, one thread per (v, t): g_D[v, t] += the gap
-//                        gradients of v's in-edges (a pull: deterministic)
+//                        -g_D[u, t], and the block reduces it over its
+//                        columns into partial[e, chunk]
+//   soft_gate_bwd_pull   K17, a block per (v, kCols columns), 4 columns a
+//                        thread: g_D[v, t] += the gap gradients of v's
+//                        in-edges (a pull: deterministic)
 //   soft_gate_bwd_edges  K17, g_we[e] = the sum of partial[e, :] in order
 //
 // The gate's forward and backward compute gap and score by one function with
 // round-to-nearest intrinsics, so the backward's recomputed gap equals the
 // forward's bit for bit and the gap == 0 ties land where the reference's do.
+//
+// The gate's backward as first designed (one thread per (u, t), each thread
+// chasing out_perm -> e -> dst, we, up, a block_sum per out-edge, exp of
+// __fdiv_rn) took 3.38-3.39 ms a call at 3,956 nodes and 63,840 edges on an
+// H100 (rows 2.98-2.99, pull 0.39-0.41). Scratch variants of it, each with
+// one cost taken out, timed on the card: the block reductions 0.25 ms of the
+// rows pass, the score's division 0.36, walk 2's two other divisions 0.26.
+// The redesign stages u's out-edges, takes the score's quotient from tau's
+// reciprocal (div_tau) and sums the per-edge gradients kSub edges at a time
+// through shared memory in the butterfly's own tree: rows 2.61-2.62, 3.01
+// a call. Its own variants: 4 or 2 columns a thread (as K15's rows pass
+// has them) 3.66 and 3.05, the rows of g_p and D no longer held in L1 for
+// walk 2; walk 1's values kept in registers for a rack's 8 out-edges
+// slower (spills); the gradient's division by tau through a guarded
+// div_tau slower (2.84). What remains: walk 2 recomputes each score (its
+// gather of D and its exp, 0.31 ms) and divides twice by the correctly
+// rounded rule (0.25). The pull stages v's in-edge rows and moves 4
+// columns a thread with 16-byte loads: 0.39 ms, as before, at the memory's
+// rate. The gate (forward) takes the same quotient: 1.19-1.22 ms against
+// 1.48-1.50.
 //
 // Bound on the card: bytes. p is [E, N] (1.0 GB at 3,956 nodes and 63,840
 // edges): the gate writes it once; a flow round reads it once and gathers
@@ -96,27 +118,24 @@
 // where p[e, t] is not 0, and over b in order: the bits of the first
 // design.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "te_common.cuh"
 
 namespace {
 
-constexpr float kFInf = 1.0e9f;
-constexpr int kThreads = 256;
-constexpr int kMaxN = 65535;
 constexpr int kB = 4;  // scenarios per pass of a thread
-constexpr int kCols = 4 * kThreads;  // columns of a flow or adjoint block
-constexpr int kStage = 128;  // edges a flow- or adjoint-round block stages
 
+// gap and score of one (edge, column); the exponent -max(gap, 0) / tau is
+// taken by div_tau, whose exp softmin_div_check holds against exp of
+// __fdiv_rn (the score is computed only where D[dst, t] < F_INF / 2, so
+// |gap| < we + F_INF / 2, inside the check's domain)
 __device__ __forceinline__ float gate_score(float we_e, bool up_e,
                                            float d_dst, float d_src,
-                                           bool self_t, float tau,
+                                           bool self_t, float tau, float rtau,
                                            float* gap_out) {
   const float gap = __fsub_rn(__fadd_rn(we_e, d_dst), d_src);
   *gap_out = gap;
   if (!up_e || self_t || d_dst >= kFInf * 0.5f) return 0.f;
-  return expf(__fdiv_rn(-fmaxf(gap, 0.f), tau));
+  return expf(div_tau(-fmaxf(gap, 0.f), tau, rtau));
 }
 
 __device__ __forceinline__ float block_sum(float v, float* red) {
@@ -140,6 +159,7 @@ __global__ void __launch_bounds__(kThreads) soft_gate_kernel(
   const int u = blockIdx.y;
   const int t = blockIdx.x * kThreads + threadIdx.x;
   if (t >= n) return;
+  const float rtau = __frcp_rn(tau);
   const float du = d[(long long)u * n + t];
   const int beg = out_ptr[u];
   const int end = out_ptr[u + 1];
@@ -149,55 +169,21 @@ __global__ void __launch_bounds__(kThreads) soft_gate_kernel(
     const int e = out_perm[k];
     denom = __fadd_rn(denom, gate_score(we[e], up[e],
                                         d[(long long)dst[e] * n + t], du,
-                                        u == t, tau, &gap));
+                                        u == t, tau, rtau, &gap));
   }
   const bool ok = denom > 1e-20f;
   for (int k = beg; k < end; ++k) {
     const int e = out_perm[k];
     const float score = gate_score(we[e], up[e], d[(long long)dst[e] * n + t],
-                                   du, u == t, tau, &gap);
+                                   du, u == t, tau, rtau, &gap);
     p[(long long)e * n + t] = ok ? __fdiv_rn(score, denom) : 0.f;
   }
 }
 
 // K16's flow round and K17's adjoint round: a block owns one node and
-// kCols consecutive columns, 4 a thread: 16-byte loads and stores along t
+// kCols consecutive columns, kQ a thread: 16-byte loads and stores along t
 // where n is a multiple of 4 and the rows are 16-byte aligned (kVec), else
-// columns kThreads apart. The helpers take plain pointers: K17 reads g_p
-// again after its own write when nb > kB, so its loads are not
-// read-only-cache loads.
-template <bool kVec>
-__device__ __forceinline__ void load4(const float* row, int c0, int n,
-                                      float (&v)[4]) {
-  if (kVec) {
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (c0 < n) x = *reinterpret_cast<const float4*>(row + c0);
-    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
-  } else {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int t = c0 + q * kThreads;
-      v[q] = t < n ? row[t] : 0.f;
-    }
-  }
-}
-
-template <bool kVec>
-__device__ __forceinline__ void store4(float* row, int c0, int n,
-                                       const float (&v)[4]) {
-  if (kVec) {
-    if (c0 < n) {
-      *reinterpret_cast<float4*>(row + c0) =
-          make_float4(v[0], v[1], v[2], v[3]);
-    }
-  } else {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int t = c0 + q * kThreads;
-      if (t < n) row[t] = v[q];
-    }
-  }
-}
+// columns kThreads apart (te_common.cuh's load4 and store4).
 
 // K16's flow round. v's in-edges are staged in shared memory kStage at a
 // time (the row offsets of p and of x's gathered row); the grid runs node
@@ -393,85 +379,134 @@ __global__ void __launch_bounds__(kThreads) soft_flow_bwd_round_kernel(
   }
 }
 
+// K17's gate backward, rows pass: a block owns node u and one 256-column
+// chunk, a column a thread (four columns a thread, kThreads apart, took
+// 3.66 ms at te_clos size against 2.62: 64 registers and 37 KB of shared
+// memory a block left L1 too small to hold walk 1's rows for walk 2); u's
+// out-edges are staged in shared memory as (e, dst_e * n, we_e, up_e).
+// Walk 1 sums denom and s_gp; walk 2 writes g and sends the per-edge
+// gradients through shared memory kSub edges at a time, added in the warp
+// butterfly's own tree, the warps in order from 0.f, as block_sum added
+// them
 __global__ void __launch_bounds__(kThreads) soft_gate_bwd_rows_kernel(
     float* __restrict__ g_p, const float* __restrict__ d,
     const float* __restrict__ we, const bool* __restrict__ up,
     const int32_t* __restrict__ dst, const int32_t* __restrict__ out_ptr,
     const int32_t* __restrict__ out_perm, float* __restrict__ g_d,
     float* __restrict__ partial, int n, int nchunks, float tau) {
-  __shared__ float red[kThreads / 32];
+  __shared__ int s_e[kStage];
+  __shared__ long long s_dst[kStage];
+  __shared__ float s_we[kStage];
+  __shared__ bool s_up[kStage];
+  __shared__ float s_g[kSub][kWarps][33];  // 33: no bank conflicts
+  __shared__ float s_wsum[kSub][kWarps];
   const int u = blockIdx.y;
   const int chunk = blockIdx.x;
   const int t = chunk * kThreads + threadIdx.x;
   const bool active = t < n;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   const int beg = out_ptr[u];
   const int end = out_ptr[u + 1];
-  float du = 0.f, denom = 0.f, s_gp = 0.f, gap;
-  if (active) {
-    du = d[(long long)u * n + t];
-    for (int k = beg; k < end; ++k) {
-      const int e = out_perm[k];
-      const float score = gate_score(we[e], up[e],
-                                     d[(long long)dst[e] * n + t], du,
-                                     u == t, tau, &gap);
+  const float rtau = __frcp_rn(tau);
+  const float du = active ? d[(long long)u * n + t] : 0.f;
+  int staged = -1;  // the first edge of the staged out-edges
+  float denom = 0.f, s_gp = 0.f, row = 0.f;
+  for (int k0 = beg; k0 < end; k0 += kStage) {
+    const int cnt = min(kStage, end - k0);
+    if (k0 != staged) {
+      stage_edges(out_perm, dst, we, k0, cnt, n, s_e, s_dst, s_we, up, s_up);
+      staged = k0;
+    }
+    if (!active) continue;
+    for (int i = 0; i < cnt; ++i) {
+      float gap;
+      const float score = gate_score(s_we[i], s_up[i], d[s_dst[i] + t], du,
+                                     u == t, tau, rtau, &gap);
       denom = __fadd_rn(denom, score);
-      s_gp = __fadd_rn(s_gp, __fmul_rn(g_p[(long long)e * n + t], score));
+      s_gp = __fadd_rn(s_gp,
+                       __fmul_rn(g_p[(long long)s_e[i] * n + t], score));
     }
   }
   const bool ok = denom > 1e-20f;
   const float ratio = ok ? __fdiv_rn(s_gp, denom) : 0.f;
-  float row = 0.f;
-  for (int k = beg; k < end; ++k) {
-    const int e = out_perm[k];
-    float g = 0.f;
-    if (active) {
-      const long long i = (long long)e * n + t;
-      const float score = gate_score(we[e], up[e],
-                                     d[(long long)dst[e] * n + t], du,
-                                     u == t, tau, &gap);
-      if (ok && score != 0.f) {
-        const float g_score = __fdiv_rn(__fsub_rn(g_p[i], ratio), denom);
-        const float tie = gap > 0.f ? 1.f : (gap == 0.f ? 0.5f : 0.f);
-        g = __fmul_rn(-__fdiv_rn(__fmul_rn(g_score, score), tau), tie);
-      }
-      g_p[i] = g;
-      row = __fsub_rn(row, g);
+  for (int k0 = beg; k0 < end; k0 += kStage) {
+    const int cnt = min(kStage, end - k0);
+    if (k0 != staged) {
+      stage_edges(out_perm, dst, we, k0, cnt, n, s_e, s_dst, s_we, up, s_up);
+      staged = k0;
     }
-    g = block_sum(g, red);
-    if (threadIdx.x == 0) partial[(long long)e * nchunks + chunk] = g;
+    for (int i0 = 0; i0 < cnt; i0 += kSub) {
+      const int sub = min(kSub, cnt - i0);
+      for (int i = 0; i < sub; ++i) {
+        float g = 0.f;
+        if (active) {
+          const long long at = (long long)s_e[i0 + i] * n + t;
+          float gap;
+          const float score =
+              gate_score(s_we[i0 + i], s_up[i0 + i], d[s_dst[i0 + i] + t],
+                         du, u == t, tau, rtau, &gap);
+          if (ok && score != 0.f) {
+            const float g_score =
+                __fdiv_rn(__fsub_rn(g_p[at], ratio), denom);
+            const float tie = gap > 0.f ? 1.f : (gap == 0.f ? 0.5f : 0.f);
+            g = __fmul_rn(-__fdiv_rn(__fmul_rn(g_score, score), tau), tie);
+          }
+          g_p[at] = g;
+          row = __fsub_rn(row, g);
+        }
+        s_g[i][warp][lane] = g;
+      }
+      __syncthreads();
+      if (threadIdx.x < sub * kWarps) {
+        const int i = threadIdx.x / kWarps;
+        s_wsum[i][threadIdx.x % kWarps] =
+            butterfly_sum(s_g[i][threadIdx.x % kWarps]);
+      }
+      __syncthreads();
+      if (threadIdx.x < sub) {
+        float total = 0.f;
+        for (int w = 0; w < kWarps; ++w) total += s_wsum[threadIdx.x][w];
+        partial[(long long)s_e[i0 + threadIdx.x] * nchunks + chunk] = total;
+      }
+    }
   }
   if (active) g_d[(long long)u * n + t] = row;
 }
 
+// K17's gate backward, pull: g_D[v, t] += the gap gradients of v's
+// in-edges in in_perm order; a block per (v, kCols columns), v's in-edge
+// rows staged in shared memory, kQ columns a thread
+template <bool kVec>
 __global__ void __launch_bounds__(kThreads) soft_gate_bwd_pull_kernel(
     const float* __restrict__ g_gap, const int32_t* __restrict__ in_ptr,
     const int32_t* __restrict__ in_perm, float* __restrict__ g_d, int n) {
+  __shared__ long long s_row[kStage];  // e * n: g_gap's row
   const int v = blockIdx.y;
-  const int t = blockIdx.x * kThreads + threadIdx.x;
-  if (t >= n) return;
-  const long long i = (long long)v * n + t;
-  float acc = g_d[i];
-  for (int k = in_ptr[v]; k < in_ptr[v + 1]; ++k) {
-    acc = __fadd_rn(acc, g_gap[(long long)in_perm[k] * n + t]);
+  const int c0 = blockIdx.x * kCols + (kVec ? kQ * threadIdx.x : threadIdx.x);
+  const long long vn = (long long)v * n;
+  const int beg = in_ptr[v];
+  const int end = in_ptr[v + 1];
+  float acc[kQ];
+  load4<kVec>(g_d + vn, c0, n, acc);
+  for (int k0 = beg; k0 < end; k0 += kStage) {
+    const int cnt = min(kStage, end - k0);
+    __syncthreads();  // the previous stage has been read
+    for (int i = threadIdx.x; i < cnt; i += kThreads) {
+      s_row[i] = (long long)in_perm[k0 + i] * n;
+    }
+    __syncthreads();
+    for (int i = 0; i < cnt; ++i) {
+      float g[kQ];
+      load4<kVec>(g_gap + s_row[i], c0, n, g);
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) acc[q] = __fadd_rn(acc[q], g[q]);
+    }
   }
-  g_d[i] = acc;
+  store4<kVec>(g_d + vn, c0, n, acc);
 }
-
-__global__ void __launch_bounds__(kThreads) sum_chunks_kernel(
-    const float* __restrict__ partial, float* __restrict__ out, int e,
-    int nchunks) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= e) return;
-  float acc = 0.f;
-  for (int c = 0; c < nchunks; ++c) acc += partial[(long long)i * nchunks + c];
-  out[i] = acc;
-}
-
-bool bad_n(int n) { return n < 1 || n > kMaxN; }
 
 dim3 rows_grid(int n) { return dim3((n + kThreads - 1) / kThreads, n); }
-
-bool aligned16(const void* ptr) { return ((uintptr_t)ptr & 15) == 0; }
 
 }  // namespace
 
@@ -579,10 +614,17 @@ extern "C" int soft_gate_bwd_pull(const void* g_gap, const void* in_ptr,
                                   const void* in_perm, void* g_d, int n,
                                   void* stream) {
   if (bad_n(n)) return (int)cudaErrorInvalidValue;
-  soft_gate_bwd_pull_kernel<<<rows_grid(n), kThreads, 0,
-                              (cudaStream_t)stream>>>(
-      (const float*)g_gap, (const int32_t*)in_ptr, (const int32_t*)in_perm,
-      (float*)g_d, n);
+  const bool vec = n % 4 == 0 && aligned16(g_gap) && aligned16(g_d);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (vec) {
+    soft_gate_bwd_pull_kernel<true><<<cols_grid(n), kThreads, 0, st>>>(
+        (const float*)g_gap, (const int32_t*)in_ptr, (const int32_t*)in_perm,
+        (float*)g_d, n);
+  } else {
+    soft_gate_bwd_pull_kernel<false><<<cols_grid(n), kThreads, 0, st>>>(
+        (const float*)g_gap, (const int32_t*)in_ptr, (const int32_t*)in_perm,
+        (float*)g_d, n);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -16,9 +16,10 @@
 //
 // Entry points:
 //
-//   softmin_round      K14: D -> D', one thread per (u, t); also records
-//                      the fold's outcome, keep[u, t] = 2 where D < relaxed,
-//                      1 at a tie, 0 where relaxed < D (one byte)
+//   softmin_round      K14: D -> D', a block per (u, kCols columns), 4
+//                      columns a thread; also records the fold's outcome,
+//                      keep[u, t] = 2 where D < relaxed, 1 at a tie, 0
+//                      where relaxed < D (one byte)
 //   softmin_bwd_rows   K15, pass 1, a block per (u, kCols columns), 4
 //                      columns a thread: recomputes m and s, splits g'
 //                      between the incumbent (keep / 2 of it, written to
@@ -33,8 +34,9 @@
 //                      deterministic)
 //   softmin_bwd_edges  K15, g_we[e] = the sum of partial[e, :] in order
 //   softmin_div_check  not a kernel of the path: counts the exponents at
-//                      which K15's quotient by tau (below) would give exp
-//                      other bits than the correctly rounded division
+//                      which the quotient by tau of K14-K17 (te_common.cuh)
+//                      would give exp other bits than the correctly rounded
+//                      division
 //
 // Tie rules, as the reference's reverse mode has them: an exact tie of
 // min(a, b) sends half the gradient to each side. The fold D' = min(D,
@@ -64,6 +66,18 @@
 // the out-edges (min, then the sum) so that its rounding is the
 // reference's formula, the second pass hitting L2.
 //
+// K14 as first designed (one thread per (u, t), each thread chasing
+// out_perm -> dst, we through global memory in both walks, exp of
+// __fdiv_rn) took 0.85-0.86 ms a round at 3,956 nodes, 63,840 edges and
+// tau 0.5 on an H100. Scratch variants of it, timed on the card: the
+// reciprocal quotient alone 0.64; no exp and no division 0.49; no first
+// walk 0.63. The redesign stages u's out-edges (dst_e * n, we_e) in shared
+// memory, moves 4 columns a thread with 16-byte loads of the gathered rows
+// and of D[u, .], writes D' 16 bytes and keep 4 bytes at a time, and takes
+// the reciprocal quotient: 0.34 ms (0.66 with __fdiv_rn kept). Its own
+// variants: a rack's 8 candidates kept in registers between the walks
+// 0.34 (no gain, not kept), the grid node-fastest 0.35-0.36.
+//
 // K15 as first designed (one thread per (u, t), a block reduction per
 // out-edge, coef and m in two arrays) took 2.86-2.89 ms a call at 3,956
 // nodes, 63,840 edges and tau 0.5 on an H100 (rows 1.95, pull 0.92). Scratch
@@ -92,45 +106,18 @@
 //     exhaustively, for the temperatures it is given. The rows' division
 //     g_out / s, once a (u, t), stays __fdiv_rn.
 //
-// The orders are the first design's, so K15's bits are: g_prev is gn *
+// The orders are the first design's, so K14's bits are: m is fminf over
+// u's out-edges in out_perm order, clamped at F_INF; s adds from 0.f in
+// out_perm order; softmin_out, relaxed_of and the fold as they were, the
+// diagonal 0. K15's are: g_prev is gn *
 // keep / 2, then v's in-edges in in_perm order; a (u, t)'s m and s run over
 // u's out-edges in out_perm order; partial[e, chunk] is the same 32-lane
 // tree for each warp of 32 consecutive columns, then warps 0..7 in order
 // from 0.f; g_we adds the chunks in order.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "te_common.cuh"
 
 namespace {
-
-constexpr float kFInf = 1.0e9f;
-constexpr int kThreads = 256;
-constexpr int kMaxN = 65535;
-
-// The softmin of (u, t) over u's out-edges out_perm[beg:end]: m and s.
-__device__ __forceinline__ void softmin_cell(
-    const float* __restrict__ d, const float* __restrict__ we,
-    const int32_t* __restrict__ dst, const int32_t* __restrict__ out_perm,
-    int beg, int end, int n, int t, float tau, float* m_out, float* s_out) {
-  float m = INFINITY;
-  for (int k = beg; k < end; ++k) {
-    const int e = out_perm[k];
-    const float x =
-        fminf(__fadd_rn(we[e], d[(long long)dst[e] * n + t]), kFInf);
-    m = fminf(m, x);
-  }
-  m = fminf(m, kFInf);
-  float s = 0.f;
-  for (int k = beg; k < end; ++k) {
-    const int e = out_perm[k];
-    const float x =
-        fminf(__fadd_rn(we[e], d[(long long)dst[e] * n + t]), kFInf);
-    s = __fadd_rn(s, expf(__fdiv_rn(-__fsub_rn(x, m), tau)));
-  }
-  *m_out = m;
-  *s_out = s;
-}
 
 __device__ __forceinline__ float softmin_out(float m, float s, float tau) {
   return __fsub_rn(m, __fmul_rn(tau, logf(fmaxf(s, 1e-30f))));
@@ -150,75 +137,101 @@ __device__ __forceinline__ float clamp_factor(float total) {
   return total < kFInf ? 1.f : (total == kFInf ? 0.25f : 0.f);
 }
 
-// K15's a / tau from r, tau's correctly rounded reciprocal: a product and
-// two fused corrections (Markstein), the correctly rounded quotient where
-// it neither overflows nor is subnormal; a = -0 gives +0, whose exp is the
-// same 1 (softmin_div_check holds exp of it against __fdiv_rn's)
-__device__ __forceinline__ float div_tau(float a, float tau, float r) {
-  const float q = __fmul_rn(a, r);
-  return __fmaf_rn(__fmaf_rn(-q, tau, a), r, q);
+// the column of a thread's q-th value in the kVec layout
+template <bool kVec>
+__device__ __forceinline__ int col_of(int c0, int q) {
+  return kVec ? c0 + q : c0 + q * kThreads;
 }
 
+// the candidates x = min(we + D[dst, t], F_INF) of a thread's kQ columns
+template <bool kVec>
+__device__ __forceinline__ void candidates(const float* row, float w, int c0,
+                                           int n, float (&x)[kQ]) {
+  float v[kQ];
+  load4<kVec>(row, c0, n, v);
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) x[q] = fminf(__fadd_rn(w, v[q]), kFInf);
+}
+
+template <bool kVec>
 __global__ void __launch_bounds__(kThreads) softmin_round_kernel(
     const float* __restrict__ d_prev, const float* __restrict__ we,
     const int32_t* __restrict__ dst, const int32_t* __restrict__ out_ptr,
     const int32_t* __restrict__ out_perm, float* __restrict__ d_new,
     uint8_t* __restrict__ keep, int n, float tau) {
+  __shared__ int s_e[kStage];
+  __shared__ long long s_dst[kStage];
+  __shared__ float s_we[kStage];
   const int u = blockIdx.y;
-  const int t = blockIdx.x * kThreads + threadIdx.x;
-  if (t >= n) return;
-  float m, s;
-  softmin_cell(d_prev, we, dst, out_perm, out_ptr[u], out_ptr[u + 1], n, t,
-               tau, &m, &s);
-  const float relaxed = relaxed_of(softmin_out(m, s, tau), s);
-  const long long i = (long long)u * n + t;
-  const float dp = d_prev[i];
-  d_new[i] = u == t ? 0.f : fminf(dp, relaxed);
-  keep[i] = dp < relaxed ? 2 : (dp == relaxed ? 1 : 0);
-}
-
-// K15's column layout: a block owns one node and kCols columns, kQ a
-// thread. In the rows pass the columns of a thread lie kThreads apart, so
-// for each group q warp w holds 32 consecutive columns, those that warp w
-// of a one-column-a-thread block of 256 held. In the pull they lie side by
-// side where the rows allow 16-byte loads (kVec).
-constexpr int kQ = 4;
-constexpr int kCols = kQ * kThreads;
-constexpr int kWarps = kThreads / 32;
-constexpr int kStage = 128;  // edges a block stages in shared memory
-constexpr int kSub = 8;  // out-edges a rows block reduces at a time
-static_assert(kSub * kQ * kWarps == kThreads, "a tree a thread");
-
-// The sum a warp's xor butterfly (v += shfl_xor(v, 16), 8, 4, 2, 1) leaves
-// in every lane, of the 32 values v[0..32) that its lanes held, added in
-// the butterfly's own tree
-__device__ __forceinline__ float butterfly_sum(const float* v) {
-  float a[16];  // each level written out, so a stays in registers
+  const int c0 = blockIdx.x * kCols + (kVec ? kQ * threadIdx.x : threadIdx.x);
+  const int beg = out_ptr[u];
+  const int end = out_ptr[u + 1];
+  const float rtau = __frcp_rn(tau);
+  float m[kQ], s[kQ];
 #pragma unroll
-  for (int j = 0; j < 16; ++j) a[j] = v[j] + v[j + 16];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) a[j] = a[j] + a[j + 8];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) a[j] = a[j] + a[j + 4];
-#pragma unroll
-  for (int j = 0; j < 2; ++j) a[j] = a[j] + a[j + 2];
-  return a[0] + a[1];
-}
-
-// Stage edges perm[k0:k0 + m]: e, the row offset of `node`[e] and we[e].
-// The leading barrier lets the block finish reading the previous stage.
-__device__ __forceinline__ void stage_edges(
-    const int32_t* __restrict__ perm, const int32_t* __restrict__ node,
-    const float* __restrict__ we, int k0, int m, int n, int* s_e,
-    long long* s_row, float* s_we) {
-  __syncthreads();
-  for (int i = threadIdx.x; i < m; i += kThreads) {
-    const int e = perm[k0 + i];
-    s_e[i] = e;
-    s_row[i] = (long long)node[e] * n;
-    s_we[i] = we[e];
+  for (int q = 0; q < kQ; ++q) {
+    m[q] = INFINITY;
+    s[q] = 0.f;
   }
-  __syncthreads();
+  // m, then s, over u's out-edges in out_perm order, the first design's
+  // arithmetic for each column; the second walk gathers D's rows again
+  // (from L2: keeping a rack's 8 candidates in registers gained nothing)
+  int staged = -1;  // the first edge of the staged out-edges
+  for (int k0 = beg; k0 < end; k0 += kStage) {
+    const int cnt = min(kStage, end - k0);
+    if (k0 != staged) {
+      stage_edges(out_perm, dst, we, k0, cnt, n, s_e, s_dst, s_we);
+      staged = k0;
+    }
+    for (int i = 0; i < cnt; ++i) {
+      float x[kQ];
+      candidates<kVec>(d_prev + s_dst[i], s_we[i], c0, n, x);
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) m[q] = fminf(m[q], x[q]);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) m[q] = fminf(m[q], kFInf);
+  for (int k0 = beg; k0 < end; k0 += kStage) {
+    const int cnt = min(kStage, end - k0);
+    if (k0 != staged) {
+      stage_edges(out_perm, dst, we, k0, cnt, n, s_e, s_dst, s_we);
+      staged = k0;
+    }
+    for (int i = 0; i < cnt; ++i) {
+      float x[kQ];
+      candidates<kVec>(d_prev + s_dst[i], s_we[i], c0, n, x);
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) {
+        s[q] = __fadd_rn(s[q],
+                         expf(div_tau(-__fsub_rn(x[q], m[q]), tau, rtau)));
+      }
+    }
+  }
+  // the fold into the incumbent, and its outcome
+  const long long un = (long long)u * n;
+  float dp[kQ], out[kQ];
+  uint8_t kp[kQ];
+  load4<kVec>(d_prev + un, c0, n, dp);
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) {
+    const float relaxed = relaxed_of(softmin_out(m[q], s[q], tau), s[q]);
+    out[q] = col_of<kVec>(c0, q) == u ? 0.f : fminf(dp[q], relaxed);
+    kp[q] = dp[q] < relaxed ? 2 : (dp[q] == relaxed ? 1 : 0);
+  }
+  store4<kVec>(d_new + un, c0, n, out);
+  if (kVec) {
+    if (c0 < n) {
+      *reinterpret_cast<uchar4*>(keep + un + c0) =
+          make_uchar4(kp[0], kp[1], kp[2], kp[3]);
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) {
+      const int t = c0 + q * kThreads;
+      if (t < n) keep[un + t] = kp[q];
+    }
+  }
 }
 
 __global__ void __launch_bounds__(kThreads) softmin_bwd_rows_kernel(
@@ -248,7 +261,7 @@ __global__ void __launch_bounds__(kThreads) softmin_bwd_rows_kernel(
     s[q] = 0.f;
     c[q] = 0.f;
   }
-  // the softmin's two walks, softmin_cell's arithmetic for each column
+  // the softmin's two walks, K14's arithmetic for each column
   for (int k0 = beg; k0 < end; k0 += kStage) {
     const int cnt = min(kStage, end - k0);
     if (k0 != staged) {
@@ -354,22 +367,6 @@ __global__ void __launch_bounds__(kThreads) softmin_bwd_rows_kernel(
   }
 }
 
-template <bool kVec>
-__device__ __forceinline__ void load4(const float* __restrict__ row, int c0,
-                                      int n, float (&v)[kQ]) {
-  if (kVec) {
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (c0 < n) x = *reinterpret_cast<const float4*>(row + c0);
-    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
-  } else {
-#pragma unroll
-    for (int q = 0; q < kQ; ++q) {
-      const int t = c0 + q * kThreads;
-      v[q] = t < n ? row[t] : 0.f;
-    }
-  }
-}
-
 // (coef, m) of 4 columns: two 16-byte loads, or columns kThreads apart
 template <bool kVec>
 __device__ __forceinline__ void load_cm(const float2* __restrict__ row,
@@ -447,9 +444,10 @@ __global__ void __launch_bounds__(kThreads) softmin_bwd_pull_kernel(
 }
 
 // A check of div_tau, not a kernel of the path: over every float a <= 0
-// with |a| <= 2^32 (K15's exponents -(x - m), 0 <= x - m <= F_INF), the
-// count of a whose expf(div_tau(a, tau)) differs in its bits from
-// expf(__fdiv_rn(a, tau))
+// with |a| <= 2^32 (the exponents -(x - m) of K14 and K15, 0 <= x - m <=
+// F_INF, and the gate's -max(gap, 0), gap < we + F_INF / 2), the count of a
+// whose expf(div_tau(a, tau)) differs in its bits from expf(__fdiv_rn(a,
+// tau))
 __global__ void __launch_bounds__(kThreads) div_check_kernel(
     float tau, unsigned long long* __restrict__ count) {
   constexpr unsigned kLast = 0x4f800000u;  // 2^32
@@ -465,24 +463,6 @@ __global__ void __launch_bounds__(kThreads) div_check_kernel(
   if (bad != 0) atomicAdd(count, bad);
 }
 
-__global__ void __launch_bounds__(kThreads) sum_chunks_kernel(
-    const float* __restrict__ partial, float* __restrict__ out, int e,
-    int nchunks) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= e) return;
-  float acc = 0.f;
-  for (int c = 0; c < nchunks; ++c) acc += partial[(long long)i * nchunks + c];
-  out[i] = acc;
-}
-
-bool bad_n(int n) { return n < 1 || n > kMaxN; }
-
-dim3 rows_grid(int n) { return dim3((n + kThreads - 1) / kThreads, n); }
-
-dim3 cols_grid(int n) { return dim3((n + kCols - 1) / kCols, n); }
-
-bool aligned16(const void* ptr) { return ((uintptr_t)ptr & 15) == 0; }
-
 }  // namespace
 
 extern "C" int softmin_round(const void* d_prev, const void* we,
@@ -490,10 +470,20 @@ extern "C" int softmin_round(const void* d_prev, const void* we,
                              const void* out_perm, void* d_new, void* keep,
                              int n, float tau, void* stream) {
   if (bad_n(n)) return (int)cudaErrorInvalidValue;
-  softmin_round_kernel<<<rows_grid(n), kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)d_prev, (const float*)we, (const int32_t*)dst,
-      (const int32_t*)out_ptr, (const int32_t*)out_perm, (float*)d_new,
-      (uint8_t*)keep, n, tau);
+  const bool vec = n % 4 == 0 && aligned16(d_prev) && aligned16(d_new) &&
+                   ((uintptr_t)keep & 3) == 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (vec) {
+    softmin_round_kernel<true><<<cols_grid(n), kThreads, 0, st>>>(
+        (const float*)d_prev, (const float*)we, (const int32_t*)dst,
+        (const int32_t*)out_ptr, (const int32_t*)out_perm, (float*)d_new,
+        (uint8_t*)keep, n, tau);
+  } else {
+    softmin_round_kernel<false><<<cols_grid(n), kThreads, 0, st>>>(
+        (const float*)d_prev, (const float*)we, (const int32_t*)dst,
+        (const int32_t*)out_ptr, (const int32_t*)out_perm, (float*)d_new,
+        (uint8_t*)keep, n, tau);
+  }
   return (int)cudaGetLastError();
 }
 

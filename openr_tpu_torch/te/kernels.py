@@ -428,11 +428,11 @@ def softmin_round_bwd(g_new, d_prev, keep, we, graph: TeGraph, tau: float):
 
 def softmin_div_check(tau: float, device="cuda") -> int:
     """On the card: the count of exponents a (every float a <= 0 with |a|
-    <= 2^32, the domain of K15's -(x - m)) at which K15's exp(a / tau),
-    its quotient taken from tau's reciprocal, differs in its bits from exp
-    of the correctly rounded division. 0 means K15 computes the bits of
-    `__fdiv_rn` for this tau. There is no CPU version: it checks the
-    card's arithmetic."""
+    <= 2^32, the domain of K14-K17's exponents -(x - m) and -max(gap, 0))
+    at which exp(a / tau), the quotient taken from tau's reciprocal,
+    differs in its bits from exp of the correctly rounded division. 0 means
+    the kernels compute the bits of `__fdiv_rn` for this tau. There is no
+    CPU version: it checks the card's arithmetic."""
     dev = torch.device(device)
     if dev.type != "cuda":
         raise ValueError("softmin_div_check checks the card's arithmetic")

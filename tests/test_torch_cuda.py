@@ -1246,11 +1246,12 @@ def test_softmin_bwd_paths_agree_bit_for_bit(dev, n):
 
 
 def test_softmin_quotient_bits_equal_the_correctly_rounded_division(dev):
-    """K15 divides by tau through tau's reciprocal (a product and two fused
-    corrections) where the first design used __fdiv_rn: at every
-    temperature of the annealing schedules of 8 and 48 steps and at the
-    tests' 2.0, 0.5 and 0.05, exp of the two quotients has the same bits
-    for every exponent K15 can meet (each float a <= 0, |a| <= 2^32)."""
+    """K14-K17 divide by tau through tau's reciprocal (a product and two
+    fused corrections) before an exp, where the first designs used
+    __fdiv_rn: at every temperature of the annealing schedules of 8 and 48
+    steps and at the tests' 2.0, 0.5 and 0.05, exp of the two quotients has
+    the same bits for every exponent they can meet (each float a <= 0, |a|
+    <= 2^32)."""
     from openr_tpu_torch.te import kernels as tk
     from openr_tpu_torch.te.optimizer import TeOptConfig, anneal_tau
 
@@ -1263,6 +1264,138 @@ def test_softmin_quotient_bits_equal_the_correctly_rounded_division(dev):
     assert _cuda.SOFTMIN_DIV_CHECK.launches - before == len(taus)
     with pytest.raises(ValueError):
         tk.softmin_div_check(0.5, "cpu")
+
+
+@pytest.mark.parametrize("tau", [2.0, 0.5])
+@pytest.mark.parametrize("case", sorted(SOFTMIN_BWD_CASES))
+def test_softmin_round_kernel_cases(dev, case, tau):
+    """K14 against its plain version on K15's cases: widths 1, 3, 37 and
+    1,030 (the scalar path) and 256 and 1,028 (16-byte rows), a misaligned
+    D (the scalar path at 256), a node without out-edges and one without
+    in-edges, hubs of 150 and 300 out-edges (staged in two or three
+    passes), F_INF entries and small-integer D (ties of the fold). D'
+    within 1e-5 of the largest magnitude with its F_INF entries equal; the
+    fold's outcome consistent with D and D' (1 or 2: D' = D, 0: D' < D off
+    the diagonal, the diagonal 0); one launch a call; a second call gives
+    the same bits."""
+    from openr_tpu_torch.te import kernels as tk
+
+    n = SOFTMIN_BWD_CASES[case][0]
+    a = softmin_bwd_case(dev, *SOFTMIN_BWD_CASES[case])
+    d = a["d"]
+    args = (d, a["we"], a["graph"], tau)
+    before = _cuda.SOFTMIN_ROUND.launches
+    new, keep = tk.softmin_round(*args)
+    assert _cuda.SOFTMIN_ROUND.launches - before == 1
+    new2, keep2 = tk.softmin_round(*args)
+    new_p, _ = tk._softmin_round_plain(*args)
+    torch.cuda.synchronize()
+    fin = new_p < tk.F_INF / 2
+    assert torch.equal(new[~fin], new_p[~fin])
+    assert rel_err(new[fin], new_p[fin]) <= 1e-5
+    assert torch.equal(new, new2) and torch.equal(keep, keep2)
+    off = ~torch.eye(n, dtype=torch.bool, device=dev)
+    held, taken = off & (keep > 0), off & (keep == 0)
+    assert bool((keep <= 2).all())
+    assert torch.equal(new[held], d[held])
+    assert bool((new[taken] < d[taken]).all())
+    assert bool((new.diagonal() == 0).all())
+
+
+@pytest.mark.parametrize("n", [256, 1028])
+def test_softmin_round_paths_agree_bit_for_bit(dev, n):
+    """K14 reads D with 16-byte loads and writes D' and keep 16 and 4 bytes
+    at a time where the rows are aligned, and column by column where not,
+    in the same order: equal bits."""
+    from openr_tpu_torch.te import kernels as tk
+
+    a = softmin_bwd_case(dev, n, 150, 300, False)
+    d_m = misaligned(a["d"])
+    assert torch.equal(a["d"], d_m) and d_m.data_ptr() % 16
+    outs = [tk.softmin_round(d, a["we"], a["graph"], 0.5)
+            for d in (a["d"], d_m)]
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+
+
+def gate_case(dev, n, hub_out, hub_in, mis, seed=0):
+    """The gate's inputs on `hub_graph`: D of small integers (gap == 0
+    ties) with F_INF entries (where D[dst, t] >= F_INF / 2 the score is 0)
+    and a zero diagonal, integer weights 1 to 8, a tenth of the edges down,
+    node 1's out-edges all down and node 2's weighted 200 (both
+    denominators <= 1e-20 at tau 2.0 and 0.5), g_p from a seeded normal;
+    with `mis`, D and g_p misaligned (the pull's scalar path)."""
+    from openr_tpu_torch.te import kernels as tk
+
+    graph = hub_graph(dev, n, hub_out, hub_in, seed)
+    rng = np.random.default_rng(seed + 3)
+    d = rng.integers(0, 12, (n, n)).astype(np.float32)
+    d[rng.random((n, n)) < 0.15] = tk.F_INF
+    np.fill_diagonal(d, 0.0)
+    we = rng.integers(1, 9, graph.e).astype(np.float32)
+    up = rng.random(graph.e) >= 0.1
+    if n > 2:
+        src = graph.src.cpu().numpy()
+        up[src == 1] = False
+        we[src == 2] = 200.0
+    g_p = rng.standard_normal((graph.e, n)).astype(np.float32)
+
+    def on(x):
+        t = torch.as_tensor(x, device=dev)
+        return misaligned(t) if mis else t
+
+    return {"graph": graph, "d": on(d), "g_p": on(g_p),
+            "we": torch.as_tensor(we, device=dev),
+            "up": torch.as_tensor(up, device=dev)}
+
+
+@pytest.mark.parametrize("tau", [2.0, 0.5])
+@pytest.mark.parametrize("case", sorted(SOFTMIN_BWD_CASES))
+def test_soft_gate_and_its_backward_kernel_cases(dev, case, tau):
+    """The gate (K16) and its backward (K17) against their plain versions
+    within 1e-5 of the largest magnitude on K15's cases (widths 1 to
+    1,030, misaligned rows, a node without out-edges and one without
+    in-edges, hubs of 150 and 300 out- and in-edges staged in two or three
+    passes), with down edges, F_INF entries of D, gap == 0 ties and nodes
+    whose denominator is <= 1e-20. The backward: three launches a call (rows,
+    pull, edges); a second call on a fresh g_p gives the same bits, g_p's
+    overwritten gap gradients too."""
+    from openr_tpu_torch.te import kernels as tk
+
+    a = gate_case(dev, *SOFTMIN_BWD_CASES[case])
+    args = (a["d"], a["we"], a["up"], a["graph"], tau)
+    p = tk.soft_gate(*args)
+    assert rel_err(p, tk._soft_gate_plain(*args)) <= 1e-5
+    g1, g2 = a["g_p"].clone(), a["g_p"].clone()
+    before = _cuda.SOFT_FLOW_BWD.launches
+    g_d, g_we = tk.soft_gate_bwd(g1, *args)
+    assert _cuda.SOFT_FLOW_BWD.launches - before == 3
+    g_d2, g_we2 = tk.soft_gate_bwd(g2, *args)
+    g_d_p, g_we_p = tk._soft_gate_bwd_plain(a["g_p"], *args)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(g_d).all()) and bool(torch.isfinite(g1).all())
+    assert rel_err(g_d, g_d_p) <= 1e-5 and rel_err(g_we, g_we_p) <= 1e-5
+    assert torch.equal(g_d, g_d2) and torch.equal(g_we, g_we2)
+    assert torch.equal(g1, g2)
+
+
+@pytest.mark.parametrize("n", [256, 1028])
+def test_soft_gate_bwd_paths_agree_bit_for_bit(dev, n):
+    """The gate backward's pull moves 4 columns with 16-byte loads where the
+    rows are aligned and column by column where not, in the same order:
+    equal bits of g_d, g_we and the overwritten g_p."""
+    from openr_tpu_torch.te import kernels as tk
+
+    a = gate_case(dev, n, 150, 300, False)
+    m = gate_case(dev, n, 150, 300, True)
+    assert torch.equal(a["g_p"], m["g_p"]) and m["g_p"].data_ptr() % 16
+    outs = []
+    for c in (a, m):
+        g = c["g_p"].clone() if c is a else c["g_p"]
+        outs.append((*tk.soft_gate_bwd(g, c["d"], c["we"], c["up"],
+                                       c["graph"], 0.5), g))
+    for x, y in zip(*outs):
+        assert torch.equal(x, y)
 
 
 FLOW_CASES = {
