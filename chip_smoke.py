@@ -21,12 +21,16 @@ Phases, one JSON line each:
                be answered by host Dijkstra
   k1 / k2 / k3 each kernel against its plain PyTorch version on the card at
                the main path's shapes (exact equality: min-plus on int32
-               does not depend on order), with times
+               does not depend on order), with times; K1 also at the
+               product's own batch widths on the 9,556-node Clos (rsw0_0's
+               area solve: S = 16, and S = 8)
   event_wan    one seeded 48-edge event on the 100k-node WAN's 128-source
                fixpoint: the sliced warm solve (K5, K4, K1, K7), its delta
                extraction (K7) and the edge-list warm solve (K6, K2, K7);
                D equals a cold K1 solve on the patched weights and the
-               plain versions' results
+               plain versions' results, rounds and inv_rounds included;
+               the warm solve's time split into K5, K4, K1's warm rounds
+               and K7's columns
   k4 .. k7     each event kernel against its plain version on that event;
                K4 beside index_put_ (its library call), with its launches
                a call (one for all buckets) and 10 calls under the
@@ -225,13 +229,15 @@ ROW_B = 4
 # such call are counted beside it (`launches_per_call`), so that `ms` and
 # the kernel's path `launches` can be set in one unit
 TIMED_UNIT = {
-    "sell_relax_round": "a cold solve (WAN, 128 sources): a launch a "
-                        "bucket a round",
+    "sell_relax_round": "a cold solve (WAN, 128 sources): two launches a "
+                        "round (active rows, round) for every bucket, in "
+                        "chunks of 8 rounds",
     "bf_relax_round": "a cold edge-list solve (WAN): a launch a round",
     "ecmp_triangle": "one call (grid 32)",
     "sell_apply_patches": "one call (WAN event, every bucket)",
     "sell_mark": "the WAN event's invalidation and warm start: the seed, a "
-                 "launch a bucket a mark round, the reset",
+                 "launch a mark round for every bucket, in chunks of 8 "
+                 "rounds, the reset",
     "bf_mark": "the WAN event's edge-list invalidation and warm start: the "
                "seed, a launch a mark round, the reset",
     "delta_extract": "one extraction (WAN event): columns, compaction, "
@@ -753,8 +759,10 @@ def main() -> int:
     oracle_s = time.perf_counter() - t0
     del wan_ls
     per_call1 = launches_a_call(K1, k1)
-    check(per_call1 == rounds * len(wan.sell.nbr),
-          f"K1 launched {per_call1} times a solve, not a bucket a round")
+    check(per_call1 == spf.K1_ROUND_KERNELS
+          * spf.round_launches(rounds, wan.n_pad),
+          f"K1 launched {per_call1} times a solve, not twice a round for "
+          "every bucket in chunks")
     ms = time_ms(k1)
     plain_ms = time_ms(k1_plain, reps=5, warmup=1)
     s_cols = len(wan_src)
@@ -783,9 +791,60 @@ def main() -> int:
         "launches": None, "max_abs_err": err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None, "rounds": rounds,
-        "launches_per_call": per_call1,
+        "launches_per_call": per_call1, "bound_gathers_ms":
+            rounds * gather_bytes / rate * 1e3,
     })
     del d_plain
+
+    # K1 at the product's own batch widths on the 9,556-node Clos: rsw0_0's
+    # area solve batches rsw0_0 and its 8 neighbours, padded to 16 with
+    # rsw0_0's row; S = 8 takes rsw0_0 and 7 of them
+    clos_g = compile_edges(clos_edges)
+    me_row = clos_g.node_index["rsw0_0"]
+    me_nbrs = np.unique(clos_g.src[: clos_g.e][clos_g.dst[: clos_g.e]
+                                               == me_row])
+    batch = np.concatenate([[me_row], me_nbrs]).astype(np.int32)
+    batch = np.concatenate([batch, np.full(
+        _next_bucket(len(batch)) - len(batch), me_row, dtype=np.int32)])
+    cst = to_device(clos_g, dev)
+    ckey = clos_g.sell.shape_key()
+    clos_k1 = {}
+    for width in (8, len(batch)):
+        src_c = torch.as_tensor(batch[:width], device=dev)
+
+        def k1_clos():
+            return spf._sell_solver_counted(
+                ckey, src_c, cst["nbrs"], cst["wgs"], cst["ov"])
+
+        def k1_clos_plain():
+            d, r = spf._sell_relax_plain(
+                spf._sell_d0(src_c, clos_g.n_pad), src_c, cst["ov"],
+                cst["nbrs"], cst["wgs"], clos_g.sell.starts)
+            return d.t().contiguous(), r
+
+        (dc, rc), (dcp, rcp) = k1_clos(), k1_clos_plain()
+        check(torch.equal(dc, dcp) and rc == rcp,
+              f"K1 at S = {width} on the Clos differs from its plain version")
+        cslots = sum(a.size for a in clos_g.sell.nbr)
+        crows = sum(a.shape[0] for a in clos_g.sell.nbr)
+        cb_ms, cb_by = bound(
+            rc * (4 * width * (clos_g.n + crows) + 8 * cslots
+                  + clos_g.n_pad),
+            rc * 3 * cslots * width, rate)
+        clos_k1[width] = {
+            "rounds": rc, "ms": time_ms(k1_clos, reps=9),
+            "plain_ms": time_ms(k1_clos_plain, reps=5, warmup=1),
+            "bound_ms": cb_ms, "bound_by": cb_by,
+            "launches_per_call": launches_a_call(K1, k1_clos),
+        }
+        check(clos_k1[width]["launches_per_call"] == spf.K1_ROUND_KERNELS
+              * spf.round_launches(rc, clos_g.n_pad),
+              f"K1 at S = {width} launched other than twice a round in "
+              "chunks")
+    emit({"phase": "k1_sell_relax_clos",
+          "graph": f"fabric_edges({CLOS_PODS})", "me": "rsw0_0",
+          "equal_plain": True, "by_width": clos_k1, "card": card})
+    del cst, clos_g
 
     # -- 5. K2 on the same graph -----------------------------------------
     w_row = st["w"][None, :]
@@ -1023,12 +1082,19 @@ def main() -> int:
 
     m5, r5, d05 = k5()
     m5p, r5p, d05p = k5_plain()
+    # K5's bits as the plain version's bools (the marks are bools already
+    # where the script is rehearsed on the CPU)
+    if m5.dtype == torch.int32:
+        m5 = spf.marks_bool(m5, s_rows)
     err5 = max(max_abs_err(m5, m5p), max_abs_err(d05, d05p))
     check(err5 == 0 and r5 == r5p == inv_w,
           f"K5 differs from its plain version: err {err5}, rounds "
           f"{r5} vs {r5p}")
     n_marked = int(m5.sum())
     per_call5 = launches_a_call(K5, k5)
+    check(per_call5 == 2 + spf.round_launches(r5, n_pad),
+          f"K5 launched {per_call5} times a call, not the seed, a round "
+          "for every bucket in chunks and the reset")
     ms5 = time_ms(k5)
     plain_ms5 = time_ms(k5_plain, reps=3, warmup=1)
     # per round: marks read and written once, the buckets read once; the
@@ -1138,8 +1204,33 @@ def main() -> int:
 
     warm_ms = time_ms(sell_warm, setup=fresh_wgs)
     warm_bf_ms = time_ms(bf_warm)
+
+    # the warm sliced solve's stages, each timed alone on its own inputs:
+    # K5 (seed, rounds, reset), K4, K1's warm rounds from K5's d0 on the
+    # patched weights, K7's columns
+    def k1_warm(d0c):
+        return spf._sell_relax(d0c, src_t, st["ov"], st["nbrs"], wgs_w,
+                               wan.sell.zero_end, wan.sell.starts)
+
+    d1w, r1w = k1_warm(d05.clone())
+    check(torch.equal(d1w.t(), d_w) and r1w == rounds_w,
+          "K1's warm rounds from K5's d0 differ from the warm solve")
+    del d1w
+    split = {
+        "k5_ms": ms5, "k4_ms": time_ms(
+            lambda w: spf._sell_apply_patches(w, idx_t, vals_t),
+            setup=fresh_wgs),
+        "k1_warm_ms": time_ms(k1_warm, setup=lambda: (d05.clone(),)),
+        "k7_columns_ms": stages7["columns_ms"],
+        "k1_warm_launches": launches_a_call(
+            K1, k1_warm, setup=lambda: (d05.clone(),)),
+    }
+    check(split["k1_warm_launches"]
+          == spf.K1_ROUND_KERNELS * spf.round_launches(rounds_w, n_pad),
+          "K1's warm rounds launched other than twice a round in chunks")
     emit({"phase": "event_wan_times", "warm_ms": warm_ms,
           "warm_rounds": rounds_w, "cold_ms": ms, "cold_rounds": rounds,
+          "warm_split": split,
           "warm_edge_list_ms": warm_bf_ms, "cold_edge_list_ms": ms2,
           "card": card})
     for name, k, e, m_, pm, lm, bm, bb, lpc in (

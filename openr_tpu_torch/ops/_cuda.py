@@ -96,10 +96,12 @@ class Kernel:
         return self._fns
 
     def launch(self, device: torch.device, *args,
-               entry: Optional[str] = None) -> None:
+               entry: Optional[str] = None, kernels: int = 1) -> None:
         """Launch one entry point (the first by default) on `device`, the
         card that holds its tensors, on that card's current stream; raises
-        on a refused launch."""
+        on a refused launch. `kernels`: the kernel launches the entry point
+        makes in this call (a chunk of rounds is several), added to the
+        count."""
         fns = self._fns or self._bind()
         sym = entry or next(iter(self.entries))
         # the small kernels are host-bound, so the launch reads the raw
@@ -119,7 +121,7 @@ class Kernel:
             raise RuntimeError(
                 f"CUDA kernel {sym} failed to launch: cudaError {rc}"
             )
-        self.launches += 1
+        self.launches += kernels
 
 
 def _local_headers(source: Path) -> List[Path]:
@@ -174,7 +176,8 @@ def build(kernels: Optional[Sequence[Kernel]] = None) -> Dict[str, Path]:
 SELL_RELAX = Kernel(
     "sell_relax_round",
     "sell_relax.cu",
-    {"sell_relax_round": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I]},
+    {"sell_relax_rounds": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                           _I]},
     "openr_tpu/ops/spf.py:177 _sell_relax",
 )
 BF_RELAX = Kernel(
@@ -199,9 +202,10 @@ SELL_MARK = Kernel(
     "sell_mark",
     "sell_mark.cu",
     {
-        "sell_mark_seed": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I],
-        "sell_mark_round": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I],
-        "sell_mark_reset": [_P, _P, _P, _P, _I, _I],
+        "sell_mark_seed": [_P, _P, _P, _P, _I, _I, _I, _I, _I],
+        "sell_mark_pack": [_P, _P, _I, _I, _I],
+        "sell_mark_rounds": [_P, _P, _P, _I, _I, _I, _I, _I, _I],
+        "sell_mark_reset": [_P, _P, _P, _P, _I, _I, _I],
     },
     "openr_tpu/ops/spf.py:348,387 _sell_invalidate, _sell_mark_fixpoint",
 )

@@ -1,13 +1,13 @@
 // K1 sell_relax_round: one Jacobi round of the sliced-ELL pull min-plus
-// relaxation over one degree bucket. K9 sell_relax_masked_round: the same
-// round with per-(row, slot, source column) weights, the form KSP's
+// relaxation over every degree bucket. K9 sell_relax_masked_round: one
+// bucket's round with per-(row, slot, source column) weights, the form KSP's
 // link-ignore re-solves feed it.
 //
 // Replaces: openr_tpu/ops/spf.py `_sell_relax` (one iteration of its
-// while_loop body for bucket k; K9: with wg_k of shape [nk, dk, S], as
-// `_sell_solver_vw` and `_sell_solver_vw_warm` build it), with the transit
-// mask of `_sell_d0_allow` computed in the kernel instead of materialised as
-// an [n_pad, S] bool.
+// while_loop body over all buckets; K9: for bucket k with wg_k of shape
+// [nk, dk, S], as `_sell_solver_vw` and `_sell_solver_vw_warm` build it),
+// with the transit mask of `_sell_d0_allow` computed in the kernel instead
+// of materialised as an [n_pad, S] bool.
 //
 // Layout: distances are destination-major [n_pad, S] int32 (INF = 1 << 29).
 // Bucket k covers rows [row0, row0 + nk); nbr/wg are its [nk, dk] in-neighbour
@@ -17,41 +17,236 @@
 //                     min_j min(dt[nbr[r, j], s] + wg[r, j], INF))
 //   dt[u, s]    = d_old[u, s] if (!ov[u] || u == sources[s]) else INF
 //
-// and `*changed` is set to 1 when any entry went down. K9 reads the weight
-// as INF where bit s of mask[r, j] (a [nk, dk, W] uint32 bit mask, W =
-// ceil(S / 32), built by K8 sell_mask_build) is set: the reference's
-// where-masked [nk, dk, S] weights, which are never materialised here. A
-// masked slot contributes min(du + INF, INF) = INF, which never lowers acc
-// (every entry is at most INF), so K9 skips its gather. Rounds are Jacobi:
-// every round reads the previous round's matrix (d_old) and writes a second
-// buffer (d_new), so the round count equals the reference's.
+// K1 runs a whole fixpoint as rounds t = 1, 2, ... through the protocol of
+// sell_rounds.cuh (one host call enqueues a chunk of rounds and the host
+// reads the round state once a chunk). A round is two launches, each over
+// every bucket: the first lists the rows that can move, the second relaxes
+// only those. Round t reads buffer (t - 1) & 1 and writes buffer t & 1; the
+// host's d0 is buffer 0.
+//
+// K1 skips what cannot change. Let a row be "changed in round t" when one
+// of its columns went down in round t; stamps[t & 1][v] = t + 1 records it
+// (stamps are int32 [2, n_pad], zeroed by the host, so 0 is "never"; the
+// initial state's changes carry stamp 1). After a round that took every
+// slot, d_t[r] <= f(d_{t-1}[u]) for every slot (r, u) (f: the transit mask,
+// the weight and the clamp), and a slot whose tail did not change in round
+// t - 1 offers round t nothing new. So round t gathers only the slots
+// whose tail has stamps[(t - 1) & 1][u] == t, and the result is the Jacobi
+// round's, entry for entry. Round 1 takes every slot (`full`), unless the
+// host has stamped the rows that differ from INF (a cold start: the source
+// rows). The two-buffer trap: a row that gathers nothing keeps d_{t-1}, but
+// buffer t & 1 holds d_{t-2}; the row is written through when it changed in
+// round t - 1, and otherwise the buffer already holds its value. A row is
+// written only when it changed or was stamped in round t - 1. The first
+// pass lists a row when a tail or the row itself carries stamp t, so a
+// round costs a pass over the slots' stamps plus the listed rows' gathers,
+// not a pass over the whole matrix.
+//
+// K9 reads the weight as INF where bit s of mask[r, j] (a [nk, dk, W] uint32
+// bit mask, W = ceil(S / 32), built by K8 sell_mask_build) is set: the
+// reference's where-masked [nk, dk, S] weights, which are never
+// materialised here. A masked slot contributes min(du + INF, INF) = INF,
+// which never lowers acc (every entry is at most INF), so K9 skips its
+// gather. K9 runs one launch a bucket a round into the second buffer, and
+// the host reads its changed flag after each round.
 //
 // Bound on the card: device-memory bytes. Each round reads dk gathered rows
 // of S int32 per destination row, plus the row itself, and writes it once;
-// at S = 128 the [n_pad, S] matrix of a 100k-node graph is 64 MB, larger than
-// the 50 MB L2, so most gathers come from HBM. There are 2 integer ops per
-// gathered int32, far below the card's integer rate.
+// at S = 128 the [n_pad, S] matrix of a 100k-node graph is 51 MB in its
+// real rows, just over the 50 MB L2, so most gathers come from HBM. There
+// are 2 integer ops per gathered int32, far below the card's integer rate.
 //
-// Design against that bound: consecutive threads take consecutive source
-// columns s of one destination row, so each gather d_old[nbr[r, j], :] is one
-// contiguous S * 4-byte read (512 bytes at S = 128) shared by the threads of
-// that row, and the nbr/wg entries are warp-uniform broadcast loads. Nothing
-// of size [nk, dk, S] is materialised. The sum stays in int32 with no
-// overflow: both terms are at most INF = 2^29, their sum at most 2^30. K9
-// adds one mask word per slot, shared by the 32 source columns it covers
-// (a warp-uniform load when S >= 32). At S = 1, as a per-prefix KSP call
-// has it, a warp covers 32 rows and each gather is a scattered 4-byte read.
+// Design against that bound: K1 gives a thread 4 consecutive source columns
+// of one row (16-byte loads and stores) where S is a multiple of 4 and the
+// buffers are 16-byte aligned, one column otherwise; at S = 128 a warp is
+// one row and each gather one 512-byte read. A row's slots are split over
+// up to 32 threads (the slot split of sell_rounds.cuh), so the 340-slot
+// rows of a Clos spine are no longer one thread's chain of dependent
+// loads. Each thread takes its slots 4 at a time: the 4 tails, their
+// stamps, their ov bytes and their gathers are issued together, so 4
+// gathers are in flight a thread. The sum stays in int32 with no
+// overflow: both terms are at most INF = 2^29, their sum at most 2^30.
+// K9 keeps its first design: a thread per (row, column), its mask word per
+// slot shared by the 32 columns it covers.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sell_rounds.cuh"
 
 namespace {
 
-constexpr int kInf = 1 << 29;
-constexpr int kThreads = 256;
+using sell::Buckets;
+using sell::RoundState;
+using sell::kInf;
+using sell::kThreads;
 
-template <bool kMasked>
-__global__ void sell_relax_round_kernel(
+constexpr int kUnroll = 4;
+
+template <int V>
+struct Vec;
+template <>
+struct Vec<1> {
+  int x[1];
+  __device__ __forceinline__ void load(const int32_t* p) { x[0] = __ldg(p); }
+  __device__ __forceinline__ void store(int32_t* p) const { *p = x[0]; }
+};
+template <>
+struct Vec<4> {
+  int x[4];
+  __device__ __forceinline__ void load(const int32_t* p) {
+    const int4 a = __ldg(reinterpret_cast<const int4*>(p));
+    x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+  }
+  __device__ __forceinline__ void store(int32_t* p) const {
+    *reinterpret_cast<int4*>(p) = make_int4(x[0], x[1], x[2], x[3]);
+  }
+};
+
+// Round t's first pass: the rows that can move. A row is listed when a
+// tail carries stamp t (changed in round t - 1), when it carries stamp t
+// itself (the write-through), or, in a round that takes every slot, always.
+// A thread per (row, slot part), the parts of a row meeting in a shuffle;
+// each warp appends its rows to its bucket's list with one atomic. The
+// list of bucket k is list[row0, row0 + counts[k]), in no fixed order.
+__global__ void __launch_bounds__(kThreads) sell_relax_active_kernel(
+    const int32_t* __restrict__ stamps, const RoundState* __restrict__ st,
+    int32_t* __restrict__ list, int32_t* __restrict__ counts,
+    const __grid_constant__ Buckets b, int n, int t, int full) {
+  if (sell::round_done(st)) return;
+  const int32_t* cp = stamps + (long long)((t - 1) & 1) * n;
+  const int lane = threadIdx.x & 31;
+  int k = 0;
+  for (int vb = blockIdx.x; vb < b.blk0[b.nb]; vb += gridDim.x) {
+    k = sell::bucket_of(b, vb, k);
+    const int dk = b.dk[k], lp = b.lp[k], P = 1 << lp;
+    const int item = (vb - b.blk0[k]) * kThreads + threadIdx.x;
+    const bool valid = item < (b.nk[k] << lp);
+    const int r = valid ? item >> lp : 0;
+    const int p = item & (P - 1);
+    bool act = valid && (full || (p == 0 && __ldg(cp + b.row0[k] + r) == t));
+    const int32_t* nb = b.nbr[k] + (long long)r * dk;
+    for (int j0 = valid ? p : dk; j0 < dk && !act; j0 += kUnroll * P) {
+      int u[kUnroll];
+#pragma unroll
+      for (int q = 0; q < kUnroll; ++q) {
+        const int j = j0 + q * P;
+        u[q] = j < dk ? __ldg(nb + j) : -1;
+      }
+#pragma unroll
+      for (int q = 0; q < kUnroll; ++q)
+        act |= u[q] >= 0 && __ldg(cp + u[q]) == t;
+    }
+    if (P > 1) act = sell::group_or(act, P) != 0;
+    act = act && p == 0;
+    const unsigned ballot = __ballot_sync(0xffffffffu, act);
+    if (!ballot) continue;
+    const int leader = __ffs(ballot) - 1;
+    int base = 0;
+    if (lane == leader) base = atomicAdd(counts + k, __popc(ballot));
+    base = __shfl_sync(0xffffffffu, base, leader);
+    if (act)
+      list[b.row0[k] + base + __popc(ballot & ((1u << lane) - 1))] = r;
+  }
+}
+
+// Round t's second pass over the listed rows: V columns a thread, a row's
+// slots split over P = 2^lp threads (see the header comment)
+template <int V>
+__global__ void __launch_bounds__(kThreads) sell_relax_round_kernel(
+    int32_t* __restrict__ buf0, int32_t* __restrict__ buf1,
+    int32_t* __restrict__ stamps, RoundState* __restrict__ st,
+    const int32_t* __restrict__ sources, const uint8_t* __restrict__ ov,
+    const int32_t* __restrict__ list, int32_t* __restrict__ counts,
+    const __grid_constant__ Buckets b, int S, int n, int t, int full) {
+  if (sell::round_done(st)) return;
+  const int32_t* d_old = (t & 1) ? buf0 : buf1;
+  int32_t* d_new = (t & 1) ? buf1 : buf0;
+  const int32_t* cp = stamps + (long long)((t - 1) & 1) * n;
+  int32_t* cq = stamps + (long long)(t & 1) * n;
+  const int G = S / V;
+  bool changed = false;
+  for (int k = 0; k < b.nb; ++k) {
+    const int dk = b.dk[k], lp = b.lp[k], P = 1 << lp;
+    const long long items = (long long)__ldcg(counts + k) * G << lp;
+    for (long long at = (long long)blockIdx.x * kThreads; at < items;
+         at += (long long)gridDim.x * kThreads) {
+      const long long item = at + threadIdx.x;
+      const bool valid = item < items;
+      const long long rg = valid ? item >> lp : 0;
+      const long long e = rg / G;
+      const int r = valid ? __ldcg(list + b.row0[k] + e) : 0;
+      const int p = (int)(item & (P - 1));
+      const int s0 = (int)(rg - e * G) * V;
+      const int v = b.row0[k] + r;
+      int src[V];
+      Vec<V> acc;
+#pragma unroll
+      for (int c = 0; c < V; ++c) {
+        src[c] = valid ? __ldg(sources + s0 + c) : 0;
+        acc.x[c] = kInf;
+      }
+      const int32_t* nb = b.nbr[k] + (long long)r * dk;
+      const int32_t* w = b.wg[k] + (long long)r * dk;
+      const int step = P * kUnroll;
+      for (int j0 = valid ? p : dk; j0 < dk; j0 += step) {
+        int u[kUnroll], wj[kUnroll];
+        bool take[kUnroll], o[kUnroll];
+        Vec<V> du[kUnroll];
+#pragma unroll
+        for (int q = 0; q < kUnroll; ++q) {
+          const int j = j0 + q * P;
+          const bool in = j < dk;
+          u[q] = in ? __ldg(nb + j) : 0;
+          wj[q] = in ? __ldg(w + j) : kInf;
+          take[q] = in && (full || __ldg(cp + u[q]) == t);
+        }
+#pragma unroll
+        for (int q = 0; q < kUnroll; ++q) {
+          if (take[q]) {
+            o[q] = __ldg(ov + u[q]) != 0;
+            du[q].load(d_old + (long long)u[q] * S + s0);
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < kUnroll; ++q) {
+          if (!take[q]) continue;
+#pragma unroll
+          for (int c = 0; c < V; ++c) {
+            const int dt = (o[q] && u[q] != src[c]) ? kInf : du[q].x[c];
+            acc.x[c] = min(acc.x[c], min(dt + wj[q], kInf));
+          }
+        }
+      }
+      if (P > 1) {
+#pragma unroll
+        for (int c = 0; c < V; ++c) acc.x[c] = sell::group_min(acc.x[c], P);
+      }
+      if (!valid || p != 0) continue;
+      // a row that took nothing below INF cannot move: it reads its own
+      // entries only to write them through
+      bool offer = false;
+#pragma unroll
+      for (int c = 0; c < V; ++c) offer |= acc.x[c] < kInf;
+      const bool through = !full && __ldg(cp + v) == t;
+      if (!offer && !through) continue;
+      Vec<V> old;
+      old.load(d_old + (long long)v * S + s0);
+      bool moved = false;
+#pragma unroll
+      for (int c = 0; c < V; ++c) {
+        moved |= acc.x[c] < old.x[c];
+        acc.x[c] = min(acc.x[c], old.x[c]);
+      }
+      if (moved || through) acc.store(d_new + (long long)v * S + s0);
+      if (moved) {
+        cq[v] = t + 1;
+        changed = true;
+      }
+    }
+  }
+  sell::finish_round(st, t, changed, counts, b.nb);
+}
+
+// K9: the first design of K1's round with K8's masks, one bucket a launch
+__global__ void sell_relax_masked_round_kernel(
     const int32_t* __restrict__ d_old, int32_t* __restrict__ d_new,
     int32_t* __restrict__ changed, const int32_t* __restrict__ sources,
     const uint8_t* __restrict__ ov, const int32_t* __restrict__ nbr,
@@ -67,11 +262,10 @@ __global__ void sell_relax_round_kernel(
   int acc = old;
   const int32_t* nb = nbr + (long long)r * dk;
   const int32_t* w = wg + (long long)r * dk;
-  const uint32_t* mw = kMasked ? mask + (long long)r * dk * W + (s >> 5)
-                               : nullptr;
+  const uint32_t* mw = mask + (long long)r * dk * W + (s >> 5);
   const uint32_t bit = 1u << (s & 31);
   for (int j = 0; j < dk; ++j) {
-    if (kMasked && (mw[(long long)j * W] & bit)) continue;
+    if (mw[(long long)j * W] & bit) continue;
     const int u = nb[j];
     const int du = (ov[u] && u != src) ? kInf : d_old[(long long)u * S + s];
     const int c = min(du + w[j], kInf);
@@ -81,29 +275,57 @@ __global__ void sell_relax_round_kernel(
   if (acc != old) *changed = 1;
 }
 
-template <bool kMasked>
-int launch(const void* d_old, void* d_new, void* changed, const void* sources,
-           const void* ov, const void* nbr, const void* wg, const void* mask,
-           int row0, int nk, int dk, int S, int W, void* stream) {
-  const long long total = (long long)nk * S;
-  if (total == 0) return 0;
-  const long long blocks = (total + kThreads - 1) / kThreads;
-  sell_relax_round_kernel<kMasked><<<(unsigned)blocks, kThreads, 0,
-                                     (cudaStream_t)stream>>>(
-      (const int32_t*)d_old, (int32_t*)d_new, (int32_t*)changed,
-      (const int32_t*)sources, (const uint8_t*)ov, (const int32_t*)nbr,
-      (const int32_t*)wg, (const uint32_t*)mask, row0, nk, dk, S, W);
-  return (int)cudaGetLastError();
+template <int V>
+int launch_rounds(void* buf0, void* buf1, void* aux, const void* sources,
+                  const void* ov, const void* table, int nb, int S, int n,
+                  int t0, int count, int full, cudaStream_t stream) {
+  // aux: stamps [2, n], list [n], counts [kMaxBuckets], RoundState
+  int32_t* stamps = (int32_t*)aux;
+  int32_t* list = stamps + 2LL * n;
+  int32_t* counts = list + n;
+  RoundState* st = (RoundState*)(counts + sell::kMaxBuckets);
+  Buckets rows, cols;
+  const int blocks_a = sell::fill_buckets(rows, table, nb, 1);
+  const int blocks_b = sell::fill_buckets(cols, table, nb, S / V);
+  if (blocks_a < 0 || blocks_b < 0) return (int)cudaErrorInvalidValue;
+  if (blocks_a == 0 || blocks_b == 0) return 0;
+  const int grid_a = sell::grid_blocks(sell_relax_active_kernel, blocks_a);
+  const int grid_b = sell::grid_blocks(sell_relax_round_kernel<V>, blocks_b);
+  for (int t = t0; t < t0 + count; ++t) {
+    const int f = full && t == 1;
+    sell_relax_active_kernel<<<grid_a, kThreads, 0, stream>>>(
+        stamps, st, list, counts, rows, n, t, f);
+    sell_relax_round_kernel<V><<<grid_b, kThreads, 0, stream>>>(
+        (int32_t*)buf0, (int32_t*)buf1, stamps, st,
+        (const int32_t*)sources, (const uint8_t*)ov, list, counts, cols, S,
+        n, t, f);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
 }
 
 }  // namespace
 
-extern "C" int sell_relax_round(const void* d_old, void* d_new, void* changed,
-                                const void* sources, const void* ov,
-                                const void* nbr, const void* wg, int row0,
-                                int nk, int dk, int S, void* stream) {
-  return launch<false>(d_old, d_new, changed, sources, ov, nbr, wg, nullptr,
-                       row0, nk, dk, S, 0, stream);
+// Launches rounds t0 .. t0 + count - 1, two kernels each (the active rows,
+// then the round over them). buf0, buf1: the two [n, S] round buffers
+// (buf0 holds d0); aux: int32 stamps [2, n], list [n], counts [64] and the
+// 8-word RoundState, zeroed by the host but for stamped rows; table: the
+// host bucket rows of sell_rounds.cuh; t0: from 1; full: round 1 takes
+// every slot; vec: 4 columns a thread (S % 4 == 0, both buffers 16-byte
+// aligned), else 1
+extern "C" int sell_relax_rounds(void* buf0, void* buf1, void* aux,
+                                 const void* sources, const void* ov,
+                                 const void* table, int nb, int S, int n,
+                                 int t0, int count, int full, int vec,
+                                 void* stream) {
+  if (S <= 0 || t0 < 1 || count < 0 || (vec && S % 4))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  return vec ? launch_rounds<4>(buf0, buf1, aux, sources, ov, table, nb, S,
+                                n, t0, count, full, st)
+             : launch_rounds<1>(buf0, buf1, aux, sources, ov, table, nb, S,
+                                n, t0, count, full, st);
 }
 
 // mask: [nk, dk, W] uint32 bit mask of bucket k, W = ceil(S / 32)
@@ -113,6 +335,13 @@ extern "C" int sell_relax_masked_round(const void* d_old, void* d_new,
                                        const void* wg, const void* mask,
                                        int row0, int nk, int dk, int S, int W,
                                        void* stream) {
-  return launch<true>(d_old, d_new, changed, sources, ov, nbr, wg, mask, row0,
-                      nk, dk, S, W, stream);
+  const long long total = (long long)nk * S;
+  if (total == 0) return 0;
+  const long long blocks = (total + kThreads - 1) / kThreads;
+  sell_relax_masked_round_kernel<<<(unsigned)blocks, kThreads, 0,
+                                   (cudaStream_t)stream>>>(
+      (const int32_t*)d_old, (int32_t*)d_new, (int32_t*)changed,
+      (const int32_t*)sources, (const uint8_t*)ov, (const int32_t*)nbr,
+      (const int32_t*)wg, (const uint32_t*)mask, row0, nk, dk, S, W);
+  return (int)cudaGetLastError();
 }

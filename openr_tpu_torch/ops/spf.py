@@ -13,7 +13,7 @@ equals the JAX package's count.
 
 Nine hand-written CUDA kernels carry the device work (ops/csrc/):
 
-  K1 sell_relax_round    one round of the sliced-ELL pull, per degree bucket
+  K1 sell_relax_round    one round of the sliced-ELL pull over every bucket
   K2 bf_relax_round      one round of the edge-list form (no sliced layout)
   K3 ecmp_triangle       per-edge first-hop test w(u,v) + D[v,t] == D[u,t]
   K4 sell_apply_patches  an event's weight patches into the resident buckets
@@ -54,6 +54,13 @@ own links at INF) are K8 build -> K9 cold on the sliced layout, or K8
 build + seed -> K5 rounds and reset -> K9 when warm-started from the base
 fixpoint; on the edge-list layout K2 with per-row weights, or K6 with a
 per-row seed -> K2 warm.
+
+K1's and K5's fixpoints keep their round state on the card (ops/csrc/
+sell_rounds.cuh): the host enqueues rounds in chunks of ROUND_CHUNK, a
+round after the fixpoint returns at once, and the host reads the state
+once a chunk instead of a flag after every round. Both skip the rows none
+of whose in-neighbours changed in the previous round, and count the same
+Jacobi rounds as the reference.
 
 Each wrapper checks device, dtype, shape and contiguity; on a CUDA tensor
 it launches its kernel (and counts the launch), on a CPU tensor it runs the
@@ -289,6 +296,7 @@ def _sell_relax(
     zero_end: int,
     starts: Sequence[int],
     bits: Optional[Sequence[torch.Tensor]] = None,  # int32 [nk, dk, W]
+    cold: bool = False,
 ) -> Tuple[torch.Tensor, int]:
     """Min-plus relaxation from dest-major initial state d0 to the fixpoint.
 
@@ -297,7 +305,9 @@ def _sell_relax(
     Rows [0, zero_end) and the padding rows past the last bucket never
     change. zero_end is implied by starts and kept for the reference's
     signature. d0 is consumed: on the card it is one of the two round
-    buffers, so a caller that needs it afterwards passes a copy.
+    buffers, so a caller that needs it afterwards passes a copy. `cold`
+    says that d0 is `_sell_d0(sources, n_pad)`: K1's first round then
+    gathers only from the source rows, the only rows off INF.
 
     With `bits` (K8's per-bucket bit masks, `_sell_mask_bits`), slot (r, j)
     weighs INF for batch column s where bit s of bits[k][r, j] is set: the
@@ -327,8 +337,12 @@ def _sell_relax(
             if tuple(bits_k.shape) != (*nbr_k.shape, words):
                 raise ValueError(f"bits[{k}]: bad shape {tuple(bits_k.shape)}")
     if dev.type == "cuda":
+        if bits is not None:
+            return _sell_relax_masked_cuda(
+                d0, sources, overloaded, nbrs, wgs, starts, bits
+            )
         return _sell_relax_cuda(
-            d0, sources, overloaded, nbrs, wgs, starts, bits
+            d0, sources, overloaded, nbrs, wgs, starts, cold
         )
     if bits is not None:
         wgs = _sell_masked_wgs_plain(wgs, bits, s)
@@ -358,11 +372,97 @@ def _sell_relax_plain(d0, sources, overloaded, nbrs, wgs, starts):
             return d, rounds
 
 
-def _sell_relax_cuda(d0, sources, overloaded, nbrs, wgs, starts, bits):
-    """K1 (K9 with `bits`) rounds: one launch per bucket per round into the
-    second buffer, one 4-byte changed flag read per round. d0 is the first
-    buffer; the second starts as its copy, so the rows outside the buckets
-    hold their values in both."""
+# K1's and K5's rounds per host read of their round state on the card
+ROUND_CHUNK = 8
+# K1's kernel launches a round: the active rows, then the round over them
+K1_ROUND_KERNELS = 2
+_BUCKET_TABLE_MAX = 64  # sell_rounds.cuh kMaxBuckets: the layout has <= 44
+_STATE_WORDS = 8  # sell_rounds.cuh RoundState
+
+
+def _bucket_table(nbrs, wgs, starts) -> np.ndarray:
+    """K1's and K5's host bucket table, int64 [nb, 5]: row k is (nbrs[k]'s
+    and wgs[k]'s data pointers, starts[k], nk, dk), which sell_rounds.cuh
+    copies into its kernel parameter. Raises above 64 buckets."""
+    if len(nbrs) > _BUCKET_TABLE_MAX:
+        raise ValueError(
+            f"K1 and K5 take at most {_BUCKET_TABLE_MAX} buckets, got "
+            f"{len(nbrs)}"
+        )
+    rows = [
+        (nbr_k.data_ptr(), wg_k.data_ptr(), int(bs), *nbr_k.shape)
+        for bs, nbr_k, wg_k in zip(starts, nbrs, wgs)
+    ]
+    return np.array(rows, dtype=np.int64).reshape(len(nbrs), 5)
+
+
+def _fixpoint_rounds(launch: Callable[[int, int], None],
+                     state: torch.Tensor, cap: int) -> int:
+    """Drive a fixpoint whose rounds keep their state on the card
+    (sell_rounds.cuh): enqueue rounds t = 1, 2, ... ROUND_CHUNK at a time
+    (`launch(t0, count)`: one host call for rounds t0 .. t0 + count - 1),
+    read (done, rounds) once a chunk, stop when done or at `cap` rounds.
+    Returns the rounds that ran, the final no-change round included."""
+    t = 0
+    while t < cap:
+        count = min(ROUND_CHUNK, cap - t)
+        launch(t + 1, count)
+        t += count
+        done, rounds = state[:2].tolist()
+        if done:
+            return rounds
+    return cap
+
+
+def round_launches(rounds: int, cap: int) -> int:
+    """The rounds `_fixpoint_rounds` enqueues for a fixpoint of `rounds`
+    rounds capped at `cap`: whole chunks, at least one. K5 launches a
+    kernel a round, K1 K1_ROUND_KERNELS."""
+    chunks = max(1, -(-rounds // ROUND_CHUNK))
+    return min(cap, chunks * ROUND_CHUNK)
+
+
+def _aligned(*ts: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in ts)
+
+
+def _sell_relax_cuda(d0, sources, overloaded, nbrs, wgs, starts, cold):
+    """K1's fixpoint: two launches a round (the rows that can move, then
+    the round over them), each for every bucket, rounds enqueued a chunk a
+    host call (`_fixpoint_rounds`). d0 is round buffer 0; buffer 1 starts
+    as its copy, so the rows outside the buckets hold their values in
+    both. `aux` holds the row stamps [2, n], the active-row lists [n], their
+    counts [64] and the round state, all 0; a cold start stamps the source
+    rows as changed by the initial state, any other start takes every slot
+    in round 1."""
+    n, s = d0.shape
+    if s == 0 or not any(nbr_k.shape[0] for nbr_k in nbrs):
+        return d0, 1  # one round, nothing to relax
+    table = _bucket_table(nbrs, wgs, starts)
+    nxt = d0.clone()
+    at = 3 * n + _BUCKET_TABLE_MAX
+    aux = torch.zeros(at + _STATE_WORDS, dtype=torch.int32, device=d0.device)
+    if cold:
+        aux[sources.long()] = 1
+    vec = int(s % 4 == 0 and _aligned(d0, nxt))
+    args = (d0.data_ptr(), nxt.data_ptr(), aux.data_ptr(),
+            sources.data_ptr(), overloaded.data_ptr(), table.ctypes.data,
+            len(nbrs), s, n)
+
+    def launch(t0, count):
+        SELL_RELAX.launch(d0.device, *args, t0, count, int(not cold), vec,
+                          kernels=K1_ROUND_KERNELS * count)
+
+    rounds = _fixpoint_rounds(launch, aux[at:], n)
+    return (d0, nxt)[rounds & 1], rounds
+
+
+def _sell_relax_masked_cuda(d0, sources, overloaded, nbrs, wgs, starts,
+                            bits):
+    """K9 rounds: one launch per bucket per round into the second buffer,
+    one 4-byte changed flag read per round. d0 is the first buffer; the
+    second starts as its copy, so the rows outside the buckets hold their
+    values in both."""
     n, s = d0.shape
     cur, nxt = d0, d0.clone()
     flag = torch.zeros(1, dtype=torch.int32, device=d0.device)
@@ -371,19 +471,13 @@ def _sell_relax_cuda(d0, sources, overloaded, nbrs, wgs, starts, bits):
         flag.zero_()
         for k, (bs, nbr_k, wg_k) in enumerate(zip(starts, nbrs, wgs)):
             nk, dk = nbr_k.shape
-            args = (
+            SELL_RELAX_MASKED.launch(
+                d0.device,
                 cur.data_ptr(), nxt.data_ptr(), flag.data_ptr(),
                 sources.data_ptr(), overloaded.data_ptr(),
-                nbr_k.data_ptr(), wg_k.data_ptr(),
+                nbr_k.data_ptr(), wg_k.data_ptr(), bits[k].data_ptr(),
+                int(bs), nk, dk, s, bits[k].shape[2],
             )
-            if bits is None:
-                SELL_RELAX.launch(d0.device, *args, int(bs), nk, dk, s)
-            else:
-                SELL_RELAX_MASKED.launch(
-                    d0.device,
-                    *args, bits[k].data_ptr(), int(bs), nk, dk, s,
-                    bits[k].shape[2],
-                )
         rounds += 1
         cur, nxt = nxt, cur
         if not int(flag.item()) or rounds >= n:
@@ -424,7 +518,7 @@ def _sell_solver_counted(
     zero_end, starts, _ = key
     d0 = _sell_d0(sources, overloaded.shape[0])
     d, rounds = _sell_relax(
-        d0, sources, overloaded, nbrs, wgs, zero_end, starts
+        d0, sources, overloaded, nbrs, wgs, zero_end, starts, cold=True
     )
     return d.t().contiguous(), rounds
 
@@ -707,8 +801,10 @@ def _sell_invalidate(
     zero_end: int,
     starts: Sequence[int],
 ) -> Tuple[torch.Tensor, int]:
-    """Ramalingam-Reps invalidation on the sliced layout: (marks bool
-    [S, n_pad] row-major, rounds of the mark fixpoint).
+    """Ramalingam-Reps invalidation on the sliced layout: (marks, rounds of
+    the mark fixpoint). The marks are bool [S, n_pad] row-major on the CPU
+    and K5's bits int32 [n_pad, ceil(S / 32)] on the card (`marks_bool`
+    reads them as the bools).
 
     Seeds mark the entries where an increased edge satisfies the triangle
     equality against the OLD weights (so this runs before the patch); the
@@ -717,7 +813,8 @@ def _sell_invalidate(
     true DAG edge passes the unmasked triangle test, so nothing that needs
     recomputing is left unmarked. Padding rows (PATCH_PAD) seed nothing;
     other rows and slots are clipped into their bucket, as the reference
-    does."""
+    does. On the card one launch seeds every bucket and the rounds follow
+    it with no host read in between."""
     dev = d_prev.device
     _check("d_prev", d_prev, torch.int32, 2, dev)
     n = d_prev.shape[1]
@@ -735,24 +832,72 @@ def _sell_invalidate(
     p = inc_idx.shape[1]
     if dev.type != "cuda":
         marks = _sell_seed_plain(d_prev, nbrs, wgs, inc_idx, starts)
-        seeded = bool(marks.any())
-    else:
-        marks = torch.zeros((s, n), dtype=torch.bool, device=dev)
-        flag = torch.zeros(1, dtype=torch.int32, device=dev)
-        for k, (bs, nbr_k, wg_k) in enumerate(zip(starts, nbrs, wgs)):
-            nk, dk = nbr_k.shape
-            if p and s and nk * dk:
-                SELL_MARK.launch(
-                    dev,
-                    d_prev.data_ptr(), marks.data_ptr(), flag.data_ptr(),
-                    nbr_k.data_ptr(), wg_k.data_ptr(),
-                    inc_idx[k].data_ptr(), p, int(bs), nk, dk, s, n,
-                    entry="sell_mark_seed",
-                )
-        seeded = bool(flag.item())
-    return _sell_mark_fixpoint(
-        d_prev, marks, nbrs, wgs, zero_end, starts, seeded
+        return _sell_mark_fixpoint(
+            d_prev, marks, nbrs, wgs, zero_end, starts, bool(marks.any())
+        )
+    buf = _mark_buffer(s, n, dev)
+    marks = _mark_words(buf, s, n)
+    if not (p and s and any(a.numel() for a in nbrs)):
+        return marks, 0  # nothing can seed
+    table = _bucket_table(nbrs, wgs, starts)
+    SELL_MARK.launch(
+        dev,
+        d_prev.data_ptr(), buf.data_ptr(), inc_idx.data_ptr(),
+        table.ctypes.data, len(nbrs), p, s, n, _mask_words(s),
+        entry="sell_mark_seed",
     )
+    return marks, _sell_mark_rounds(d_prev, buf, table, s, n)
+
+
+def _mark_buffer(s: int, n: int, dev) -> torch.Tensor:
+    """K5's zeroed fixpoint buffer (sell_mark.cu): the marks M [n, W], the
+    newly marked bits N [2, n, W], the row stamps F [2, n] and the round
+    state, W = ceil(s / 32) int32 words a row."""
+    w = _mask_words(s)
+    return torch.zeros(3 * n * w + 2 * n + _STATE_WORDS, dtype=torch.int32,
+                       device=dev)
+
+
+def _mark_words(buf: torch.Tensor, s: int, n: int) -> torch.Tensor:
+    """The marks M [n, W] of a K5 buffer, as a view."""
+    w = _mask_words(s)
+    return buf[: n * w].view(n, w)
+
+
+def _sell_mark_rounds(d_prev, buf, table, s: int, n: int) -> int:
+    """K5's mark rounds after its round 0 (seed or pack), enqueued a chunk
+    at a time; returns their count (0 when round 0 marked nothing)."""
+    w = _mask_words(s)
+    state = buf[3 * n * w + 2 * n :]
+    args = (d_prev.data_ptr(), buf.data_ptr(), table.ctypes.data,
+            table.shape[0], s, n, w)
+
+    def launch(t0, count):
+        SELL_MARK.launch(d_prev.device, *args, t0, count,
+                         entry="sell_mark_rounds", kernels=count)
+
+    return _fixpoint_rounds(launch, state, n)
+
+
+def marks_bool(marks: torch.Tensor, s: int) -> torch.Tensor:
+    """K5's bits int32 [n, ceil(s / 32)] as bool [s, n] row-major marks:
+    column c's mark of node v is bit c % 32 of marks[v, c // 32]."""
+    cols = torch.arange(s, device=marks.device)
+    bits = marks[:, cols // 32] >> (cols % 32).to(torch.int32)
+    return (bits & 1).bool().t().contiguous()
+
+
+def marks_bits(marks: torch.Tensor) -> torch.Tensor:
+    """Bool [S, n] row-major marks as K5's bits int32 [n, ceil(S / 32)]:
+    the plain version of sell_mark.cu's pack."""
+    s, n = marks.shape
+    w = _mask_words(s)
+    padded = torch.zeros((w * 32, n), dtype=torch.int64, device=marks.device)
+    padded[:s] = marks.long()
+    shifts = torch.arange(32, dtype=torch.int64, device=marks.device)
+    words = (padded.view(w, 32, n) << shifts[None, :, None]).sum(dim=1)
+    words = torch.where(words >= 1 << 31, words - (1 << 32), words)
+    return words.t().to(torch.int32).contiguous()
 
 
 def _sell_seed_plain(d_prev, nbrs, wgs, inc_idx, starts):
@@ -784,31 +929,28 @@ def _sell_mark_fixpoint(
     one of its old-DAG in-edges carries a marked tail. Jacobi rounds until
     nothing changes, capped at n_pad; no round runs when nothing was seeded
     (`seeded`, read from the seed pass, so a decrease-only event pays
-    nothing). Returns (marks, rounds). zero_end is implied by starts and
-    kept for the reference's signature."""
+    nothing). Takes bool [S, n_pad] marks; returns (marks, rounds), the
+    marks as `_sell_invalidate` gives them (K5's bits on the card, where
+    its pack turns the bools into its round 0). zero_end is implied by
+    starts and kept for the reference's signature."""
     s, n = d_prev.shape
-    if not seeded:
-        return marks, 0
-    if d_prev.device.type != "cuda":
+    dev = d_prev.device
+    if dev.type != "cuda":
+        if not seeded:
+            return marks, 0
         return _sell_mark_fixpoint_plain(d_prev, marks, nbrs, wgs, starts)
-    cur, nxt = marks, marks.clone()
-    flag = torch.zeros(1, dtype=torch.int32, device=marks.device)
-    rounds = 0
-    while True:
-        flag.zero_()
-        for bs, nbr_k, wg_k in zip(starts, nbrs, wgs):
-            nk, dk = nbr_k.shape
-            if nk and s:
-                SELL_MARK.launch(
-                    d_prev.device,
-                    d_prev.data_ptr(), cur.data_ptr(), nxt.data_ptr(),
-                    flag.data_ptr(), nbr_k.data_ptr(), wg_k.data_ptr(),
-                    int(bs), nk, dk, s, n, entry="sell_mark_round",
-                )
-        rounds += 1
-        cur, nxt = nxt, cur
-        if not int(flag.item()) or rounds >= n:
-            return cur, rounds
+    _check("marks", marks, torch.bool, 2, dev)
+    if marks.shape != d_prev.shape:
+        raise ValueError("marks do not match d_prev's shape")
+    buf = _mark_buffer(s, n, dev)
+    if not (seeded and s and any(a.numel() for a in nbrs)):
+        return _mark_words(buf, s, n), 0
+    SELL_MARK.launch(
+        dev, marks.data_ptr(), buf.data_ptr(), s, n, _mask_words(s),
+        entry="sell_mark_pack",
+    )
+    table = _bucket_table(nbrs, wgs, starts)
+    return _mark_words(buf, s, n), _sell_mark_rounds(d_prev, buf, table, s, n)
 
 
 def _sell_mark_fixpoint_plain(d_prev, marks, nbrs, wgs, starts):
@@ -835,20 +977,29 @@ def _sell_warm_d0(
     d_prev: torch.Tensor, marks: torch.Tensor, sources: torch.Tensor
 ) -> torch.Tensor:
     """The repaired initial state in K1's layout: dest-major [n_pad, S] of
-    where(marks, INF, d_prev) with every source's own entry pinned to 0."""
+    where(marks, INF, d_prev) with every source's own entry pinned to 0.
+    `marks` as `_sell_invalidate` gives them on d_prev's device."""
     dev = d_prev.device
     s, n = d_prev.shape
-    _check("marks", marks, torch.bool, 2, dev)
     _check("sources", sources, torch.int32, 1, dev)
-    if marks.shape != d_prev.shape or sources.shape[0] != s:
-        raise ValueError("marks/sources do not match d_prev's shape")
+    if sources.shape[0] != s:
+        raise ValueError("sources do not match d_prev's shape")
     if dev.type != "cuda":
+        _check("marks", marks, torch.bool, 2, dev)
+        if marks.shape != d_prev.shape:
+            raise ValueError("marks do not match d_prev's shape")
         return _bf_warm_d0_plain(d_prev, marks, sources).t().contiguous()
+    _check("marks", marks, torch.int32, 2, dev)
+    if tuple(marks.shape) != (n, _mask_words(s)):
+        raise ValueError(
+            f"marks must be K5's bits [{n}, {_mask_words(s)}], got "
+            f"{tuple(marks.shape)}"
+        )
     d0 = torch.empty((n, s), dtype=torch.int32, device=dev)
     SELL_MARK.launch(
         dev,
         d_prev.data_ptr(), marks.data_ptr(), sources.data_ptr(),
-        d0.data_ptr(), s, n, entry="sell_mark_reset",
+        d0.data_ptr(), s, n, _mask_words(s), entry="sell_mark_reset",
     )
     return d0
 

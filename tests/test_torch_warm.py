@@ -466,3 +466,288 @@ def test_event_wrappers_check_inputs():
     with pytest.raises(ValueError):
         tspf._bf_warm_d0(d, torch.zeros((2, 3), dtype=torch.bool),
                          t32([0, 1]))
+
+
+# -- K1's and K5's round bookkeeping on the card, modelled on the CPU -------
+#
+# The kernels run only on the card; what they keep between rounds (row
+# stamps by round parity, the newly marked bits, the write-through of a
+# skipped row) is modelled here in numpy, step for step as sell_relax.cu
+# and sell_mark.cu take it, and held against the JAX package on the same
+# inputs, rounds included. These tests give the JAX package many new
+# shapes, so each drops JAX's compiled executables before and after it
+# (`released`), which keeps this file's peak memory where it was before
+# them.
+
+MODEL_GRAPHS = ("grid6", "wan", "clos", "gadgets")
+
+
+@pytest.fixture
+def released():
+    from test_torch_memory import release_memory
+
+    release_memory()
+    yield
+    release_memory()
+
+
+def gadget_edges(count=6):
+    """Hub h; node v_i on a heavy direct link and on a light path of i
+    hops: v_i changes in round 1 and again in round i + 1."""
+    edges = []
+    for i in range(1, count + 1):
+        prev = "h"
+        for j in range(i):
+            edges.append((prev, f"p{i}_{j}", 1))
+            prev = f"p{i}_{j}"
+        edges += [(prev, f"v{i}", 1), ("h", f"v{i}", 10 * i + 7)]
+    return edges
+
+
+def model_case(name):
+    jg = jgraph.compile_edges(gadget_edges() if name == "gadgets"
+                              else GRAPHS[name])
+    rng = np.random.default_rng(len(name))
+    rows = (np.full(4, jg.node_index["h"]) if name == "gadgets"
+            else rng.choice(jg.n, size=min(12, jg.n), replace=False))
+    return {"name": name, "jg": jg,
+            "tg": graph_from_arrays(graph_arrays(jg)),
+            "rows": rows.astype(np.int32)}
+
+
+def k1_model(d0, sources, ov, nbrs, wgs, starts, cold, write_through=True):
+    """sell_relax.cu's fixpoint: round t reads buffer (t - 1) & 1, gathers
+    only from tails stamped t in stamps[(t - 1) & 1] (every slot in a warm
+    round 1; a cold start stamps the source rows 1), writes a row that went
+    down or was stamped t itself, and stamps it t + 1; done when a round
+    moves nothing, or at n rounds. (dest-major D, rounds). The kernel's
+    first pass lists exactly the rows this model can write: a taken slot
+    or the row's own stamp t."""
+    n, s = d0.shape
+    bufs = [d0.copy(), d0.copy()]
+    stamps = np.zeros((2, n), dtype=np.int64)
+    if cold:
+        stamps[0, sources] = 1
+    allow = ~ov[:, None] | (np.arange(n)[:, None] == sources[None, :])
+    for t in range(1, n + 1):
+        full = t == 1 and not cold
+        d_old, d_new = bufs[(t - 1) & 1], bufs[t & 1]
+        cp, cq = stamps[(t - 1) & 1], stamps[t & 1]
+        dt = np.where(allow, d_old, INF)
+        moved_any = False
+        for bs, nb, wg in zip(starts, nbrs, wgs):
+            rows = bs + np.arange(nb.shape[0])
+            take = np.ones(nb.shape, bool) if full else cp[nb] == t
+            cand = np.minimum(dt[nb] + wg[:, :, None], INF)
+            cand = np.where(take[:, :, None], cand, INF).min(axis=1,
+                                                             initial=INF)
+            new = np.minimum(d_old[rows], cand)
+            moved = (new < d_old[rows]).any(axis=1)
+            write = moved | (write_through and not full) & (cp[rows] == t)
+            d_new[rows[write]] = new[write]
+            cq[rows[moved]] = t + 1
+            moved_any |= bool(moved.any())
+        if not moved_any:
+            return bufs[t & 1], t
+    return bufs[n & 1], n
+
+
+def k5_model(dp, seeds, nbrs, wgs, starts):
+    """sell_mark.cu's fixpoint from round 0's marks (row-major [S, n]):
+    round t visits the rows with a tail stamped t in F[(t - 1) & 1], tests
+    only the tails' bits N[(t - 1) & 1] not yet in M, writes N[t & 1] for
+    the visited rows alone, ORs into M in place and stamps a row that grew
+    t + 1; done when a round marks nothing, or at n rounds. (marks,
+    rounds)"""
+    s, n = dp.shape
+    m = seeds.copy()
+    new = [seeds.copy(), np.zeros_like(seeds)]
+    f = np.zeros((2, n), dtype=np.int64)
+    f[0, seeds.any(axis=0)] = 1
+    if not seeds.any():
+        return m, 0
+    for t in range(1, n + 1):
+        np_, nq = new[(t - 1) & 1], new[t & 1]
+        fp, fq = f[(t - 1) & 1], f[t & 1]
+        grew_any = False
+        for bs, nb, wg in zip(starts, nbrs, wgs):
+            rows = bs + np.arange(nb.shape[0])
+            front = fp[nb] == t  # [nk, dk]
+            visit = front.any(axis=1)
+            dv = dp[:, rows]
+            on_dag = (np.minimum(dp[:, nb] + wg[None], INF)
+                      == dv[:, :, None]) & (dv < INF)[:, :, None]
+            add = (np_[:, nb] & front[None] & on_dag
+                   & ~m[:, rows][:, :, None]).any(axis=2)
+            nq[:, rows[visit]] = add[:, visit]
+            m[:, rows] |= add
+            grew = add.any(axis=0)
+            fq[rows[grew]] = t + 1
+            grew_any |= bool(grew.any())
+        if not grew_any:
+            return m, t
+    return m, n
+
+
+def jax_relax(jg, d0, rows, ov, wgs):
+    sell = jg.sell
+    allow = ~ov[:, None] | (np.arange(jg.n_pad)[:, None] == rows[None, :])
+    jd, jr = jspf._sell_relax(
+        jnp.asarray(d0), jnp.asarray(allow),
+        tuple(jnp.asarray(a) for a in sell.nbr),
+        tuple(jnp.asarray(a) for a in wgs), sell.zero_end, sell.starts,
+        tuple(a.shape for a in sell.nbr))
+    return np.asarray(jd), int(jr)
+
+
+@pytest.mark.parametrize("start", ["cold", "warm"])
+@pytest.mark.parametrize("name", MODEL_GRAPHS)
+@pytest.mark.usefixtures("released")
+def test_k1_round_bookkeeping_matches_jax(name, start):
+    """K1's skipped slots, parity stamps and write-through give the JAX
+    package's `_sell_relax` D and rounds, from a cold start and from an
+    event's repaired state (a warm round 1 over every slot)."""
+    case = model_case(name)
+    jg, rows = case["jg"], case["rows"]
+    sell = jg.sell
+    if start == "cold":
+        d0 = np.full((jg.n_pad, len(rows)), INF, dtype=np.int32)
+        d0[rows, np.arange(len(rows))] = 0
+        wgs = sell.wg
+    else:
+        ev = sell_inputs(case, "mixed", seed=5)
+        marks = tspf._sell_invalidate(
+            t32(ev["d_prev"]), tuple(t32(a) for a in sell.nbr),
+            tuple(t32(a) for a in ev["wg_old"]), t32(ev["inc_idx"]),
+            sell.zero_end, sell.starts)[0]
+        d0 = tspf._sell_warm_d0(t32(ev["d_prev"]), marks,
+                                t32(rows)).numpy()
+        wgs = sell.patched_wg(ev["w_new"][: jg.e])
+    jd, jr = jax_relax(jg, d0, rows, jg.overloaded, wgs)
+    md, mr = k1_model(d0.copy(), rows, jg.overloaded, sell.nbr, wgs,
+                      sell.starts, cold=start == "cold")
+    np.testing.assert_array_equal(md, jd)
+    assert mr == jr
+
+
+@pytest.mark.usefixtures("released")
+def test_k1_write_through_is_what_the_gadgets_need():
+    """Without the write-through of a row that changed in the previous
+    round, the gadget graph's fixpoint comes out wrong: the case above
+    exercises the two-buffer trap."""
+    case = model_case("gadgets")
+    jg, rows = case["jg"], case["rows"]
+    d0 = np.full((jg.n_pad, len(rows)), INF, dtype=np.int32)
+    d0[rows, np.arange(len(rows))] = 0
+    jd, _ = jax_relax(jg, d0, rows, jg.overloaded, jg.sell.wg)
+    md, _ = k1_model(d0.copy(), rows, jg.overloaded, jg.sell.nbr,
+                     jg.sell.wg, jg.sell.starts, cold=True,
+                     write_through=False)
+    assert not np.array_equal(md, jd)
+
+
+@pytest.mark.parametrize("kind", ["increase", "mixed", "overload_on"])
+@pytest.mark.parametrize("name", MODEL_GRAPHS)
+@pytest.mark.usefixtures("released")
+def test_k5_frontier_bookkeeping_matches_jax(name, kind):
+    """K5's frontier rounds (tails stamped in the previous round, their new
+    bits only) give the JAX package's `_sell_invalidate` marks and
+    rounds."""
+    case = model_case(name)
+    jg = case["jg"]
+    sell = jg.sell
+    ev = sell_inputs(case, kind, seed=7)
+    seeds = tspf._sell_seed_plain(
+        t32(ev["d_prev"]), tuple(t32(a) for a in sell.nbr),
+        tuple(t32(a) for a in ev["wg_old"]), t32(ev["inc_idx"]),
+        sell.starts).numpy()
+    jmarks, jrounds = jspf._sell_invalidate(
+        jnp.asarray(ev["d_prev"].T), tuple(jnp.asarray(a) for a in sell.nbr),
+        tuple(jnp.asarray(a) for a in ev["wg_old"]),
+        jnp.asarray(ev["inc_idx"]), sell.zero_end, sell.starts,
+        tuple(a.shape for a in sell.nbr))
+    m, r = k5_model(ev["d_prev"], seeds, sell.nbr, ev["wg_old"],
+                    sell.starts)
+    np.testing.assert_array_equal(m, np.asarray(jmarks).T)
+    assert r == int(jrounds)
+
+
+@pytest.mark.parametrize("s", [1, 16, 31, 32, 33, 65, 128])
+@pytest.mark.usefixtures("released")
+def test_k5_bit_layout_round_trips_jax_marks(s):
+    """K5's node-major bits: column c of node v is bit c % 32 of word
+    c // 32 of row v; `marks_bits` packs the JAX package's marks into it
+    and `marks_bool` reads them back."""
+    case = model_case("wan")
+    jg = case["jg"]
+    rng = np.random.default_rng(s)
+    rows = rng.choice(jg.n, size=s).astype(np.int32)
+    ev = sell_inputs({**case, "rows": rows}, "increase", seed=3)
+    jmarks, _ = jspf._sell_invalidate(
+        jnp.asarray(ev["d_prev"].T),
+        tuple(jnp.asarray(a) for a in jg.sell.nbr),
+        tuple(jnp.asarray(a) for a in ev["wg_old"]),
+        jnp.asarray(ev["inc_idx"]), jg.sell.zero_end, jg.sell.starts,
+        tuple(a.shape for a in jg.sell.nbr))
+    marks = torch.as_tensor(np.asarray(jmarks).T.copy())
+    marks[s - 1, 0] = True  # the last column's bit: the sign bit at 32
+    bits = tspf.marks_bits(marks)
+    assert bits.dtype == torch.int32
+    assert tuple(bits.shape) == (jg.n_pad, (s + 31) // 32)
+    word = bits[0, (s - 1) // 32].item() & 0xFFFFFFFF
+    assert word >> ((s - 1) % 32) & 1
+    assert torch.equal(tspf.marks_bool(bits, s), marks)
+    v, c = np.nonzero(marks.numpy().T)
+    for vi, ci in list(zip(v, c))[:50]:
+        assert bits[vi, ci // 32].item() >> (ci % 32) & 1
+
+
+def test_bucket_table_rows_and_cap():
+    """K1's and K5's host table has one row (nbr pointer, wg pointer,
+    start, nk, dk) per bucket, in bucket order; 64 buckets at most."""
+    tg = graph_from_arrays(graph_arrays(jgraph.compile_edges(GRAPHS["clos"])))
+    st = to_device(tg, CPU)
+    table = tspf._bucket_table(st["nbrs"], st["wgs"], tg.sell.starts)
+    assert table.dtype == np.int64 and table.shape == (len(st["nbrs"]), 5)
+    assert table.tolist() == [
+        [nb.data_ptr(), wg.data_ptr(), bs, *nb.shape]
+        for bs, nb, wg in zip(tg.sell.starts, st["nbrs"], st["wgs"])
+    ]
+    many = tuple(t32([[0]]) for _ in range(65))
+    with pytest.raises(ValueError, match="at most 64 buckets"):
+        tspf._bucket_table(many, many, range(65))
+
+
+@pytest.mark.parametrize("rounds,cap", [(0, 512), (1, 512), (8, 512),
+                                        (9, 512), (31, 131072), (16, 16),
+                                        (5, 4)])
+def test_fixpoint_rounds_reads_the_state_once_a_chunk(rounds, cap):
+    """The host side of the round protocol: rounds go out ROUND_CHUNK a
+    host call, the state is read once a chunk, and the count is the device's
+    (the final no-change round included), or the cap; `round_launches`
+    counts the launches it makes."""
+    state = torch.zeros(8, dtype=torch.int32)
+    launched, reads, calls = [], [], []
+
+    def launch(t0, count):  # a fixpoint whose round `rounds` moves nothing
+        calls.append(count)
+        for t in range(t0, t0 + count):
+            launched.append(t)
+            if state[0] == 0 and t <= rounds:
+                state[1] = t
+                state[0] = int(t == rounds)
+
+    if rounds == 0:
+        state[0] = 1  # round 0 marked nothing
+    real_tolist = torch.Tensor.tolist
+
+    class Counting(torch.Tensor):
+        def tolist(self):
+            reads.append(1)
+            return real_tolist(self)
+
+    got = tspf._fixpoint_rounds(launch, state.as_subclass(Counting), cap)
+    assert got == min(rounds, cap)
+    assert launched == list(range(1, len(launched) + 1))
+    assert len(launched) == tspf.round_launches(min(rounds, cap), cap)
+    assert len(reads) == len(calls) == -(-len(launched) // tspf.ROUND_CHUNK)
