@@ -1082,10 +1082,7 @@ def main() -> int:
 
     m5, r5, d05 = k5()
     m5p, r5p, d05p = k5_plain()
-    # K5's bits as the plain version's bools (the marks are bools already
-    # where the script is rehearsed on the CPU)
-    if m5.dtype == torch.int32:
-        m5 = spf.marks_bool(m5, s_rows)
+    m5 = spf.marks_bool(m5, s_rows)  # K5's bits as the plain version's bools
     err5 = max(max_abs_err(m5, m5p), max_abs_err(d05, d05p))
     check(err5 == 0 and r5 == r5p == inv_w,
           f"K5 differs from its plain version: err {err5}, rounds "
@@ -1097,11 +1094,16 @@ def main() -> int:
           "for every bucket in chunks and the reset")
     ms5 = time_ms(k5)
     plain_ms5 = time_ms(k5_plain, reps=3, warmup=1)
-    # per round: marks read and written once, the buckets read once; the
-    # reset reads D and the marks and writes D once
+    # per round: the marks, a bit an entry, read and written once, the
+    # buckets read once, a word op a slot and mark word (the tails' new
+    # bits ANDed with the slot's on-DAG bits, ORed into the row); the
+    # on-DAG test of a slot and column, which no round changes, once; the
+    # reset reads D and the marks' bits, writes d0 once, 2 ops an entry
+    mark_bytes = s_rows * n_pad / 8
     b5_ms, b5_by = bound(
-        r5 * (2 * s_rows * n_pad + 8 * slots) + 9 * s_rows * n_pad,
-        r5 * 2 * slots * s_rows + 2 * s_rows * n_pad, rate,
+        r5 * (2 * mark_bytes + 8 * slots) + 8 * s_rows * n_pad + mark_bytes,
+        r5 * 2 * slots * spf._mask_words(s_rows) + 2 * slots * s_rows
+        + 2 * s_rows * n_pad, rate,
     )
     emit({"phase": "k5_sell_mark", "rounds": r5, "marked": n_marked,
           "equal_plain": True, "ms": ms5, "launches_per_call": per_call5,

@@ -324,7 +324,8 @@ extern "C" int sell_mark_rounds(const void* dp, void* buf, const void* table,
   if (blocks < 0 || S <= 0 || t0 < 1 || count < 0 || W != (S + 31) / 32)
     return (int)cudaErrorInvalidValue;
   if (blocks == 0) return 0;
-  const int grid = sell::grid_blocks(sell_mark_round_kernel, blocks);
+  const int grid =
+      sell::grid_blocks((const void*)sell_mark_round_kernel, blocks);
   for (int t = t0; t < t0 + count; ++t) {
     sell_mark_round_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
         (const int32_t*)dp, buf, b, n, W, t);

@@ -289,8 +289,10 @@ int launch_rounds(void* buf0, void* buf1, void* aux, const void* sources,
   const int blocks_b = sell::fill_buckets(cols, table, nb, S / V);
   if (blocks_a < 0 || blocks_b < 0) return (int)cudaErrorInvalidValue;
   if (blocks_a == 0 || blocks_b == 0) return 0;
-  const int grid_a = sell::grid_blocks(sell_relax_active_kernel, blocks_a);
-  const int grid_b = sell::grid_blocks(sell_relax_round_kernel<V>, blocks_b);
+  const int grid_a =
+      sell::grid_blocks((const void*)sell_relax_active_kernel, blocks_a);
+  const int grid_b =
+      sell::grid_blocks((const void*)sell_relax_round_kernel<V>, blocks_b);
   for (int t = t0; t < t0 + count; ++t) {
     const int f = full && t == 1;
     sell_relax_active_kernel<<<grid_a, kThreads, 0, stream>>>(

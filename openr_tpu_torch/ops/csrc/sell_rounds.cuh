@@ -51,7 +51,7 @@ constexpr int kInf = 1 << 29;
 constexpr int kThreads = 256;
 constexpr int kMaxBuckets = 64;
 constexpr int kTableCols = 5;
-constexpr int kMaxDevices = 64;
+constexpr int kGridCache = 64;  // (kernel, device) pairs grid_blocks keeps
 constexpr int kSlotsPerThread = 8;
 
 struct Buckets {
@@ -105,20 +105,25 @@ inline int fill_buckets(Buckets& b, const void* table, int nb,
 }
 
 // The blocks of `kernel` the card keeps resident at kThreads a block, at
-// most `want`; cached per device and kernel.
-template <typename K>
-inline int grid_blocks(K kernel, int want) {
-  static int cap[kMaxDevices] = {0};
+// most `want`; cached per (kernel, device), since the kernels of one
+// library differ in registers and so in occupancy.
+inline int grid_blocks(const void* kernel, int want) {
+  struct Cap {
+    const void* kernel;
+    int dev, blocks;
+  };
+  static Cap cache[kGridCache];
+  static int used = 0;
   int dev = 0;
   cudaGetDevice(&dev);
-  int c = (dev >= 0 && dev < kMaxDevices) ? cap[dev] : 0;
-  if (c == 0) {
-    int sms = 1, per = 1;
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel, kThreads, 0);
-    c = sms * (per > 0 ? per : 1);
-    if (dev >= 0 && dev < kMaxDevices) cap[dev] = c;
-  }
+  for (int i = 0; i < used; ++i)
+    if (cache[i].kernel == kernel && cache[i].dev == dev)
+      return want < cache[i].blocks ? want : cache[i].blocks;
+  int sms = 1, per = 1;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel, kThreads, 0);
+  const int c = sms * (per > 0 ? per : 1);
+  if (used < kGridCache) cache[used++] = {kernel, dev, c};
   return want < c ? want : c;
 }
 

@@ -307,7 +307,11 @@ def _sell_relax(
     signature. d0 is consumed: on the card it is one of the two round
     buffers, so a caller that needs it afterwards passes a copy. `cold`
     says that d0 is `_sell_d0(sources, n_pad)`: K1's first round then
-    gathers only from the source rows, the only rows off INF.
+    gathers only from the source rows, the only rows off INF. (Stamping
+    the rows of any d0 below INF on the host, `(d0 < INF).any(1)`, would
+    serve both starts with one round 1, but that extra pass made the
+    Clos's cold solve at S = 8 and the WAN event's warm relax about a
+    tenth slower on an H100; `PERF.md` §6.)
 
     With `bits` (K8's per-bucket bit masks, `_sell_mask_bits`), slot (r, j)
     weighs INF for batch column s where bit s of bits[k][r, j] is set: the
@@ -802,9 +806,8 @@ def _sell_invalidate(
     starts: Sequence[int],
 ) -> Tuple[torch.Tensor, int]:
     """Ramalingam-Reps invalidation on the sliced layout: (marks, rounds of
-    the mark fixpoint). The marks are bool [S, n_pad] row-major on the CPU
-    and K5's bits int32 [n_pad, ceil(S / 32)] on the card (`marks_bool`
-    reads them as the bools).
+    the mark fixpoint). The marks are K5's bits int32 [n_pad, ceil(S / 32)]
+    on either device (`marks_bool` reads them as bool [S, n_pad]).
 
     Seeds mark the entries where an increased edge satisfies the triangle
     equality against the OLD weights (so this runs before the patch); the
@@ -930,18 +933,21 @@ def _sell_mark_fixpoint(
     nothing changes, capped at n_pad; no round runs when nothing was seeded
     (`seeded`, read from the seed pass, so a decrease-only event pays
     nothing). Takes bool [S, n_pad] marks; returns (marks, rounds), the
-    marks as `_sell_invalidate` gives them (K5's bits on the card, where
-    its pack turns the bools into its round 0). zero_end is implied by
-    starts and kept for the reference's signature."""
+    marks as `_sell_invalidate` gives them (K5's bits; on the card K5's
+    pack turns the bools into its round 0). zero_end is implied by starts
+    and kept for the reference's signature."""
     s, n = d_prev.shape
     dev = d_prev.device
-    if dev.type != "cuda":
-        if not seeded:
-            return marks, 0
-        return _sell_mark_fixpoint_plain(d_prev, marks, nbrs, wgs, starts)
     _check("marks", marks, torch.bool, 2, dev)
     if marks.shape != d_prev.shape:
         raise ValueError("marks do not match d_prev's shape")
+    if dev.type != "cuda":
+        rounds = 0
+        if seeded:
+            marks, rounds = _sell_mark_fixpoint_plain(
+                d_prev, marks, nbrs, wgs, starts
+            )
+        return marks_bits(marks), rounds
     buf = _mark_buffer(s, n, dev)
     if not (seeded and s and any(a.numel() for a in nbrs)):
         return _mark_words(buf, s, n), 0
@@ -978,23 +984,22 @@ def _sell_warm_d0(
 ) -> torch.Tensor:
     """The repaired initial state in K1's layout: dest-major [n_pad, S] of
     where(marks, INF, d_prev) with every source's own entry pinned to 0.
-    `marks` as `_sell_invalidate` gives them on d_prev's device."""
+    `marks`: K5's bits, as `_sell_invalidate` gives them."""
     dev = d_prev.device
     s, n = d_prev.shape
     _check("sources", sources, torch.int32, 1, dev)
     if sources.shape[0] != s:
         raise ValueError("sources do not match d_prev's shape")
-    if dev.type != "cuda":
-        _check("marks", marks, torch.bool, 2, dev)
-        if marks.shape != d_prev.shape:
-            raise ValueError("marks do not match d_prev's shape")
-        return _bf_warm_d0_plain(d_prev, marks, sources).t().contiguous()
     _check("marks", marks, torch.int32, 2, dev)
     if tuple(marks.shape) != (n, _mask_words(s)):
         raise ValueError(
             f"marks must be K5's bits [{n}, {_mask_words(s)}], got "
             f"{tuple(marks.shape)}"
         )
+    if dev.type != "cuda":
+        return _bf_warm_d0_plain(
+            d_prev, marks_bool(marks, s), sources
+        ).t().contiguous()
     d0 = torch.empty((n, s), dtype=torch.int32, device=dev)
     SELL_MARK.launch(
         dev,

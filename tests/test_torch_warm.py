@@ -10,6 +10,8 @@ the same answer in any order, the mark fixpoint is boolean, and the round
 counts are of the same Jacobi rounds.
 """
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -372,7 +374,9 @@ def test_invalidation_seed_clips_rows_below_the_pad():
         tuple(jnp.asarray(a) for a in sell.wg), jnp.asarray(inc),
         sell.zero_end, sell.starts, tuple(a.shape for a in sell.nbr),
     )
-    np.testing.assert_array_equal(np.asarray(jmarks).T, marks.numpy())
+    np.testing.assert_array_equal(
+        np.asarray(jmarks).T, tspf.marks_bool(marks, len(rows)).numpy()
+    )
     assert int(jrounds) == rounds
 
 
@@ -475,20 +479,34 @@ def test_event_wrappers_check_inputs():
 # skipped row) is modelled here in numpy, step for step as sell_relax.cu
 # and sell_mark.cu take it, and held against the JAX package on the same
 # inputs, rounds included. These tests give the JAX package many new
-# shapes, so each drops JAX's compiled executables before and after it
-# (`released`), which keeps this file's peak memory where it was before
-# them.
+# shapes, so JAX's compiled executables are dropped (`released`) before
+# each group of cases that shares a graph, and so its shapes, and after
+# the file, which keeps this file's peak memory where it was before them.
 
 MODEL_GRAPHS = ("grid6", "wan", "clos", "gadgets")
+_released_group = [None]
 
 
 @pytest.fixture
-def released():
+def released(request):
+    from test_torch_memory import release_memory
+
+    callspec = getattr(request.node, "callspec", None)
+    group = (request.node.originalname,
+             callspec.params.get("name") if callspec else None)
+    if group != _released_group[0]:
+        release_memory()
+        _released_group[0] = group
+    yield
+
+
+@pytest.fixture(scope="module", autouse=True)
+def released_after_the_file():
+    yield
     from test_torch_memory import release_memory
 
     release_memory()
-    yield
-    release_memory()
+    _released_group[0] = None
 
 
 def gadget_edges(count=6):
@@ -672,28 +690,39 @@ def test_k5_frontier_bookkeeping_matches_jax(name, kind):
     assert r == int(jrounds)
 
 
-@pytest.mark.parametrize("s", [1, 16, 31, 32, 33, 65, 128])
-@pytest.mark.usefixtures("released")
-def test_k5_bit_layout_round_trips_jax_marks(s):
-    """K5's node-major bits: column c of node v is bit c % 32 of word
-    c // 32 of row v; `marks_bits` packs the JAX package's marks into it
-    and `marks_bool` reads them back."""
+@functools.lru_cache(maxsize=None)
+def wan_increase_marks():
+    """The JAX package's marks of an increase event on the WAN case for
+    128 random sources: bool [128, n_pad] row-major."""
     case = model_case("wan")
     jg = case["jg"]
-    rng = np.random.default_rng(s)
-    rows = rng.choice(jg.n, size=s).astype(np.int32)
-    ev = sell_inputs({**case, "rows": rows}, "increase", seed=3)
+    rows = np.random.default_rng(128).choice(jg.n, size=128)
+    ev = sell_inputs({**case, "rows": rows.astype(np.int32)}, "increase",
+                     seed=3)
     jmarks, _ = jspf._sell_invalidate(
         jnp.asarray(ev["d_prev"].T),
         tuple(jnp.asarray(a) for a in jg.sell.nbr),
         tuple(jnp.asarray(a) for a in ev["wg_old"]),
         jnp.asarray(ev["inc_idx"]), jg.sell.zero_end, jg.sell.starts,
         tuple(a.shape for a in jg.sell.nbr))
-    marks = torch.as_tensor(np.asarray(jmarks).T.copy())
+    return np.asarray(jmarks).T.copy()
+
+
+@pytest.mark.parametrize("s", [1, 16, 31, 32, 33, 65, 128])
+@pytest.mark.usefixtures("released")
+def test_k5_bit_layout_round_trips_jax_marks(s):
+    """K5's node-major bits: column c of node v is bit c % 32 of word
+    c // 32 of row v; `marks_bits` packs the JAX package's marks into it
+    and `marks_bool` reads them back. A column's marks depend on its
+    source alone, so the first s columns of one 128-source event are
+    the JAX package's marks for those s sources."""
+    jmarks = wan_increase_marks()
+    n_pad = jmarks.shape[1]
+    marks = torch.as_tensor(jmarks[:s].copy())
     marks[s - 1, 0] = True  # the last column's bit: the sign bit at 32
     bits = tspf.marks_bits(marks)
     assert bits.dtype == torch.int32
-    assert tuple(bits.shape) == (jg.n_pad, (s + 31) // 32)
+    assert tuple(bits.shape) == (n_pad, (s + 31) // 32)
     word = bits[0, (s - 1) // 32].item() & 0xFFFFFFFF
     assert word >> ((s - 1) % 32) & 1
     assert torch.equal(tspf.marks_bool(bits, s), marks)
