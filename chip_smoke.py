@@ -23,14 +23,19 @@ Phases, one JSON line each:
                the main path's shapes (exact equality: min-plus on int32
                does not depend on order), with times; K1 also at the
                product's own batch widths on the 9,556-node Clos (rsw0_0's
-               area solve: S = 16, and S = 8)
+               area solve: S = 16, and S = 8); K2 (dest-major rounds,
+               equal to K1's D and rounds) also cold on the star at its
+               solver's batch, the transposes in and out of K2's layout
+               timed alone
   event_wan    one seeded 48-edge event on the 100k-node WAN's 128-source
                fixpoint: the sliced warm solve (K5, K4, K1, K7), its delta
                extraction (K7) and the edge-list warm solve (K6, K2, K7);
                D equals a cold K1 solve on the patched weights and the
                plain versions' results, rounds and inv_rounds included;
                the warm solve's time split into K5, K4, K1's warm rounds
-               and K7's columns
+               and K7's columns, the edge-list one's into K6 (d_prev into
+               K2's layout, seed, rounds, reset), K2's warm rounds, D's
+               transpose out and K7's columns; K6's marks and d0 equal K5's
   k4 .. k7     each event kernel against its plain version on that event;
                K4 beside index_put_ (its library call), with its launches
                a call (one for all buckets) and 10 calls under the
@@ -57,7 +62,9 @@ Phases, one JSON line each:
                its launches a call (one each, for all buckets)
   ksp_star     KSP2 on the star with a ring through its leaves (edge-list
                layout): K6's per-row seed against its plain version, and
-               route dbs warm (K6, K2) and cold (K2 per row)
+               route dbs warm (K6, K2) and cold (K2 per row); K2 with those
+               per-row weights, cold, against its plain version, timed,
+               with the weights' transpose into K2's form timed alone
   apsp_wan     the resident all-pairs matrix at the production cap, on
                bench.py's APSP graph wan_edges(4096, degree=4, seed=7)
                (n_pad 4,096, 32 blocks of 128): the
@@ -232,14 +239,18 @@ TIMED_UNIT = {
     "sell_relax_round": "a cold solve (WAN, 128 sources): two launches a "
                         "round (active rows, round) for every bucket, in "
                         "chunks of 8 rounds",
-    "bf_relax_round": "a cold edge-list solve (WAN): a launch a round",
+    "bf_relax_round": "a cold edge-list solve (WAN, 128 sources): the "
+                      "dest-major cold state, two launches a round (rows "
+                      "that can move, round), in chunks of 8 rounds, D "
+                      "transposed out",
     "ecmp_triangle": "one call (grid 32)",
     "sell_apply_patches": "one call (WAN event, every bucket)",
     "sell_mark": "the WAN event's invalidation and warm start: the seed, a "
                  "launch a mark round for every bucket, in chunks of 8 "
                  "rounds, the reset",
-    "bf_mark": "the WAN event's edge-list invalidation and warm start: the "
-               "seed, a launch a mark round, the reset",
+    "bf_mark": "the WAN event's edge-list invalidation and warm start: "
+               "d_prev transposed into K2's layout, the seed, two launches a "
+               "mark round in chunks of 8 rounds, the reset in place",
     "delta_extract": "one extraction (WAN event): columns, compaction, "
                      "gather",
     "sell_mask": "KSP's masks (50k WAN): the build and the seed",
@@ -849,11 +860,18 @@ def main() -> int:
     # -- 5. K2 on the same graph -----------------------------------------
     w_row = st["w"][None, :]
 
-    def k2():
-        return spf._bf_relax(
-            spf._bf_d0(src_t, wan.n_pad), src_t, st["ov"], st["src"],
-            st["dst"], w_row, st["csr"],
+    def k2_cold(g_, src_, st_, w_rows_):
+        """The cold edge-list solve as `_bf_fixpoint_vw_core` runs it (the
+        dest-major cold state, the rounds, D transposed out), with its
+        rounds."""
+        d, r = spf._bf_relax_dm(
+            spf._sell_d0(src_, g_.n_pad), src_, st_["ov"], st_["src"],
+            st_["dst"], w_rows_, st_["csr"], cold=True,
         )
+        return d.t().contiguous(), r
+
+    def k2():
+        return k2_cold(wan, src_t, st, w_row)
 
     def k2_plain():
         return spf._bf_relax_plain(
@@ -866,22 +884,73 @@ def main() -> int:
     err2 = max_abs_err(d_k2, d_k2_plain)
     check(err2 == 0 and rounds2 == rounds2_plain,
           f"K2 differs from its plain version: err {err2}")
-    check(torch.equal(d_k2, d_k1), "K2 differs from K1's D")
+    check(torch.equal(d_k2, d_k1) and rounds2 == rounds,
+          "K2 differs from K1's D or rounds")
     check(torch.equal(d_wan_vw, d_k1), "batched_spf_vw differs from K1's D")
     per_call2 = launches_a_call(K2, k2)
-    check(per_call2 == rounds2,
-          f"K2 launched {per_call2} times a solve, not once a round")
+    check(per_call2 == spf.K2_ROUND_KERNELS
+          * spf.round_launches(rounds2, wan.n_pad),
+          f"K2 launched {per_call2} times a solve, not twice a round in "
+          "chunks")
     ms2 = time_ms(k2)
     plain_ms2 = time_ms(k2_plain, reps=5, warmup=1)
+    # the transposes, timed alone: D out of K2's layout (a solve's last
+    # step) and into it (the first of a warm one or of `_bf_relax`)
+    d2_dm = d_k2.t().contiguous()
+    transpose2 = {"out_ms": time_ms(lambda: d2_dm.t().contiguous()),
+                  "in_ms": time_ms(lambda: spf._dest_major(d_k2))}
+    del d2_dm
     # per round: D read and written once, src + w of the real edges, csr, ov
     round_bytes2 = 8 * s_cols * wan.n_pad + 8 * wan.e + 5 * wan.n_pad
     b2_ms, b2_by = bound(
         rounds2 * round_bytes2, rounds2 * 3 * wan.e * s_cols, rate
     )
+    # as K1's: every in-edge's gathered row and each row read and written,
+    # a round
+    gather_bytes2 = 4 * s_cols * (wan.e + 2 * wan.n) + 8 * wan.e
+    # K2 cold on the star whose hub is past the sliced layout's cap (the
+    # main path's star solver's batch), and its transposes alone
+    star_g = compile_edges(star_edges)
+    check(star_g.sell is None, "the star has a sliced layout")
+    star_st = to_device(star_g, dev)
+    star_rows = torch.as_tensor(
+        star._solves[("0", "leaf0000")][1]._source_rows(), device=dev)
+    star_w = star_st["w"][None, :]
+
+    def k2_star():
+        return k2_cold(star_g, star_rows, star_st, star_w)
+
+    def k2_star_plain():
+        return spf._bf_relax_plain(
+            spf._bf_d0(star_rows, star_g.n_pad), star_rows, star_st["ov"],
+            star_st["src"], star_st["dst"], star_w, star_st["csr"])
+
+    (d2s, r2s), (d2sp, r2sp) = k2_star(), k2_star_plain()
+    check(torch.equal(d2s, d2sp) and r2s == r2sp,
+          "K2 on the star differs from its plain version")
+    star2 = {
+        "sources": int(star_rows.shape[0]), "n_pad": star_g.n_pad,
+        "rounds": r2s, "ms": time_ms(k2_star, reps=9),
+        "plain_ms": time_ms(k2_star_plain, reps=5, warmup=1),
+        "transpose_ms": time_ms(lambda: d2s.t().contiguous()),
+        "launches_per_call": launches_a_call(K2, k2_star),
+        "bound_ms": bound(
+            r2s * (8 * int(star_rows.shape[0]) * star_g.n_pad
+                   + 8 * star_g.e + 5 * star_g.n_pad),
+            r2s * 3 * star_g.e * int(star_rows.shape[0]), rate)[0],
+    }
+    check(star2["launches_per_call"] == spf.K2_ROUND_KERNELS
+          * spf.round_launches(r2s, star_g.n_pad),
+          "K2 on the star launched other than twice a round in chunks")
     emit({
         "phase": "k2_bf_relax", "graph": f"wan_edges({WAN_N}, 4, 3)",
         "rounds": rounds2, "equal_plain": True, "equal_k1": True,
-        "ms": ms2, "plain_ms": plain_ms2, "bound_ms": b2_ms, "card": card,
+        "ms": ms2, "plain_ms": plain_ms2, "bound_ms": b2_ms,
+        "bound_gathers_ms": rounds2 * gather_bytes2 / rate * 1e3,
+        "transpose_ms": transpose2,
+        "launches_per_call": per_call2,
+        "star": {"graph": f"star({STAR_LEAVES})", **star2},
+        "card": card,
     })
     results.append({
         "name": _cuda.BF_RELAX.name, "route": "cuda",
@@ -891,8 +960,10 @@ def main() -> int:
         "ms": ms2, "plain_ms": plain_ms2, "bound_ms": b2_ms,
         "bound_by": b2_by, "library_ms": None, "rounds": rounds2,
         "launches_per_call": per_call2,
+        "bound_gathers_ms": rounds2 * gather_bytes2 / rate * 1e3,
+        "star_ms": star2["ms"],
     })
-    del d_k2, d_k2_plain, st
+    del d_k2, d_k2_plain, st, d2s, d2sp, star_st
 
     # -- 6. K3 on the grid's all-pairs DAG -------------------------------
     gt = to_device(grid, dev)
@@ -1082,7 +1153,7 @@ def main() -> int:
 
     m5, r5, d05 = k5()
     m5p, r5p, d05p = k5_plain()
-    m5 = spf.marks_bool(m5, s_rows)  # K5's bits as the plain version's bools
+    m5_bits, m5 = m5, spf.marks_bool(m5, s_rows)  # as the plain's bools
     err5 = max(max_abs_err(m5, m5p), max_abs_err(d05, d05p))
     check(err5 == 0 and r5 == r5p == inv_w,
           f"K5 differs from its plain version: err {err5}, rounds "
@@ -1110,40 +1181,52 @@ def main() -> int:
           "plain_ms": plain_ms5,
           "bound_ms": b5_ms, "card": card})
 
-    # K6: the same event on the edge-list layout
+    # K6: the same event on the edge-list layout, as the warm solve runs it:
+    # d_prev transposed once into K2's layout, the seed and rounds on that
+    # copy, the reset in place on it
     bf_args = (d_prev, st["src"], st["dst"], w_new_t, st["w"], st["csr"])
 
     def k6():
-        marks, r = spf._bf_invalidate(*bf_args)
-        return marks, r, spf._bf_warm_d0(d_prev, marks, src_t)
+        dp_t = spf._dest_major(d_prev)
+        marks, r = spf._bf_invalidate(*bf_args, dp_t=dp_t)
+        return marks, r, spf._bf_warm_d0(d_prev, marks, src_t, dp_t=dp_t)
 
     def k6_plain():
         marks, r = spf._bf_invalidate_plain(*bf_args)
-        return marks, r, spf._bf_warm_d0_plain(d_prev, marks, src_t)
+        return marks, r, spf._bf_warm_d0_plain(
+            d_prev, marks, src_t).t().contiguous()
 
     m6, r6, d06 = k6()
     m6p, r6p, d06p = k6_plain()
-    err6 = max(max_abs_err(m6, m6p), max_abs_err(d06, d06p))
+    err6 = max(max_abs_err(spf.marks_bool(m6, s_rows), m6p),
+               max_abs_err(d06, d06p))
     check(err6 == 0 and r6 == r6p == inv_bf,
           f"K6 differs from its plain version: err {err6}, rounds "
           f"{r6} vs {r6p}")
-    check(torch.equal(m6, m5), "K6 marks differ from K5's")
+    check(torch.equal(m6, m5_bits), "K6's marks differ from K5's bits")
+    check(torch.equal(d06, d05), "K6's d0 differs from K5's")
     per_call6 = launches_a_call(K6, k6)
-    check(per_call6 == r6 + 2, f"K6 launched {per_call6} times a call, not "
-          "the seed, a mark round each and the reset")
+    check(per_call6 == 2 + spf.K6_ROUND_KERNELS
+          * spf.round_launches(r6, n_pad),
+          f"K6 launched {per_call6} times a call, not the seed, two a round "
+          "in chunks and the reset")
     ms6 = time_ms(k6)
     plain_ms6 = time_ms(k6_plain, reps=3, warmup=1)
-    # seed: D once, the real edges' src + two weights, csr; per round:
-    # marks read and written once, src + w_old + csr; reset as K5's
+    # as K5's: per round, the marks (a bit an entry) read and written once,
+    # the real edges' tails and old weights and csr read once, a word op an
+    # edge and mark word; the on-DAG test of an edge and column, which no
+    # round changes, once; the seed reads the edges' four arrays once; the
+    # reset reads D and the marks' bits and writes d0 once, 2 ops an entry
     b6_ms, b6_by = bound(
-        4 * s_rows * n_pad + 12 * n_e + 4 * n_pad + s_rows * n_pad
-        + r6 * (2 * s_rows * n_pad + 8 * n_e + 4 * n_pad)
-        + 9 * s_rows * n_pad,
-        (1 + r6) * 3 * n_e * s_rows, rate,
+        r6 * (2 * mark_bytes + 8 * n_e + 4 * n_pad) + 16 * n_e
+        + 8 * s_rows * n_pad + mark_bytes,
+        r6 * 2 * n_e * spf._mask_words(s_rows) + 2 * n_e * s_rows
+        + 2 * s_rows * n_pad, rate,
     )
     emit({"phase": "k6_bf_mark", "rounds": r6, "equal_plain": True,
-          "equal_k5_marks": True, "ms": ms6, "launches_per_call": per_call6,
-          "plain_ms": plain_ms6,
+          "equal_k5_marks": True, "equal_k5_d0": True, "ms": ms6,
+          "launches_per_call": per_call6, "plain_ms": plain_ms6,
+          "transpose_in_ms": time_ms(lambda: spf._dest_major(d_prev)),
           "bound_ms": b6_ms, "card": card})
 
     # K7: the changed columns and their extraction
@@ -1230,10 +1313,34 @@ def main() -> int:
     check(split["k1_warm_launches"]
           == spf.K1_ROUND_KERNELS * spf.round_launches(rounds_w, n_pad),
           "K1's warm rounds launched other than twice a round in chunks")
+    # the warm edge-list solve's stages, each timed alone: K6 (d_prev into
+    # K2's layout, seed, rounds, reset), K2's warm rounds from K6's d0 on the
+    # new weights, D out of K2's layout, K7's columns
+    def k2_warm(d0c):
+        return spf._bf_relax_dm(d0c, src_t, st["ov"], st["src"], st["dst"],
+                                w_new_t[None, :], st["csr"])
+
+    d2w, r2w = k2_warm(d06.clone())
+    check(torch.equal(d2w.t(), d_bf) and r2w == rounds_bf,
+          "K2's warm rounds from K6's d0 differ from the warm solve")
+    split_bf = {
+        "k6_ms": ms6,
+        "k2_warm_ms": time_ms(k2_warm, setup=lambda: (d06.clone(),)),
+        "transpose_out_ms": time_ms(lambda: d2w.t().contiguous()),
+        "k7_columns_ms": stages7["columns_ms"],
+        "k2_warm_launches": launches_a_call(
+            K2, k2_warm, setup=lambda: (d06.clone(),)),
+    }
+    check(split_bf["k2_warm_launches"]
+          == spf.K2_ROUND_KERNELS * spf.round_launches(rounds_bf, n_pad),
+          "K2's warm rounds launched other than twice a round in chunks")
+    del d2w
     emit({"phase": "event_wan_times", "warm_ms": warm_ms,
           "warm_rounds": rounds_w, "cold_ms": ms, "cold_rounds": rounds,
           "warm_split": split,
           "warm_edge_list_ms": warm_bf_ms, "cold_edge_list_ms": ms2,
+          "warm_edge_list_rounds": rounds_bf,
+          "warm_edge_list_split": split_bf,
           "card": card})
     for name, k, e, m_, pm, lm, bm, bb, lpc in (
         ("sell_patch.cu", K4, err4, ms4, plain_ms4, lib_ms4, b4_ms, b4_by,
@@ -1736,7 +1843,7 @@ def main() -> int:
                  rst["csr"])
     m6r, r6r = spf._bf_invalidate(*seed_args)
     m6rp, r6rp = spf._bf_invalidate_plain(*seed_args)
-    err6r = max_abs_err(m6r, m6rp)
+    err6r = max_abs_err(spf.marks_bool(m6r, len(ring_dests)), m6rp)
     check(err6r == 0 and r6r == r6rp and r6r >= 1,
           f"K6's per-row seed differs from its plain version: err {err6r}, "
           f"rounds {r6r} vs {r6rp}")
@@ -1751,11 +1858,45 @@ def main() -> int:
     plain_ms6r = time_ms(lambda: spf._bf_invalidate_plain(*seed_args),
                          reps=3, warmup=1)
     s6, n6, e6 = len(ring_dests), rg.n_pad, rg.e
+    # as K6's on event_wan: marks as bits, the on-DAG test once; the seed
+    # reads D, the per-row weights and the edges' three arrays once
+    mb6 = s6 * n6 / 8
     b6r_ms, _ = bound(
-        4 * s6 * n6 + 8 * e6 + 4 * s6 * e6 + 4 * n6 + s6 * n6
-        + r6r * (2 * s6 * n6 + 8 * e6 + 4 * n6),
-        (1 + r6r) * 3 * e6 * s6, rate,
+        4 * s6 * n6 + 4 * s6 * e6 + 12 * e6 + mb6
+        + r6r * (2 * mb6 + 8 * e6 + 4 * n6),
+        r6r * 2 * e6 * spf._mask_words(s6) + 2 * e6 * s6, rate,
     )
+    # K2 with per-row weights: the cold per-row solve of those rows, with
+    # the weights' transpose into K2's form and D's out, timed alone too
+    def k2_rows():
+        return k2_cold(rg, ring_src, rst, w_rows_t)
+
+    def k2_rows_plain():
+        return spf._bf_relax_plain(
+            spf._bf_d0(ring_src, n6), ring_src, rst["ov"], rst["src"],
+            rst["dst"], w_rows_t, rst["csr"])
+
+    (d2r, r2r), (d2rp, r2rp) = k2_rows(), k2_rows_plain()
+    check(torch.equal(d2r, d2rp) and r2r == r2rp and torch.equal(
+        d2r, d_vw_cold), "K2 with per-row weights differs from its plain "
+          "version")
+    d2r_dm = d2r.t().contiguous()
+    k2_rows_t = {
+        "rows": s6, "rounds": r2r, "ms": time_ms(k2_rows, reps=9),
+        "plain_ms": time_ms(k2_rows_plain, reps=5, warmup=1),
+        "weights_transpose_ms": time_ms(
+            lambda: spf._bf_weights_t(w_rows_t)),
+        "d_transpose_out_ms": time_ms(lambda: d2r_dm.t().contiguous()),
+        "launches_per_call": launches_a_call(K2, k2_rows),
+        "bound_ms": bound(
+            r2r * (8 * s6 * n6 + 4 * s6 * e6 + 4 * e6 + 5 * n6),
+            r2r * 3 * e6 * s6, rate)[0],
+    }
+    check(k2_rows_t["launches_per_call"] == spf.K2_ROUND_KERNELS
+          * spf.round_launches(r2r, n6),
+          "K2 with per-row weights launched other than twice a round in "
+          "chunks")
+    del d2r, d2rp, d2r_dm
     emit({
         "phase": "ksp_star", "leaves": KSP_STAR_LEAVES, "me": "leaf0000",
         "prefixes": len(ring_dests), "launches": ring_launches,
@@ -1768,6 +1909,7 @@ def main() -> int:
             "warm_rounds": rounds_vw, "warm_inv_rounds": inv_vw,
             "warm_equals_cold": True,
         },
+        "k2_per_row": k2_rows_t,
         "card": card,
     })
 

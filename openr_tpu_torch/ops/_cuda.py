@@ -183,7 +183,8 @@ SELL_RELAX = Kernel(
 BF_RELAX = Kernel(
     "bf_relax_round",
     "bf_relax.cu",
-    {"bf_relax_round": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I]},
+    {"bf_relax_rounds": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                         _I, _I, _I, _I]},
     "openr_tpu/ops/spf.py:55 _bf_relax",
 )
 ECMP_TRIANGLE = Kernel(
@@ -213,9 +214,10 @@ BF_MARK = Kernel(
     "bf_mark",
     "bf_mark.cu",
     {
-        "bf_mark_seed": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I],
-        "bf_mark_round": [_P, _P, _P, _P, _P, _P, _P, _I, _I],
-        "bf_mark_reset": [_P, _P, _P, _P, _I, _I],
+        "bf_mark_seed": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I],
+        "bf_mark_rounds": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _I],
+        "bf_mark_reset": [_P, _P, _P, _I, _I, _I],
     },
     "openr_tpu/ops/spf.py:497,567 _bf_warm_core, _bf_warm_vw_core",
 )

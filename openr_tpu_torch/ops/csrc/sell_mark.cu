@@ -74,27 +74,11 @@ using sell::Buckets;
 using sell::RoundState;
 using sell::kInf;
 using sell::kThreads;
+using sell::MarkBuf;
+using sell::mark_buf;
 
 constexpr int kTile = 32;
 constexpr int kTileRows = 8;
-
-struct MarkBuf {
-  uint32_t* m;
-  uint32_t* nw;  // [2, n, W]
-  int32_t* f;    // [2, n]
-  RoundState* st;
-};
-
-__host__ __device__ inline MarkBuf mark_buf(void* buf, int n, int W) {
-  uint32_t* base = (uint32_t*)buf;
-  const long long nw = (long long)n * W;
-  MarkBuf b;
-  b.m = base;
-  b.nw = base + nw;
-  b.f = (int32_t*)(base + 3 * nw);
-  b.st = (RoundState*)(base + 3 * nw + 2LL * n);
-  return b;
-}
 
 __global__ void sell_mark_seed_kernel(const int32_t* __restrict__ dp,
                                       void* buf,

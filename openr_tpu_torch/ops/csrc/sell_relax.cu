@@ -77,28 +77,8 @@ using sell::Buckets;
 using sell::RoundState;
 using sell::kInf;
 using sell::kThreads;
-
-constexpr int kUnroll = 4;
-
-template <int V>
-struct Vec;
-template <>
-struct Vec<1> {
-  int x[1];
-  __device__ __forceinline__ void load(const int32_t* p) { x[0] = __ldg(p); }
-  __device__ __forceinline__ void store(int32_t* p) const { *p = x[0]; }
-};
-template <>
-struct Vec<4> {
-  int x[4];
-  __device__ __forceinline__ void load(const int32_t* p) {
-    const int4 a = __ldg(reinterpret_cast<const int4*>(p));
-    x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
-  }
-  __device__ __forceinline__ void store(int32_t* p) const {
-    *reinterpret_cast<int4*>(p) = make_int4(x[0], x[1], x[2], x[3]);
-  }
-};
+using sell::kUnroll;
+using sell::Vec;
 
 // Round t's first pass: the rows that can move. A row is listed when a
 // tail carries stamp t (changed in round t - 1), when it carries stamp t
@@ -183,60 +163,17 @@ __global__ void __launch_bounds__(kThreads) sell_relax_round_kernel(
         src[c] = valid ? __ldg(sources + s0 + c) : 0;
         acc.x[c] = kInf;
       }
-      const int32_t* nb = b.nbr[k] + (long long)r * dk;
-      const int32_t* w = b.wg[k] + (long long)r * dk;
-      const int step = P * kUnroll;
-      for (int j0 = valid ? p : dk; j0 < dk; j0 += step) {
-        int u[kUnroll], wj[kUnroll];
-        bool take[kUnroll], o[kUnroll];
-        Vec<V> du[kUnroll];
-#pragma unroll
-        for (int q = 0; q < kUnroll; ++q) {
-          const int j = j0 + q * P;
-          const bool in = j < dk;
-          u[q] = in ? __ldg(nb + j) : 0;
-          wj[q] = in ? __ldg(w + j) : kInf;
-          take[q] = in && (full || __ldg(cp + u[q]) == t);
-        }
-#pragma unroll
-        for (int q = 0; q < kUnroll; ++q) {
-          if (take[q]) {
-            o[q] = __ldg(ov + u[q]) != 0;
-            du[q].load(d_old + (long long)u[q] * S + s0);
-          }
-        }
-#pragma unroll
-        for (int q = 0; q < kUnroll; ++q) {
-          if (!take[q]) continue;
-#pragma unroll
-          for (int c = 0; c < V; ++c) {
-            const int dt = (o[q] && u[q] != src[c]) ? kInf : du[q].x[c];
-            acc.x[c] = min(acc.x[c], min(dt + wj[q], kInf));
-          }
-        }
-      }
+      sell::pull_slots<V, false>(
+          acc, b.nbr[k] + (long long)r * dk, b.wg[k] + (long long)r * dk,
+          valid ? dk : 0, p, P, cp, t, full, ov, src, d_old, S, s0);
       if (P > 1) {
 #pragma unroll
         for (int c = 0; c < V; ++c) acc.x[c] = sell::group_min(acc.x[c], P);
       }
       if (!valid || p != 0) continue;
-      // a row that took nothing below INF cannot move: it reads its own
-      // entries only to write them through
-      bool offer = false;
-#pragma unroll
-      for (int c = 0; c < V; ++c) offer |= acc.x[c] < kInf;
       const bool through = !full && __ldg(cp + v) == t;
-      if (!offer && !through) continue;
-      Vec<V> old;
-      old.load(d_old + (long long)v * S + s0);
-      bool moved = false;
-#pragma unroll
-      for (int c = 0; c < V; ++c) {
-        moved |= acc.x[c] < old.x[c];
-        acc.x[c] = min(acc.x[c], old.x[c]);
-      }
-      if (moved || through) acc.store(d_new + (long long)v * S + s0);
-      if (moved) {
+      if (sell::finish_row<V>(acc, d_old, d_new, (long long)v * S + s0,
+                              through)) {
         cq[v] = t + 1;
         changed = true;
       }

@@ -1,16 +1,19 @@
-// What K1's and K5's fixpoint rounds share: the bucket table each launch
-// takes for every degree bucket at once, the grid a round runs on, and the
-// device-side round protocol that lets the host enqueue rounds without
-// reading a flag after each one.
+// What the fixpoint rounds of K1 and K5 (the sliced layout) and of K2 and
+// K6 (the edge-list layout) share: the device-side round protocol that lets
+// the host enqueue rounds without reading a flag after each one, the grid a
+// round runs on, the slot split of a row over up to 32 lanes, the pull of a
+// row's slots K1 and K2 both run, and two ways of listing a round's rows:
+// the bucket table of the sliced layout and the per-split row lists of the
+// edge-list layout.
 //
-// The bucket table. The host passes int64 [nb, 5] rows in HOST memory, one
-// per bucket of the sliced layout: (nbr device pointer, wg device pointer,
-// row0, nk, dk). `fill_buckets` copies them into a `__grid_constant__`
-// kernel parameter, so a launch needs no upload, and gives each bucket its
-// first virtual block (`blk0`) for `items_per_row` items a row times its
-// slot split. At most
-// kMaxBuckets buckets: the sliced layout's class degrees sum to at most
-// 1,024 (ops/graph.py _SELL_UNROLL_CAP), so it has at most 44.
+// The bucket table (K1, K5). The host passes int64 [nb, 5] rows in HOST
+// memory, one per bucket of the sliced layout: (nbr device pointer, wg
+// device pointer, row0, nk, dk). `fill_buckets` copies them into a
+// `__grid_constant__` kernel parameter, so a launch needs no upload, and
+// gives each bucket its first virtual block (`blk0`) for `items_per_row`
+// items a row times its slot split. At most kMaxBuckets buckets: the sliced
+// layout's class degrees sum to at most 1,024 (ops/graph.py
+// _SELL_UNROLL_CAP), so it has at most 44.
 //
 // The slot split. A row's dk slots go to P = 2^lp consecutive threads,
 // thread p taking slots p, p + P, ..., and the P partial results meet in
@@ -18,18 +21,31 @@
 // that leaves each thread at most kSlotsPerThread slots, at most 32. A
 // row of a Clos spine (dk 340) is then 32 threads of 11 slots, not one
 // thread walking 340 dependent loads; the WAN's rows (dk <= 12) keep P 1
-// or 2. Every lane of a warp runs the shuffles: a block's virtual block
-// lies in one bucket, so P is uniform in a block.
+// or 2. Every lane of a warp runs the shuffles: a warp's rows share one P.
 //
-// The grid. A round runs over virtual blocks of kThreads items, bucket
-// after bucket; a launch takes at most as many real blocks as the card
-// keeps resident (`grid_blocks`) and each real block walks the virtual
-// blocks with a stride of the grid. A round that has nothing left to do
-// then costs a few microseconds whatever the graph's size.
+// The row lists (K2, K6). The edge-list layout has no buckets: a node's
+// in-edges are the range csr[v] .. csr[v + 1] of the edges sorted by
+// destination, and a hub may have thousands. A round's first pass lists
+// the rows that can move, each into the list of its slot split (kClasses
+// lists, lp = slot_split_log2 of the row's in-degree), and its second pass
+// walks list lp with P = 2^lp lanes a row, as K1 walks a bucket. The first
+// pass runs a thread an EDGE, so a hub's in-edges spread over many threads:
+// an edge whose tail carries stamp t lists its head; of the lanes of a
+// warp that name one head (neighbours, the edges being sorted) the first
+// goes on, the warps meet in an atomicExch of the row's claim word to t,
+// so a row is listed once a round; the lanes of a warp that list rows of
+// one split append with one atomicAdd. Lists are in no fixed order.
+//
+// The grid. A round runs over virtual blocks of kThreads items (bucket
+// after bucket, or list after list); a launch takes at most as many real
+// blocks as the card keeps resident (`grid_blocks`) and each real block
+// walks the virtual blocks with a stride of the grid. A round that has
+// nothing left to do then costs a few microseconds whatever the graph's
+// size.
 //
 // The round protocol. A fixpoint's state is 8 int32 words on the card:
 // done, rounds, arrived, changed[2] (by round parity). Round t (t >= 1;
-// the seed or pack of K5 is round 0):
+// the seed or pack of K5 and K6 is round 0):
 //   - returns at once, every block, if `done` is set: the host enqueues
 //     rounds in chunks and reads the state once a chunk;
 //   - sets changed[t & 1] when one of its entries changed;
@@ -53,6 +69,8 @@ constexpr int kMaxBuckets = 64;
 constexpr int kTableCols = 5;
 constexpr int kGridCache = 64;  // (kernel, device) pairs grid_blocks keeps
 constexpr int kSlotsPerThread = 8;
+constexpr int kUnroll = 4;   // slots a thread issues together in a pull
+constexpr int kClasses = 6;  // slot splits 1, 2, ..., 32: the row lists
 
 struct Buckets {
   const int32_t* nbr[kMaxBuckets];
@@ -73,8 +91,8 @@ struct RoundState {
   int pad[3];
 };
 
-// log2 of the slot split of a bucket of dk slots
-inline int slot_split_log2(int dk) {
+// log2 of the slot split of a row of dk slots
+__host__ __device__ inline int slot_split_log2(int dk) {
   int lp = 0;
   while (lp < 5 && (kSlotsPerThread << lp) < dk) ++lp;
   return lp;
@@ -105,26 +123,27 @@ inline int fill_buckets(Buckets& b, const void* table, int nb,
 }
 
 // The blocks of `kernel` the card keeps resident at kThreads a block, at
-// most `want`; cached per (kernel, device), since the kernels of one
-// library differ in registers and so in occupancy.
-inline int grid_blocks(const void* kernel, int want) {
+// most `want` (at least 1); cached per (kernel, device), since the kernels
+// of one library differ in registers and so in occupancy.
+inline int grid_blocks(const void* kernel, long long want) {
   struct Cap {
     const void* kernel;
     int dev, blocks;
   };
   static Cap cache[kGridCache];
   static int used = 0;
+  if (want < 1) want = 1;
   int dev = 0;
   cudaGetDevice(&dev);
   for (int i = 0; i < used; ++i)
     if (cache[i].kernel == kernel && cache[i].dev == dev)
-      return want < cache[i].blocks ? want : cache[i].blocks;
+      return want < cache[i].blocks ? (int)want : cache[i].blocks;
   int sms = 1, per = 1;
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel, kThreads, 0);
   const int c = sms * (per > 0 ? per : 1);
   if (used < kGridCache) cache[used++] = {kernel, dev, c};
-  return want < c ? want : c;
+  return want < c ? (int)want : c;
 }
 
 __device__ __forceinline__ bool round_done(const RoundState* st) {
@@ -169,6 +188,207 @@ __device__ __forceinline__ uint32_t group_or(uint32_t x, int P) {
 __device__ __forceinline__ int bucket_of(const Buckets& b, int vb, int k) {
   while (vb >= b.blk0[k + 1]) ++k;
   return k;
+}
+
+// -- a row's pull: K1 over a bucket row, K2 over an in-edge range ---------
+
+// V consecutive int32 columns of a row: one 16-byte access for V = 4
+template <int V>
+struct Vec;
+template <>
+struct Vec<1> {
+  int x[1];
+  __device__ __forceinline__ void load(const int32_t* p) { x[0] = __ldg(p); }
+  __device__ __forceinline__ void store(int32_t* p) const { *p = x[0]; }
+};
+template <>
+struct Vec<4> {
+  int x[4];
+  __device__ __forceinline__ void load(const int32_t* p) {
+    const int4 a = __ldg(reinterpret_cast<const int4*>(p));
+    x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+  }
+  __device__ __forceinline__ void store(int32_t* p) const {
+    *reinterpret_cast<int4*>(p) = make_int4(x[0], x[1], x[2], x[3]);
+  }
+};
+
+// Lane p's share of one row's pull: over the slots j = p, p + P, ... <
+// count, acc[c] = min(acc[c], min(dt[u_j, s0 + c] + w_j, INF)), dt INF
+// through an overloaded tail that is not column c's source (src[c]), taking
+// only the slots whose tail carries stamp t in cp (every slot when `full`).
+// nb[j] is slot j's tail; d_old is dest-major [n, S]. The weights: w[j]
+// for every column, or with PerCol V columns from a [slots, S] matrix (w +
+// j * S + s0, one weight row per source column: KSP's per-row weights). A
+// lane issues kUnroll slots at once: their tails, stamps, ov bytes and
+// gathers are in flight together. The sums stay in int32: both terms are
+// at most INF = 2^29.
+template <int V, bool PerCol>
+__device__ __forceinline__ void pull_slots(
+    Vec<V>& acc, const int32_t* __restrict__ nb,
+    const int32_t* __restrict__ w, int count, int p, int P,
+    const int32_t* __restrict__ cp, int t, int full,
+    const uint8_t* __restrict__ ov, const int (&src)[V],
+    const int32_t* __restrict__ d_old, int S, int s0) {
+  const int step = P * kUnroll;
+  for (int j0 = p; j0 < count; j0 += step) {
+    int u[kUnroll], wj[kUnroll];
+    bool take[kUnroll], o[kUnroll];
+    Vec<V> du[kUnroll], wv[kUnroll];
+#pragma unroll
+    for (int q = 0; q < kUnroll; ++q) {
+      const int j = j0 + q * P;
+      const bool in = j < count;
+      u[q] = in ? __ldg(nb + j) : 0;
+      if (!PerCol) wj[q] = in ? __ldg(w + j) : kInf;
+      take[q] = in && (full || __ldg(cp + u[q]) == t);
+    }
+#pragma unroll
+    for (int q = 0; q < kUnroll; ++q) {
+      if (take[q]) {
+        o[q] = __ldg(ov + u[q]) != 0;
+        du[q].load(d_old + (long long)u[q] * S + s0);
+        if (PerCol) wv[q].load(w + (long long)(j0 + q * P) * S + s0);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kUnroll; ++q) {
+      if (!take[q]) continue;
+#pragma unroll
+      for (int c = 0; c < V; ++c) {
+        const int dt = (o[q] && u[q] != src[c]) ? kInf : du[q].x[c];
+        const int wc = PerCol ? wv[q].x[c] : wj[q];
+        acc.x[c] = min(acc.x[c], min(dt + wc, kInf));
+      }
+    }
+  }
+}
+
+// A row's end of a round, on its lane 0, once the lanes' partial minima
+// met: a row that took nothing below INF cannot move and reads its own
+// entries only to write them through (`through`: it changed in the round
+// before, and the buffer this round writes holds its value of two rounds
+// ago); otherwise d_new gets min(acc, d_old) where it went down or must
+// be written through. Returns whether it went down.
+template <int V>
+__device__ __forceinline__ bool finish_row(Vec<V>& acc,
+                                           const int32_t* __restrict__ d_old,
+                                           int32_t* __restrict__ d_new,
+                                           long long at, bool through) {
+  bool offer = false;
+#pragma unroll
+  for (int c = 0; c < V; ++c) offer |= acc.x[c] < kInf;
+  if (!offer && !through) return false;
+  Vec<V> old;
+  old.load(d_old + at);
+  bool moved = false;
+#pragma unroll
+  for (int c = 0; c < V; ++c) {
+    moved |= acc.x[c] < old.x[c];
+    acc.x[c] = min(acc.x[c], old.x[c]);
+  }
+  if (moved || through) acc.store(d_new + at);
+  return moved;
+}
+
+// -- the row lists of the edge-list layout (K2, K6) ------------------------
+
+// The lists' buffer, int32 words from p, zeroed by the host: claim [n] (the
+// round that last listed each row), list [kClasses, n], counts [8] (the
+// first kClasses used, cleared by each round's last block).
+struct CsrLists {
+  int32_t* claim;
+  int32_t* list;
+  int32_t* counts;
+};
+
+__host__ __device__ inline CsrLists csr_lists(int32_t* p, int n) {
+  return {p, p + n, p + (1LL + kClasses) * n};
+}
+
+// Lists row v (v < 0: nothing) of round t, once a round: every lane of the
+// warp calls this together. Lanes that name one head sit side by side
+// (edges are sorted by destination), so a lane lists its head only where
+// the lane before it names another; the warps that name one head meet in
+// the claim word. The lanes that list rows of one split append with one
+// atomicAdd, a split at a time.
+__device__ __forceinline__ void list_row(const CsrLists& L,
+                                         const int32_t* __restrict__ csr,
+                                         int n, int v, int t) {
+  const unsigned all = 0xffffffffu;
+  if (!__any_sync(all, v >= 0)) return;  // the warp lists nothing
+  const int lane = threadIdx.x & 31;
+  const int before = __shfl_up_sync(all, v, 1);
+  bool want = v >= 0 && (lane == 0 || before != v);
+  // the row's split, loaded beside the claim rather than after it
+  const int deg = want ? __ldg(csr + v + 1) - __ldg(csr + v) : 0;
+  if (want) want = atomicExch(L.claim + v, t) != t;
+  const int cls = want ? slot_split_log2(deg) : -1;
+  for (unsigned left = __ballot_sync(all, want); left;) {
+    const int leader = __ffs(left) - 1;
+    const int c = __shfl_sync(all, cls, leader);
+    const unsigned peers = __ballot_sync(all, want && cls == c);
+    int base = 0;
+    if (lane == leader) base = atomicAdd(L.counts + c, __popc(peers));
+    base = __shfl_sync(all, base, leader);
+    if (want && cls == c)
+      L.list[(long long)c * n + base + __popc(peers & ((1u << lane) - 1))] =
+          v;
+    left &= ~peers;
+  }
+}
+
+// Round t's first pass, every lane of a warp on consecutive items i of a
+// grid-stride loop: edge i (i < m) lists its head when its tail carries
+// stamp t in cp; with `own`, row i (i < n) lists itself when it carries
+// stamp t (K2's write-through); with `full`, row i lists itself when it
+// has in-edges (a round that takes every slot), and no edge lists.
+__device__ __forceinline__ void list_rows(const CsrLists& L,
+                                          const int32_t* __restrict__ cp,
+                                          const int32_t* __restrict__ csr,
+                                          const int32_t* __restrict__ src,
+                                          const int32_t* __restrict__ dst,
+                                          int n, int m, long long i, int t,
+                                          bool own, bool full) {
+  int v = -1, self = -1;
+  if (full) {
+    if (i < n && __ldg(csr + i + 1) > __ldg(csr + i)) v = (int)i;
+  } else {
+    // the loads that do not wait for each other go out together
+    const bool edge = i < m;
+    const int u = edge ? __ldg(src + i) : 0;
+    const int head = edge ? __ldg(dst + i) : 0;
+    const int stamp = own && i < n ? __ldg(cp + i) : 0;
+    if (edge && __ldg(cp + u) == t) v = head;
+    if (stamp == t) self = (int)i;
+  }
+  list_row(L, csr, n, v, t);
+  if (own && !full) list_row(L, csr, n, self, t);
+}
+
+// -- the marks of K5 and K6 --------------------------------------------------
+
+// A mark fixpoint's buffer, int32 words zeroed by the host: M [n, W] the
+// marks so far (bit b of word w of row v: source column 32 w + b), N [2, n,
+// W] the bits a row newly marked in a round, by round parity, F [2, n] the
+// round a row last newly marked bits, by parity, as round + 1 (0: never;
+// the seed's round is 0), the RoundState: 3 n W + 2 n + 8 words.
+struct MarkBuf {
+  uint32_t* m;
+  uint32_t* nw;  // [2, n, W]
+  int32_t* f;    // [2, n]
+  RoundState* st;
+};
+
+__host__ __device__ inline MarkBuf mark_buf(void* buf, int n, int W) {
+  uint32_t* base = (uint32_t*)buf;
+  const long long nw = (long long)n * W;
+  MarkBuf b;
+  b.m = base;
+  b.nw = base + nw;
+  b.f = (int32_t*)(base + 3 * nw);
+  b.st = (RoundState*)(base + 3 * nw + 2LL * n);
+  return b;
 }
 
 }  // namespace sell

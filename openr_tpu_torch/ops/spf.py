@@ -14,7 +14,7 @@ equals the JAX package's count.
 Nine hand-written CUDA kernels carry the device work (ops/csrc/):
 
   K1 sell_relax_round    one round of the sliced-ELL pull over every bucket
-  K2 bf_relax_round      one round of the edge-list form (no sliced layout)
+  K2 bf_relax_round      the rounds of the edge-list form (no sliced layout)
   K3 ecmp_triangle       per-edge first-hop test w(u,v) + D[v,t] == D[u,t]
   K4 sell_apply_patches  an event's weight patches into the resident buckets
   K5 sell_mark           warm-start invalidation on the sliced layout
@@ -32,11 +32,11 @@ and three more carry the destination-tiled layout of a (batch, graph) mesh:
                           reset, and the changed columns
 
 The warm event path (an LSDB event answered from the previous fixpoint)
-is K5 -> K4 -> K5 reset -> K1 -> K7 on the sliced layout and K6 -> K2 ->
-K7 on the edge-list one: entries whose old shortest path may cross an
-increased edge are reset to INF (Ramalingam-Reps invalidation), everything
-else keeps its old distance, which is an upper bound of the new one, and
-the relaxation repairs the rest.
+is K5 -> K4 -> K5 reset -> K1 -> K7 on the sliced layout and K6 -> K6
+reset -> K2 -> K7 on the edge-list one: entries whose old shortest path
+may cross an increased edge are reset to INF (Ramalingam-Reps
+invalidation), everything else keeps its old distance, which is an upper
+bound of the new one, and the relaxation repairs the rest.
 
 Under a solver mesh (`parallel/mesh.py`) the same kernels run once per rank.
 With a graph axis of one, the source batch is split into row slices, one per
@@ -55,12 +55,15 @@ build + seed -> K5 rounds and reset -> K9 when warm-started from the base
 fixpoint; on the edge-list layout K2 with per-row weights, or K6 with a
 per-row seed -> K2 warm.
 
-K1's and K5's fixpoints keep their round state on the card (ops/csrc/
-sell_rounds.cuh): the host enqueues rounds in chunks of ROUND_CHUNK, a
-round after the fixpoint returns at once, and the host reads the state
-once a chunk instead of a flag after every round. Both skip the rows none
-of whose in-neighbours changed in the previous round, and count the same
-Jacobi rounds as the reference.
+The fixpoints of K1 and K5 (sliced layout) and of K2 and K6 (edge-list
+layout) keep their round state on the card (ops/csrc/sell_rounds.cuh): the
+host enqueues rounds in chunks of ROUND_CHUNK, a round after the fixpoint
+returns at once, and the host reads the state once a chunk instead of a
+flag after every round. All four skip the rows none of whose in-neighbours
+changed in the previous round, and count the same Jacobi rounds as the
+reference. K1 and K2 keep D destination-major [n_pad, S]; the edge-list
+entry points take and give the reference's row-major [S, n_pad] and
+transpose once each way a solve.
 
 Each wrapper checks device, dtype, shape and contiguity; on a CUDA tensor
 it launches its kernel (and counts the launch), on a CPU tensor it runs the
@@ -376,10 +379,14 @@ def _sell_relax_plain(d0, sources, overloaded, nbrs, wgs, starts):
             return d, rounds
 
 
-# K1's and K5's rounds per host read of their round state on the card
+# K1's, K2's, K5's and K6's rounds per host read of their round state on
+# the card
 ROUND_CHUNK = 8
 # K1's kernel launches a round: the active rows, then the round over them
 K1_ROUND_KERNELS = 2
+# K2's and K6's: the rows that can move (a thread an edge), then the round
+K2_ROUND_KERNELS = 2
+K6_ROUND_KERNELS = 2
 _BUCKET_TABLE_MAX = 64  # sell_rounds.cuh kMaxBuckets: the layout has <= 44
 _STATE_WORDS = 8  # sell_rounds.cuh RoundState
 
@@ -421,7 +428,8 @@ def _fixpoint_rounds(launch: Callable[[int, int], None],
 def round_launches(rounds: int, cap: int) -> int:
     """The rounds `_fixpoint_rounds` enqueues for a fixpoint of `rounds`
     rounds capped at `cap`: whole chunks, at least one. K5 launches a
-    kernel a round, K1 K1_ROUND_KERNELS."""
+    kernel a round; K1, K2 and K6 two (K1_ROUND_KERNELS,
+    K2_ROUND_KERNELS, K6_ROUND_KERNELS)."""
     chunks = max(1, -(-rounds // ROUND_CHUNK))
     return min(cap, chunks * ROUND_CHUNK)
 
@@ -530,6 +538,15 @@ def _sell_solver_counted(
 # -- K2: edge-list relaxation ----------------------------------------------
 
 
+def _dest_major(d: torch.Tensor) -> torch.Tensor:
+    """A new dest-major copy [n, S] of row-major d [S, n]: its own memory
+    even where d.t() is already contiguous (S or n of 1), since K2's
+    rounds and K6's reset write into it."""
+    out = torch.empty((d.shape[1], d.shape[0]), dtype=d.dtype,
+                      device=d.device)
+    return out.copy_(d.t())
+
+
 def _bf_relax(
     d0: torch.Tensor,  # int32 [S, n_pad] row-major
     sources: torch.Tensor,  # int32 [S]
@@ -542,10 +559,35 @@ def _bf_relax(
     """Edge-list min-plus relaxation from row-major d0 to the fixpoint;
     returns (d [S, n_pad], rounds). Only the edges [0, csr[n_pad]) that the
     in-edge ranges cover relax; the padding edges past them carry INF.
-    d0 is consumed, as in _sell_relax."""
+    The fixpoint runs dest-major (`_bf_relax_dm`): d0 is transposed in
+    once and D out once; d0 itself is read, never written."""
+    _check("d0", d0, torch.int32, 2, d0.device)
+    d, rounds = _bf_relax_dm(
+        _dest_major(d0), sources, overloaded, src_e, dst_e, w_rows, csr
+    )
+    return d.t().contiguous(), rounds
+
+
+def _bf_relax_dm(
+    d0: torch.Tensor,  # int32 [n_pad, S] dest-major
+    sources: torch.Tensor,  # int32 [S]
+    overloaded: torch.Tensor,  # bool [n_pad]
+    src_e: torch.Tensor,  # int32 [E]
+    dst_e: torch.Tensor,  # int32 [E], sorted ascending
+    w_rows: torch.Tensor,  # int32 [1, E] (shared) or [S, E] (per row)
+    csr: torch.Tensor,  # int32 [n_pad + 1] in-edge ranges (edge_csr)
+    cold: bool = False,
+    w_t: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, int]:
+    """K2's fixpoint in its own layout: dest-major d0 [n_pad, S] to (d
+    [n_pad, S], rounds), as `_sell_relax` takes K1's. d0 is consumed: on
+    the card it is one of the two round buffers. `cold` says that d0 is
+    `_sell_d0(sources, n_pad)`: round 1 then gathers only from the source
+    rows. `w_t`: per-row weights already in K2's form (`_bf_weights_t`), so
+    that a warm solve transposes them once for K6's seed and K2."""
     dev = d0.device
     _check("d0", d0, torch.int32, 2, dev)
-    s, n = d0.shape
+    n, s = d0.shape
     _check("sources", sources, torch.int32, 1, dev)
     _check("overloaded", overloaded, torch.bool, 1, dev)
     _check("src_e", src_e, torch.int32, 1, dev)
@@ -562,14 +604,19 @@ def _bf_relax(
     if csr.shape[0] != n + 1:
         raise ValueError("csr must have n_pad + 1 entries")
     if dev.type == "cuda":
-        return _bf_relax_cuda(d0, sources, overloaded, src_e, csr, w_rows)
-    return _bf_relax_plain(d0, sources, overloaded, src_e, dst_e, w_rows, csr)
+        if w_rows.shape[0] > 1 and w_t is None:
+            w_t = _bf_weights_t(w_rows)
+        return _bf_relax_cuda(d0, sources, overloaded, src_e, dst_e, csr,
+                              w_rows[0] if w_t is None else w_t, cold)
+    d, rounds = _bf_relax_plain(d0.t().contiguous(), sources, overloaded,
+                                src_e, dst_e, w_rows, csr)
+    return d.t().contiguous(), rounds
 
 
 def _bf_relax_plain(d0, sources, overloaded, src_e, dst_e, w_rows, csr):
-    """Plain PyTorch version of K2's fixpoint over the edges csr covers:
-    [S, E] gather, then a segment-min by destination as
-    scatter_reduce(amin)."""
+    """Plain PyTorch version of K2's fixpoint over the edges csr covers,
+    row-major as the reference: [S, E] gather, then a segment-min by
+    destination as scatter_reduce(amin)."""
     s, n = d0.shape
     m = int(csr[-1])
     allow = _bf_allow(sources, overloaded)
@@ -591,24 +638,53 @@ def _bf_relax_plain(d0, sources, overloaded, src_e, dst_e, w_rows, csr):
             return d, rounds
 
 
-def _bf_relax_cuda(d0, sources, overloaded, src_e, csr, w_rows):
-    s, n = d0.shape
-    w_stride = 0 if w_rows.shape[0] == 1 else w_rows.shape[1]
-    cur, nxt = d0, torch.empty_like(d0)
-    flag = torch.zeros(1, dtype=torch.int32, device=d0.device)
-    rounds = 0
-    while True:
-        flag.zero_()
-        BF_RELAX.launch(
-            d0.device,
-            cur.data_ptr(), nxt.data_ptr(), flag.data_ptr(),
-            sources.data_ptr(), overloaded.data_ptr(), src_e.data_ptr(),
-            csr.data_ptr(), w_rows.data_ptr(), w_stride, s, n,
-        )
-        rounds += 1
-        cur, nxt = nxt, cur
-        if not int(flag.item()) or rounds >= n:
-            return cur, rounds
+_LANE_SPLITS = 6  # sell_rounds.cuh kClasses: a row list per slot split
+
+
+def _csr_list_words(n: int) -> int:
+    """The int32 words of K2's and K6's row lists (sell_rounds.cuh
+    CsrLists), zeroed by the host: a claim word a row, a list a slot
+    split, the lists' counts."""
+    return (1 + _LANE_SPLITS) * n + 8
+
+
+def _bf_weights_t(w_rows: torch.Tensor) -> torch.Tensor:
+    """Per-row weights [S, E] in K2's and K6's form [E, S]: an edge's 4
+    columns are 16 contiguous bytes. All E edges: the real ones end at
+    csr[n_pad], which lies on the card."""
+    return w_rows.t().contiguous()
+
+
+def _bf_relax_cuda(d0, sources, overloaded, src_e, dst_e, csr, w, cold):
+    """K2's fixpoint: two launches a round (the rows that can move, then
+    the round over them), rounds enqueued a chunk a host call
+    (`_fixpoint_rounds`). d0 is round buffer 0; buffer 1 starts as its
+    copy, so the rows no round writes hold their values in both. `aux`
+    holds the row stamps [2, n], the round state and the row lists, all 0;
+    a cold start stamps the source rows as changed by the initial state,
+    any other start takes every in-edge in round 1. w: the shared [E]
+    weights, or per-row ones as `_bf_weights_t` gives them."""
+    n, s = d0.shape
+    if s == 0 or src_e.shape[0] == 0:
+        return d0, 1  # one round, nothing to relax
+    per_col = int(w.dim() == 2)
+    nxt = d0.clone()
+    aux = torch.zeros(2 * n + _STATE_WORDS + _csr_list_words(n),
+                      dtype=torch.int32, device=d0.device)
+    if cold:
+        aux[sources.long()] = 1
+    vec = int(s % 4 == 0 and _aligned(d0, nxt, *((w,) if per_col else ())))
+    args = (d0.data_ptr(), nxt.data_ptr(), aux.data_ptr(),
+            sources.data_ptr(), overloaded.data_ptr(), csr.data_ptr(),
+            src_e.data_ptr(), dst_e.data_ptr(), w.data_ptr(), per_col, s, n,
+            src_e.shape[0])
+
+    def launch(t0, count):
+        BF_RELAX.launch(d0.device, *args, t0, count, int(not cold), vec,
+                        kernels=K2_ROUND_KERNELS * count)
+
+    rounds = _fixpoint_rounds(launch, aux[2 * n :], n)
+    return (d0, nxt)[rounds & 1], rounds
 
 
 def _bf_d0(sources: torch.Tensor, n: int) -> torch.Tensor:
@@ -627,9 +703,13 @@ def _bf_fixpoint_vw_core(
     csr: torch.Tensor,  # int32 [N + 1] in-edge ranges (edge_csr)
 ) -> torch.Tensor:
     """Distance matrix D [S, N]; each batch row may solve with its own
-    edge-weight vector (KSP link-ignore re-solves as extra batch rows)."""
-    d0 = _bf_d0(sources, overloaded.shape[0])
-    return _bf_relax(d0, sources, overloaded, src_e, dst_e, w_rows, csr)[0]
+    edge-weight vector (KSP link-ignore re-solves as extra batch rows).
+    The cold state is built dest-major, K2's layout, and D transposed out
+    once."""
+    d0 = _sell_d0(sources, overloaded.shape[0])
+    d, _ = _bf_relax_dm(d0, sources, overloaded, src_e, dst_e, w_rows, csr,
+                        cold=True)
+    return d.t().contiguous()
 
 
 def _bf_fixpoint(
@@ -1368,14 +1448,22 @@ def _bf_invalidate(
     w_new: torch.Tensor,  # int32 [E] (shared) or [S, E] (per row)
     w_old: torch.Tensor,  # int32 [E]
     csr: torch.Tensor,  # int32 [n_pad + 1] in-edge ranges (edge_csr)
+    dp_t: Optional[torch.Tensor] = None,  # int32 [n_pad, S] d_prev's copy
+    w_t: Optional[torch.Tensor] = None,  # per-row w_new as _bf_weights_t
 ) -> Tuple[torch.Tensor, int]:
     """Edge-list invalidation: seeds where an edge on the old shortest-path
     DAG got heavier (w_new > w_old, classified here, not by the host), then
-    the Jacobi mark fixpoint over the old DAG. Returns (marks bool [S,
-    n_pad] row-major, rounds). Per-row w_new [S, E] seeds each row against
-    its own weights (KSP's link-ignore rows against the shared base). Only
-    the edges csr covers are walked; the padding edges carry INF in both
-    weight vectors and can neither seed nor propagate."""
+    the Jacobi mark fixpoint over the old DAG. Returns (marks, rounds), the
+    marks as K5's bits int32 [n_pad, ceil(S / 32)] on either device
+    (`marks_bool` reads them as bool [S, n_pad]). Per-row w_new [S, E] seeds
+    each row against its own weights (KSP's link-ignore rows against the
+    shared base). Only the edges csr covers are walked; the padding edges
+    carry INF in both weight vectors and can neither seed nor propagate.
+
+    On the card K6 reads the old fixpoint dest-major: `dp_t` is the copy a
+    warm solve makes once an event (made here when not given), `w_t` the
+    per-row weights it shares with K2. The seed is round 0; when it marks
+    nothing no round runs."""
     dev = d_prev.device
     _check("d_prev", d_prev, torch.int32, 2, dev)
     s, n = d_prev.shape
@@ -1391,39 +1479,46 @@ def _bf_invalidate(
     if csr.shape[0] != n + 1:
         raise ValueError("csr must have n_pad + 1 entries")
     if dev.type != "cuda":
-        return _bf_invalidate_plain(d_prev, src_e, dst_e, w_new, w_old, csr)
-    marks = torch.empty((s, n), dtype=torch.bool, device=dev)
-    flag = torch.zeros(1, dtype=torch.int32, device=dev)
-    if not s * n:
+        marks, rounds = _bf_invalidate_plain(d_prev, src_e, dst_e, w_new,
+                                             w_old, csr)
+        return marks_bits(marks), rounds
+    if dp_t is None:
+        dp_t = _dest_major(d_prev)
+    _check("dp_t", dp_t, torch.int32, 2, dev)
+    if tuple(dp_t.shape) != (n, s):
+        raise ValueError("dp_t is not d_prev's dest-major copy")
+    buf = _mark_buffer(s, n, dev)
+    marks = _mark_words(buf, s, n)
+    if not (s and e):
         return marks, 0
-    w_stride = 0 if w_new.dim() == 1 else w_new.shape[1]
+    if w_new.dim() == 2 and w_t is None:
+        w_t = _bf_weights_t(w_new)
+    w = w_new if w_new.dim() == 1 else w_t
+    words = _mask_words(s)
     BF_MARK.launch(
         dev,
-        d_prev.data_ptr(), marks.data_ptr(), flag.data_ptr(),
-        src_e.data_ptr(), csr.data_ptr(), w_new.data_ptr(),
-        w_old.data_ptr(), w_stride, s, n, entry="bf_mark_seed",
+        dp_t.data_ptr(), buf.data_ptr(), w.data_ptr(), w_old.data_ptr(),
+        csr.data_ptr(), src_e.data_ptr(), dst_e.data_ptr(),
+        int(w_new.dim() == 2), s, n, e, words, entry="bf_mark_seed",
     )
-    if not int(flag.item()):
-        return marks, 0
-    cur, nxt = marks, torch.empty_like(marks)
-    rounds = 0
-    while True:
-        flag.zero_()
-        BF_MARK.launch(
-            dev,
-            d_prev.data_ptr(), cur.data_ptr(), nxt.data_ptr(),
-            flag.data_ptr(), src_e.data_ptr(), csr.data_ptr(),
-            w_old.data_ptr(), s, n, entry="bf_mark_round",
-        )
-        rounds += 1
-        cur, nxt = nxt, cur
-        if not int(flag.item()) or rounds >= n:
-            return cur, rounds
+    state = buf[3 * n * words + 2 * n :]
+    if int(state[0]):
+        return marks, 0  # round 0 marked nothing
+    lists = torch.zeros(_csr_list_words(n), dtype=torch.int32, device=dev)
+    args = (dp_t.data_ptr(), buf.data_ptr(), lists.data_ptr(),
+            csr.data_ptr(), src_e.data_ptr(), dst_e.data_ptr(),
+            w_old.data_ptr(), s, n, e, words)
+
+    def launch(t0, count):
+        BF_MARK.launch(dev, *args, t0, count, entry="bf_mark_rounds",
+                       kernels=K6_ROUND_KERNELS * count)
+
+    return marks, _fixpoint_rounds(launch, state, n)
 
 
 def _bf_invalidate_plain(d_prev, src_e, dst_e, w_new, w_old, csr):
     """The reference's [S, E] form over the edges csr covers, with the
-    segment-max as index_add on int32."""
+    segment-max as index_add on int32: (bool [S, n_pad] marks, rounds)."""
     s, n = d_prev.shape
     m_e = int(csr[-1])
     src = src_e[:m_e].long()
@@ -1452,33 +1547,74 @@ def _bf_invalidate_plain(d_prev, src_e, dst_e, w_new, w_old, csr):
 
 
 def _bf_warm_d0(
-    d_prev: torch.Tensor, marks: torch.Tensor, sources: torch.Tensor
+    d_prev: torch.Tensor,
+    marks: torch.Tensor,
+    sources: torch.Tensor,
+    dp_t: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Row-major repaired state where(marks, INF, d_prev), sources pinned
-    to 0 (K6 reset)."""
+    """The repaired initial state in K2's layout: dest-major [n_pad, S] of
+    where(marks, INF, d_prev) with every source's own entry pinned to 0.
+    `marks`: K5's bits, as `_bf_invalidate` gives them. On the card K6's
+    reset works in place on d_prev's dest-major copy `dp_t` (made here
+    when not given), which it consumes: it reads the marks' bits and writes
+    the marked entries alone."""
     dev = d_prev.device
+    _check("d_prev", d_prev, torch.int32, 2, dev)
     s, n = d_prev.shape
-    _check("marks", marks, torch.bool, 2, dev)
+    _check("marks", marks, torch.int32, 2, dev)
     _check("sources", sources, torch.int32, 1, dev)
-    if marks.shape != d_prev.shape or sources.shape[0] != s:
-        raise ValueError("marks/sources do not match d_prev's shape")
+    if sources.shape[0] != s:
+        raise ValueError("sources do not match d_prev's shape")
+    if tuple(marks.shape) != (n, _mask_words(s)):
+        raise ValueError(
+            f"marks must be K5's bits [{n}, {_mask_words(s)}], got "
+            f"{tuple(marks.shape)}"
+        )
     if dev.type != "cuda":
-        return _bf_warm_d0_plain(d_prev, marks, sources)
-    d0 = torch.empty_like(d_prev)
+        return _bf_warm_d0_plain(
+            d_prev, marks_bool(marks, s), sources
+        ).t().contiguous()
+    if dp_t is None:
+        dp_t = _dest_major(d_prev)
+    _check("dp_t", dp_t, torch.int32, 2, dev)
+    if tuple(dp_t.shape) != (n, s):
+        raise ValueError("dp_t is not d_prev's dest-major copy")
     if s * n:
         BF_MARK.launch(
-            dev,
-            d_prev.data_ptr(), marks.data_ptr(), sources.data_ptr(),
-            d0.data_ptr(), s, n, entry="bf_mark_reset",
+            dev, marks.data_ptr(), sources.data_ptr(), dp_t.data_ptr(), s, n,
+            _mask_words(s), entry="bf_mark_reset",
         )
-    return d0
+    return dp_t
 
 
 def _bf_warm_d0_plain(d_prev, marks, sources):
+    """Row-major where(marks, INF, d_prev), sources pinned to 0, from bool
+    [S, n_pad] marks: the reference's reset."""
     d0 = torch.where(marks, INF, d_prev)
     s = d_prev.shape[0]
     d0[torch.arange(s, device=d0.device), sources.long()] = 0
     return d0
+
+
+def _bf_warm(sources, src_e, dst_e, w_new, w_old, overloaded, d_prev,
+                csr, w_rows):
+    """The edge-list warm solve's device work (K6 seed + rounds, K6 reset,
+    K2 from the repaired state with weights `w_rows`), with d_prev
+    transposed in once, to K2's layout, and D out once. Returns (d [S,
+    n_pad], rounds, inv_rounds)."""
+    on_card = d_prev.device.type == "cuda"
+    dp_t = _dest_major(d_prev) if on_card else None
+    w_t = (_bf_weights_t(w_rows)
+           if on_card and w_rows.shape[0] > 1 else None)
+    marks, inv_rounds = _bf_invalidate(
+        d_prev, src_e, dst_e, w_new, w_old, csr, dp_t=dp_t, w_t=w_t
+    )
+    d0 = _bf_warm_d0(d_prev, marks, sources, dp_t=dp_t)
+    del marks, dp_t
+    d, rounds = _bf_relax_dm(
+        d0, sources, overloaded, src_e, dst_e, w_rows, csr, w_t=w_t
+    )
+    return d.t().contiguous(), rounds, inv_rounds
 
 
 def _bf_solver_warm(
@@ -1496,13 +1632,9 @@ def _bf_solver_warm(
     the new weights (K2) and mark the moved columns (K7). Returns (d,
     rounds, inv_rounds, col_changed, num_changed), the sliced path's delta
     outputs, so `_delta_extract` serves both."""
-    marks, inv_rounds = _bf_invalidate(
-        d_prev, src_e, dst_e, w_new, w_old, csr
-    )
-    d0 = _bf_warm_d0(d_prev, marks, sources)
-    del marks
-    d, rounds = _bf_relax(
-        d0, sources, overloaded, src_e, dst_e, w_new[None, :], csr
+    d, rounds, inv_rounds = _bf_warm(
+        sources, src_e, dst_e, w_new, w_old, overloaded, d_prev, csr,
+        w_new[None, :],
     )
     col_changed, num_changed = delta_columns(d, d_prev)
     return d, rounds, inv_rounds, col_changed, num_changed
@@ -1523,17 +1655,11 @@ def _bf_warm_vw_core(
     weights (ignored links -> INF), so each row warm-starts from the shared
     base fixpoint: K6 seeds where a row's raised edge lies on the base DAG
     (per-row seed against w_base), K6 rounds propagate down the base DAG,
-    K6 resets, and K2 relaxes with the per-row weights. Returns (d [S,
-    n_pad], rounds, inv_rounds)."""
-    marks, inv_rounds = _bf_invalidate(
-        d_prev, src_e, dst_e, w_rows, w_base, csr
-    )
-    d0 = _bf_warm_d0(d_prev, marks, sources)
-    del marks
-    d, rounds = _bf_relax(
-        d0, sources, overloaded, src_e, dst_e, w_rows, csr
-    )
-    return d, rounds, inv_rounds
+    K6 resets, and K2 relaxes with the per-row weights, which the card
+    transposes once for both. Returns (d [S, n_pad], rounds,
+    inv_rounds)."""
+    return _bf_warm(sources, src_e, dst_e, w_rows, w_base, overloaded,
+                       d_prev, csr, w_rows)
 
 
 # -- K7: delta extraction --------------------------------------------------

@@ -84,8 +84,7 @@ from openr_tpu_torch.ops.graph import (
     refresh_graph,
 )
 from openr_tpu_torch.ops.spf import (
-    _bf_d0,
-    _bf_relax,
+    _bf_fixpoint,
     _bf_solver_warm,
     _bf_warm_vw_core,
     _delta_extract,
@@ -721,14 +720,8 @@ class _AreaSolve:
                 st["w"] = upload(g.w, np.int32, self.device)
                 st["w_host"] = g.w.copy()
                 self.h2d_bytes += g.w.nbytes
-        d, _ = _bf_relax(
-            _bf_d0(rows_t, g.n_pad),
-            rows_t,
-            st["ov"],
-            st["src"],
-            st["dst"],
-            st["w"][None, :],
-            st["csr"],
+        d = _bf_fixpoint(
+            rows_t, st["src"], st["dst"], st["w"], st["ov"], st["csr"]
         )
         self.full_solves += 1
         return d, None

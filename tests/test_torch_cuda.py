@@ -120,34 +120,6 @@ def test_sell_relax_kernel_equals_plain(dev, name):
     assert torch.equal(d_k, d_p)
 
 
-@pytest.mark.parametrize("name", sorted(GRAPHS))
-@pytest.mark.parametrize("per_row", [False, True])
-def test_bf_relax_kernel_equals_plain(dev, name, per_row):
-    edges, ov = GRAPHS[name]
-    g = compile_edges(edges, ov)
-    st = to_device(g, dev)
-    rows = sources_for(g)
-    src = torch.as_tensor(rows, device=dev)
-    if per_row:
-        rng = np.random.default_rng(5)
-        w = rng.integers(1, 40, size=(len(rows), g.e_pad)).astype(np.int32)
-        w[rng.random(w.shape) < 0.1] = INF
-        w[:, g.e:] = INF
-        w_rows = torch.as_tensor(w, device=dev)
-    else:
-        w_rows = st["w"][None, :]
-    d0 = spf._bf_d0(src, g.n_pad)
-    d_k, r_k = spf._bf_relax(
-        d0.clone(), src, st["ov"], st["src"], st["dst"], w_rows, st["csr"]
-    )
-    d_p, r_p = spf._bf_relax_plain(
-        d0, src, st["ov"], st["src"], st["dst"], w_rows, st["csr"]
-    )
-    torch.cuda.synchronize()
-    assert r_k == r_p
-    assert torch.equal(d_k, d_p)
-
-
 @pytest.mark.parametrize("name", ["grid", "star", "clos"])
 def test_ecmp_triangle_kernel_equals_plain(dev, name):
     edges, ov = GRAPHS[name]
@@ -315,29 +287,6 @@ def test_sell_mark_kernel_equals_plain(dev, name):
 
 
 @pytest.mark.parametrize("name", sorted(GRAPHS))
-def test_bf_mark_kernel_equals_plain(dev, name):
-    edges, ov = GRAPHS[name]
-    g = compile_edges(edges, ov)
-    w_new, _, _ = event_for(g)
-    st = to_device(g, dev)
-    src = torch.as_tensor(sources_for(g), device=dev)
-    d_prev = spf._bf_relax(spf._bf_d0(src, g.n_pad), src, st["ov"],
-                           st["src"], st["dst"], st["w"][None, :],
-                           st["csr"])[0]
-    args = (d_prev, st["src"], st["dst"],
-            torch.as_tensor(w_new, device=dev), st["w"], st["csr"])
-    before = _cuda.BF_MARK.launches
-    m_k, r_k = spf._bf_invalidate(*args)
-    assert _cuda.BF_MARK.launches - before == 1 + r_k
-    m_p, r_p = spf._bf_invalidate_plain(*args)
-    torch.cuda.synchronize()
-    assert r_k == r_p
-    assert torch.equal(m_k, m_p)
-    assert torch.equal(spf._bf_warm_d0(d_prev, m_k, src),
-                       spf._bf_warm_d0_plain(d_prev, m_p, src))
-
-
-@pytest.mark.parametrize("name", sorted(GRAPHS))
 def test_delta_extract_kernel_equals_plain(dev, name):
     edges, ov = GRAPHS[name]
     g = compile_edges(edges, ov)
@@ -463,6 +412,154 @@ def fixpoint_case(name):
                                                               size=len(down)))
     changed = changed[w_new[changed] != g.w[changed]]
     return g, rows, w_new, changed, changed[w_new[changed] > g.w[changed]]
+
+
+# the edge-list kernels (K2, K6) take these cases too, and two more: the
+# 1,100-edge hub (32 lanes a row) and buffers off 16-byte alignment
+BF_CASES = {
+    **FIXPOINT_CASES,
+    "hub": (GRAPHS["extreme"][0], {"l0007"}, 8,
+            ["l0000", "hub", "l0007", "l0500"], "mixed"),
+    "misaligned": (wan_edges(300, degree=4, seed=11), {"w3"}, 8, None,
+                   "mixed"),
+}
+
+
+def bf_case(name):
+    """(graph, source rows, w_new) for a GRAPHS name (its sources and
+    event, as the sliced tests take them) or a BF_CASES name."""
+    if name in GRAPHS:
+        g = compile_edges(*GRAPHS[name])
+        return g, sources_for(g), event_for(g)[0]
+    edges, ov, s, names, kind = BF_CASES[name]
+    if name in FIXPOINT_CASES:
+        g, rows, w_new, _, _ = fixpoint_case(name)
+        return g, rows, w_new
+    g = compile_edges(edges, ov)
+    rng = np.random.default_rng(len(name))
+    rows = (rng.choice(g.n, size=s, replace=False) if names is None
+            else np.resize([g.node_index[x] for x in names], s))
+    return g, rows.astype(np.int32), event_for(g, seed=len(name))[0]
+
+
+def misaligned_like(t):
+    """A contiguous copy of t whose data starts 4 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    out = buf[1 : 1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == 4 and out.is_contiguous()
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(GRAPHS) + sorted(BF_CASES))
+@pytest.mark.parametrize("per_row", [False, True])
+def test_bf_relax_kernel_equals_plain(dev, name, per_row):
+    """K2 against its plain version: D and rounds from the dest-major cold
+    start (round 1 from the source rows) and from a row-major d0 (round 1
+    over every in-edge), shared and per-row weights, the launches of the
+    round chunks; at odd S (1, 3, 33), on the 1,100-edge hub, unreachable
+    rows, overloaded sources and transit nodes, the gadgets' two-buffer
+    trap, the round cap and buffers off 16-byte alignment."""
+    g, rows, _ = bf_case(name)
+    st = to_device(g, dev)
+    src = torch.as_tensor(rows, device=dev)
+    s, n = len(rows), g.n_pad
+    if per_row:
+        rng = np.random.default_rng(5)
+        w = rng.integers(1, 40, size=(s, g.e_pad)).astype(np.int32)
+        w[rng.random(w.shape) < 0.1] = INF
+        w[:, g.e:] = INF
+        w_rows = torch.as_tensor(w, device=dev)
+    else:
+        w_rows = st["w"][None, :]
+    edges = (st["ov"], st["src"], st["dst"], w_rows, st["csr"])
+    d0 = spf._bf_d0(src, n)
+    d_p, r_p = spf._bf_relax_plain(d0, src, *edges)
+    k2 = _cuda.BF_RELAX
+    before = k2.launches
+    if name == "misaligned":
+        w_t = (misaligned_like(spf._bf_weights_t(w_rows)) if per_row
+               else None)
+        d_c, r_c = spf._bf_relax_dm(misaligned_like(spf._sell_d0(src, n)),
+                                    src, *edges, cold=True, w_t=w_t)
+    else:
+        d_c, r_c = spf._bf_relax_dm(spf._sell_d0(src, n), src, *edges,
+                                    cold=True)
+    # two launches a round, rounds enqueued a chunk a call
+    assert (k2.launches - before
+            == spf.K2_ROUND_KERNELS * spf.round_launches(r_c, n))
+    d_k, r_k = spf._bf_relax(d0, src, *edges)
+    torch.cuda.synchronize()
+    assert torch.equal(d0, spf._bf_d0(src, n))  # read, never written
+    assert r_c == r_k == r_p
+    assert torch.equal(d_c.t(), d_p) and torch.equal(d_k, d_p)
+    assert torch.equal(
+        spf._bf_fixpoint_vw_core(src, st["src"], st["dst"], w_rows,
+                                 st["ov"], st["csr"]), d_p)
+    if name == "round_cap":
+        assert r_k == n
+    if name == "unreachable_and_slot_padding":
+        assert int((d_p == INF).sum()) > 0
+
+
+@pytest.mark.parametrize("name", sorted(GRAPHS) + sorted(BF_CASES))
+def test_bf_mark_kernel_equals_plain(dev, name):
+    """K6 (seed, rounds, reset) and the edge-list warm solve (K6, K2 from a
+    full round 1, K7's columns) against their plain versions on the card:
+    equal marks (K5's bits on both devices), d0, rounds and inv_rounds, a
+    seed that marks nothing launching no round, and the launches of the
+    round chunks."""
+    g, rows, w_new = bf_case(name)
+    s, n = len(rows), g.n_pad
+    st = to_device(g, dev)
+    src = torch.as_tensor(rows, device=dev)
+    d_prev = spf._bf_fixpoint(src, st["src"], st["dst"], st["w"], st["ov"],
+                              st["csr"])
+    d_prev_in = d_prev.clone()
+    w_new_t = torch.as_tensor(w_new, device=dev)
+    args = (d_prev, st["src"], st["dst"], w_new_t, st["w"], st["csr"])
+    k6 = _cuda.BF_MARK
+    before = k6.launches
+    m_k, r_k = spf._bf_invalidate(*args)
+    rounds_launched = (spf.K6_ROUND_KERNELS * spf.round_launches(r_k, n)
+                       if r_k else 0)
+    assert k6.launches - before == 1 + rounds_launched
+    m_p, r_p = spf._bf_invalidate_plain(*args)
+    m_c, r_c = spf._bf_invalidate(*(a.cpu() for a in args))
+    torch.cuda.synchronize()
+    assert r_k == r_p == r_c
+    assert torch.equal(spf.marks_bool(m_k, s), m_p)
+    assert torch.equal(m_k.cpu(), m_c)  # K5's bits on both devices
+    if name == "decrease_only":
+        assert r_k == 0 and not bool(m_p.any())
+    elif name in FIXPOINT_CASES:
+        assert r_k >= 1
+    d0_p = spf._bf_warm_d0_plain(d_prev, m_p, src).t().contiguous()
+    assert torch.equal(spf._bf_warm_d0(d_prev, m_k, src), d0_p)
+    # the reset writes a dest-major copy, never d_prev (at S = 1 too, where
+    # d_prev.t() is contiguous already)
+    assert torch.equal(d_prev, d_prev_in)
+    dp_t = spf._dest_major(d_prev)
+    before = k6.launches
+    d0_k = spf._bf_warm_d0(d_prev, m_k, src, dp_t=dp_t)
+    assert d0_k is dp_t and k6.launches - before == 1  # in place, one launch
+    assert torch.equal(d0_k, d0_p)
+
+    d_w, rounds_w, inv_w, cc_w, num_w = spf._bf_solver_warm(
+        src, st["src"], st["dst"], w_new_t, st["w"], st["ov"], d_prev,
+        st["csr"])
+    d_q, rounds_q = spf._bf_relax_plain(
+        d0_p.t().contiguous(), src, st["ov"], st["src"], st["dst"],
+        w_new_t[None, :], st["csr"])
+    cold = spf._bf_fixpoint(src, st["src"], st["dst"], w_new_t, st["ov"],
+                            st["csr"])
+    torch.cuda.synchronize()
+    assert (rounds_w, inv_w) == (rounds_q, r_p)
+    assert torch.equal(d_w, d_q) and torch.equal(d_w, cold)
+    assert torch.equal(cc_w, (d_q != d_prev).any(dim=0))
+    assert int(num_w) == int(cc_w.sum())
+    assert torch.equal(d_prev, d_prev_in)
 
 
 @pytest.mark.parametrize("name", sorted(FIXPOINT_CASES))
@@ -876,11 +973,12 @@ def test_delta_extract_and_mask_launches_per_call(dev):
     assert k8.launches - before == 2 and len(m_t) > 2
 
 
-@pytest.mark.parametrize("name", sorted(GRAPHS))
+@pytest.mark.parametrize("name", sorted(GRAPHS) + sorted(BF_CASES))
 def test_bf_mark_per_row_seed_equals_plain(dev, name):
-    edges, ov = GRAPHS[name]
-    g = compile_edges(edges, ov)
-    rows = sources_for(g)
+    """K6's per-row seed (KSP's link-ignore rows against the shared base)
+    and the per-row warm solve against their plain versions and the cold
+    per-row solve, over GRAPHS and the edge-list cases."""
+    g, rows, _ = bf_case(name)
     s = len(rows)
     rng = np.random.default_rng(4)
     w_rows = np.tile(g.w, (s, 1))
@@ -894,12 +992,17 @@ def test_bf_mark_per_row_seed_equals_plain(dev, name):
     m_k, r_k = spf._bf_invalidate(*args)
     m_p, r_p = spf._bf_invalidate_plain(*args)
     torch.cuda.synchronize()
-    assert r_k == r_p and torch.equal(m_k, m_p)
-    d, _, _ = spf._bf_warm_vw_core(src, st["src"], st["dst"], w_rows_t,
-                                   st["w"], st["ov"], d_prev, st["csr"])
+    assert r_k == r_p and torch.equal(spf.marks_bool(m_k, s), m_p)
+    d, rounds, inv = spf._bf_warm_vw_core(src, st["src"], st["dst"],
+                                          w_rows_t, st["w"], st["ov"],
+                                          d_prev, st["csr"])
+    d_q, rounds_q = spf._bf_relax_plain(
+        spf._bf_warm_d0_plain(d_prev, m_p, src), src, st["ov"], st["src"],
+        st["dst"], w_rows_t, st["csr"])
     cold = spf.batched_spf_vw(g, rows, w_rows, device=dev)
     torch.cuda.synchronize()
-    assert torch.equal(d, cold)
+    assert (rounds, inv) == (rounds_q, r_p)
+    assert torch.equal(d, d_q) and torch.equal(d, cold)
 
 
 @pytest.mark.parametrize("warm", [True, False])

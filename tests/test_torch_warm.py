@@ -12,6 +12,7 @@ counts are of the same Jacobi rounds.
 
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -780,3 +781,239 @@ def test_fixpoint_rounds_reads_the_state_once_a_chunk(rounds, cap):
     assert launched == list(range(1, len(launched) + 1))
     assert len(launched) == tspf.round_launches(min(rounds, cap), cap)
     assert len(reads) == len(calls) == -(-len(launched) // tspf.ROUND_CHUNK)
+
+
+# -- K2's and K6's round bookkeeping on the card, modelled on the CPU -------
+#
+# bf_relax.cu and bf_mark.cu keep K1's and K5's round protocol on the
+# edge-list layout: a round's first pass lists, a thread an edge, the heads
+# of the edges whose tail carries the round's stamp (and, for K2, the rows
+# stamped themselves), each into the list of its slot split; the second
+# pass splits a listed row's in-edges over P lanes. The models below take
+# those steps in numpy, lane by lane, and are held against the JAX package
+# on the model graphs and the star, whose hub has 1,100 in-edges (past the
+# sliced layout's cap of 1,024: 32 lanes of 35 edges).
+
+EDGE_GRAPHS = MODEL_GRAPHS + ("star",)
+
+
+def lane_split(deg):
+    """sell_rounds.cuh slot_split_log2 as P: the least power of two that
+    leaves a lane at most 8 of a row's deg slots, at most 32."""
+    lp = 0
+    while lp < 5 and (8 << lp) < deg:
+        lp += 1
+    return 1 << lp
+
+
+def k2_model(d0, sources, ov, src, dst, w, csr, cold, write_through=True):
+    """bf_relax.cu's fixpoint on dest-major d0 [n, S]: round t lists the
+    heads of the edges whose tail carries stamp t in stamps[(t - 1) & 1]
+    and, for the write-through, the rows stamped t themselves (every row
+    with in-edges in a warm round 1); lane p of a listed row's P lanes
+    takes its in-edges p, p + P, ... from tails stamped t (every edge in a
+    warm round 1); the lanes' minima meet, and a row is written when it
+    went down or was stamped t, and stamped t + 1 when it went down. w:
+    shared [E] or per column [E, S]. (D dest-major, rounds, the largest P
+    a round used)"""
+    n, s = d0.shape
+    m = int(csr[-1])
+    bufs = [d0.copy(), d0.copy()]
+    stamps = np.zeros((2, n), dtype=np.int64)
+    if cold:
+        stamps[0, sources] = 1
+    allow = ~ov[:, None] | (np.arange(n)[:, None] == sources[None, :])
+    wc = w[:m] if w.ndim == 2 else w[:m, None]
+    deg = np.diff(csr)
+    widest = 1
+    for t in range(1, n + 1):
+        full = t == 1 and not cold
+        d_old, d_new = bufs[(t - 1) & 1], bufs[t & 1]
+        cp, cq = stamps[(t - 1) & 1], stamps[t & 1]
+        listed = np.zeros(n, dtype=bool)
+        if full:
+            listed[deg > 0] = True
+        else:
+            listed[dst[:m][cp[src[:m]] == t]] = True
+            if write_through:
+                listed |= cp == t
+        dt = np.where(allow, d_old, INF)
+        moved_any = False
+        for v in np.flatnonzero(listed):
+            lo, hi = int(csr[v]), int(csr[v + 1])
+            p_lanes = lane_split(hi - lo)
+            widest = max(widest, p_lanes)
+            acc = np.full(s, INF, dtype=np.int64)
+            for p in range(p_lanes):
+                es = np.arange(lo + p, hi, p_lanes)
+                if not full:
+                    es = es[cp[src[es]] == t]
+                cand = np.minimum(dt[src[es]] + wc[es], INF)
+                acc = np.minimum(acc, cand.min(axis=0, initial=INF))
+            new = np.minimum(d_old[v], acc)
+            moved = bool((new < d_old[v]).any())
+            if moved or (write_through and not full and cp[v] == t):
+                d_new[v] = new
+            if moved:
+                cq[v] = t + 1
+                moved_any = True
+        if not moved_any:
+            return bufs[t & 1], t, widest
+    return bufs[n & 1], n, widest
+
+
+def k6_model(dp, seeds, src, dst, w_old, csr):
+    """bf_mark.cu's fixpoint from round 0's marks (row-major bool [S, n]):
+    round t lists the heads of the edges whose tail carries stamp t in
+    F[(t - 1) & 1], tests a listed row's in-edges from those tails alone
+    and only the tails' bits N[(t - 1) & 1] the row lacks, writes N[t & 1]
+    for the listed rows, ORs into M in place and stamps a row that grew
+    t + 1; done when a round marks nothing, or at n rounds. (marks,
+    rounds)"""
+    s, n = dp.shape
+    m = int(csr[-1])
+    src_m, dst_m = src[:m], dst[:m]
+    dv = dp[:, dst_m]
+    on_old = (np.minimum(dp[:, src_m] + w_old[:m], INF) == dv) & (dv < INF)
+    marks = seeds.copy()
+    new = [seeds.copy(), np.zeros_like(seeds)]
+    f = np.zeros((2, n), dtype=np.int64)
+    f[0, seeds.any(axis=0)] = 1
+    if not seeds.any():
+        return marks, 0
+    for t in range(1, n + 1):
+        np_, nq = new[(t - 1) & 1], new[t & 1]
+        fp, fq = f[(t - 1) & 1], f[t & 1]
+        front = np.flatnonzero(fp[src_m] == t)
+        listed = np.unique(dst_m[front])
+        add = np.zeros((s, n), dtype=np.int64)
+        hit = (np_[:, src_m[front]] & on_old[:, front]
+               & ~marks[:, dst_m[front]])
+        np.add.at(add.T, dst_m[front], hit.T.astype(np.int64))
+        add = add > 0
+        nq[:, listed] = add[:, listed]
+        marks |= add
+        grew = add.any(axis=0)
+        fq[grew] = t + 1
+        if not grew.any():
+            return marks, t
+    return marks, n
+
+
+jax_bf_relax = jax.jit(jspf._bf_relax)
+
+
+def edge_case(name, weights, seed=5):
+    """(case, w_rows [1 or S, e_pad], csr) for the K2 and K6 models: the
+    graph's weights, or per row random metrics with a tenth of the real
+    edges at INF (a KSP-like row each), padding INF."""
+    case = model_case(name)
+    jg = case["jg"]
+    if weights == "shared":
+        w_rows = jg.w[None, :].copy()
+    else:
+        rng = np.random.default_rng(seed)
+        w_rows = rng.integers(1, 30, size=(len(case["rows"]), jg.e_pad))
+        w_rows = w_rows.astype(np.int32)
+        w_rows[rng.random(w_rows.shape) < 0.1] = INF
+        w_rows[:, jg.e:] = INF
+    return case, w_rows, tspf.edge_csr(case["tg"])
+
+
+@pytest.mark.parametrize("weights", ["shared", "per_row"])
+@pytest.mark.parametrize("start", ["cold", "warm"])
+@pytest.mark.parametrize("name", EDGE_GRAPHS)
+@pytest.mark.usefixtures("released")
+def test_k2_round_bookkeeping_matches_jax(name, start, weights):
+    """K2's dest-major rounds (the lists of the heads of stamped tails, the
+    write-through, the lane split) give the JAX package's `_bf_relax` D
+    and rounds, from a cold start and from an event's repaired state (a
+    warm round 1 over every edge), with shared and per-row weights."""
+    case, w_rows, csr = edge_case(name, weights)
+    jg, rows = case["jg"], case["rows"]
+    s = len(rows)
+    if start == "cold":
+        d0 = np.full((s, jg.n_pad), INF, dtype=np.int32)
+        d0[np.arange(s), rows] = 0
+    else:
+        w_old, _, ov_old, _, _, _ = make_event(jg, "mixed", seed=5)
+        w_base = w_rows.copy()
+        w_base[:, : jg.e] = w_old[: jg.e]
+        d_prev = np.asarray(jspf._bf_fixpoint_vw(
+            rows, jg.src, jg.dst, w_base, ov_old))
+        args = (t32(jg.src), t32(jg.dst))
+        w_new = w_rows[0] if weights == "shared" else w_rows
+        marks, _ = tspf._bf_invalidate(t32(d_prev), *args, t32(w_new),
+                                       t32(w_old), t32(csr))
+        d0 = tspf._bf_warm_d0(t32(d_prev), marks,
+                              t32(rows)).t().contiguous().numpy()
+    allow = np.asarray(jspf._bf_allow(rows, jg.overloaded))
+    jd, jr = jax_bf_relax(d0, allow, jg.src, jg.dst, w_rows)
+    md, mr, widest = k2_model(
+        d0.T.copy(), rows, jg.overloaded, jg.src, jg.dst,
+        w_rows[0] if weights == "shared" else w_rows.T.copy(), csr,
+        cold=start == "cold")
+    np.testing.assert_array_equal(md.T, np.asarray(jd))
+    assert mr == int(jr)
+    if name == "star":
+        assert widest == 32  # the hub's 1,100 in-edges over 32 lanes
+
+
+@pytest.mark.usefixtures("released")
+def test_k2_write_through_is_what_the_gadgets_need():
+    """Without the write-through of a row that changed in the previous
+    round, K2's model of the gadget graph comes out wrong: the case above
+    exercises the two-buffer trap on the edge-list layout too."""
+    case, w_rows, csr = edge_case("gadgets", "shared")
+    jg, rows = case["jg"], case["rows"]
+    d0 = np.full((jg.n_pad, len(rows)), INF, dtype=np.int32)
+    d0[rows, np.arange(len(rows))] = 0
+    allow = np.asarray(jspf._bf_allow(rows, jg.overloaded))
+    jd, _ = jax_bf_relax(d0.T.copy(), allow, jg.src, jg.dst, w_rows)
+    md, _, _ = k2_model(d0, rows, jg.overloaded, jg.src, jg.dst, w_rows[0],
+                        csr, cold=True, write_through=False)
+    assert not np.array_equal(md.T, np.asarray(jd))
+
+
+@pytest.mark.parametrize("kind", ["increase", "mixed", "per_row"])
+@pytest.mark.parametrize("name", EDGE_GRAPHS)
+@pytest.mark.usefixtures("released")
+def test_k6_frontier_bookkeeping_matches_jax(name, kind):
+    """K6's frontier rounds (heads of the tails stamped in the previous
+    round, those tails' new bits only) give the plain version's marks and
+    rounds, and the JAX package's `_bf_warm_core` (`_bf_warm_vw_core` for
+    per-row seeds) inv_rounds."""
+    case = model_case(name)
+    jg, rows = case["jg"], case["rows"]
+    csr = tspf.edge_csr(case["tg"])
+    if kind == "per_row":
+        w_old, ov_old = jg.w.copy(), jg.overloaded
+        rng = np.random.default_rng(9)
+        w_new = np.tile(w_old, (len(rows), 1))
+        for i in range(len(rows)):
+            w_new[i, rng.choice(jg.e, size=min(5, jg.e), replace=False)] = INF
+    else:
+        w_old, w_new, ov_old, _, _, _ = make_event(jg, kind, seed=7)
+    d_prev = cold_d(case, w_old, ov_old)
+    args = (t32(jg.src), t32(jg.dst), t32(w_new), t32(w_old), t32(csr))
+    pm, pr = tspf._bf_invalidate_plain(t32(d_prev), *args)
+    m = int(csr[-1])
+    dv = d_prev[:, jg.dst[:m]]
+    on_old = (np.minimum(d_prev[:, jg.src[:m]] + w_old[:m], INF) == dv) & (
+        dv < INF)
+    raised = on_old & (w_new[..., :m] > w_old[:m])
+    seeds = np.zeros(d_prev.shape, dtype=bool)
+    for e in np.flatnonzero(raised.any(axis=0)):
+        seeds[:, jg.dst[e]] |= raised[:, e]
+    mm, mr = k6_model(d_prev, seeds, jg.src, jg.dst, w_old, csr)
+    np.testing.assert_array_equal(mm, pm.numpy())
+    assert mr == pr
+    jargs = (jnp.asarray(rows), jnp.asarray(jg.src), jnp.asarray(jg.dst),
+             jnp.asarray(w_new), jnp.asarray(w_old), jnp.asarray(ov_old),
+             jnp.asarray(d_prev))
+    warm = jspf._bf_solver_warm_vw if kind == "per_row" else (
+        jspf._bf_solver_warm)
+    assert mr == int(warm(*jargs)[2])
+    bits, r = tspf._bf_invalidate(t32(d_prev), *args)
+    assert r == mr and torch.equal(tspf.marks_bool(bits, len(rows)),
+                                   torch.as_tensor(mm))
