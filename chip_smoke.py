@@ -94,8 +94,10 @@ Phases, one JSON line each:
                mid-anneal tau (0.5) from the D of 128 rounds, with times
                (K17's adjoint round timed alone, one launch with the
                scale given; each entry run once a step apart, with its
-               bound); K14's (D', keep) and the gate backward's outputs
-               against the sha256 digests of the first designs; the
+               bound, the gate and the utilization beside their plain
+               versions); K14's (D', keep), the gate's p, the
+               utilization and the gate backward's outputs against the
+               sha256 digests of the first designs; the
                quotient by tau against the correctly rounded division at
                the run's temperatures; then, counted, adam_solve
                for 8 steps (per-step ms, launches per step, peak memory,
@@ -225,6 +227,16 @@ K14_DIGEST_FIRST_DESIGN = (
     "44a775da155787da790e22d298afb3decc3eb1e84d608079a4d3868b05a9f445")
 GATE_BWD_DIGEST_FIRST_DESIGN = (
     "3ac6d31c030ff082ddf18c22bfd38842a091955e2646582e0cc5251a73d86ff5")
+# sha256 digests, on an H100 80GB HBM3 with the first designs of K16's
+# gate (one thread a column, each walking its node's out-edges twice) and
+# utilization (a block an edge, a block reduction a scenario), at the same
+# state (`digest`): the gate's p on the D of te_rounds rounds, and the
+# utilization on that p and the xsum of one flow round. The redesigns sum
+# in the same orders and divide with __fdiv_rn, so equal digests show it
+GATE_DIGEST_FIRST_DESIGN = (
+    "c3d6c6985a7ed302a9ca876ac1a8b0ce39cffcc59bdd7c21103f25b59151300e")
+UTIL_DIGEST_FIRST_DESIGN = (
+    "a3c331bb53c55c0e7b06eb7d849429ba6d10e533ccf57495a3f96e2c2af32350")
 TE_BORROW_PODS = 2
 # the multi-device layouts: a graph axis of 4 over the north-star WAN and
 # the Clos (ranks sharing the one card), a batch axis of 4 over the WAN
@@ -2365,6 +2377,9 @@ def main() -> int:
           f"the quotient by tau differs from the correctly rounded one: "
           f"{div_differ}")
     p_k = tk.soft_gate(d_run, we, up_t, graph, tau)
+    gate_digest = digest(p_k)
+    check(gate_digest == GATE_DIGEST_FIRST_DESIGN,
+          f"the gate's p differs from the first design's: {gate_digest}")
     p_p = tk._soft_gate_plain(d_run, we, up_t, graph, tau)
     err16 = {"gate": te_cmp("K16", p_k, p_p)}
     del p_p
@@ -2378,6 +2393,9 @@ def main() -> int:
     err16["round"] = te_cmp("K16", x1_k, x1_p)
     del x1_p, xs_p
     util_k = tk.soft_flow_util(p_k, xs_k, caps_t, graph)
+    util_digest = digest(util_k)
+    check(util_digest == UTIL_DIGEST_FIRST_DESIGN,
+          f"the utilization differs from the first design's: {util_digest}")
     err16["util"] = te_cmp(
         "K16", util_k, tk._soft_flow_util_plain(p_k, xs_k, caps_t, graph))
     g_util = torch.randn(util_k.shape, device=dev, generator=gen)
@@ -2489,6 +2507,13 @@ def main() -> int:
         check(side_launches[name_] == want, f"{name_} launched "
               f"{side_launches[name_]} times a call, not {want}")
         side_ms[name_] = time_ms(fn, setup=setup)
+    # the plain versions of K16's once-a-step entries
+    side_plain_ms = {
+        "K16_gate": time_ms(lambda: tk._soft_gate_plain(
+            d_run, we, up_t, graph, tau), reps=3, warmup=1),
+        "K16_util": time_ms(lambda: tk._soft_flow_util_plain(
+            p_k, xs_k, caps_t, graph), reps=3, warmup=1),
+    }
     # the library yardstick of the Adam step: PyTorch's fused Adam on [E]
     # (the port never calls it)
     lib_w = inp["w"].clone().requires_grad_(True)
@@ -2612,12 +2637,14 @@ def main() -> int:
         "max_rel_err": te_err, "max_abs_err": te_abs, "k16_rel_err": err16,
         "tau_quotient_differ": div_differ,
         "k14_digest": k14_digest, "gate_bwd_digest": gate_bwd_digest,
+        "gate_digest": gate_digest, "util_digest": util_digest,
         "k17_rel_err": err17,
         "seconds": te_solve_s, "step_ms": te_solve_s * 1e3 / TE_STEPS,
         "launches": te_launches, "launches_per_step": per_step,
         "launches_per_call": te_per_call,
         "kernel_ms": te_ms, "plain_ms": te_plain_ms, "side_ms": side_ms,
         "side_bound_ms": {k_: b_[0] for k_, b_ in side_bound.items()},
+        "side_plain_ms": side_plain_ms,
         "side_launches_per_call": side_launches,
         "est_kernel_ms_per_step": {
             key: te_ms[key] * (per_step[k.name] - sum(
@@ -2660,6 +2687,7 @@ def main() -> int:
             "side": {
                 name_[4:]: {"ms": side_ms[name_], "bound_ms": b_[0],
                             "bound_by": b_[1],
+                            "plain_ms": side_plain_ms.get(name_),
                             "launches_per_call": side_launches[name_]}
                 for name_, b_ in side_bound.items()
                 if name_.startswith(key)},

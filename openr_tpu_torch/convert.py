@@ -199,6 +199,7 @@ class TeGraph:
     out_perm: torch.Tensor  # int32 [E]
     in_ptr: torch.Tensor  # int32 [n + 1]
     in_perm: torch.Tensor  # int32 [E]
+    out_order: torch.Tensor  # int32 [n]: by out-degree, largest first
 
     @property
     def e(self) -> int:
@@ -231,6 +232,7 @@ def te_graph(src_e, dst_e, n: int, device: DeviceLike = "cuda") -> TeGraph:
         raise ValueError(f"edge endpoints outside [0, {n})")
     out_perm, out_ptr = edge_ranges(src, n)
     in_perm, in_ptr = edge_ranges(dst, n)
+    out_order = np.argsort(-np.diff(out_ptr), kind="stable")
     return TeGraph(
         n=int(n),
         src=upload(src, np.int32, dev),
@@ -239,6 +241,7 @@ def te_graph(src_e, dst_e, n: int, device: DeviceLike = "cuda") -> TeGraph:
         out_perm=upload(out_perm, np.int32, dev),
         in_ptr=upload(in_ptr, np.int32, dev),
         in_perm=upload(in_perm, np.int32, dev),
+        out_order=upload(out_order, np.int32, dev),
     )
 
 

@@ -316,9 +316,9 @@ SOFT_FLOW = Kernel(
     "soft_flow",
     "te_flow.cu",
     {
-        "soft_gate": [_P, _P, _P, _P, _P, _P, _P, _I, _F],
+        "soft_gate": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _F],
         "soft_flow_round": [_P, _P, _P, _P, _P, _P, _P, _I, _I],
-        "soft_flow_util": [_P, _P, _P, _P, _P, _I, _I, _I],
+        "soft_flow_util": [_P, _P, _P, _P, _P, _P, _I, _I, _I],
     },
     "openr_tpu/te/objective.py:138 _soft_utilization_core",
 )

@@ -21,13 +21,16 @@
 //
 // Entry points:
 //
-//   soft_gate            K16, one thread per (u, t): denom, then p for each
-//                        out-edge (once per optimizer step)
+//   soft_gate            K16, a block per (u, kCols columns), 4 columns a
+//                        thread, u's out-edges staged: denom, then p for
+//                        each out-edge (once per optimizer step)
 //   soft_flow_round      K16, a block per (v, kCols columns), 4 columns a
 //                        thread, all B scenarios: the pull x_{r+1}, and
 //                        xsum += x_r (xsum may be null: the backward's
 //                        recomputation)
-//   soft_flow_util       K16, one block per edge: util[b, e]
+//   soft_flow_util       K16, a block per kGroup out-edges in out_perm
+//                        order, all B scenarios: util[b, e] (once per
+//                        optimizer step)
 //   soft_flow_bwd_scale  K17, once per backward: c[b, e] = g_util[b, e]
 //                        / max(caps[e], 1e-9), the same correctly rounded
 //                        division the rounds once made for every column
@@ -57,7 +60,7 @@
 // forward's bit for bit and the gap == 0 ties land where the reference's do.
 //
 // The gate's backward as first designed (one thread per (u, t), each thread
-// chasing out_perm -> e -> dst, we, up, a block_sum per out-edge, exp of
+// chasing out_perm -> e -> dst, we, up, a block reduction per out-edge, exp of
 // __fdiv_rn) took 3.38-3.39 ms a call at 3,956 nodes and 63,840 edges on an
 // H100 (rows 2.98-2.99, pull 0.39-0.41). Scratch variants of it, each with
 // one cost taken out, timed on the card: the block reductions 0.25 ms of the
@@ -75,6 +78,47 @@
 // columns a thread with 16-byte loads: 0.39 ms, as before, at the memory's
 // rate. The gate (forward) takes the same quotient: 1.19-1.22 ms against
 // 1.48-1.50.
+//
+// The gate as first designed (one thread per (u, t), each walking u's
+// out-edges twice through out_perm -> e -> we, up, dst in global memory,
+// 4-byte loads and stores) took 1.20 ms a call at 3,956 nodes and 63,840
+// edges on an H100, against a 0.321 ms bound. The redesign stages u's
+// out-edges, moves 4 columns a thread with 16-byte rows of D and p, loads
+// the D rows of kU out-edges before it uses any, keeps walk 1's scores of
+// u's first kKeep out-edges (a rack's all 8) in shared memory, runs the
+// column chunks fastest and the nodes by out-degree, largest first
+// (out_order), at 48 registers (5 blocks an SM): 0.66-0.68 ms. Its steps
+// and variants, timed on the card: staging and 16-byte rows alone 0.95;
+// the batched loads 0.85-0.86 (2 or 8 edges at once 0.89, 0.91); column
+// chunks fastest 0.81-0.83 (node fastest 0.86); nodes in out_order 0.72
+// against 0.82 in node order (the Clos numbers its 57-edge fabric switches
+// last, and their blocks ran as a tail); 48 registers 0.66 against 0.71 at
+// 64, 0.67 at 40; scores kept for 8 out-edges against 0.74 recomputed
+// (4: 0.71, 10: 0.67; in registers, before the batched loads, 1.04
+// against 0.95); walk 1's scores written to p and read back by walk 2,
+// 1.16-1.22; streaming stores of p 0.66-0.67. With one cost taken out
+// each (at 0.84): the division 0.10 ms, p's stores 0.09, walk 1's scores
+// 0.17, walk 2's recomputed scores 0.16. What holds it at twice its bound
+// is instructions: about 20 an entry for a score (gate_score's exp and a
+// branch for its masks) and 10 for __fdiv_rn's quotient, both kept for
+// their bits, and walk 2's recomputation of a hub's scores past the first
+// kKeep.
+//
+// The utilization as first designed (a block an edge, for each scenario a
+// pass over p's row and a gather of xsum[b, src_e, :], a block reduction
+// with two barriers each) took 1.09 ms against a 0.377 ms bound. The
+// redesign gives a block kGroup consecutive entries of out_perm, reads
+// each p row once for all scenarios and xsum's row once a column for all
+// the block's edges of one source (a block has one or two, where a node's
+// range ends inside it, except on nodes of fewer out-edges than kGroup),
+// reduces the kGroup * kB sums together, and has no branch between a
+// column's loads: 0.44-0.46 ms. Its variants, timed on the card: the loads
+// behind a branch an edge 0.97; each edge loading its own xsum row 0.72;
+// kGroup 8 0.47-0.48 (127 registers), 2 0.73; the column loop unrolled 1,
+// 2 or 4 times 0.455, 0.447, 0.61; streaming loads of p 0.455; a path of
+// its own for one source 0.454 against 0.460. It streams p at about 2.2
+// TB/s. Each (b, e) sums in the first design's order, so util keeps its
+// bits.
 //
 // Bound on the card: bytes. p is [E, N] (1.0 GB at 3,956 nodes and 63,840
 // edges): the gate writes it once; a flow round reads it once and gathers
@@ -123,6 +167,9 @@
 namespace {
 
 constexpr int kB = 4;  // scenarios per pass of a thread
+constexpr int kGroup = 4;  // out-edges a utilization block owns
+constexpr int kU = 4;  // out-edges whose D rows a gate thread loads at once
+constexpr int kKeep = 8;  // out-edges whose scores the gate keeps for walk 2
 
 // gap and score of one (edge, column); the exponent -max(gap, 0) / tau is
 // taken by div_tau, whose exp softmin_div_check holds against exp of
@@ -138,45 +185,111 @@ __device__ __forceinline__ float gate_score(float we_e, bool up_e,
   return expf(div_tau(-fmaxf(gap, 0.f), tau, rtau));
 }
 
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  const int warp = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) red[warp] = v;
-  __syncthreads();
-  float total = 0.f;
-  if (threadIdx.x == 0) {
-    for (int w = 0; w < kThreads / 32; ++w) total += red[w];
-  }
-  __syncthreads();
-  return total;  // valid in thread 0
-}
-
-__global__ void __launch_bounds__(kThreads) soft_gate_kernel(
+// K16's gate: a block owns node u and kCols columns, kQ a thread (16-byte
+// rows of D and p where kVec, else columns kThreads apart); u's out-edges
+// are staged in shared memory as (e, dst_e * n, we_e, up_e), kStage at a
+// time, so no thread chases out_perm -> e -> dst per edge. Walk 1 sums each
+// column's denom over out_perm order, loading the D rows of kU out-edges
+// before it uses any, and keeps the scores of u's first kKeep out-edges in
+// shared memory; walk 2 divides those and recomputes the rest. The column
+// chunks run fastest, the nodes in out_order: the most out-edges first, so
+// the longest blocks do not start last.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads, 5) soft_gate_kernel(
     const float* __restrict__ d, const float* __restrict__ we,
     const bool* __restrict__ up, const int32_t* __restrict__ dst,
     const int32_t* __restrict__ out_ptr, const int32_t* __restrict__ out_perm,
-    float* __restrict__ p, int n, float tau) {
-  const int u = blockIdx.y;
-  const int t = blockIdx.x * kThreads + threadIdx.x;
-  if (t >= n) return;
-  const float rtau = __frcp_rn(tau);
-  const float du = d[(long long)u * n + t];
+    const int32_t* __restrict__ out_order, float* __restrict__ p, int n,
+    float tau) {
+  __shared__ int s_e[kStage];
+  __shared__ long long s_dst[kStage];
+  __shared__ float s_we[kStage];
+  __shared__ bool s_up[kStage];
+  __shared__ float s_sc[kKeep][kCols];  // walk 1's scores of kKeep out-edges
+  const int u = out_order[blockIdx.y];
+  const int c0 = blockIdx.x * kCols + (kVec ? kQ * threadIdx.x : threadIdx.x);
   const int beg = out_ptr[u];
   const int end = out_ptr[u + 1];
-  float denom = 0.f;
-  float gap;
-  for (int k = beg; k < end; ++k) {
-    const int e = out_perm[k];
-    denom = __fadd_rn(denom, gate_score(we[e], up[e],
-                                        d[(long long)dst[e] * n + t], du,
-                                        u == t, tau, rtau, &gap));
+  const float rtau = __frcp_rn(tau);
+  float du[kQ];
+  load4<kVec>(d + (long long)u * n, c0, n, du);
+  bool self[kQ];
+  float denom[kQ];
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) {
+    self[q] = c0 + q * (kVec ? 1 : kThreads) == u;
+    denom[q] = 0.f;
   }
-  const bool ok = denom > 1e-20f;
-  for (int k = beg; k < end; ++k) {
-    const int e = out_perm[k];
-    const float score = gate_score(we[e], up[e], d[(long long)dst[e] * n + t],
-                                   du, u == t, tau, rtau, &gap);
-    p[(long long)e * n + t] = ok ? __fdiv_rn(score, denom) : 0.f;
+  int staged = -1;  // the first edge of the staged out-edges
+  float gap;
+  for (int k0 = beg; k0 < end; k0 += kStage) {
+    const int cnt = min(kStage, end - k0);
+    if (k0 != staged) {
+      stage_edges(out_perm, dst, we, k0, cnt, n, s_e, s_dst, s_we, up, s_up);
+      staged = k0;
+    }
+    for (int i0 = 0; i0 < cnt; i0 += kU) {
+      float dd[kU][kQ];
+#pragma unroll
+      for (int k = 0; k < kU; ++k) {
+        load4<kVec>(d + s_dst[min(i0 + k, cnt - 1)], c0, n, dd[k]);
+      }
+#pragma unroll
+      for (int k = 0; k < kU; ++k) {
+        const int i = i0 + k;
+        if (i < cnt) {
+          const bool keep = k0 == beg && i < kKeep;
+#pragma unroll
+          for (int q = 0; q < kQ; ++q) {
+            const float score = gate_score(s_we[i], s_up[i], dd[k][q], du[q],
+                                           self[q], tau, rtau, &gap);
+            if (keep) s_sc[i][q * kThreads + threadIdx.x] = score;
+            denom[q] = __fadd_rn(denom[q], score);
+          }
+        }
+      }
+    }
+  }
+  bool ok[kQ];
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) ok[q] = denom[q] > 1e-20f;
+  for (int k0 = beg; k0 < end; k0 += kStage) {
+    const int cnt = min(kStage, end - k0);
+    if (k0 != staged) {
+      stage_edges(out_perm, dst, we, k0, cnt, n, s_e, s_dst, s_we, up, s_up);
+      staged = k0;
+    }
+    const int kept = k0 == beg ? min(cnt, kKeep) : 0;
+    for (int i = 0; i < kept; ++i) {
+      float pv[kQ];
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) {
+        const float score = s_sc[i][q * kThreads + threadIdx.x];
+        pv[q] = ok[q] ? __fdiv_rn(score, denom[q]) : 0.f;
+      }
+      store4<kVec>(p + (long long)s_e[i] * n, c0, n, pv);
+    }
+    for (int i0 = kept; i0 < cnt; i0 += kU) {
+      float dd[kU][kQ];
+#pragma unroll
+      for (int k = 0; k < kU; ++k) {
+        load4<kVec>(d + s_dst[min(i0 + k, cnt - 1)], c0, n, dd[k]);
+      }
+#pragma unroll
+      for (int k = 0; k < kU; ++k) {
+        const int i = i0 + k;
+        if (i < cnt) {
+          float pv[kQ];
+#pragma unroll
+          for (int q = 0; q < kQ; ++q) {
+            const float score = gate_score(s_we[i], s_up[i], dd[k][q], du[q],
+                                           self[q], tau, rtau, &gap);
+            pv[q] = ok[q] ? __fdiv_rn(score, denom[q]) : 0.f;
+          }
+          store4<kVec>(p + (long long)s_e[i] * n, c0, n, pv);
+        }
+      }
+    }
   }
 }
 
@@ -260,24 +373,130 @@ __global__ void __launch_bounds__(kThreads) soft_flow_round_kernel(
   }
 }
 
+// A thread's sums of the owned edges' products over its columns t = i, i +
+// kThreads, ..., for kB scenarios. The owned edges have at most two
+// sources, the first and the last owned edge's (`first` says which), whose
+// xsum rows the thread loads once a column, with no branch between a
+// column's loads, so they are in flight together; kAny: any sources, an
+// edge at a time with its own row.
+template <bool kAny>
+__device__ __forceinline__ void util_sums(const float* const (&prow)[kGroup],
+                                          const float* const (&xrow)[kGroup],
+                                          const bool (&first)[kGroup],
+                                          long long nn, int nbk, int n,
+                                          float (&acc)[kGroup][kB]) {
+  long long xoff[kB];  // a scenario past nbk reads scenario nbk - 1's row
+#pragma unroll
+  for (int j = 0; j < kB; ++j) xoff[j] = min(j, nbk - 1) * nn;
+  if constexpr (kAny) {
+#pragma unroll
+    for (int g = 0; g < kGroup; ++g) {
+      for (int t = threadIdx.x; t < n; t += kThreads) {
+        const float pv = prow[g][t];
+#pragma unroll
+        for (int j = 0; j < kB; ++j) {
+          acc[g][j] = __fadd_rn(acc[g][j],
+                                __fmul_rn(pv, xrow[g][xoff[j] + t]));
+        }
+      }
+    }
+  } else {
+#pragma unroll 2
+    for (int t = threadIdx.x; t < n; t += kThreads) {
+      float pv[kGroup], x1[kB], x2[kB];
+#pragma unroll
+      for (int g = 0; g < kGroup; ++g) pv[g] = prow[g][t];
+#pragma unroll
+      for (int j = 0; j < kB; ++j) {
+        x1[j] = xrow[0][xoff[j] + t];
+        x2[j] = xrow[kGroup - 1][xoff[j] + t];
+      }
+#pragma unroll
+      for (int g = 0; g < kGroup; ++g) {
+#pragma unroll
+        for (int j = 0; j < kB; ++j) {
+          acc[g][j] = __fadd_rn(acc[g][j],
+                                __fmul_rn(pv[g], first[g] ? x1[j] : x2[j]));
+        }
+      }
+    }
+  }
+}
+
+// K16's utilization: a block owns kGroup consecutive entries of out_perm
+// (a run of one node's out-edges, or the end of one node's and the start
+// of the next's), so every block streams the same number of p rows, a
+// rack's or a spine's alike. A thread sums the columns t = i, i +
+// kThreads, ... of every owned edge for kB scenarios at once (util_sums);
+// the kGroup * kB sums are then reduced across the block together: each
+// warp's in the butterfly's own tree through shared memory, the warps in
+// order from 0.f, as the first design's block reduction added one sum at a
+// time
 __global__ void __launch_bounds__(kThreads) soft_flow_util_kernel(
     const float* __restrict__ p, const float* __restrict__ xsum,
     const float* __restrict__ caps, const int32_t* __restrict__ src,
-    float* __restrict__ util, int n, int e_count, int nb) {
-  __shared__ float red[kThreads / 32];
-  const int e = blockIdx.x;
+    const int32_t* __restrict__ out_perm, float* __restrict__ util, int n,
+    int e_count, int nb) {
+  __shared__ float s_g[kGroup * kB][kWarps][33];  // 33: no bank conflicts
+  __shared__ float s_wsum[kGroup * kB][kWarps];
+  const int k0 = blockIdx.x * kGroup;
+  const int m = min(kGroup, e_count - k0);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   const long long nn = (long long)n * n;
-  const float* pe = p + (long long)e * n;
-  const long long u_row = (long long)src[e] * n;
-  const float cap = fmaxf(caps[e], 1e-9f);
-  for (int b = 0; b < nb; ++b) {
-    const float* xs = xsum + b * nn + u_row;
-    float acc = 0.f;
-    for (int t = threadIdx.x; t < n; t += kThreads) {
-      acc = __fadd_rn(acc, __fmul_rn(pe[t], xs[t]));
+  // an entry past the last owned one repeats the last: its sums go unused
+  const float* prow[kGroup];
+  long long srow[kGroup];
+#pragma unroll
+  for (int g = 0; g < kGroup; ++g) {
+    const int e = out_perm[k0 + min(g, m - 1)];
+    prow[g] = p + (long long)e * n;
+    srow[g] = (long long)src[e] * n;
+  }
+  bool first[kGroup];  // the first owned edge's source, else the last's
+  bool two = true;  // at most two sources
+#pragma unroll
+  for (int g = 0; g < kGroup; ++g) {
+    first[g] = srow[g] == srow[0];
+    two = two && (first[g] || srow[g] == srow[kGroup - 1]);
+  }
+  for (int b0 = 0; b0 < nb; b0 += kB) {
+    const int nbk = min(kB, nb - b0);
+    const float* xrow[kGroup];
+#pragma unroll
+    for (int g = 0; g < kGroup; ++g) xrow[g] = xsum + b0 * nn + srow[g];
+    float acc[kGroup][kB];
+#pragma unroll
+    for (int g = 0; g < kGroup; ++g) {
+#pragma unroll
+      for (int j = 0; j < kB; ++j) acc[g][j] = 0.f;
     }
-    acc = block_sum(acc, red);
-    if (threadIdx.x == 0) util[(long long)b * e_count + e] = __fdiv_rn(acc, cap);
+    if (two) {
+      util_sums<false>(prow, xrow, first, nn, nbk, n, acc);
+    } else {
+      util_sums<true>(prow, xrow, first, nn, nbk, n, acc);
+    }
+    if (b0 > 0) __syncthreads();  // the previous chunk's sums have been read
+#pragma unroll
+    for (int g = 0; g < kGroup; ++g) {
+#pragma unroll
+      for (int j = 0; j < kB; ++j) s_g[g * kB + j][warp][lane] = acc[g][j];
+    }
+    __syncthreads();
+    for (int it = threadIdx.x; it < kGroup * kB * kWarps; it += kThreads) {
+      s_wsum[it / kWarps][it % kWarps] =
+          butterfly_sum(s_g[it / kWarps][it % kWarps]);
+    }
+    __syncthreads();
+    const int g = threadIdx.x / kB;
+    const int j = threadIdx.x % kB;
+    if (threadIdx.x < kGroup * kB && g < m && j < nbk) {
+      float total = 0.f;
+      for (int w = 0; w < kWarps; ++w) total += s_wsum[threadIdx.x][w];
+      const int e = out_perm[k0 + g];
+      util[(long long)(b0 + j) * e_count + e] =
+          __fdiv_rn(total, fmaxf(caps[e], 1e-9f));
+    }
   }
 }
 
@@ -386,8 +605,8 @@ __global__ void __launch_bounds__(kThreads) soft_flow_bwd_round_kernel(
 // out-edges are staged in shared memory as (e, dst_e * n, we_e, up_e).
 // Walk 1 sums denom and s_gp; walk 2 writes g and sends the per-edge
 // gradients through shared memory kSub edges at a time, added in the warp
-// butterfly's own tree, the warps in order from 0.f, as block_sum added
-// them
+// butterfly's own tree, the warps in order from 0.f, as the first
+// design's block reduction added them
 __global__ void __launch_bounds__(kThreads) soft_gate_bwd_rows_kernel(
     float* __restrict__ g_p, const float* __restrict__ d,
     const float* __restrict__ we, const bool* __restrict__ up,
@@ -512,13 +731,22 @@ dim3 rows_grid(int n) { return dim3((n + kThreads - 1) / kThreads, n); }
 
 extern "C" int soft_gate(const void* d, const void* we, const void* up,
                          const void* dst, const void* out_ptr,
-                         const void* out_perm, void* p, int n, float tau,
-                         void* stream) {
+                         const void* out_perm, const void* out_order, void* p,
+                         int n, float tau, void* stream) {
   if (bad_n(n)) return (int)cudaErrorInvalidValue;
-  soft_gate_kernel<<<rows_grid(n), kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)d, (const float*)we, (const bool*)up,
-      (const int32_t*)dst, (const int32_t*)out_ptr, (const int32_t*)out_perm,
-      (float*)p, n, tau);
+  const bool vec = n % 4 == 0 && aligned16(d) && aligned16(p);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (vec) {
+    soft_gate_kernel<true><<<cols_grid(n), kThreads, 0, st>>>(
+        (const float*)d, (const float*)we, (const bool*)up,
+        (const int32_t*)dst, (const int32_t*)out_ptr, (const int32_t*)out_perm,
+        (const int32_t*)out_order, (float*)p, n, tau);
+  } else {
+    soft_gate_kernel<false><<<cols_grid(n), kThreads, 0, st>>>(
+        (const float*)d, (const float*)we, (const bool*)up,
+        (const int32_t*)dst, (const int32_t*)out_ptr, (const int32_t*)out_perm,
+        (const int32_t*)out_order, (float*)p, n, tau);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -547,13 +775,15 @@ extern "C" int soft_flow_round(const void* p, const void* x, void* xsum,
 }
 
 extern "C" int soft_flow_util(const void* p, const void* xsum,
-                              const void* caps, const void* src, void* util,
-                              int n, int e, int nb, void* stream) {
-  if (bad_n(n) || nb < 1) return (int)cudaErrorInvalidValue;
+                              const void* caps, const void* src,
+                              const void* out_perm, void* util, int n, int e,
+                              int nb, void* stream) {
+  if (bad_n(n) || nb < 1 || e < 0) return (int)cudaErrorInvalidValue;
   if (e == 0) return 0;
-  soft_flow_util_kernel<<<e, kThreads, 0, (cudaStream_t)stream>>>(
+  soft_flow_util_kernel<<<(e + kGroup - 1) / kGroup, kThreads, 0,
+                          (cudaStream_t)stream>>>(
       (const float*)p, (const float*)xsum, (const float*)caps,
-      (const int32_t*)src, (float*)util, n, e, nb);
+      (const int32_t*)src, (const int32_t*)out_perm, (float*)util, n, e, nb);
   return (int)cudaGetLastError();
 }
 

@@ -454,8 +454,9 @@ def soft_gate(d, we, up, graph: TeGraph, tau: float) -> torch.Tensor:
     SOFT_FLOW.launch(
         dev,
         d.data_ptr(), we.data_ptr(), up.data_ptr(), graph.dst.data_ptr(),
-        graph.out_ptr.data_ptr(), graph.out_perm.data_ptr(), p.data_ptr(),
-        graph.n, f32(tau), entry="soft_gate",
+        graph.out_ptr.data_ptr(), graph.out_perm.data_ptr(),
+        graph.out_order.data_ptr(), p.data_ptr(), graph.n, f32(tau),
+        entry="soft_gate",
     )
     return p
 
@@ -496,7 +497,8 @@ def soft_flow_util(p, xsum, caps, graph: TeGraph) -> torch.Tensor:
     SOFT_FLOW.launch(
         dev,
         p.data_ptr(), xsum.data_ptr(), caps.data_ptr(), graph.src.data_ptr(),
-        util.data_ptr(), graph.n, graph.e, b, entry="soft_flow_util",
+        graph.out_perm.data_ptr(), util.data_ptr(), graph.n, graph.e, b,
+        entry="soft_flow_util",
     )
     return util
 

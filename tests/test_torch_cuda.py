@@ -1612,13 +1612,22 @@ def test_soft_gate_and_its_backward_kernel_cases(dev, case, tau):
     passes), with down edges, F_INF entries of D, gap == 0 ties and nodes
     whose denominator is <= 1e-20. The backward: three launches a call (rows,
     pull, edges); a second call on a fresh g_p gives the same bits, g_p's
-    overwritten gap gradients too."""
+    overwritten gap gradients too. The gate: one launch a call; its
+    16-byte path (aligned D, n % 4 == 0) and its scalar path (misaligned D)
+    give the same bits, and so does a second call."""
     from openr_tpu_torch.te import kernels as tk
 
     a = gate_case(dev, *SOFTMIN_BWD_CASES[case])
     args = (a["d"], a["we"], a["up"], a["graph"], tau)
+    before = _cuda.SOFT_FLOW.launches
     p = tk.soft_gate(*args)
+    assert _cuda.SOFT_FLOW.launches - before == 1
     assert rel_err(p, tk._soft_gate_plain(*args)) <= 1e-5
+    d_other = a["d"].clone() if a["d"].data_ptr() % 16 else misaligned(a["d"])
+    assert torch.equal(d_other, a["d"])
+    assert (d_other.data_ptr() % 16 == 0) != (a["d"].data_ptr() % 16 == 0)
+    p_other = tk.soft_gate(d_other, *args[1:])
+    assert torch.equal(p, p_other) and torch.equal(p, tk.soft_gate(*args))
     g1, g2 = a["g_p"].clone(), a["g_p"].clone()
     before = _cuda.SOFT_FLOW_BWD.launches
     g_d, g_we = tk.soft_gate_bwd(g1, *args)
@@ -1727,6 +1736,94 @@ def test_soft_flow_round_paths_agree_bit_for_bit(dev, n):
         outs.append((tk.soft_flow_round(a["p"], x, xs, a["graph"]), xs))
     assert torch.equal(outs[0][0], outs[1][0])
     assert torch.equal(outs[0][1], outs[1][1])
+
+
+UTIL_CASES = {
+    # name: (n, scenarios, out-edges of the hub node 0, misaligned xsum)
+    "n1_b1": (1, 1, 0, False),
+    "n3_b2": (3, 2, 150, False),
+    "n37_b5": (37, 5, 150, False),
+    "n256_b4": (256, 4, 300, False),
+    "n256_b4_misaligned": (256, 4, 150, True),
+    "n1028_b6": (1028, 6, 300, False),
+    "n1030_b3": (1030, 3, 150, False),
+}
+
+
+def util_case(dev, n, b, hub_out, mis, seed=0):
+    """K16's utilization inputs on `hub_graph`: p with zeros and all-zero
+    rows, xsum non-negative (misaligned with `mis`), caps from 0.5 to 2
+    with one entry below 1e-9 and, where there are two edges or more, one
+    of 0."""
+    graph = hub_graph(dev, n, hub_out, 0, seed)
+    rng = np.random.default_rng(seed + 4)
+    p = rng.random((graph.e, n)).astype(np.float32)
+    p[p < 0.2] = 0.0
+    p[rng.random(graph.e) < 0.1] = 0.0
+    xs = rng.random((b, n, n)).astype(np.float32)
+    caps = rng.uniform(0.5, 2.0, graph.e).astype(np.float32)
+    caps[0] = 1e-12
+    if graph.e > 1:
+        caps[-1] = 0.0
+    xs_t = torch.as_tensor(xs, device=dev)
+    return {
+        "graph": graph, "p": torch.as_tensor(p, device=dev),
+        "xsum": misaligned(xs_t) if mis else xs_t,
+        "caps": torch.as_tensor(caps, device=dev),
+    }
+
+
+def util_first_design(p, xsum, caps, graph):
+    """K16's utilization in the first design's order, written out: thread i
+    of 256 sums the products of the columns i, i + 256, ... in turn from 0;
+    each warp adds its lanes in the xor butterfly's tree (16, 8, 4, 2, 1);
+    the 8 warps are added in order from 0; then the correctly rounded
+    quotient by max(caps, 1e-9). The padding columns add 0 to sums that
+    are not negative, which leaves their bits as they are."""
+    b, n, e = xsum.shape[0], graph.n, graph.e
+    k = -(-n // 256)
+    prod = torch.zeros((b, e, k * 256), dtype=torch.float32, device=p.device)
+    prod[:, :, :n] = p[None] * xsum[:, graph.src.long()]
+    prod = prod.view(b, e, k, 256)
+    acc = torch.zeros((b, e, 256), dtype=torch.float32, device=p.device)
+    for i in range(k):
+        acc = acc + prod[:, :, i]
+    v = acc.view(b, e, 8, 32)
+    for half in (16, 8, 4, 2, 1):
+        v = v[..., :half] + v[..., half:2 * half]
+    total = torch.zeros((b, e), dtype=torch.float32, device=p.device)
+    for w in range(8):
+        total = total + v[:, :, w, 0]
+    return total / caps.clamp_min(1e-9)
+
+
+@pytest.mark.parametrize("case", sorted(UTIL_CASES))
+def test_soft_flow_util_kernel_cases(dev, case):
+    """K16's utilization against its plain version within 1e-5 of the
+    largest magnitude, and bit for bit against the first design's order
+    (`util_first_design`): widths 1, 3, 37, 256, 1,028 and 1,030, 1 to 6
+    scenarios (a second pass at 5 and 6), a node without out-edges, hubs of
+    150 and 300 out-edges over several blocks, all-zero p rows, capacities
+    below 1e-9, a misaligned xsum. One launch a call; a second call gives
+    the same bits."""
+    from openr_tpu_torch.te import kernels as tk
+
+    a = util_case(dev, *UTIL_CASES[case])
+    args = (a["p"], a["xsum"], a["caps"], a["graph"])
+    before = _cuda.SOFT_FLOW.launches
+    util = tk.soft_flow_util(*args)
+    assert _cuda.SOFT_FLOW.launches - before == 1
+    util2 = tk.soft_flow_util(*args)
+    util_p = tk._soft_flow_util_plain(*args)
+    torch.cuda.synchronize()
+    assert util.shape == (UTIL_CASES[case][1], a["graph"].e)
+    assert UTIL_CASES[case][0] == 1 or bool(util.abs().max() > 0)
+    normal = a["caps"] >= 1e-9
+    assert rel_err(util, util_p) <= 1e-5
+    if bool(normal.any()):
+        assert rel_err(util[:, normal], util_p[:, normal]) <= 1e-5
+    assert torch.equal(util, util_first_design(*args))
+    assert torch.equal(util, util2)
 
 
 def inp_rounds(name):

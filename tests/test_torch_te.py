@@ -261,6 +261,16 @@ def test_unsorted_edges_and_a_node_without_out_edges_match_jax():
         assert rel_err(wt.grad.numpy(), g_want) <= 1e-4
 
 
+def test_te_graph_orders_nodes_by_out_degree():
+    """`out_order`, the gate's block order (the most work first), lists
+    every node once, by out-degree from the largest, ties by node id."""
+    src = np.array([2, 0, 1, 4, 0, 2, 1, 4, 2], np.int32)
+    dst = np.array([1, 1, 3, 2, 2, 4, 0, 3, 0], np.int32)
+    graph = te_graph(src, dst, 5, "cpu")
+    assert graph.out_order.dtype == torch.int32
+    assert graph.out_order.tolist() == [2, 0, 1, 4, 3]
+
+
 # -- the explicit backward versions against autograd --------------------------
 
 
