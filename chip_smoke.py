@@ -266,8 +266,10 @@ TIMED_UNIT = {
     "delta_extract": "one extraction (WAN event): columns, compaction, "
                      "gather",
     "sell_mask": "KSP's masks (50k WAN): the build and the seed",
-    "sell_relax_masked_round": "a masked cold solve (50k WAN, KSP batch): a "
-                               "launch a bucket a round",
+    "sell_relax_masked_round": "a masked cold solve (50k WAN, KSP batch): "
+                               "two launches a round (active rows, masked "
+                               "round) for every bucket, in chunks of 8 "
+                               "rounds",
     "fw_close": "a cold close (n_pad 4,096): diagonal, panels and outer a "
                 "block, the probe",
     "fw_seed": "one seed (n_pad 4,096)",
@@ -329,6 +331,25 @@ def time_ms(fn, reps: int = 7, warmup: int = 2, setup=None) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def graph_ms(fn, calls: int):
+    """The device time of one call of `fn`, its host time left out: `calls`
+    calls captured in a CUDA graph, the graph replayed 5 times between CUDA
+    events, the median over the calls. The inputs stay the same, so the
+    card's L2 is warm. Where the capture fails, "not measured" and why."""
+    import torch
+
+    torch.cuda.synchronize()
+    try:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(calls):
+                fn()
+        return time_ms(graph.replay, reps=5, warmup=1) / calls
+    except RuntimeError as exc:
+        torch.cuda.synchronize()
+        return {"not_measured": f"CUDA graph capture failed: {exc}"}
 
 
 def launches_a_call(kernel, fn, setup=None) -> int:
@@ -1490,7 +1511,8 @@ def main() -> int:
 
     class TimedKsp(CudaSpfSolver):
         """CudaSpfSolver timing its k = 2 prefetches: the masked device
-        solve (its round loop reads a flag every round, so the wall time
+        solve (its round loop reads the round state once a chunk of 8
+        rounds, and the copy-back waits for the last, so the wall time
         covers the device work), the copy-back and the host trace."""
 
         def __init__(self, *args, **kwargs):
@@ -1578,7 +1600,7 @@ def main() -> int:
 
     def k9(d0c):
         return spf._sell_relax(d0c, ksrc, kov, knb, kwg, kg.sell.zero_end,
-                               kstarts, bits)
+                               kstarts, bits, cold=True)
 
     def k9_plain(d0c):
         return spf._sell_relax_plain(d0c, ksrc, kov, knb, wv_p, kstarts)
@@ -1639,9 +1661,12 @@ def main() -> int:
     lib_ms8 = time_ms(index_put8)
     prof8 = profile_window(lambda: [k8() for _ in range(10)])
     per_call9 = launches_a_call(K9, k9, setup=fresh_d0)
-    check(per_call9 == r9 * len(kg.sell.nbr),
-          f"K9 launched {per_call9} times a solve, not a bucket a round")
+    check(per_call9 == spf.K1_ROUND_KERNELS * spf.round_launches(
+              r9, kg.n_pad),
+          f"K9 launched {per_call9} times a solve, not two a round in "
+          f"chunks of {spf.ROUND_CHUNK} rounds")
     ms9 = time_ms(k9, setup=fresh_d0)
+    prof9 = profile_window(lambda: k9(d0k.clone()))
     plain_ms9 = time_ms(k9_plain, setup=fresh_d0, reps=3, warmup=1)
     cold_vw_ms = time_ms(cold_vw)
     warm_vw_ms = time_ms(warm_vw)
@@ -1679,7 +1704,8 @@ def main() -> int:
         "k8_profile_10_calls": prof8,
         "k8_plain_ms": plain_ms8, "k8_index_put_ms": lib_ms8,
         "k8_bound_ms": b8_ms, "k9_ms": ms9, "k9_plain_ms": plain_ms9,
-        "k9_bound_ms": b9_ms, "cold_masked_solve_ms": cold_vw_ms,
+        "k9_bound_ms": b9_ms, "k9_profile_1_call": prof9,
+        "cold_masked_solve_ms": cold_vw_ms,
         "warm_masked_solve_ms": warm_vw_ms, "base_solve_ms": base_ms,
         "seconds": ksp_inputs_s, "card": card,
     })
@@ -3000,6 +3026,24 @@ def main() -> int:
                                          j))
     plain_ms20 = time_ms(lambda: spf._tile_fold_plain(
         fold_t, ctr_0, tops["hcols"][0][0], j))
+    prof20 = profile_window(lambda: [spf.tile_fold(
+        fold_t, ctr_0, tops["hcols"][0][0], j) for _ in range(10)])
+    dev20 = graph_ms(lambda: spf.tile_fold(fold_t, ctr_0,
+                                           tops["hcols"][0][0], j), 20)
+    # the library's form of the fold: scatter_reduce_ (amin) of the owned
+    # slots' frontier columns into their tile columns, its index built
+    # outside the timing; it computes no flag
+    k0_20, k1_20 = np.searchsorted(tiling.hcols[0], [off, off + n_tile])
+    idx20 = torch.as_tensor(tiling.hcols[0][k0_20:k1_20] - off,
+                            device=dev).long()
+    idx20 = idx20[None, :].expand(s_l, -1).contiguous()
+    ctr20 = ctr_0[:, k0_20:k1_20]
+    check(torch.equal(
+        dpt.clone().scatter_reduce_(1, idx20, ctr20, "amin"),
+        spf._tile_fold_plain(dpt.clone(), ctr_0, tops["hcols"][0][0], j)),
+        "scatter_reduce_ differs from K20's plain version")
+    lib_ms20 = time_ms(lambda: fold_t.scatter_reduce_(1, idx20, ctr20,
+                                                      "amin"))
     flag_t = torch.zeros(1, dtype=torch.int32, device=dev)
 
     def fresh_cols():
@@ -3074,16 +3118,20 @@ def main() -> int:
         "halo_bytes_cold": halo_cold, "halo_bytes_warm": halo_warm,
         "hop_copies_cold": cold_copies._asdict(),
         "hop_copies_warm": warm_copies._asdict(),
-        "k19_ms": ms19, "k20_ms": ms20, "k21_ms": ms21_parts,
+        "k19_ms": ms19, "k20_ms": ms20, "k20_stretch": [int(k0_20),
+                                                        int(k1_20)],
+        "k20_profile_10_calls": prof20, "k20_graph_ms": dev20,
+        "k20_scatter_reduce_ms": lib_ms20,
+        "k21_ms": ms21_parts,
         "k21_plain_ms": plain21_parts, "setup_seconds": tile_setup_s,
         "seconds": tile_s, "launches": tile_launches, "card": card,
     })
-    for k, src_name, e, m_, pm, bm, bb, lpc in (
-        (K19, "tile_round.cu", err19, ms19, plain_ms19, b19_ms, b19_by,
+    for k, src_name, e, m_, pm, bm, bb, lib, lpc in (
+        (K19, "tile_round.cu", err19, ms19, plain_ms19, b19_ms, b19_by, None,
          per_call19),
         (K20, "tile_fold.cu", err20, ms20, plain_ms20, b20_ms, b20_by,
-         per_call20),
-        (K21, "tile_mark.cu", err21, ms21, plain_ms21, b21_ms, "bytes",
+         lib_ms20, per_call20),
+        (K21, "tile_mark.cu", err21, ms21, plain_ms21, b21_ms, "bytes", None,
          per_call21),
     ):
         results.append({
@@ -3091,10 +3139,13 @@ def main() -> int:
             "source": f"openr_tpu_torch/ops/csrc/{src_name}",
             "replaces": k.replaces, "launches": None, "max_abs_err": e,
             "ms": m_, "plain_ms": pm, "bound_ms": bm, "bound_by": bb,
-            "library_ms": None, "launches_per_call": lpc,
+            "library_ms": lib, "launches_per_call": lpc,
         })
+    results[-2]["library_call"] = ("scatter_reduce_ (amin) over the owned "
+                                   "slots, its index built outside the "
+                                   "timing; computes no flag")
     del (d_t, d_tw, d_uw, wgs_u, tops, w2n, targs, wargs, buf, recv, outs,
-         d0t, ctr_j, ctr_0, fold_t, diff)
+         d0t, ctr_j, ctr_0, fold_t, diff, idx20, ctr20)
 
     # -- 18. tile_clos: CudaSpfSolver on a (1, 4) mesh, DeltaPath on tiles -
     me = "rsw0_0"

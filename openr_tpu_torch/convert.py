@@ -28,7 +28,7 @@ import torch
 
 from openr_tpu_torch.device import DeviceLike, resolve_device
 from openr_tpu_torch.ops.graph import CompiledGraph, SlicedEll
-from openr_tpu_torch.ops.spf import edge_csr
+from openr_tpu_torch.ops.spf import TILE_PAD, edge_csr
 from openr_tpu_torch.parallel.mesh import tile_hptr
 
 _SCALARS = ("n", "e", "n_pad", "e_pad")
@@ -170,7 +170,18 @@ def tiling_ranks(tiling, mesh) -> Dict[str, List[List[torch.Tensor]]]:
     """A GraphTiling's arrays (the port's, or the JAX package's: any object
     with its fields; hptr is derived where it is missing) as per-rank int32
     tensors: `src_l`, `hseg`, `w2` (the tiling's weights), `hcols` and
-    `hptr`, partition j's row on every graph rank j."""
+    `hptr`, partition j's row on every graph rank j. Raises where an hcols
+    row does not ascend with its sentinels (TILE_PAD) last: K20 folds only
+    the stretch of a frontier's slots that a rank owns."""
+    hcols = np.asarray(tiling.hcols, dtype=np.int64)
+    step = np.diff(hcols, axis=1)
+    bad = (step < 0) | ((step == 0) & (hcols[:, 1:] != TILE_PAD))
+    bad = bad.any(axis=1)
+    if bad.any():
+        raise ValueError(
+            f"hcols row {int(np.argmax(bad))} does not ascend with its "
+            "sentinels last"
+        )
     hptr = getattr(tiling, "hptr", None)
     if hptr is None:
         counts = np.bincount(np.asarray(tiling.edge_tile), minlength=tiling.g)

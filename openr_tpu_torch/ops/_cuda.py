@@ -243,11 +243,8 @@ SELL_MASK = Kernel(
 SELL_RELAX_MASKED = Kernel(
     "sell_relax_masked_round",
     "sell_relax.cu",
-    {
-        "sell_relax_masked_round": [
-            _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-        ],
-    },
+    {"sell_relax_masked_rounds": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                  _I, _I, _I, _I]},
     "openr_tpu/ops/spf.py:177 _sell_relax (per-row wg, from :933, :970)",
 )
 FW_CLOSE = Kernel(

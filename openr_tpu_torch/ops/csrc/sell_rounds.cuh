@@ -6,14 +6,16 @@
 // the bucket table of the sliced layout and the per-split row lists of the
 // edge-list layout.
 //
-// The bucket table (K1, K5). The host passes int64 [nb, 5] rows in HOST
-// memory, one per bucket of the sliced layout: (nbr device pointer, wg
-// device pointer, row0, nk, dk). `fill_buckets` copies them into a
-// `__grid_constant__` kernel parameter, so a launch needs no upload, and
-// gives each bucket its first virtual block (`blk0`) for `items_per_row`
-// items a row times its slot split. At most kMaxBuckets buckets: the sliced
-// layout's class degrees sum to at most 1,024 (ops/graph.py
-// _SELL_UNROLL_CAP), so it has at most 44.
+// The bucket table (K1, K5, K9). The host passes int64 [nb, 5] rows in
+// HOST memory, one per bucket of the sliced layout: (nbr device pointer, wg
+// device pointer, row0, nk, dk), and for K9 a second host array of nb
+// device pointers, each bucket's [nk, dk, W] mask words. `fill_buckets`
+// copies them into a `__grid_constant__` kernel parameter, so a launch
+// needs no upload, and gives each bucket its first virtual block (`blk0`)
+// for `items_per_row` items a row times its slot split. At most
+// kMaxBuckets buckets: the sliced layout's class degrees sum to at most
+// 1,024 (ops/graph.py _SELL_UNROLL_CAP), so it has at most 44. The table
+// is 2,824 bytes of the 4,096 a kernel's parameters may take.
 //
 // The slot split. A row's dk slots go to P = 2^lp consecutive threads,
 // thread p taking slots p, p + P, ..., and the P partial results meet in
@@ -75,6 +77,7 @@ constexpr int kClasses = 6;  // slot splits 1, 2, ..., 32: the row lists
 struct Buckets {
   const int32_t* nbr[kMaxBuckets];
   const int32_t* wg[kMaxBuckets];
+  const uint32_t* mask[kMaxBuckets];  // K9's mask words; null for K1, K5
   int row0[kMaxBuckets];
   int nk[kMaxBuckets];
   int dk[kMaxBuckets];
@@ -98,10 +101,13 @@ __host__ __device__ inline int slot_split_log2(int dk) {
   return lp;
 }
 
-// Fills `b` from the host table; returns the number of virtual blocks, or
-// -1 for a bucket count outside [0, kMaxBuckets].
+// Fills `b` from the host table (and `masks`, K9's host array of mask
+// pointers, or null); returns the number of virtual blocks, or -1 for a
+// bucket count outside [0, kMaxBuckets].
 inline int fill_buckets(Buckets& b, const void* table, int nb,
-                        int items_per_row) {
+                        int items_per_row, const void* masks = nullptr) {
+  // a launch's other parameters take well under 256 bytes
+  static_assert(sizeof(Buckets) <= 4096 - 256, "the table outgrew a launch");
   if (nb < 0 || nb > kMaxBuckets) return -1;
   const long long* t = (const long long*)table;
   long long blocks = 0;
@@ -110,6 +116,8 @@ inline int fill_buckets(Buckets& b, const void* table, int nb,
     const long long* row = t + (long long)k * kTableCols;
     b.nbr[k] = (const int32_t*)row[0];
     b.wg[k] = (const int32_t*)row[1];
+    b.mask[k] = masks ? (const uint32_t*)((const long long*)masks)[k]
+                      : nullptr;
     b.row0[k] = (int)row[2];
     b.nk[k] = (int)row[3];
     b.dk[k] = (int)row[4];
@@ -192,24 +200,31 @@ __device__ __forceinline__ int bucket_of(const Buckets& b, int vb, int k) {
 
 // -- a row's pull: K1 over a bucket row, K2 over an in-edge range ---------
 
-// V consecutive int32 columns of a row: one 16-byte access for V = 4
-template <int V>
-struct Vec;
-template <>
-struct Vec<1> {
-  int x[1];
-  __device__ __forceinline__ void load(const int32_t* p) { x[0] = __ldg(p); }
-  __device__ __forceinline__ void store(int32_t* p) const { *p = x[0]; }
-};
-template <>
-struct Vec<4> {
-  int x[4];
-  __device__ __forceinline__ void load(const int32_t* p) {
-    const int4 a = __ldg(reinterpret_cast<const int4*>(p));
-    x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+// The V columns s0 .. s0 + V - 1 of a row that one thread moves, the
+// first nc of them real: V = 1, or V = 4 as one 16-byte access (Wide: S %
+// 4 == 0 and 16-byte aligned rows) or as nc <= 4 scalar accesses (Wide
+// false: any alignment, and a row's last group holds S % 4 columns). A
+// column past nc loads as INF and is never stored.
+template <int V, bool Wide = true>
+struct Vec {
+  int x[V];
+  __device__ __forceinline__ void load(const int32_t* p, int nc = V) {
+    if constexpr (V == 4 && Wide) {
+      const int4 a = __ldg(reinterpret_cast<const int4*>(p));
+      x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+    } else {
+#pragma unroll
+      for (int c = 0; c < V; ++c) x[c] = c < nc ? __ldg(p + c) : kInf;
+    }
   }
-  __device__ __forceinline__ void store(int32_t* p) const {
-    *reinterpret_cast<int4*>(p) = make_int4(x[0], x[1], x[2], x[3]);
+  __device__ __forceinline__ void store(int32_t* p, int nc = V) const {
+    if constexpr (V == 4 && Wide) {
+      *reinterpret_cast<int4*>(p) = make_int4(x[0], x[1], x[2], x[3]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < V; ++c)
+        if (c < nc) p[c] = x[c];
+    }
   }
 };
 
@@ -217,38 +232,49 @@ struct Vec<4> {
 // count, acc[c] = min(acc[c], min(dt[u_j, s0 + c] + w_j, INF)), dt INF
 // through an overloaded tail that is not column c's source (src[c]), taking
 // only the slots whose tail carries stamp t in cp (every slot when `full`).
-// nb[j] is slot j's tail; d_old is dest-major [n, S]. The weights: w[j]
-// for every column, or with PerCol V columns from a [slots, S] matrix (w +
-// j * S + s0, one weight row per source column: KSP's per-row weights). A
-// lane issues kUnroll slots at once: their tails, stamps, ov bytes and
-// gathers are in flight together. The sums stay in int32: both terms are
-// at most INF = 2^29.
-template <int V, bool PerCol>
+// nb[j] is slot j's tail; d_old is dest-major [n, S]; the thread's columns
+// are s0 .. s0 + nc - 1 (Vec). The weights: w[j] for every column, or
+// with PerCol V columns from a [slots, S] matrix (w + j * S + s0, one
+// weight row per source column: KSP's per-row weights). With Masked (K9),
+// slot j weighs INF for column s0 + c where that bit of its mask word mw[j
+// * W] is set (mw: the row's words at word s0 / 32; the V columns lie in
+// one word, s0 being a multiple of V = 4 or V = 1): a masked column takes
+// nothing from the slot, and a slot masked in all nc columns is not
+// gathered. A lane issues kUnroll slots at once: their tails, mask words,
+// stamps, ov bytes and gathers are in flight together. The sums stay in
+// int32: both terms are at most INF = 2^29.
+template <int V, bool PerCol, bool Masked = false, bool Wide = true>
 __device__ __forceinline__ void pull_slots(
-    Vec<V>& acc, const int32_t* __restrict__ nb,
+    Vec<V, Wide>& acc, const int32_t* __restrict__ nb,
     const int32_t* __restrict__ w, int count, int p, int P,
     const int32_t* __restrict__ cp, int t, int full,
     const uint8_t* __restrict__ ov, const int (&src)[V],
-    const int32_t* __restrict__ d_old, int S, int s0) {
+    const int32_t* __restrict__ d_old, int S, int s0,
+    const uint32_t* __restrict__ mw = nullptr, int W = 0, int nc = V) {
+  const uint32_t all = (1u << nc) - 1;
   const int step = P * kUnroll;
   for (int j0 = p; j0 < count; j0 += step) {
     int u[kUnroll], wj[kUnroll];
+    uint32_t mk[kUnroll];
     bool take[kUnroll], o[kUnroll];
-    Vec<V> du[kUnroll], wv[kUnroll];
+    Vec<V, Wide> du[kUnroll], wv[kUnroll];
 #pragma unroll
     for (int q = 0; q < kUnroll; ++q) {
       const int j = j0 + q * P;
       const bool in = j < count;
       u[q] = in ? __ldg(nb + j) : 0;
       if (!PerCol) wj[q] = in ? __ldg(w + j) : kInf;
-      take[q] = in && (full || __ldg(cp + u[q]) == t);
+      mk[q] = Masked && in
+                  ? (__ldg(mw + (long long)j * W) >> (s0 & 31)) & all
+                  : 0u;
+      take[q] = in && mk[q] != all && (full || __ldg(cp + u[q]) == t);
     }
 #pragma unroll
     for (int q = 0; q < kUnroll; ++q) {
       if (take[q]) {
         o[q] = __ldg(ov + u[q]) != 0;
-        du[q].load(d_old + (long long)u[q] * S + s0);
-        if (PerCol) wv[q].load(w + (long long)(j0 + q * P) * S + s0);
+        du[q].load(d_old + (long long)u[q] * S + s0, nc);
+        if (PerCol) wv[q].load(w + (long long)(j0 + q * P) * S + s0, nc);
       }
     }
 #pragma unroll
@@ -258,7 +284,8 @@ __device__ __forceinline__ void pull_slots(
       for (int c = 0; c < V; ++c) {
         const int dt = (o[q] && u[q] != src[c]) ? kInf : du[q].x[c];
         const int wc = PerCol ? wv[q].x[c] : wj[q];
-        acc.x[c] = min(acc.x[c], min(dt + wc, kInf));
+        if (!Masked || !((mk[q] >> c) & 1u))
+          acc.x[c] = min(acc.x[c], min(dt + wc, kInf));
       }
     }
   }
@@ -269,25 +296,27 @@ __device__ __forceinline__ void pull_slots(
 // entries only to write them through (`through`: it changed in the round
 // before, and the buffer this round writes holds its value of two rounds
 // ago); otherwise d_new gets min(acc, d_old) where it went down or must
-// be written through. Returns whether it went down.
-template <int V>
-__device__ __forceinline__ bool finish_row(Vec<V>& acc,
+// be written through. Returns whether it went down. Only the first nc
+// columns are read and written (a column past them is INF in acc).
+template <int V, bool Wide = true>
+__device__ __forceinline__ bool finish_row(Vec<V, Wide>& acc,
                                            const int32_t* __restrict__ d_old,
                                            int32_t* __restrict__ d_new,
-                                           long long at, bool through) {
+                                           long long at, bool through,
+                                           int nc = V) {
   bool offer = false;
 #pragma unroll
   for (int c = 0; c < V; ++c) offer |= acc.x[c] < kInf;
   if (!offer && !through) return false;
-  Vec<V> old;
-  old.load(d_old + at);
+  Vec<V, Wide> old;
+  old.load(d_old + at, nc);
   bool moved = false;
 #pragma unroll
   for (int c = 0; c < V; ++c) {
     moved |= acc.x[c] < old.x[c];
     acc.x[c] = min(acc.x[c], old.x[c]);
   }
-  if (moved || through) acc.store(d_new + at);
+  if (moved || through) acc.store(d_new + at, nc);
   return moved;
 }
 

@@ -55,15 +55,15 @@ build + seed -> K5 rounds and reset -> K9 when warm-started from the base
 fixpoint; on the edge-list layout K2 with per-row weights, or K6 with a
 per-row seed -> K2 warm.
 
-The fixpoints of K1 and K5 (sliced layout) and of K2 and K6 (edge-list
-layout) keep their round state on the card (ops/csrc/sell_rounds.cuh): the
-host enqueues rounds in chunks of ROUND_CHUNK, a round after the fixpoint
-returns at once, and the host reads the state once a chunk instead of a
-flag after every round. All four skip the rows none of whose in-neighbours
-changed in the previous round, and count the same Jacobi rounds as the
-reference. K1 and K2 keep D destination-major [n_pad, S]; the edge-list
-entry points take and give the reference's row-major [S, n_pad] and
-transpose once each way a solve.
+The fixpoints of K1, K5 and K9 (sliced layout) and of K2 and K6
+(edge-list layout) keep their round state on the card
+(ops/csrc/sell_rounds.cuh): the host enqueues rounds in chunks of
+ROUND_CHUNK, a round after the fixpoint returns at once, and the host reads
+the state once a chunk instead of a flag after every round. All five skip
+the rows none of whose in-neighbours changed in the previous round, and
+count the same Jacobi rounds as the reference. K1 and K2 keep D
+destination-major [n_pad, S]; the edge-list entry points take and give the
+reference's row-major [S, n_pad] and transpose once each way a solve.
 
 Each wrapper checks device, dtype, shape and contiguity; on a CUDA tensor
 it launches its kernel (and counts the launch), on a CPU tensor it runs the
@@ -344,12 +344,8 @@ def _sell_relax(
             if tuple(bits_k.shape) != (*nbr_k.shape, words):
                 raise ValueError(f"bits[{k}]: bad shape {tuple(bits_k.shape)}")
     if dev.type == "cuda":
-        if bits is not None:
-            return _sell_relax_masked_cuda(
-                d0, sources, overloaded, nbrs, wgs, starts, bits
-            )
         return _sell_relax_cuda(
-            d0, sources, overloaded, nbrs, wgs, starts, cold
+            d0, sources, overloaded, nbrs, wgs, starts, cold, bits
         )
     if bits is not None:
         wgs = _sell_masked_wgs_plain(wgs, bits, s)
@@ -379,10 +375,11 @@ def _sell_relax_plain(d0, sources, overloaded, nbrs, wgs, starts):
             return d, rounds
 
 
-# K1's, K2's, K5's and K6's rounds per host read of their round state on
-# the card
+# K1's, K2's, K5's, K6's and K9's rounds per host read of their round
+# state on the card
 ROUND_CHUNK = 8
-# K1's kernel launches a round: the active rows, then the round over them
+# K1's and K9's kernel launches a round: the active rows, then the round
+# over them
 K1_ROUND_KERNELS = 2
 # K2's and K6's: the rows that can move (a thread an edge), then the round
 K2_ROUND_KERNELS = 2
@@ -428,7 +425,7 @@ def _fixpoint_rounds(launch: Callable[[int, int], None],
 def round_launches(rounds: int, cap: int) -> int:
     """The rounds `_fixpoint_rounds` enqueues for a fixpoint of `rounds`
     rounds capped at `cap`: whole chunks, at least one. K5 launches a
-    kernel a round; K1, K2 and K6 two (K1_ROUND_KERNELS,
+    kernel a round; K1, K9, K2 and K6 two (K1_ROUND_KERNELS,
     K2_ROUND_KERNELS, K6_ROUND_KERNELS)."""
     chunks = max(1, -(-rounds // ROUND_CHUNK))
     return min(cap, chunks * ROUND_CHUNK)
@@ -438,15 +435,17 @@ def _aligned(*ts: torch.Tensor) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in ts)
 
 
-def _sell_relax_cuda(d0, sources, overloaded, nbrs, wgs, starts, cold):
-    """K1's fixpoint: two launches a round (the rows that can move, then
-    the round over them), each for every bucket, rounds enqueued a chunk a
-    host call (`_fixpoint_rounds`). d0 is round buffer 0; buffer 1 starts
-    as its copy, so the rows outside the buckets hold their values in
-    both. `aux` holds the row stamps [2, n], the active-row lists [n], their
-    counts [64] and the round state, all 0; a cold start stamps the source
-    rows as changed by the initial state, any other start takes every slot
-    in round 1."""
+def _sell_relax_cuda(d0, sources, overloaded, nbrs, wgs, starts, cold,
+                     bits=None):
+    """K1's fixpoint, or K9's with K8's bit masks `bits`: two launches a
+    round (the rows that can move, then the round over them), each for
+    every bucket, rounds enqueued a chunk a host call (`_fixpoint_rounds`).
+    d0 is round buffer 0; buffer 1 starts as its copy, so the rows outside
+    the buckets hold their values in both. `aux` holds the row stamps [2,
+    n], the active-row lists [n], their counts [64] and the round state,
+    all 0; a cold start stamps the source rows as changed by the initial
+    state, any other start takes every slot in round 1. K9's mask pointers
+    go to the kernel in a host array beside the bucket table."""
     n, s = d0.shape
     if s == 0 or not any(nbr_k.shape[0] for nbr_k in nbrs):
         return d0, 1  # one round, nothing to relax
@@ -458,42 +457,20 @@ def _sell_relax_cuda(d0, sources, overloaded, nbrs, wgs, starts, cold):
         aux[sources.long()] = 1
     vec = int(s % 4 == 0 and _aligned(d0, nxt))
     args = (d0.data_ptr(), nxt.data_ptr(), aux.data_ptr(),
-            sources.data_ptr(), overloaded.data_ptr(), table.ctypes.data,
-            len(nbrs), s, n)
+            sources.data_ptr(), overloaded.data_ptr(), table.ctypes.data)
+    kernel, entry = SELL_RELAX, "sell_relax_rounds"
+    if bits is not None:
+        masks = np.array([b_k.data_ptr() for b_k in bits], dtype=np.int64)
+        kernel, entry = SELL_RELAX_MASKED, "sell_relax_masked_rounds"
+        args += (masks.ctypes.data,)
+    args += (len(nbrs), s, n)
 
     def launch(t0, count):
-        SELL_RELAX.launch(d0.device, *args, t0, count, int(not cold), vec,
-                          kernels=K1_ROUND_KERNELS * count)
+        kernel.launch(d0.device, *args, t0, count, int(not cold), vec,
+                      entry=entry, kernels=K1_ROUND_KERNELS * count)
 
     rounds = _fixpoint_rounds(launch, aux[at:], n)
     return (d0, nxt)[rounds & 1], rounds
-
-
-def _sell_relax_masked_cuda(d0, sources, overloaded, nbrs, wgs, starts,
-                            bits):
-    """K9 rounds: one launch per bucket per round into the second buffer,
-    one 4-byte changed flag read per round. d0 is the first buffer; the
-    second starts as its copy, so the rows outside the buckets hold their
-    values in both."""
-    n, s = d0.shape
-    cur, nxt = d0, d0.clone()
-    flag = torch.zeros(1, dtype=torch.int32, device=d0.device)
-    rounds = 0
-    while True:
-        flag.zero_()
-        for k, (bs, nbr_k, wg_k) in enumerate(zip(starts, nbrs, wgs)):
-            nk, dk = nbr_k.shape
-            SELL_RELAX_MASKED.launch(
-                d0.device,
-                cur.data_ptr(), nxt.data_ptr(), flag.data_ptr(),
-                sources.data_ptr(), overloaded.data_ptr(),
-                nbr_k.data_ptr(), wg_k.data_ptr(), bits[k].data_ptr(),
-                int(bs), nk, dk, s, bits[k].shape[2],
-            )
-        rounds += 1
-        cur, nxt = nxt, cur
-        if not int(flag.item()) or rounds >= n:
-            return cur, rounds
 
 
 def _sell_fixpoint_core(sources, nbrs, wgs, overloaded, zero_end, starts):
@@ -1402,7 +1379,7 @@ def _sell_solver_vw(
     bits = _sell_mask_bits(masks, nbrs, sources.shape[0])
     d0 = _sell_d0(sources, overloaded.shape[0])
     d, _ = _sell_relax(
-        d0, sources, overloaded, nbrs, wgs, zero_end, starts, bits
+        d0, sources, overloaded, nbrs, wgs, zero_end, starts, bits, cold=True
     )
     return d.t().contiguous()
 
@@ -1989,7 +1966,13 @@ def tile_fold(
     owns; the others, the sentinel among them, are dropped before ctr is
     read. A partition's slots name distinct columns, so one fold has no
     write conflict. Sets flag[0] = 1 when an entry went down, the
-    reference's any(new_d != d). Returns out."""
+    reference's any(new_d != d). Returns out.
+
+    Precondition: cols ascends, the sentinels last, as every partition's
+    columns do (`tile_graph`; `convert.tiling_ranks` checks it), so the
+    slots this rank owns form one stretch and the kernel walks only that;
+    the plain version takes any order. The kernel drops an owned slot that
+    lies outside the stretch of an order that does not ascend."""
     dev = out.device
     _check("out", out, torch.int32, 2, dev)
     _check("ctr", ctr, torch.int32, 2, dev)

@@ -704,9 +704,14 @@ def ksp_masks(g, s, seed=0):
     return positions, masks
 
 
-@pytest.mark.parametrize("s", [1, 3, 33])
+@pytest.mark.parametrize("s", [1, 3, 4, 8, 33, 36, 128])
 @pytest.mark.parametrize("name", sell_graphs())
 def test_sell_mask_and_masked_relax_kernels_equal_plain(dev, name, s):
+    """K8's build and seed and K9 against their plain versions at odd
+    widths (1 and 3 a column a thread; 4, 8, 36 and 128 four columns a
+    thread, mask words past the first 32 columns at 33 and up), from a
+    full round 1 and from the cold start's source rows, with the launches
+    of K9's round chunks."""
     edges, ov = GRAPHS[name]
     g = compile_edges(edges, ov)
     _, masks = ksp_masks(g, s)
@@ -727,14 +732,20 @@ def test_sell_mask_and_masked_relax_kernels_equal_plain(dev, name, s):
         d0.clone(), src, st["ov"], st["nbrs"], st["wgs"], g.sell.zero_end,
         g.sell.starts, bits,
     )
+    # two launches a round for every bucket, rounds enqueued a chunk a call
     assert (_cuda.SELL_RELAX_MASKED.launches - before
-            == r_k * len(g.sell.starts))
+            == spf.K1_ROUND_KERNELS * spf.round_launches(r_k, g.n_pad))
+    d_c, r_c = spf._sell_relax(
+        d0.clone(), src, st["ov"], st["nbrs"], st["wgs"], g.sell.zero_end,
+        g.sell.starts, bits, cold=True,
+    )
     d_p, r_p = spf._sell_relax_plain(
         d0, src, st["ov"], st["nbrs"],
         spf._sell_masked_wgs_plain(st["wgs"], bits, s), g.sell.starts,
     )
     torch.cuda.synchronize()
-    assert r_k == r_p and torch.equal(d_k, d_p)
+    assert r_k == r_c == r_p
+    assert torch.equal(d_k, d_p) and torch.equal(d_c, d_p)
     base = spf.sell_fixpoint(g.sell, rows, g.sell.wg, g.overloaded,
                              device=dev)
     marks, seeded = spf._sell_mask_seed(base, st["nbrs"], st["wgs"], m_t,
@@ -768,6 +779,118 @@ def test_masked_solve_warm_equals_cold(dev, name, s):
     assert torch.equal(cold.cpu(), cpu)
     for a, want in zip(st["wgs"], g.sell.wg):  # the base weights stay
         assert np.array_equal(a.cpu().numpy(), want)
+
+
+def ring_edges(n):
+    return [(f"r{i:02d}", f"r{(i + 1) % n:02d}", 1) for i in range(n)]
+
+
+# name: (edges, overloaded nodes, batch width, source names or None)
+MASKED_CASES = {
+    "misaligned": (wan_edges(300, degree=4, seed=11), {"w3"}, 8, None),
+    "column_all_masked": (wan_edges(300, degree=4, seed=11), None, 4, None),
+    "hub_slot_split": (GRAPHS["clos"][0], {"fsw0_1"}, 8, None),
+    "rounds_13": (ring_edges(24), None, 4, ["r00"]),
+    "rounds_24": (ring_edges(24), None, 4, ["r00"]),
+}
+
+
+def masked_case(name):
+    """(graph, source rows, per-column edge positions) of one K9 case:
+    ksp_masks' masks on the WAN and the Clos; a node whose every in-edge
+    is masked in column 2 (it is unreachable there); half the in-slots of
+    the Clos's widest row masked in every column, at a different offset
+    in each; on a ring of 24 from r00, nothing masked in column 1 (13
+    rounds) or its link r00-r01 both ways (the long way round: 24
+    rounds, three whole chunks)."""
+    edges, ov, s, names = MASKED_CASES[name]
+    g = compile_edges(edges, ov)
+    if names is None:
+        rows = sources_for(g)[:s]
+    else:
+        rows = np.resize([g.node_index[x] for x in names], s)
+    rows = rows.astype(np.int32)
+    real = np.arange(g.e)
+    if name.startswith("rounds_"):
+        positions = [[] for _ in range(s)]
+        if name == "rounds_24":
+            a, b = g.node_index["r00"], g.node_index["r01"]
+            positions[1] = [int(p) for p in real
+                            if {int(g.src[p]), int(g.dst[p])} == {a, b}]
+        return g, rows, positions
+    positions, _ = ksp_masks(g, s, seed=len(name))
+    if name == "column_all_masked":
+        v = next(int(u) for u in g.dst[: g.e] if u not in rows)
+        positions[2] = sorted(set(positions[2])
+                              | set(np.flatnonzero(g.dst[: g.e] == v)))
+    if name == "hub_slot_split":
+        deg = np.bincount(g.dst[: g.e], minlength=g.n_pad)
+        into = np.flatnonzero(g.dst[: g.e] == int(np.argmax(deg)))
+        for c in range(s):
+            positions[c] = sorted(set(positions[c]) | set(into[c % 2::2]))
+    return g, rows, positions
+
+
+@pytest.mark.parametrize("name", sorted(MASKED_CASES))
+def test_masked_relax_kernel_cases(dev, name):
+    """K9 against its plain version, cold (round 1 from the source rows)
+    and warm (after K8's seed, K5's marks and reset: round 1 over every
+    slot): equal D and rounds, and two launches a round enqueued a chunk a
+    call. Cases: buffers off 16-byte alignment (the scalar path at S = 8),
+    a row masked in all its in-slots for one column, a hub row whose
+    slots split over 8 lanes, and fixpoints of 13 and of 24 rounds (over
+    one chunk, and exactly three)."""
+    g, rows, positions = masked_case(name)
+    s, n = len(rows), g.n_pad
+    st = to_device(g, dev)
+    nbrs, wgs, ov = st["nbrs"], st["wgs"], st["ov"]
+    starts, key = g.sell.starts, g.sell.shape_key()
+    src = torch.as_tensor(rows, device=dev)
+    masks = [torch.as_tensor(m, device=dev)
+             for m in spf.sell_mask_arrays(g.sell, positions)]
+    bits = spf._sell_mask_bits(masks, nbrs, s)
+    wv = spf._sell_masked_wgs_plain(wgs, bits, s)
+    k9 = _cuda.SELL_RELAX_MASKED
+
+    def relax(d0, cold):
+        before = k9.launches
+        d, r = spf._sell_relax(d0, src, ov, nbrs, wgs, g.sell.zero_end,
+                               starts, bits, cold=cold)
+        assert (k9.launches - before
+                == spf.K1_ROUND_KERNELS * spf.round_launches(r, n))
+        return d, r
+
+    d0 = spf._sell_d0(src, n)
+    d_p, r_p = spf._sell_relax_plain(d0, src, ov, nbrs, wv, starts)
+    d_k, r_k = relax(misaligned_like(d0) if name == "misaligned"
+                     else d0.clone(), True)
+    torch.cuda.synchronize()
+    assert r_k == r_p and torch.equal(d_k, d_p)
+    if name == "column_all_masked":
+        v = next(int(u) for u in g.dst[: g.e] if u not in rows)
+        assert int(d_p[v, 2]) == INF and bool((d_p[v] < INF).any())
+    if name == "hub_slot_split":
+        assert max(nb.shape[1] for nb in nbrs) > 8  # P > 1
+    if name.startswith("rounds_"):
+        assert r_p == int(name.split("_")[1])
+
+    base, _ = spf._sell_solver_counted(key, src, nbrs, wgs, ov)
+    marks, seeded = spf._sell_mask_seed(base, nbrs, wgs, masks, starts)
+    marks, _ = spf._sell_mark_fixpoint(base, marks, nbrs, wgs,
+                                       g.sell.zero_end, starts, seeded)
+    d0_w = spf._sell_warm_d0(base, marks, src)
+    m_p = spf._sell_mask_seed_plain(base, nbrs, wgs, masks, starts)
+    if bool(m_p.any()):
+        m_p, _ = spf._sell_mark_fixpoint_plain(base, m_p, nbrs, wgs, starts)
+    d0_p = spf._bf_warm_d0_plain(base, m_p, src).t().contiguous()
+    torch.cuda.synchronize()
+    assert torch.equal(d0_w, d0_p)
+    d_wp, r_wp = spf._sell_relax_plain(d0_p, src, ov, nbrs, wv, starts)
+    d_w, r_w = relax(misaligned_like(d0_w) if name == "misaligned"
+                     else d0_w, False)
+    torch.cuda.synchronize()
+    assert r_w == r_wp and torch.equal(d_w, d_wp)
+    assert torch.equal(d_w, d_p)  # warm equals cold
 
 
 # -- K7 and K8 at odd shapes, and what they cost the host -------------------
@@ -2155,6 +2278,88 @@ def test_tile_kernels_at_odd_shapes(dev):
     spf.tile_fold(out, ctr, cols, 1, flag)  # INF lowers nothing
     assert torch.equal(out, d) and int(flag.item()) == 0
     check_tile_mark_kernel(dev, d, src, 7)
+
+
+# name: (rows S, n_tile, rank me, graph axis g, the owned columns: "all",
+# "sparse" or "none", sentinel slots after the real ones)
+FOLD_CASES = {
+    "stretch_at_start": (5, 40, 0, 4, "all", 6),
+    "stretch_in_middle": (5, 40, 2, 4, "all", 6),
+    "stretch_at_end": (5, 40, 3, 4, "all", 0),
+    "stretch_empty": (5, 40, 1, 4, "none", 6),
+    "all_sentinels": (5, 40, 1, 4, "sentinels", 64),
+    "gaps_between_owned": (4, 300, 1, 4, "sparse", 9),
+    "odd_product": (3, 37, 1, 3, "all", 1),  # S x stretch = 111
+    "nothing_lowered": (6, 50, 2, 4, "all", 3),
+    "one_lowered": (6, 50, 2, 4, "all", 3),
+    "many_chunks": (7, 3000, 1, 4, "all", 5),  # 3,000 slots a row
+}
+
+
+def fold_case(name):
+    """(out [S, n_tile], ctr [S, h], cols [h], me) on the host for one K20
+    case: cols ascending with the sentinels last, ctr below out in about
+    half the entries (none in nothing_lowered, one owned entry in
+    one_lowered)."""
+    s, n_tile, me, g, owned, pad = FOLD_CASES[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    cols = []
+    for t in range(g):
+        span = np.arange(t * n_tile, (t + 1) * n_tile)
+        if owned == "sentinels":
+            break
+        if t == me and owned == "none":
+            continue
+        if t == me and owned == "sparse" or t != me:
+            span = span[rng.random(n_tile) < 0.4]
+        cols.extend(span.tolist())
+    cols = np.array(cols + [spf.TILE_PAD] * pad, dtype=np.int32)
+    h = len(cols)
+    out = rng.integers(10, 100, size=(s, n_tile)).astype(np.int32)
+    out[rng.random(out.shape) < 0.1] = INF
+    ctr = rng.integers(0, 120, size=(s, h)).astype(np.int32)
+    if name in ("nothing_lowered", "one_lowered"):
+        ctr[:] = INF
+        if name == "one_lowered":
+            k = int(np.flatnonzero((cols >= me * n_tile)
+                                   & (cols < (me + 1) * n_tile))[7])
+            ctr[s - 1, k] = out[s - 1, cols[k] - me * n_tile] - 1
+    return out, ctr, cols, me
+
+
+@pytest.mark.parametrize("name", sorted(FOLD_CASES))
+def test_tile_fold_kernel_cases(dev, name):
+    """K20 against its plain version: out and flag equal, one launch a
+    call; the stretch of owned slots at the start, in the middle and at
+    the end of cols, empty, every slot a sentinel, gaps between owned
+    columns, S x stretch not a multiple of 32, rows longer than a block's
+    chunk of slots, nothing to lower (flag stays 0) and exactly one entry
+    lowered (flag 1); and a second fold of the same frontier lowers
+    nothing."""
+    out_h, ctr_h, cols_h, me = fold_case(name)
+    out, ctr, cols = (torch.as_tensor(a, device=dev)
+                      for a in (out_h, ctr_h, cols_h))
+    flag, flag_p = (torch.zeros(1, dtype=torch.int32, device=dev)
+                    for _ in range(2))
+    before = _cuda.TILE_FOLD.launches
+    got = spf.tile_fold(out.clone(), ctr, cols, me, flag)
+    assert _cuda.TILE_FOLD.launches == before + 1
+    want = spf._tile_fold_plain(out.clone(), ctr, cols, me, flag_p)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(flag, flag_p)
+    lowered = int((want != out).sum())
+    assert int(flag.item()) == int(lowered > 0)
+    if name in ("nothing_lowered", "stretch_empty", "all_sentinels"):
+        assert lowered == 0
+    if name == "one_lowered":
+        assert lowered == 1
+    if name not in ("nothing_lowered", "stretch_empty", "all_sentinels",
+                    "one_lowered"):
+        assert lowered > 1
+    flag.zero_()
+    again = spf.tile_fold(got.clone(), ctr, cols, me, flag)
+    torch.cuda.synchronize()
+    assert torch.equal(again, got) and int(flag.item()) == 0
 
 
 def check_tile_mark_kernel(dev, dp, src, offset):

@@ -167,6 +167,64 @@ def test_tile_fold_with_every_slot_a_sentinel_changes_nothing():
     assert bool((out == 7).all()) and int(flag.item()) == 0
 
 
+def ascends_with_sentinels_last(hcols):
+    """Each row of hcols [g, h] rises strictly up to its sentinels, which
+    come last: K20's precondition."""
+    hcols = np.asarray(hcols, dtype=np.int64)
+    for row in hcols:
+        real = row[row != tspf.TILE_PAD]
+        if not (np.all(np.diff(real) > 0)
+                and np.all(row[len(real):] == tspf.TILE_PAD)):
+            return False
+    return True
+
+
+@pytest.mark.parametrize("g_axis", [2, 4, 8])
+@pytest.mark.parametrize("graph", ["wan", "grid", "clos"])
+def test_every_hcols_row_ascends_with_its_sentinels_last(graph, g_axis):
+    """K20 folds only the stretch of a frontier's slots that a rank owns,
+    which is one stretch because every partition's columns ascend: so on
+    the file's graphs, in the JAX package's tiling and in the port's, and
+    `convert.tiling_ranks` takes both."""
+    from openr_tpu_torch.parallel import tile_graph
+
+    edges = {"wan": wan_edges(100, seed=2), "grid": grid_edges(4),
+             "clos": fabric_edges(**SMALL_CLOS)}[graph]
+    jg = j_graph(edges)
+    tg = convert.graph_from_arrays(convert.graph_arrays(jg))
+    for til in (j_tile_graph(jg, g_axis), tile_graph(tg, g_axis)):
+        assert ascends_with_sentinels_last(til.hcols)
+        assert (np.asarray(til.hcols) != tspf.TILE_PAD).any()
+        convert.tiling_ranks(til, port_mesh((1, g_axis)))
+
+
+@pytest.mark.parametrize("fault", ["swapped", "repeated", "sentinel_first"])
+def test_tiling_ranks_refuses_hcols_that_do_not_ascend(wan, fault):
+    """A row out of order, a column named twice, or a sentinel before a
+    real column: `convert.tiling_ranks` raises and names the row, before
+    any rank gets a tensor."""
+    import dataclasses
+
+    from openr_tpu_torch.parallel import tile_graph
+
+    g, _, _ = wan
+    til = tile_graph(convert.graph_from_arrays(convert.graph_arrays(g)), 4)
+    hcols = np.array(til.hcols)
+    row = hcols[2]
+    real = int(np.count_nonzero(row != tspf.TILE_PAD))
+    assert real >= 3 and real < len(row)
+    if fault == "swapped":
+        row[[0, 1]] = row[[1, 0]]
+    elif fault == "repeated":
+        row[1] = row[0]
+    else:
+        row[[0, real]] = row[[real, 0]]
+    assert not ascends_with_sentinels_last(hcols)
+    bad = dataclasses.replace(til, hcols=hcols)
+    with pytest.raises(ValueError, match="hcols row 2 does not ascend"):
+        convert.tiling_ranks(bad, port_mesh((1, 4)))
+
+
 @pytest.mark.parametrize("shape", MESHES)
 def test_tile_solver_equals_the_reference(wan, shape):
     g, rows, ov = wan
