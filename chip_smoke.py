@@ -78,7 +78,10 @@ Phases, one JSON line each:
                with links down and decreases, more than 64 raised pairs,
                an overload toggle), each matrix equal to a fresh cold close
                and to the plain versions' composition, with their round
-               count; then K11-K13's times, bounds and plain times
+               count; then K11-K13's times, bounds and plain times,
+               K11's device time by entry point over one close (profiler)
+               and the DPX add-and-min (VIADDMNMX) and shared-load counts
+               of K11's and K13's built code (cuobjdump -sass)
   lfa_clos     DeltaRouteBuilder over CudaSpfSolver(compute_lfa_paths=True,
                apsp_max_nodes=4096) on the 3,956-node Clos through six
                remote events and one into me's column: delta builds occur
@@ -133,7 +136,8 @@ Phases, one JSON line each:
                equal to a cold K1 solve of the new weights; rounds,
                inv_rounds, col_changed and num_changed equal to the plain
                tiled warm); the halo bytes against the bytes the ring hops
-               copied; h, n_tile and e_tile; times
+               copied; h, n_tile and e_tile; times, K19's and K20's
+               also replayed in a CUDA graph (device time)
   tile_clos    DeltaRouteBuilder over CudaSpfSolver(mesh=(1, 4) Mesh) on
                the 9,556-node Clos through the seven events of
                event_clos: every db equal to a mesh=None solver's and the
@@ -152,10 +156,10 @@ Every path (main_path, event_wan, event_clos, star_flap, ksp_wan,
 ksp_star, apsp_wan, lfa_clos, te_clos, te_service, tile_wan, tile_clos,
 mesh_rows) runs with all launch
 counts set to 0 just before it and read just after, and fails if a kernel
-it drives was not launched. The (min,+) tile product of fw_minplus.cuh (K10 in the port's
-numbering) has no launch and no row of its own: it runs inside K11 and
-K13, whose results are held against their plain versions at full width,
-so it is checked through them. The card's name and power limit print on
+it drives was not launched. The (min,+) tile product of fw_minplus.cuh
+(K10 in the port's numbering) has no launch and no row of its own: it
+runs inside K13, whose results are held against its plain version at
+full width, so it is checked through it (K11 carries its own product). The card's name and power limit print on
 their own line before the last, and the last line is {"ok": true,
 "device": {...}}. Any failed check raises, and the script then exits
 non-zero without that line. It imports nothing of JAX or of the JAX
@@ -168,6 +172,7 @@ import dataclasses
 import hashlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -242,6 +247,10 @@ TE_BORROW_PODS = 2
 # the Clos (ranks sharing the one card), a batch axis of 4 over the WAN
 TILE_G = 4
 ROW_B = 4
+# SASS opcodes counted in the all-pairs kernels' built code: the DPX
+# add-and-min, the plain min and add it replaces, shared-memory loads and
+# the asynchronous global-to-shared copy (cp.async)
+SASS_OPCODES = ("VIADDMNMX", "VIMNMX", "IMNMX", "IADD3", "LDS", "LDGSTS")
 
 
 # what each kernel's `ms` in the kernels line times; its launches in one
@@ -270,8 +279,8 @@ TIMED_UNIT = {
                                "two launches a round (active rows, masked "
                                "round) for every bucket, in chunks of 8 "
                                "rounds",
-    "fw_close": "a cold close (n_pad 4,096): diagonal, panels and outer a "
-                "block, the probe",
+    "fw_close": "a cold close (n_pad 4,096): block (0, 0)'s close, panels "
+                "and outer a stage, the probe",
     "fw_seed": "one seed (n_pad 4,096)",
     "fw_reclose": "one re-close round (the event's dirty blocks)",
     "softmin_round": "one softmin round (te_clos)",
@@ -280,7 +289,8 @@ TIMED_UNIT = {
     "soft_flow": "one flow round (te_clos)",
     "soft_flow_bwd": "one adjoint round, the scale given (te_clos)",
     "te_step": "one Adam step (te_clos's [E])",
-    "tile_round": "one tile round of one rank (WAN on (1, 4))",
+    "tile_round": "one tile round of one rank (WAN on (1, 4)): the tile's "
+                  "node-major copy, the slots",
     "tile_fold": "one halo fold of one rank (WAN on (1, 4))",
     "tile_mark": "init, mark, reset and changed columns of one rank (WAN on "
                  "(1, 4)), one call each",
@@ -362,12 +372,14 @@ def launches_a_call(kernel, fn, setup=None) -> int:
     return kernel.launches - l0
 
 
-def profile_window(fn) -> dict:
+def profile_window(fn, split=()) -> dict:
     """One call of `fn` under torch.profiler: its wall ms (the profiler's
     host cost included), the device time of its kernels and copies summed
-    by name, and the device's busy share, their sum over the wall time.
-    The call runs all the same; where the profiler fails or records no
-    device time, the result says "not measured" and why."""
+    by name, and the device's busy share, their sum over the wall time;
+    with `split`, also the device time of the kernels whose name holds
+    each of its strings (`split_ms`). The call runs all the same; where
+    the profiler fails or records no device time, the result says "not
+    measured" and why."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -375,6 +387,12 @@ def profile_window(fn) -> dict:
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            # the first device activities of a window can go unrecorded (a
+            # close's copy and first kernel did, after one fill and a sync):
+            # warm-up fills take them
+            for _ in range(3):
+                torch.zeros(1, device=DEVICE)
+                torch.cuda.synchronize()
             t = time.perf_counter()
             fn()
             torch.cuda.synchronize()
@@ -391,8 +409,42 @@ def profile_window(fn) -> dict:
         return {"not_measured": "torch.profiler recorded no device time"}
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return {"wall_ms": wall_ms, "device_ms": busy,
-            "busy_share": busy / wall_ms, "top_ms": dict(top)}
+    out = {"wall_ms": wall_ms, "device_ms": busy,
+           "busy_share": busy / wall_ms, "top_ms": dict(top)}
+    if split:
+        out["split_ms"] = {key: sum(ms for name, ms in by_name.items()
+                                    if key in name) for key in split}
+    return out
+
+
+def sass_counts(kernel, opcodes) -> dict:
+    """Per kernel function of `kernel`'s built library, how many SASS
+    instructions carry each opcode in `opcodes` (`cuobjdump -sass`, from
+    beside nvcc), and all its instructions; "not measured" where cuobjdump
+    is missing or fails."""
+    from openr_tpu_torch.ops import _cuda
+
+    try:
+        tool = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
+        sass = subprocess.run(
+            [tool, "-sass", str(kernel.library_path())], capture_output=True,
+            text=True, timeout=120, check=True).stdout
+    except (OSError, RuntimeError, subprocess.SubprocessError) as exc:
+        return {"not_measured": f"cuobjdump failed: {exc}"}
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ", 1)[1].strip()
+            counts[fn] = {op: 0 for op in opcodes} | {"all": 0}
+            continue
+        ins = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(@!?U?P\w+\s+)?([A-Z]\w*)",
+                       line)
+        if fn is not None and ins:
+            counts[fn]["all"] += 1
+            op = ins.group(2)
+            if op in counts[fn]:
+                counts[fn][op] += 1
+    return counts
 
 
 def digest(*tensors) -> str:
@@ -2172,11 +2224,26 @@ def main() -> int:
     w_t, allow_t = dense(asolve.graph)
     per_call11 = launches_a_call(K11, lambda: fw.fw_close(w_t, allow_t))
     nb11 = fw.fw_block_shape(w_t.shape[0])[0]
-    check(per_call11 == (3 * nb11 if nb11 > 1 else 1) + 1, f"K11 launched "
-          f"{per_call11} times a close, not 3 a block and the probe")
+    check(per_call11 == (2 * nb11 + 2 if nb11 > 1 else 2), f"K11 launched "
+          f"{per_call11} times a close, not block (0, 0)'s close, 2 a "
+          "stage and the probe")
     ms11 = time_ms(lambda: fw.fw_close(w_t, allow_t), reps=5, warmup=1)
     plain_ms11 = time_ms(lambda: fw._fw_close_plain(w_t, allow_t), reps=1,
                          warmup=0)
+    # the close's device time by entry point, summed over its stages, and
+    # the (min,+) step's instructions in the built code of K11 and K13
+    prof11 = profile_window(lambda: fw.fw_close(w_t, allow_t),
+                            split=tuple(K11.entries))
+    dev11 = graph_ms(lambda: fw.fw_close(w_t, allow_t), 2)
+    # block (0, 0)'s close alone, timed with events (one launch a close;
+    # the profiler may miss a window's first kernel), on a copy of w
+    d_diag = w_t.clone()
+    ct_diag = torch.empty((bsz_a, bsz_a), dtype=torch.int32, device=dev)
+    diag11 = time_ms(lambda: K11.launch(
+        dev, d_diag.data_ptr(), allow_t.data_ptr(), ct_diag.data_ptr(), n_a,
+        bsz_a, entry="fw_close_diag"))
+    del d_diag, ct_diag
+    sass_fw = {k.name: sass_counts(k, SASS_OPCODES) for k in (K11, K13)}
     # the blocked sweep does nb^2 * B^3 = N^2 * B per stage, N^3 in all
     b11_ms, b11_by = bound(9 * n_a * n_a + 4, n_a ** 3, rate)
     d_prev2, w_new2, slots2, dirty02, allow2 = seed2
@@ -2244,7 +2311,9 @@ def main() -> int:
         "first_close_ms": first_close_ms, "events": per_event,
         "counters": counters, "launches": apsp_launches,
         "host_spf_calls": asolver.host_spf_calls,
-        "k11": {"ms": ms11, "plain_ms": plain_ms11, "bound_ms": b11_ms},
+        "k11": {"ms": ms11, "graph_ms": dev11, "diag_ms": diag11,
+                "plain_ms": plain_ms11, "bound_ms": b11_ms,
+                "profile": prof11, "sass": sass_fw},
         "k12": {"slots": int(iu2.numel()), "valid": int(valid2.sum()),
                 "rows_scanned": rows_scanned, "dirty_blocks": dirty02,
                 "ms": ms12, "plain_ms": plain_ms12, "bound_ms": b12_ms},
@@ -3018,6 +3087,10 @@ def main() -> int:
     per_call19 = launches_a_call(
         K19, lambda: spf.tile_round(d0t, **rank, out=buf))
     ms19 = time_ms(lambda: spf.tile_round(d0t, **rank, out=buf))
+    dev19 = graph_ms(lambda: spf.tile_round(d0t, **rank, out=buf), 20)
+    prof19 = profile_window(
+        lambda: [spf.tile_round(d0t, **rank, out=buf) for _ in range(10)],
+        split=("tile_round_nodes", "tile_round_slots"))
     plain_ms19 = time_ms(lambda: spf._tile_round_plain(d0t, **rank, out=buf))
     fold_t = dpt.clone()
     per_call20 = launches_a_call(
@@ -3068,7 +3141,7 @@ def main() -> int:
         ms21_parts[name_] = time_ms(fn_k, setup=setup)
         plain21_parts[name_] = time_ms(fn_p, setup=setup)
     ms21, plain_ms21 = sum(ms21_parts.values()), sum(plain21_parts.values())
-    for key, got, want in (("K19", per_call19, 1), ("K20", per_call20, 1),
+    for key, got, want in (("K19", per_call19, 2), ("K20", per_call20, 1),
                            ("K21", per_call21, 4)):
         check(got == want,
               f"{key} launched {got} times a timed call, not {want}")
@@ -3118,8 +3191,9 @@ def main() -> int:
         "halo_bytes_cold": halo_cold, "halo_bytes_warm": halo_warm,
         "hop_copies_cold": cold_copies._asdict(),
         "hop_copies_warm": warm_copies._asdict(),
-        "k19_ms": ms19, "k20_ms": ms20, "k20_stretch": [int(k0_20),
-                                                        int(k1_20)],
+        "k19_ms": ms19, "k19_graph_ms": dev19,
+        "k19_profile_10_calls": prof19, "k20_ms": ms20,
+        "k20_stretch": [int(k0_20), int(k1_20)],
         "k20_profile_10_calls": prof20, "k20_graph_ms": dev20,
         "k20_scatter_reduce_ms": lib_ms20,
         "k21_ms": ms21_parts,

@@ -21,8 +21,10 @@ Three hand-written CUDA kernels carry the device work (ops/csrc/):
   K13 fw_reclose   one re-close round over the dirty blocks
 
 The (min,+) tile product (`_mp` below; K10 in the port's numbering) has no
-launch of its own: it is the device routine of fw_minplus.cuh that K11 and
-K13 run inside their bodies, and it is held against `_mp` through them.
+launch of its own: it is the device routine of fw_minplus.cuh that K13 runs
+inside its body, and it is held against `_mp` through it. K11 carries its
+own register-blocked product (fw_close.cu), held against `_mp` through the
+close.
 
 Each wrapper checks device, dtype, shape and contiguity; on a CUDA tensor
 it launches its kernel (and counts the launch), on a CPU tensor it runs the
@@ -254,7 +256,9 @@ def fw_close(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cold masked blocked Floyd–Warshall close (K11): w [N, N] int32 with
     a 0 diagonal, allow [N, N] bool -> (d, probe), probe = d.min() as a
-    one-element tensor. w is not modified."""
+    one-element tensor. w is not modified. On the card, 2 nb + 2 launches
+    (nb blocks a side; 2 with one block): block (0, 0)'s close, the panels
+    and the outer sweep of each stage, the probe."""
     dev = w.device
     n = _square("w", w, torch.int32, dev)
     if _square("allow", allow, torch.bool, dev) != n:
@@ -263,14 +267,21 @@ def fw_close(
     if dev.type != "cuda":
         return _fw_close_plain(w, allow)
     d = w.clone()
-    for k in range(nb):
-        FW_CLOSE.launch(dev, d.data_ptr(), allow.data_ptr(), k, n, bsz,
+    if nb == 1:
+        FW_CLOSE.launch(dev, d.data_ptr(), allow.data_ptr(), None, n, bsz,
                         entry="fw_close_diag")
-        if nb > 1:
-            FW_CLOSE.launch(dev, d.data_ptr(), allow.data_ptr(), k, n, bsz,
-                            entry="fw_close_panels")
-            FW_CLOSE.launch(dev, d.data_ptr(), allow.data_ptr(), k, n, bsz,
-                            entry="fw_close_outer")
+    else:
+        # the closed diagonal block, masked and transposed, and the column
+        # panel, masked and transposed: each stage's operands
+        ct = torch.empty((bsz, bsz), dtype=torch.int32, device=dev)
+        colm = torch.empty((bsz, n), dtype=torch.int32, device=dev)
+        FW_CLOSE.launch(dev, d.data_ptr(), allow.data_ptr(), ct.data_ptr(),
+                        n, bsz, entry="fw_close_diag")
+        for k in range(nb):
+            for entry in ("fw_close_panels", "fw_close_outer"):
+                FW_CLOSE.launch(dev, d.data_ptr(), allow.data_ptr(),
+                                ct.data_ptr(), colm.data_ptr(), k, n,
+                                entry=entry)
     probe = torch.full((1,), _INT32_MAX, dtype=torch.int32, device=dev)
     FW_CLOSE.launch(dev, d.data_ptr(), probe.data_ptr(), n,
                     entry="fw_close_probe")

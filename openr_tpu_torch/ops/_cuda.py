@@ -251,9 +251,9 @@ FW_CLOSE = Kernel(
     "fw_close",
     "fw_close.cu",
     {
-        "fw_close_diag": [_P, _P, _I, _I, _I],
-        "fw_close_panels": [_P, _P, _I, _I, _I],
-        "fw_close_outer": [_P, _P, _I, _I, _I],
+        "fw_close_diag": [_P, _P, _P, _I, _I],
+        "fw_close_panels": [_P, _P, _P, _P, _I, _I],
+        "fw_close_outer": [_P, _P, _P, _P, _I, _I],
         "fw_close_probe": [_P, _P, _I],
     },
     "openr_tpu/apsp/kernels.py:112 _fw_solver",
@@ -347,7 +347,8 @@ TE_STEP = Kernel(
 TILE_ROUND = Kernel(
     "tile_round",
     "tile_round.cu",
-    {"tile_round": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I]},
+    {"tile_round": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                    _I]},
     "openr_tpu/ops/spf.py:676,712 _tile_seg_min, _tile_relax",
 )
 TILE_FOLD = Kernel(

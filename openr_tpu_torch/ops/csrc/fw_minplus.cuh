@@ -1,7 +1,7 @@
-// The (min,+) tile product shared by the blocked Floyd-Warshall kernels
-// K11 fw_close and K13 fw_reclose (K10 in the port's numbering: a device
-// routine with no launch of its own, held against `_mp` through K11's and
-// K13's comparisons with their plain versions).
+// The (min,+) tile product of the blocked Floyd-Warshall re-close K13
+// fw_reclose (K10 in the port's numbering: a device routine with no launch
+// of its own, held against `_mp` through K13's comparisons with its plain
+// version; K11 fw_close carries a register-blocked product of its own).
 //
 // Replaces: openr_tpu/apsp/kernels.py `_mp`, the tropical product of two
 // [B, B] int32 tiles, as every blocked-FW update of the JAX package uses it:

@@ -1892,7 +1892,9 @@ def tile_round(
     not the row's source. With w_new and ov_new only the seed edges count
     (w_new[e] > w2[e], or a tail that is overloaded in ov_new and not in
     `overloaded`); with marks only the edges whose tail is marked in the
-    row. The plain version walks hseg, the kernel hptr's real edges."""
+    row. The plain version walks hseg, the kernel hptr's real edges. On
+    the card, two launches: a node-major copy of the masked tile, then the
+    slots."""
     dev = d.device
     _check("d", d, torch.int32, 2, dev)
     s_l, n_tile = d.shape
@@ -1929,6 +1931,9 @@ def tile_round(
     if out is None:
         out = torch.empty((s_l, h), dtype=torch.int32, device=dev)
     if s_l * h:
+        # the kernel's node-major copy of the masked tile, rows padded to 32
+        nodes = torch.empty((n_tile, -(-s_l // 32) * 32), dtype=torch.int32,
+                            device=dev)
         TILE_ROUND.launch(
             dev,
             d.data_ptr(), out.data_ptr(), sources.data_ptr(),
@@ -1937,7 +1942,7 @@ def tile_round(
             None if w_new is None else w_new.data_ptr(),
             None if ov_new is None else ov_new.data_ptr(),
             None if marks is None else marks.data_ptr(),
-            offset, s_l, n_tile, h,
+            nodes.data_ptr(), offset, s_l, n_tile, h, kernels=2,
         )
     return out
 

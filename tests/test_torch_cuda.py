@@ -1179,7 +1179,7 @@ def fw_inputs(n, seed, ov_frac=0.02):
     return w, ov, rng
 
 
-@pytest.mark.parametrize("n", [64, 512, 4096])
+@pytest.mark.parametrize("n", [64, 128, 256, 384, 512, 4096])
 def test_fw_close_kernel_equals_plain(dev, n):
     w, ov, _ = fw_inputs(n, n)
     wt = torch.as_tensor(w, device=dev)
@@ -1187,13 +1187,57 @@ def test_fw_close_kernel_equals_plain(dev, n):
     nb = fw.fw_block_shape(n)[0]
     before = _cuda.FW_CLOSE.launches
     d, probe = fw.fw_close(wt, at)
-    assert _cuda.FW_CLOSE.launches - before == (3 * nb if nb > 1 else 1) + 1
+    assert _cuda.FW_CLOSE.launches - before == (2 * nb + 2 if nb > 1 else 2)
     d_p, probe_p = fw._fw_close_plain(wt, at)
     torch.cuda.synchronize()
     assert torch.equal(d, d_p) and int(probe) == int(probe_p)
     assert torch.equal(wt, torch.as_tensor(w, device=dev))
     if n <= 512:
         assert np.array_equal(d.cpu().numpy(), fw.np_floyd_warshall(w, ov))
+
+
+# name: (what the direct-edge matrix holds, which nodes are overloaded)
+FW_CLOSE_CASES = {
+    "no_edges": ("diagonal", "some"),
+    "every_node_overloaded": ("sparse", "all"),
+    "no_node_overloaded": ("sparse", "none"),
+    "dense_short_edges": ("dense", "some"),
+}
+
+
+@pytest.mark.parametrize("n", [7, 100, 128, 384, 4096])
+@pytest.mark.parametrize("case", sorted(FW_CLOSE_CASES))
+def test_fw_close_kernel_cases(dev, case, n):
+    """K11 against its plain version, D and probe bit for bit, with 2 nb +
+    2 launches (2 with one block): a matrix with no off-diagonal edge,
+    every node overloaded (only direct edges and a source's own relays
+    count), none overloaded, and a dense matrix whose paths cross many
+    blocks; one block at odd sizes (7, 100) and at 128, three and 32
+    blocks. Up to 512 nodes also against the numpy Floyd-Warshall."""
+    edges, overloaded = FW_CLOSE_CASES[case]
+    rng = np.random.default_rng(sum(map(ord, case)) + n)
+    w = np.full((n, n), INF, dtype=np.int32)
+    if edges != "diagonal":
+        density = 0.5 if edges == "dense" else 4.0 / n
+        mask = rng.random((n, n)) < density
+        high = 5 if edges == "dense" else 50
+        w[mask] = rng.integers(1, high, size=int(mask.sum()))
+    np.fill_diagonal(w, 0)
+    ov = {"some": rng.random(n) < 0.05, "all": np.ones(n, dtype=bool),
+          "none": np.zeros(n, dtype=bool)}[overloaded]
+    wt = torch.as_tensor(w, device=dev)
+    at = torch.as_tensor(fw.build_allow_matrix(ov), device=dev)
+    nb = fw.fw_block_shape(n)[0]
+    before = _cuda.FW_CLOSE.launches
+    d, probe = fw.fw_close(wt, at)
+    assert _cuda.FW_CLOSE.launches - before == (2 * nb + 2 if nb > 1 else 2)
+    d_p, probe_p = fw._fw_close_plain(wt, at)
+    torch.cuda.synchronize()
+    assert torch.equal(d, d_p) and int(probe) == int(probe_p)
+    if n <= 512:
+        assert np.array_equal(d.cpu().numpy(), fw.np_floyd_warshall(w, ov))
+    if edges == "diagonal":
+        assert torch.equal(d, wt)
 
 
 def _fw_event(w, rng, n_inc, n_dec):
@@ -2240,7 +2284,7 @@ def test_tile_round_and_fold_kernels_equal_plain(dev, name, g):
     for kw in masks:
         before = _cuda.TILE_ROUND.launches
         ctr = spf.tile_round(d, **base, **kw)
-        assert _cuda.TILE_ROUND.launches == before + 1
+        assert _cuda.TILE_ROUND.launches == before + 2
         want = spf._tile_round_plain(d, **base, **kw)
         torch.cuda.synchronize()
         assert torch.equal(ctr, want)
@@ -2252,6 +2296,95 @@ def test_tile_round_and_fold_kernels_equal_plain(dev, name, g):
             out_p = spf._tile_fold_plain(d.clone(), ctr, cols, j, flag_p)
             torch.cuda.synchronize()
             assert torch.equal(out, out_p) and torch.equal(flag, flag_p)
+
+
+# name: (rows S, tile columns, frontier slots h, real edges, the in-edges of
+# the hub slot (0: none), tile rows whose source is an overloaded tail)
+TILE_ROUND_CASES = {
+    "h_past_a_stretch": (6, 50, 100, 150, 0, 1),
+    "hub_slot_300": (8, 200, 70, 500, 300, 1),
+    "hub_slot_5000": (33, 300, 130, 6000, 5000, 2),
+    "no_edges": (5, 40, 64, 0, 0, 1),
+    "one_row": (1, 64, 200, 300, 0, 1),
+    "three_rows": (3, 64, 130, 260, 70, 1),
+    "nineteen_rows": (19, 80, 257, 400, 0, 3),
+    "rows_128": (128, 256, 1024, 2000, 100, 4),
+    "rows_150": (150, 96, 300, 500, 90, 2),
+}
+
+
+def tile_round_case(name, dev):
+    """One K19 partition from a seed: (kwargs of tile_round, d, the seed
+    mask's kwargs, marks). The real edges lie in slots 0 .. h - 2 in
+    ascending slot order (one hub slot among them), some weigh INF (down
+    links); padding edges weigh INF in slot h - 1. Rows 0 .. ov_rows - 1
+    have as source a tail of the tile that is overloaded."""
+    s, n_tile, h, e, hub, ov_rows = TILE_ROUND_CASES[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    offset = n_tile  # rank 1 of a graph axis of 3
+    n_pad = 3 * n_tile
+    hseg = np.sort(rng.integers(0, h - 1, size=e - hub))
+    if hub:
+        hseg = np.sort(np.concatenate([hseg, np.full(hub, h // 2)]))
+    src_l = rng.integers(0, n_tile, size=e)
+    w2 = rng.integers(1, 60, size=e)
+    w2[rng.random(e) < 0.05] = INF
+    pad = 7
+    hseg_all = np.concatenate([hseg, np.full(pad, h - 1)]).astype(np.int32)
+    src_all = np.concatenate([src_l, np.zeros(pad)]).astype(np.int32)
+    w2_all = np.concatenate([w2, np.full(pad, INF)]).astype(np.int32)
+    hptr = np.searchsorted(hseg, np.arange(h + 1)).astype(np.int32)
+    ov = rng.random(n_pad) < 0.1
+    sources = rng.integers(0, n_pad, size=s).astype(np.int32)
+    tails = np.unique(src_l) if e else np.arange(n_tile)
+    for r in range(min(ov_rows, s)):
+        sources[r] = offset + int(tails[r % len(tails)])
+        ov[sources[r]] = True
+    d = rng.integers(0, 90, size=(s, n_tile)).astype(np.int32)
+    d[rng.random(d.shape) < 0.2] = INF
+    ov_new = ov | (rng.random(n_pad) < 0.05)
+    w_new = w2_all.copy()
+    w_new[::3] = np.minimum(w_new[::3] + 2, INF)
+    marks = rng.random((s, n_tile)) < 0.4
+
+    def t(a, dtype=torch.int32):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(dtype)
+
+    base = dict(sources=t(sources), overloaded=t(ov, torch.bool),
+                offset=offset, src_l=t(src_all), hseg=t(hseg_all),
+                hptr=t(hptr), w2=t(w2_all), h=h)
+    seed = {"w_new": t(w_new), "ov_new": t(ov_new, torch.bool)}
+    return base, t(d), seed, t(marks, torch.bool)
+
+
+@pytest.mark.parametrize("aligned", [True, False],
+                         ids=["aligned", "misaligned"])
+@pytest.mark.parametrize("mask", ["none", "seed", "marks"])
+@pytest.mark.parametrize("name", sorted(TILE_ROUND_CASES))
+def test_tile_round_kernel_cases(dev, name, mask, aligned):
+    """K19 against its plain version, torch.equal, two launches a call:
+    h not a multiple of a block's 64 slots, a hub slot of 300 and of 5,000
+    in-edges (split over a block's warps), a partition with no edges (all
+    INF), S_l of 1, 3, 19, 128 and 150 (two row groups), rows whose source
+    is an overloaded tail of the tile, the seed and the mark masks, and d
+    and out starting 4 bytes past a 16-byte boundary (scalar stores)."""
+    base, d, seed, marks = tile_round_case(name, dev)
+    kw = {"none": {}, "seed": seed, "marks": {"marks": marks}}[mask]
+    s, h = d.shape[0], base["h"]
+    if aligned:
+        out = torch.empty((s, h), dtype=torch.int32, device=dev)
+    else:
+        d = misaligned_like(d)
+        out = misaligned_like(torch.empty((s, h), dtype=torch.int32,
+                                          device=dev))
+    before = _cuda.TILE_ROUND.launches
+    got = spf.tile_round(d, **base, **kw, out=out)
+    assert _cuda.TILE_ROUND.launches == before + 2 and got is out
+    want = spf._tile_round_plain(d, **base, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    if name == "no_edges":
+        assert bool((got == INF).all())
 
 
 def test_tile_kernels_at_odd_shapes(dev):
