@@ -98,9 +98,13 @@ Phases, one JSON line each:
                (K17's adjoint round timed alone, one launch with the
                scale given; each entry run once a step apart, with its
                bound, the gate and the utilization beside their plain
-               versions); K14's (D', keep), the gate's p, the
-               utilization and the gate backward's outputs against the
-               sha256 digests of the first designs; the
+               versions, the MLU and its seed also replayed in a CUDA
+               graph (device time), the MLU beside torch.logsumexp, its
+               seed beside torch.softmax and K17's scale beside
+               torch.div); K14's (D', keep), the gate's p, the
+               utilization, the gate backward's outputs, the MLU's (loss,
+               lse) and its seed's g_util against the sha256 digests of
+               the first designs; the
                quotient by tau against the correctly rounded division at
                the run's temperatures; then, counted, adam_solve
                for 8 steps (per-step ms, launches per step, peak memory,
@@ -150,7 +154,8 @@ Phases, one JSON line each:
                what `ms` times (`timed_unit`) and the kernel's launches
                in one such call, counted beside its timing
                (`launches_per_call`); for K16-K18 the entries run once a
-               step (`side`: ms, bound, launches a call)
+               step (`side`: ms, bound, launches a call, library_ms and
+               graph_ms where taken)
 
 Every path (main_path, event_wan, event_clos, star_flap, ksp_wan,
 ksp_star, apsp_wan, lfa_clos, te_clos, te_service, tile_wan, tile_clos,
@@ -242,6 +247,17 @@ GATE_DIGEST_FIRST_DESIGN = (
     "c3d6c6985a7ed302a9ca876ac1a8b0ce39cffcc59bdd7c21103f25b59151300e")
 UTIL_DIGEST_FIRST_DESIGN = (
     "a3c331bb53c55c0e7b06eb7d849429ba6d10e533ccf57495a3f96e2c2af32350")
+# sha256 digests, on an H100 80GB HBM3 with the first designs of K18's MLU
+# (one block of 1,024 threads walking the scenarios in turn, the row read
+# twice) and its seed (a thread an element), at the same state
+# (`digest`): the MLU's (loss, lse) on the utilization of
+# UTIL_DIGEST_FIRST_DESIGN, every scenario unmasked, tau_obj 0.25, and the
+# seed's g_util for g_loss = 1 on that lse. The redesigns keep the first
+# designs' sum order and expressions, so equal digests show it
+MLU_DIGEST_FIRST_DESIGN = (
+    "cbe7fdaff3c2490fbff9f58cfebd817ea56d6d97919b3ec9789fe7c37146fcbb")
+SEED_DIGEST_FIRST_DESIGN = (
+    "0e67f3e713e4cdce0c668f0082f38b22bb1d9fd951974befc03976e453ca7dae")
 TE_BORROW_PODS = 2
 # the multi-device layouts: a graph axis of 4 over the north-star WAN and
 # the Clos (ranks sharing the one card), a batch axis of 4 over the WAN
@@ -2517,11 +2533,19 @@ def main() -> int:
     te_cmp("K17", gd_k[0], gd_p[0])
     err17["gate"] = te_cmp("K17", gd_k[1], gd_p[1])
     del gd_k, gd_p, gpp
+    # the utilization's exact zeros: the MLU's quotients of 0 (PERF.md)
+    util_zero_share = float((util_k == 0).float().mean())
     mask_t = torch.ones(te_b, dtype=torch.float32, device=dev)
     loss_k, lse_k = tk.te_mlu(util_k, mask_t, cfg.tau_obj)
     loss_p, lse_p = tk._te_mlu_plain(util_k, mask_t, cfg.tau_obj)
     one = torch.ones(1, device=dev)
     gu_k = tk.te_mlu_bwd(one, util_k, lse_k, mask_t, cfg.tau_obj)
+    mlu_digest, seed_digest = digest(loss_k, lse_k), digest(gu_k)
+    check(mlu_digest == MLU_DIGEST_FIRST_DESIGN,
+          f"the MLU's (loss, lse) differ from the first design's: "
+          f"{mlu_digest}")
+    check(seed_digest == SEED_DIGEST_FIRST_DESIGN,
+          f"the MLU's seed differs from the first design's: {seed_digest}")
     gu_p = tk._te_mlu_bwd_plain(one, util_k, lse_k, mask_t, cfg.tau_obj)
     hp = tk.adam_hparams(cfg, 3)
     g_w = torch.randn(e_t, device=dev, generator=gen)
@@ -2609,6 +2633,23 @@ def main() -> int:
         "K16_util": time_ms(lambda: tk._soft_flow_util_plain(
             p_k, xs_k, caps_t, graph), reps=3, warmup=1),
     }
+    # the device time of the MLU and its seed: 20 calls replayed in a CUDA
+    # graph (L2 warm)
+    side_graph_ms = {name_: graph_ms(side_calls[name_][1], calls=20)
+                     for name_ in ("K18_mlu", "K18_mlu_bwd")}
+    # library yardsticks of the once-a-step entries, each one PyTorch call
+    # on the same inputs, its operands made outside the timing (the port
+    # never calls them): logsumexp for the MLU's lse and softmax for the
+    # softmax its seed scales, on z = util / tau_obj; the division by the
+    # clamped capacities for K17's scale
+    z_lib = util_k / tk.f32(cfg.tau_obj)
+    caps_c = caps_t.clamp_min(1e-9)
+    side_lib_ms = {
+        "K18_mlu": time_ms(lambda: torch.logsumexp(z_lib, dim=1)),
+        "K18_mlu_bwd": time_ms(lambda: torch.softmax(z_lib, dim=1)),
+        "K17_scale": time_ms(lambda: torch.div(g_util, caps_c)),
+    }
+    del z_lib, caps_c
     # the library yardstick of the Adam step: PyTorch's fused Adam on [E]
     # (the port never calls it)
     lib_w = inp["w"].clone().requires_grad_(True)
@@ -2733,13 +2774,15 @@ def main() -> int:
         "tau_quotient_differ": div_differ,
         "k14_digest": k14_digest, "gate_bwd_digest": gate_bwd_digest,
         "gate_digest": gate_digest, "util_digest": util_digest,
+        "mlu_digest": mlu_digest, "seed_digest": seed_digest,
         "k17_rel_err": err17,
         "seconds": te_solve_s, "step_ms": te_solve_s * 1e3 / TE_STEPS,
         "launches": te_launches, "launches_per_step": per_step,
         "launches_per_call": te_per_call,
         "kernel_ms": te_ms, "plain_ms": te_plain_ms, "side_ms": side_ms,
         "side_bound_ms": {k_: b_[0] for k_, b_ in side_bound.items()},
-        "side_plain_ms": side_plain_ms,
+        "side_plain_ms": side_plain_ms, "side_library_ms": side_lib_ms,
+        "side_graph_ms": side_graph_ms,
         "side_launches_per_call": side_launches,
         "est_kernel_ms_per_step": {
             key: te_ms[key] * (per_step[k.name] - sum(
@@ -2751,6 +2794,7 @@ def main() -> int:
                            ("K17", K17), ("K18", K18))
         },
         "d_unreached_share": d_run_unreached / (n_t * n_t),
+        "util_zero_share": util_zero_share,
         "gate_nonzero_share": gate_share, "profiled_1_step": te_profile,
         "peak_memory_gib": peak_gb, "loss_first": float(losses_h[0]),
         "loss_last": float(losses_h[-1]),
@@ -2783,6 +2827,8 @@ def main() -> int:
                 name_[4:]: {"ms": side_ms[name_], "bound_ms": b_[0],
                             "bound_by": b_[1],
                             "plain_ms": side_plain_ms.get(name_),
+                            "library_ms": side_lib_ms.get(name_),
+                            "graph_ms": side_graph_ms.get(name_),
                             "launches_per_call": side_launches[name_]}
                 for name_, b_ in side_bound.items()
                 if name_.startswith(key)},

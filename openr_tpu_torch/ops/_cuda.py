@@ -337,12 +337,18 @@ TE_STEP = Kernel(
     "te_step",
     "te_step.cu",
     {
-        "te_mlu": [_P, _P, _P, _P, _I, _I, _F],
+        "te_mlu": [_P, _P, _P, _P, _P, _I, _I, _F],
         "te_mlu_bwd": [_P, _P, _P, _P, _P, _I, _I, _F],
         "te_adam": [_P, _P, _P, _P, _P, _P, _I, _F, _F, _F, _F, _F, _F, _F,
                     _F],
     },
     "openr_tpu/te/optimizer.py:87,103 _loss_core, _adam_scan_core",
+)
+MLU_DIV_CHECK = Kernel(
+    "mlu_div_check",
+    "te_step.cu",
+    {"te_mlu_div_check": [_F, _P]},
+    "none (a check of te_mlu's arithmetic)",
 )
 TILE_ROUND = Kernel(
     "tile_round",

@@ -1,5 +1,5 @@
-// What the differentiable-TE kernels share: te_softmin.cu (K14, K15) and
-// te_flow.cu (K16, K17) include this header.
+// What the differentiable-TE kernels share: te_softmin.cu (K14, K15),
+// te_flow.cu (K16, K17) and te_step.cu (K18) include this header.
 //
 // The column layout of their row and pull blocks: a block owns one node and
 // kCols columns, kQ a thread. Where a pass reduces over columns, the columns
@@ -16,7 +16,9 @@
 // exp of it against exp of __fdiv_rn over that domain. A quotient that is
 // kept as it is (the gate backward's g * score / tau) stays __fdiv_rn: a
 // guarded div_tau with __fdiv_rn below 2^-100 and past the largest float
-// had the same bits at every float but was slower.
+// had the same bits at every float but was slower. K18's MLU keeps its
+// quotients and takes div_tau where it is the correctly rounded quotient,
+// with __fdiv_rn for a whole warp elsewhere (te_step.cu).
 
 #pragma once
 

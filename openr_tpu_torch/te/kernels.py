@@ -56,6 +56,7 @@ import torch
 
 from openr_tpu_torch.convert import TeGraph
 from openr_tpu_torch.ops._cuda import (
+    MLU_DIV_CHECK,
     SOFT_FLOW,
     SOFT_FLOW_BWD,
     SOFTMIN_BWD,
@@ -603,6 +604,22 @@ def _check_util(util, mask, dev) -> Tuple[int, int]:
     return b, e
 
 
+# K18's MLU scratch per card: a ticket and, a scenario, its blocks' arrival
+# count, its row max's key and its 32 warp totals (te_step.cu). Zeroed once;
+# the kernel leaves its counters at 0 again, so calls on one card must not
+# overlap (the TE loop runs on one stream)
+_MLU_RECORD = 34
+_mlu_scratch = {}
+
+
+def _mlu_scratch_for(dev, b: int) -> torch.Tensor:
+    buf = _mlu_scratch.get(dev)
+    if buf is None or buf.numel() < 1 + _MLU_RECORD * b:
+        buf = torch.zeros(1 + _MLU_RECORD * b, dtype=torch.int32, device=dev)
+        _mlu_scratch[dev] = buf
+    return buf
+
+
 def te_mlu(util, mask, tau_obj: float):
     """The scenario-averaged soft MLU (K18): (loss [1], lse [B]), lse[b] =
     logsumexp(util[b] / tau_obj)."""
@@ -613,7 +630,8 @@ def te_mlu(util, mask, tau_obj: float):
     loss = torch.empty(1, dtype=torch.float32, device=dev)
     lse = torch.empty(b, dtype=torch.float32, device=dev)
     TE_STEP.launch(dev, util.data_ptr(), mask.data_ptr(), lse.data_ptr(),
-                   loss.data_ptr(), b, e, f32(tau_obj), entry="te_mlu")
+                   loss.data_ptr(), _mlu_scratch_for(dev, b).data_ptr(), b,
+                   e, f32(tau_obj), entry="te_mlu")
     return loss, lse
 
 
@@ -630,6 +648,21 @@ def te_mlu_bwd(g_loss, util, lse, mask, tau_obj: float) -> torch.Tensor:
                    mask.data_ptr(), g_util.data_ptr(), b, e, f32(tau_obj),
                    entry="te_mlu_bwd")
     return g_util
+
+
+def mlu_div_check(tau_obj: float, device="cuda") -> int:
+    """On the card: the count of floats a (every bit pattern) at which the
+    MLU's quotient a / tau_obj, taken from tau_obj's reciprocal where that
+    is the correctly rounded quotient, differs in its bits from the
+    correctly rounded division. 0 means te_mlu computes the bits of
+    `__fdiv_rn` for this tau_obj. There is no CPU version: it checks the
+    card's arithmetic."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError("mlu_div_check checks the card's arithmetic")
+    count = torch.zeros(1, dtype=torch.int64, device=dev)
+    MLU_DIV_CHECK.launch(dev, f32(tau_obj), count.data_ptr())
+    return int(count.item())
 
 
 def adam_hparams(cfg, i: int) -> Tuple[float, ...]:

@@ -1993,6 +1993,164 @@ def test_soft_flow_util_kernel_cases(dev, case):
     assert torch.equal(util, util2)
 
 
+MLU_CASES = {
+    # name: (scenarios, edges, rows, mask, tau_obj)
+    "e1_b1": (1, 1, "random", "all", 0.25),
+    "e31_b4": (4, 31, "mixed", "one_masked", 0.25),
+    "e1023_b7": (7, 1023, "mixed", "all", 0.1),
+    "e1024_b4": (4, 1024, "equal", "all", 0.25),
+    "e1025_b16": (16, 1025, "dominant", "one_masked", 0.25),
+    "e1025_b300": (300, 1025, "mixed", "one_masked", 0.25),
+    "e3000_b4": (4, 3000, "zero", "none", 0.25),
+    "e3000_b7": (7, 3000, "mixed", "one_masked", 0.05),
+    "e63840_b4": (4, 63840, "random", "all", 0.25),
+    "e63840_b16": (16, 63840, "mixed", "one_masked", 0.25),
+    "e100003_b1": (1, 100003, "dominant", "all", 0.25),
+    "e100003_b7": (7, 100003, "mixed", "one_masked", 0.1),
+}
+
+
+def mlu_case(b, e, rows, mask_kind, seed=0):
+    """K18's MLU inputs as numpy: util [b, e] uniform in [0, 3) ("random");
+    every row equal across its columns ("equal"), one column far above the
+    rest ("dominant"), all zero ("zero"), or the scenarios taking those
+    kinds and the random one in turn ("mixed"); the mask all ones, all
+    zeros (den 0) or one scenario masked."""
+    rng = np.random.default_rng(seed)
+    util = rng.uniform(0.0, 3.0, (b, e)).astype(np.float32)
+    kinds = ("equal", "dominant", "zero", "random")
+    for i in range(b):
+        kind = kinds[i % 4] if rows == "mixed" else rows
+        if kind == "equal":
+            util[i] = util[i, 0]
+        elif kind == "dominant":
+            util[i, rng.integers(e)] = 1000.0
+        elif kind == "zero":
+            util[i] = 0.0
+    mask = {"all": np.ones(b), "none": np.zeros(b),
+            "one_masked": (np.arange(b) != b // 2).astype(float)}[mask_kind]
+    return util, mask.astype(np.float32)
+
+
+def _tau(t, tau_obj):
+    # a tensor divisor: PyTorch on the card divides by a Python number
+    # through its reciprocal, which is not the correctly rounded quotient
+    return torch.tensor(np.float32(tau_obj), device=t.device)
+
+
+def mlu_first_design(util, mask, tau_obj):
+    """K18's MLU in its first design's order, written out: (loss [1], lse
+    [B]). Partial t of 1,024 adds exp(util / tau - max) for the columns t,
+    t + 1,024, ... in turn from 0; each warp of 32 partials folds by the
+    xor butterfly (16, 8, 4, 2, 1); the 32 warp totals are added in order
+    from warp 0; lse = log(s) + max; the masked mean folds the scenarios in
+    order. The padding columns add 0 to sums that are not negative, which
+    leaves their bits as they are."""
+    b, e = util.shape
+    k = -(-e // 1024)
+    tau = _tau(util, tau_obj)
+    q = util / tau
+    mx = q.amax(dim=1)
+    terms = torch.zeros((b, k * 1024), dtype=torch.float32,
+                        device=util.device)
+    terms[:, :e] = torch.exp(q - mx[:, None])
+    terms = terms.view(b, k, 1024)
+    acc = torch.zeros((b, 1024), dtype=torch.float32, device=util.device)
+    for i in range(k):
+        acc = acc + terms[:, i]
+    v = acc.view(b, 32, 32)
+    for half in (16, 8, 4, 2, 1):
+        v = v[..., :half] + v[..., half:2 * half]
+    total = v[:, 0, 0]
+    for w in range(1, 32):
+        total = total + v[:, w, 0]
+    lse = torch.log(total) + mx
+    num = torch.zeros((), dtype=torch.float32, device=util.device)
+    den = torch.zeros_like(num)
+    for i in range(b):
+        num = num + tau * lse[i] * mask[i]
+        den = den + mask[i]
+    return (num / den.clamp_min(1.0)).reshape(1), lse
+
+
+def mlu_seed_first_design(g_loss, util, lse, mask, tau_obj):
+    """K18's seed in its first design's expression, written out: g_mlu =
+    g_loss * mask[b] / max(the mask summed in order, 1), then g_util =
+    g_mlu * tau * exp(util / tau - lse[b]) / tau, each step rounded."""
+    tau = _tau(util, tau_obj)
+    den = torch.zeros((), dtype=torch.float32, device=util.device)
+    for i in range(mask.shape[0]):
+        den = den + mask[i]
+    g_mlu = g_loss.reshape(()) * mask / den.clamp_min(1.0)
+    soft = torch.exp(util / tau - lse[:, None])
+    return (g_mlu * tau)[:, None] * soft / tau
+
+
+@pytest.mark.parametrize("case", sorted(MLU_CASES))
+def test_te_mlu_kernel_cases(dev, case):
+    """K18's MLU and its seed against their plain versions (1e-6 and 1e-5
+    of the largest magnitude; the loss (B - 1) * 2**-24 past 17
+    scenarios) and bit for bit against the first design's
+    order and expression (`mlu_first_design`, `mlu_seed_first_design`):
+    widths 1 to 100,003 (past 65,536 a thread keeps 64 quotients and
+    divides the rest again), 1 to 300 scenarios (300 walks the grid's
+    rows), rows all equal, with a dominant column or all zero, no scenario
+    masked, one, or all (den 0), and the seed on a misaligned util. One
+    launch a call each; a second call gives the same bits."""
+    from openr_tpu_torch.te import kernels as tk
+
+    b, e, rows, mask_kind, tau_obj = MLU_CASES[case]
+    util_h, mask_h = mlu_case(b, e, rows, mask_kind)
+    util = torch.as_tensor(util_h, device=dev)
+    mask = torch.as_tensor(mask_h, device=dev)
+    before = _cuda.TE_STEP.launches
+    loss, lse = tk.te_mlu(util, mask, tau_obj)
+    assert _cuda.TE_STEP.launches - before == 1
+    g_loss = torch.full((1,), 1.5, device=dev)
+    before = _cuda.TE_STEP.launches
+    g = tk.te_mlu_bwd(g_loss, util, lse, mask, tau_obj)
+    assert _cuda.TE_STEP.launches - before == 1
+    loss2, lse2 = tk.te_mlu(util, mask, tau_obj)
+    g2 = tk.te_mlu_bwd(g_loss, util, lse, mask, tau_obj)
+    g_mis = tk.te_mlu_bwd(g_loss, misaligned(util), lse, mask, tau_obj)
+    loss_p, lse_p = tk._te_mlu_plain(util, mask, tau_obj)
+    g_p = tk._te_mlu_bwd_plain(g_loss, util, lse, mask, tau_obj)
+    loss_f, lse_f = mlu_first_design(util, mask, tau_obj)
+    g_f = mlu_seed_first_design(g_loss, util, lse, mask, tau_obj)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(lse).all()) and bool(torch.isfinite(g).all())
+    # the loss folds its B terms in order, the plain version by a tree: a
+    # float32 fold of B positive terms may be (B - 1) * 2**-24 off
+    assert rel_err(lse, lse_p) <= 1e-6
+    assert rel_err(loss, loss_p) <= max(1e-6, (b - 1) * 2.0 ** -24)
+    assert rel_err(g, g_p) <= 1e-5
+    assert torch.equal(lse, lse_f) and torch.equal(loss, loss_f)
+    assert torch.equal(g, g_f)
+    assert torch.equal(lse, lse2) and torch.equal(loss, loss2)
+    assert torch.equal(g, g2) and torch.equal(g, g_mis)
+    assert not bool(g[mask == 0].any())
+
+
+def test_mlu_quotient_bits_equal_the_correctly_rounded_division(dev):
+    """K18's MLU divides by tau_obj through its reciprocal (a product and
+    two fused corrections) where that is the correctly rounded quotient,
+    and by __fdiv_rn elsewhere: at the optimizer's tau_obj and at the
+    tests' temperatures, its quotient has __fdiv_rn's bits at every float
+    (all 2^32 bit patterns, NaNs taken as equal)."""
+    from openr_tpu_torch.te import kernels as tk
+    from openr_tpu_torch.te.optimizer import TeOptConfig
+
+    taus = sorted({tk.f32(TeOptConfig().tau_obj)}
+                  | {tk.f32(t[4]) for t in MLU_CASES.values()}
+                  | {0.3, 1.7, 7.0, 3e-3, 1e-7, 1e9})
+    before = _cuda.MLU_DIV_CHECK.launches
+    differ = {tau: tk.mlu_div_check(tau, dev) for tau in taus}
+    assert differ == {tau: 0 for tau in taus}
+    assert _cuda.MLU_DIV_CHECK.launches - before == len(taus)
+    with pytest.raises(ValueError):
+        tk.mlu_div_check(0.25, "cpu")
+
+
 def inp_rounds(name):
     return 6 if name == "clos" else 8
 

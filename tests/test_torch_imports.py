@@ -11,7 +11,11 @@ from pathlib import Path
 import pytest
 import torch
 
-from openr_tpu_torch.ops._cuda import KERNELS, SOFTMIN_DIV_CHECK
+from openr_tpu_torch.ops._cuda import (
+    KERNELS,
+    MLU_DIV_CHECK,
+    SOFTMIN_DIV_CHECK,
+)
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "openr_tpu_torch"
@@ -131,7 +135,8 @@ def _c_params(source: str, symbol: str):
     return [" ".join(p.split()[:-1]) for p in m.group(1).split(",")]
 
 
-@pytest.mark.parametrize("kernel", [*KERNELS, SOFTMIN_DIV_CHECK],
+@pytest.mark.parametrize("kernel",
+                         [*KERNELS, SOFTMIN_DIV_CHECK, MLU_DIV_CHECK],
                          ids=lambda k: k.name)
 def test_kernel_bindings_match_their_c_entry_points(kernel):
     """Each ctypes binding has one c_void_p per pointer parameter, one c_int

@@ -53,6 +53,11 @@ from openr_tpu_torch.te import optimizer as topt
 from openr_tpu_torch.te import scenarios as tsc
 from openr_tpu_torch.topology import build_adj_dbs as t_build_adj_dbs
 from test_te_objective import TOPOLOGIES
+from test_torch_cuda import (
+    mlu_case,
+    mlu_first_design,
+    mlu_seed_first_design,
+)
 from test_torch_memory import release_memory_around_each_test  # noqa: F401
 
 TAUS = (2.0, 0.5, 0.05)
@@ -425,6 +430,51 @@ def test_mlu_seed_matches_autograd():
     g2 = tk.te_mlu_bwd(torch.ones(1), util, lse, mask, 0.25)
     assert rel_err(g2.numpy(), g.numpy()) <= 1e-5
     assert g2[1].abs().max() == 0  # the masked scenario has no gradient
+
+
+@pytest.mark.parametrize("b, e, rows, mask_kind, tau_obj", [
+    (1, 1, "random", "all", 0.25),
+    (4, 1025, "mixed", "one_masked", 0.25),
+    (7, 3000, "mixed", "one_masked", 0.05),
+    (3, 2048, "random", "none", 0.1),
+], ids=["e1_b1", "e1025_b4", "e3000_b7", "e2048_b3_den0"])
+def test_mlu_first_design_matches_plain_and_jax(b, e, rows, mask_kind,
+                                                tau_obj):
+    """The card tests' yardstick for K18, the first design's order written
+    out (`mlu_first_design`, `mlu_seed_first_design`), against the plain
+    versions and the reference's expression (`_loss_core`'s logsumexp and
+    masked mean, and its jax.grad in util) on the CPU: lse and the loss
+    within 1e-6 of the largest magnitude (float32 sums in another order),
+    the seed within 1e-6 of the plain version's (the same expression, the
+    mask summed in another order) and 1e-5 of jax.grad's (exp and the
+    division of another library)."""
+    util_h, mask_h = mlu_case(b, e, rows, mask_kind)
+    util, mask = torch.as_tensor(util_h), torch.as_tensor(mask_h)
+    tau = np.float32(tau_obj)
+
+    def loss_j(u):
+        lse = jax.scipy.special.logsumexp(u / tau, axis=1)
+        return (jnp.sum(tau * lse * mask_h)
+                / jnp.maximum(jnp.sum(mask_h), 1.0), lse)
+
+    (want, lse_j), g_j = jax.value_and_grad(loss_j, has_aux=True)(
+        jnp.asarray(util_h))
+    loss_f, lse_f = mlu_first_design(util, mask, tau_obj)
+    loss_p, lse_p = tk._te_mlu_plain(util, mask, tau_obj)
+    assert rel_err(lse_f.numpy(), lse_p.numpy()) <= 1e-6
+    assert rel_err(lse_f.numpy(), np.asarray(lse_j)) <= 1e-6
+    assert float(loss_f) == pytest.approx(float(loss_p), rel=1e-6)
+    assert float(loss_f) == pytest.approx(float(want), rel=1e-6)
+    g_loss = torch.full((1,), 1.5)
+    g_f = mlu_seed_first_design(g_loss, util, lse_f, mask, tau_obj)
+    g_p = tk._te_mlu_bwd_plain(g_loss, util, lse_f, mask, tau_obj)
+    g_want = 1.5 * np.asarray(g_j)
+    assert g_f.shape == (b, e)
+    if mask_kind == "none":
+        assert not bool(g_f.any()) and not g_want.any()
+    else:
+        assert rel_err(g_f.numpy(), g_p.numpy()) <= 1e-6
+        assert rel_err(g_f.numpy(), g_want) <= 1e-5
 
 
 # -- the optimizer -------------------------------------------------------------
