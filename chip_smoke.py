@@ -98,13 +98,17 @@ Phases, one JSON line each:
                (K17's adjoint round timed alone, one launch with the
                scale given; each entry run once a step apart, with its
                bound, the gate and the utilization beside their plain
-               versions, the MLU and its seed also replayed in a CUDA
-               graph (device time), the MLU beside torch.logsumexp, its
-               seed beside torch.softmax and K17's scale beside
-               torch.div); K14's (D', keep), the gate's p, the
-               utilization, the gate backward's outputs, the MLU's (loss,
-               lse) and its seed's g_util against the sha256 digests of
-               the first designs; the
+               versions, the MLU, its seed, K17's scale (also on a seed
+               with a masked scenario's row of zeros) and the Adam step
+               also replayed in a CUDA graph (device time) and timed on
+               the host clock alone (host time), the MLU beside
+               torch.logsumexp, its seed beside torch.softmax, K17's
+               scale beside torch.div and the Adam step beside fused
+               Adam, both also in a CUDA graph); K14's (D', keep), the
+               gate's p, the utilization, the gate backward's outputs,
+               the MLU's (loss, lse), its seed's g_util, K17's scale and
+               the Adam step's (w, m, v, row) against the sha256 digests
+               of the first designs; the
                quotient by tau against the correctly rounded division at
                the run's temperatures; then, counted, adam_solve
                for 8 steps (per-step ms, launches per step, peak memory,
@@ -258,6 +262,17 @@ MLU_DIGEST_FIRST_DESIGN = (
     "cbe7fdaff3c2490fbff9f58cfebd817ea56d6d97919b3ec9789fe7c37146fcbb")
 SEED_DIGEST_FIRST_DESIGN = (
     "0e67f3e713e4cdce0c668f0082f38b22bb1d9fd951974befc03976e453ca7dae")
+# sha256 digests, on an H100 80GB HBM3 with the first designs of K17's
+# scale (a thread an element, caps[i % E] read again for every scenario)
+# and of K18's Adam step (a thread an edge, scalar loads), at the same
+# state (`digest`): the scale's c on the seeded g_util of the adjoint
+# rounds and on the MLU's seed with scenario 1's row zeroed (a masked
+# scenario), and the Adam step's (w, m, v, row) after step 3's update
+# with a seeded gradient. Any later design of either must keep these bits
+SCALE_DIGEST_FIRST_DESIGN = (
+    "0a77621a9cf3b2e9e7c3830f73e1a2e586822db0c4520dd79dd4dde4975225e4")
+ADAM_DIGEST_FIRST_DESIGN = (
+    "b7a7e813bb0a28f2ccbfaa6e828534dd3604225303152817754c883c09d50dd4")
 TE_BORROW_PODS = 2
 # the multi-device layouts: a graph axis of 4 over the north-star WAN and
 # the Clos (ranks sharing the one card), a batch axis of 4 over the WAN
@@ -304,7 +319,8 @@ TIMED_UNIT = {
                          "pull, edges",
     "soft_flow": "one flow round (te_clos)",
     "soft_flow_bwd": "one adjoint round, the scale given (te_clos)",
-    "te_step": "one Adam step (te_clos's [E])",
+    "te_step": "one Adam step (te_clos's [E]), as adam_solve runs it: "
+               "its constants packed once a solve",
     "tile_round": "one tile round of one rank (WAN on (1, 4)): the tile's "
                   "node-major copy, the slots",
     "tile_fold": "one halo fold of one rank (WAN on (1, 4))",
@@ -376,6 +392,26 @@ def graph_ms(fn, calls: int):
     except RuntimeError as exc:
         torch.cuda.synchronize()
         return {"not_measured": f"CUDA graph capture failed: {exc}"}
+
+
+def host_ms(fn, calls: int = 50, reps: int = 7) -> float:
+    """The host time of one call of `fn`: `calls` calls enqueued back to
+    back on the host clock, the card synchronised before each batch and
+    after it outside the clock, the median over `reps` batches. A call's
+    span as timed (`time_ms`) less its device time (`graph_ms`) should come
+    near it where the card waits on the host."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter_ns() - t0) / calls / 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(times)
 
 
 def launches_a_call(kernel, fn, setup=None) -> int:
@@ -2547,7 +2583,23 @@ def main() -> int:
     check(seed_digest == SEED_DIGEST_FIRST_DESIGN,
           f"the MLU's seed differs from the first design's: {seed_digest}")
     gu_p = tk._te_mlu_bwd_plain(one, util_k, lse_k, mask_t, cfg.tau_obj)
-    hp = tk.adam_hparams(cfg, 3)
+    # K17's scale on the adjoint rounds' seeded g_util and on the MLU's
+    # seed with scenario 1's row zeroed, as a masked scenario's is; its
+    # quotients are correctly rounded divisions, so it equals true
+    # division by the clamped capacities bit for bit
+    gu_zero = gu_k.clone()
+    gu_zero[1] = 0.0
+    c_k = tk.soft_flow_bwd_scale(g_util, caps_t)
+    c_zero = tk.soft_flow_bwd_scale(gu_zero, caps_t)
+    scale_digest = digest(c_k, c_zero)
+    check(scale_digest == SCALE_DIGEST_FIRST_DESIGN,
+          f"K17's scale differs from the first design's: {scale_digest}")
+    for g_, c_ in ((g_util, c_k), (gu_zero, c_zero)):
+        c_p = tk._soft_flow_bwd_scale_plain(g_, caps_t)
+        te_cmp("K17", c_, c_p)
+        check(torch.equal(c_, c_p), "K17's scale differs from g_util / "
+              "caps.clamp_min(1e-9)")
+    del c_zero, c_p, g_, c_
     g_w = torch.randn(e_t, device=dev, generator=gen)
 
     def adam_state():
@@ -2555,7 +2607,17 @@ def main() -> int:
                 torch.full_like(inp["w"], 1e-4), torch.empty_like(inp["w"])]
 
     ad_k, ad_p = adam_state(), adam_state()
+    # step 3's constants, as adam_solve makes them: once a solve, packed
+    # for the kernel (adam_schedule); a tree without it (the parent of the
+    # change that added it, run under this script to compare) passes
+    # adam_hparams' tuple, the only form its te_adam takes
+    hp = (tk.adam_schedule(cfg, 4)[3] if hasattr(tk, "adam_schedule")
+          else tk.adam_hparams(cfg, 3))
     tk.te_adam(*ad_k[:3], g_w, up_t, ad_k[3], hp)
+    adam_digest = digest(*ad_k)
+    check(adam_digest == ADAM_DIGEST_FIRST_DESIGN,
+          f"the Adam step's (w, m, v, row) differ from the first "
+          f"design's: {adam_digest}")
     tk._te_adam_plain(*ad_p[:3], g_w, up_t, ad_p[3], hp)
     for a, b in ((loss_k, loss_p), (lse_k, lse_p), (gu_k, gu_p),
                  *zip(ad_k, ad_p)):
@@ -2566,9 +2628,8 @@ def main() -> int:
 
     # times at this size: the kernels, their plain versions, their bounds
     te_ms, te_plain_ms, te_bound, te_lib = {}, {}, {}, {}
-    # K17's timed unit: one adjoint round with the scale given, as
+    # K17's timed unit: one adjoint round with the scale given (c_k), as
     # SoftFlow's backward runs it; the scale, once a backward, apart
-    c_k = tk.soft_flow_bwd_scale(g_util, caps_t)
     te_calls = {  # each kernel's timed call and its launches in that call
         "K14": (K14, lambda: tk.softmin_round(d_run, we, graph, tau), 1),
         "K15": (K15, lambda: tk.softmin_round_bwd(g_new, d_run, keep, we,
@@ -2633,10 +2694,24 @@ def main() -> int:
         "K16_util": time_ms(lambda: tk._soft_flow_util_plain(
             p_k, xs_k, caps_t, graph), reps=3, warmup=1),
     }
-    # the device time of the MLU and its seed: 20 calls replayed in a CUDA
-    # graph (L2 warm)
+    # the device time of the MLU, its seed, K17's scale and the Adam step:
+    # 20 calls replayed in a CUDA graph (L2 warm); their host time on the
+    # host clock alone
     side_graph_ms = {name_: graph_ms(side_calls[name_][1], calls=20)
-                     for name_ in ("K18_mlu", "K18_mlu_bwd")}
+                     for name_ in ("K18_mlu", "K18_mlu_bwd", "K17_scale")}
+    side_host_ms = {name_: host_ms(side_calls[name_][1])
+                    for name_ in ("K18_mlu", "K18_mlu_bwd", "K17_scale")}
+    te_graph_ms = {"K18": graph_ms(te_calls["K18"][1], calls=20)}
+    te_host_ms = {"K18": host_ms(te_calls["K18"][1])}
+    # the scale on the seed with a masked scenario's row of zeros: the
+    # correctly rounded division's slow path takes a zero numerator
+    scale_zero = {
+        "ms": time_ms(lambda: tk.soft_flow_bwd_scale(gu_zero, caps_t)),
+        "graph_ms": graph_ms(
+            lambda: tk.soft_flow_bwd_scale(gu_zero, caps_t), calls=20),
+        "host_ms": host_ms(lambda: tk.soft_flow_bwd_scale(gu_zero,
+                                                          caps_t)),
+    }
     # library yardsticks of the once-a-step entries, each one PyTorch call
     # on the same inputs, its operands made outside the timing (the port
     # never calls them): logsumexp for the MLU's lse and softmax for the
@@ -2649,6 +2724,10 @@ def main() -> int:
         "K18_mlu_bwd": time_ms(lambda: torch.softmax(z_lib, dim=1)),
         "K17_scale": time_ms(lambda: torch.div(g_util, caps_c)),
     }
+    side_lib_graph_ms = {
+        "K17_scale": graph_ms(lambda: torch.div(g_util, caps_c), calls=20)}
+    side_lib_host_ms = {
+        "K17_scale": host_ms(lambda: torch.div(g_util, caps_c))}
     del z_lib, caps_c
     # the library yardstick of the Adam step: PyTorch's fused Adam on [E]
     # (the port never calls it)
@@ -2658,6 +2737,15 @@ def main() -> int:
                                                          cfg.beta2),
                                eps=cfg.eps, fused=True)
     te_lib["K18"] = time_ms(lib_opt.step)
+    te_lib_host_ms = {"K18": host_ms(lib_opt.step)}
+    del lib_opt
+    # its device time: a CUDA graph needs the capturable form, its state
+    # made by one step before the capture
+    lib_opt = torch.optim.Adam([lib_w], lr=cfg.lr, betas=(cfg.beta1,
+                                                         cfg.beta2),
+                               eps=cfg.eps, fused=True, capturable=True)
+    lib_opt.step()
+    te_lib_graph_ms = {"K18": graph_ms(lib_opt.step, calls=20)}
     del lib_opt, lib_w
     # bounds: each input read once, each output written once; exp and log
     # at the special-function rate. K14: D, we and the edge layout in, D'
@@ -2698,7 +2786,7 @@ def main() -> int:
     }
     gate_share = float((p_k > 0).float().mean())
     del (d_run, new_k, keep, g_new, p_k, x0, xs_k, x1_k, util_k, g_util,
-         gpk, lam_k, ad_k, ad_p, c_k)
+         gpk, lam_k, ad_k, ad_p, c_k, gu_zero, hp)
     torch.cuda.empty_cache()
     te_checks_s = time.perf_counter() - t0
 
@@ -2775,6 +2863,7 @@ def main() -> int:
         "k14_digest": k14_digest, "gate_bwd_digest": gate_bwd_digest,
         "gate_digest": gate_digest, "util_digest": util_digest,
         "mlu_digest": mlu_digest, "seed_digest": seed_digest,
+        "scale_digest": scale_digest, "adam_digest": adam_digest,
         "k17_rel_err": err17,
         "seconds": te_solve_s, "step_ms": te_solve_s * 1e3 / TE_STEPS,
         "launches": te_launches, "launches_per_step": per_step,
@@ -2782,7 +2871,13 @@ def main() -> int:
         "kernel_ms": te_ms, "plain_ms": te_plain_ms, "side_ms": side_ms,
         "side_bound_ms": {k_: b_[0] for k_, b_ in side_bound.items()},
         "side_plain_ms": side_plain_ms, "side_library_ms": side_lib_ms,
-        "side_graph_ms": side_graph_ms,
+        "side_graph_ms": side_graph_ms, "side_host_ms": side_host_ms,
+        "side_library_graph_ms": side_lib_graph_ms,
+        "side_library_host_ms": side_lib_host_ms,
+        "scale_zero_row": scale_zero, "graph_ms": te_graph_ms,
+        "host_ms": te_host_ms, "library_ms": te_lib,
+        "library_graph_ms": te_lib_graph_ms,
+        "library_host_ms": te_lib_host_ms,
         "side_launches_per_call": side_launches,
         "est_kernel_ms_per_step": {
             key: te_ms[key] * (per_step[k.name] - sum(
@@ -2821,6 +2916,8 @@ def main() -> int:
             "ms": te_ms[key],
             "plain_ms": te_plain_ms[key], "bound_ms": te_bound[key][0],
             "bound_by": te_bound[key][1], "library_ms": te_lib.get(key),
+            "graph_ms": te_graph_ms.get(key), "host_ms": te_host_ms.get(key),
+            "library_graph_ms": te_lib_graph_ms.get(key),
             "launches_per_call": te_per_call[key],
             # the entries run once a step: time, bound, launches a call
             "side": {
@@ -2829,6 +2926,9 @@ def main() -> int:
                             "plain_ms": side_plain_ms.get(name_),
                             "library_ms": side_lib_ms.get(name_),
                             "graph_ms": side_graph_ms.get(name_),
+                            "host_ms": side_host_ms.get(name_),
+                            "library_graph_ms":
+                                side_lib_graph_ms.get(name_),
                             "launches_per_call": side_launches[name_]}
                 for name_, b_ in side_bound.items()
                 if name_.startswith(key)},

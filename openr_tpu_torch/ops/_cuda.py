@@ -13,7 +13,8 @@ library, which is built once, and count their launches apart. A source may
 include a local header (`#include "fw_minplus.cuh"`); the library's name
 hashes the header too, so editing it rebuilds every source that uses it. Every
 pointer and the stream are passed as `ctypes.c_void_p`, every int as
-`ctypes.c_int` and every float as `ctypes.c_float`; each entry point
+`ctypes.c_int`, every float as `ctypes.c_float` and te_adam's constants as
+one `AdamConsts` by value; each entry point
 returns `cudaGetLastError()` and a non-zero code raises. A launch names
 the card that holds its tensors and goes on that card's current stream,
 with that card current: the ranks of a mesh may lie on several cards, and
@@ -42,6 +43,15 @@ _ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+
+
+class AdamConsts(ctypes.Structure):
+    """te_adam's constants, one argument by value (te_step.cu's struct):
+    step i's lr, beta1, beta2, eps, the bias corrections 1 - beta1 ** (i +
+    1) and 1 - beta2 ** (i + 1), w_min and w_max, in float32."""
+
+    _fields_ = [(name, ctypes.c_float) for name in (
+        "lr", "b1", "b2", "eps", "bc1", "bc2", "w_min", "w_max")]
 
 
 class Kernel:
@@ -106,9 +116,11 @@ class Kernel:
         sym = entry or next(iter(self.entries))
         # the small kernels are host-bound, so the launch reads the raw
         # stream (torch.cuda.current_stream() and the device context cost
-        # more host time than the kernels) and switches the card only when
-        # another one is current
-        prev = torch.cuda.current_device()
+        # more host time than the kernels) and the current card without
+        # torch.cuda.current_device()'s initialisation check (its tensors
+        # lie on a card, so CUDA is initialised), and switches the card
+        # only when another one is current
+        prev = torch._C._cuda_getDevice()
         idx = prev if device.index is None else device.index
         if prev != idx:
             torch.cuda.set_device(idx)
@@ -339,8 +351,7 @@ TE_STEP = Kernel(
     {
         "te_mlu": [_P, _P, _P, _P, _P, _I, _I, _F],
         "te_mlu_bwd": [_P, _P, _P, _P, _P, _I, _I, _F],
-        "te_adam": [_P, _P, _P, _P, _P, _P, _I, _F, _F, _F, _F, _F, _F, _F,
-                    _F],
+        "te_adam": [_P, _P, _P, _P, _P, _P, _I, AdamConsts],
     },
     "openr_tpu/te/optimizer.py:87,103 _loss_core, _adam_scan_core",
 )

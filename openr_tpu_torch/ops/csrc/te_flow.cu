@@ -143,6 +143,14 @@
 // the same round-to-nearest intrinsics, so a round equals the one-thread-
 // per-column round bit for bit.
 //
+// The scale is one pass over about 2 MB at te_clos's width (B = 4, 63,840
+// edges), under a launch's latency; its body is the first design's (a
+// thread an element), since a thread 4 edges walking the B scenarios with
+// 16-byte loads, caps clamped once, measured slower on the card (16
+// divisions in a row a thread) and a thread an element without the modulo
+// no faster (PERF.md). Its span is its wrapper's host time: an output's
+// allocation and a ctypes launch.
+//
 // The flow round as first designed (one thread per (v, t), each thread
 // chasing in_perm -> e -> src_e, 4-byte loads) took 1.54-1.57 ms at 3,956
 // nodes, 63,840 edges and B = 4 on an H100, against a 0.601 ms bound.

@@ -19,7 +19,8 @@
 //               w_min, w_max); the trajectory row gets w. The bias
 //               corrections bc1 = 1 - b1^(i + 1), bc2 = 1 - b2^(i + 1) come
 //               from the host in float32, as the reference's traced step
-//               computes them.
+//               computes them, with the other constants in one struct
+//               passed by value (AdamConsts).
 //   te_mlu_div_check  not a kernel of the path: counts the floats at which
 //               te_mlu's quotient by tau differs from __fdiv_rn's
 //
@@ -78,10 +79,26 @@
 //               while the others load; 4 elements a thread, as one 16-byte
 //               load and store where util and g_util are 16-byte aligned
 //               and E % 4 == 0, else 4 scalars 256 apart.
+//   te_adam     a thread an edge, its body as first designed: on the
+//               card its time is a launch's latency at te_clos's 63,840
+//               edges (PERF.md), and 4 edges a thread with 16-byte
+//               loads and stores (four chains of three divisions and a
+//               root in a row on a quarter of the threads) measured slower.
+//               Its span was host time, so the redesign is the host side:
+//               the constants come as one struct by value (16 ctypes
+//               arguments became 9), made once a solve (te/kernels.py
+//               adam_schedule).
 
 #include <limits.h>
 
 #include "te_common.cuh"
+
+// te_adam's constants, passed by value as one argument: step i's (lr,
+// beta1, beta2, eps, 1 - beta1^(i + 1), 1 - beta2^(i + 1), w_min, w_max)
+// in float32, ops/_cuda.py's AdamConsts
+struct AdamConsts {
+  float lr, b1, b2, eps, bc1, bc2, w_min, w_max;
+};
 
 namespace {
 
@@ -304,19 +321,19 @@ __global__ void __launch_bounds__(kThreads) te_mlu_bwd_kernel(
 __global__ void __launch_bounds__(kThreads) te_adam_kernel(
     float* __restrict__ w, float* __restrict__ m, float* __restrict__ v,
     const float* __restrict__ g, const bool* __restrict__ up,
-    float* __restrict__ w_row, int e, float lr, float b1, float b2, float eps,
-    float bc1, float bc2, float w_min, float w_max) {
+    float* __restrict__ w_row, int e, AdamConsts k) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= e) return;
   const float gi = up[i] ? g[i] : 0.f;
-  const float mi = __fadd_rn(__fmul_rn(b1, m[i]), __fmul_rn(1.f - b1, gi));
-  const float vi = __fadd_rn(__fmul_rn(b2, v[i]),
-                             __fmul_rn(__fmul_rn(1.f - b2, gi), gi));
-  const float mh = __fdiv_rn(mi, bc1);
-  const float vh = __fdiv_rn(vi, bc2);
+  const float mi =
+      __fadd_rn(__fmul_rn(k.b1, m[i]), __fmul_rn(1.f - k.b1, gi));
+  const float vi = __fadd_rn(__fmul_rn(k.b2, v[i]),
+                             __fmul_rn(__fmul_rn(1.f - k.b2, gi), gi));
+  const float mh = __fdiv_rn(mi, k.bc1);
+  const float vh = __fdiv_rn(vi, k.bc2);
   const float step =
-      __fdiv_rn(__fmul_rn(lr, mh), __fadd_rn(__fsqrt_rn(vh), eps));
-  const float wi = fminf(fmaxf(__fsub_rn(w[i], step), w_min), w_max);
+      __fdiv_rn(__fmul_rn(k.lr, mh), __fadd_rn(__fsqrt_rn(vh), k.eps));
+  const float wi = fminf(fmaxf(__fsub_rn(w[i], step), k.w_min), k.w_max);
   m[i] = mi;
   v[i] = vi;
   w[i] = wi;
@@ -407,13 +424,12 @@ extern "C" int te_mlu_div_check(float tau, void* count, void* stream) {
 }
 
 extern "C" int te_adam(void* w, void* m, void* v, const void* g,
-                       const void* up, void* w_row, int e, float lr, float b1,
-                       float b2, float eps, float bc1, float bc2, float w_min,
-                       float w_max, void* stream) {
+                       const void* up, void* w_row, int e, AdamConsts k,
+                       void* stream) {
   if (e == 0) return 0;
   te_adam_kernel<<<(e + kThreads - 1) / kThreads, kThreads, 0,
                    (cudaStream_t)stream>>>(
       (float*)w, (float*)m, (float*)v, (const float*)g, (const bool*)up,
-      (float*)w_row, e, lr, b1, b2, eps, bc1, bc2, w_min, w_max);
+      (float*)w_row, e, k);
   return (int)cudaGetLastError();
 }

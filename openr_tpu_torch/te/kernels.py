@@ -63,6 +63,7 @@ from openr_tpu_torch.ops._cuda import (
     SOFTMIN_DIV_CHECK,
     SOFTMIN_ROUND,
     TE_STEP,
+    AdamConsts,
 )
 from openr_tpu_torch.ops.spf import _check
 
@@ -676,9 +677,26 @@ def adam_hparams(cfg, i: int) -> Tuple[float, ...]:
             f32(cfg.w_max))
 
 
+class AdamStep(tuple):
+    """A step's Adam constants, the tuple `adam_hparams` gives, with their
+    packed form for the kernel (`packed`, one `AdamConsts`)."""
+
+    def __new__(cls, hp):
+        step = super().__new__(cls, hp)
+        step.packed = AdamConsts(*hp)
+        return step
+
+
+def adam_schedule(cfg, steps: int) -> List[AdamStep]:
+    """The constants of steps 0 .. steps - 1, `adam_hparams(cfg, i)` each,
+    made once a solve."""
+    return [AdamStep(adam_hparams(cfg, i)) for i in range(steps)]
+
+
 def te_adam(w, m, v, g, up, w_row, hp: Tuple[float, ...]) -> None:
     """One Adam step (K18), in place on w, m, v [E]; w_row [E] (a row of
-    the weight trajectory) receives the new w. hp from `adam_hparams`."""
+    the weight trajectory) receives the new w. hp from `adam_hparams`, or
+    an `AdamStep` of `adam_schedule` (its constants already packed)."""
     dev = w.device
     e = w.shape[0] if w.dim() == 1 else -1
     for name, t in (("w", w), ("m", m), ("v", v), ("g", g), ("w_row", w_row)):
@@ -687,8 +705,9 @@ def te_adam(w, m, v, g, up, w_row, hp: Tuple[float, ...]) -> None:
     if dev.type != "cuda":
         _te_adam_plain(w, m, v, g, up, w_row, hp)
         return
+    packed = hp.packed if isinstance(hp, AdamStep) else AdamConsts(*hp)
     TE_STEP.launch(dev, w.data_ptr(), m.data_ptr(), v.data_ptr(), g.data_ptr(),
-                   up.data_ptr(), w_row.data_ptr(), e, *hp, entry="te_adam")
+                   up.data_ptr(), w_row.data_ptr(), e, packed, entry="te_adam")
 
 
 # -- autograd ----------------------------------------------------------------

@@ -130,6 +130,9 @@ def adam_solve(
                          device=w.device)
     losses = torch.empty(steps, dtype=torch.float32, device=w.device)
     loss_fn = _loss_plain if plain else _loss
+    # each step's constants and trajectory row made once a solve
+    rows = w_hist.unbind(0)
+    sched = tk.adam_schedule(cfg, steps)
     for i in range(steps):
         tau = anneal_tau(cfg, i, steps)
         wv = w.detach().requires_grad_(True)
@@ -137,11 +140,10 @@ def adam_solve(
                        cfg.tau_obj, rounds)
         (g,) = torch.autograd.grad(loss, wv)
         losses[i : i + 1].copy_(loss.detach())
-        hp = tk.adam_hparams(cfg, i)
         if plain:
-            tk._te_adam_plain(w, m, v, g, up, w_hist[i], hp)
+            tk._te_adam_plain(w, m, v, g, up, rows[i], sched[i])
         else:
-            tk.te_adam(w, m, v, g.contiguous(), up, w_hist[i], hp)
+            tk.te_adam(w, m, v, g.contiguous(), up, rows[i], sched[i])
         del loss, g, wv
     return w, w_hist, losses
 

@@ -2186,6 +2186,183 @@ def test_te_step_kernels_equal_plain(dev):
         assert rel_err(a, b) <= 1e-6
 
 
+def bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+# K17's scale: (edges, scenarios, which operand is `misaligned`); E % 4 in
+# {0, 1, 2, 3} at B 1, 4 and 5, te_clos's width, misaligned g_util or caps
+SCALE_CASES = {
+    **{f"e{e}_b{b}": (e, b, None) for e in (4096, 4097, 4098, 4099)
+       for b in (1, 4, 5)},
+    "te_clos": (63840, 4, None),
+    "misaligned_g_util": (4096, 4, "g_util"),
+    "misaligned_caps": (4096, 5, "caps"),
+    "misaligned_odd": (4099, 4, "g_util"),
+}
+
+
+def scale_inputs(dev, e, b, seed=0):
+    """g_util [b, e] with scenario 1's row all zeros (a masked scenario;
+    with one scenario, its first half), negative zeros, subnormals and
+    large values; caps [e] with zeros, negative and subnormal values,
+    values below and at 1e-9, and infinity."""
+    rng = np.random.default_rng(seed)
+    g = rng.standard_normal((b, e)).astype(np.float32)
+    g[min(1, b - 1), : e if b > 1 else e // 2] = 0.0
+    g[:, 3::7] = -0.0
+    g[:, 5::11] = (rng.standard_normal((b, len(range(5, e, 11))))
+                   * 1e-39).astype(np.float32)
+    g[:, 2::13] *= np.float32(3e8)
+    caps = rng.uniform(0.5, 2.0, e).astype(np.float32)
+    for k, val in enumerate((0.0, -1.0, 1e-12, 5e-10, 1e-9, 1e-40, 1e-9 * 1.5,
+                             np.inf)):
+        caps[k::17 + k] = val
+    return (torch.as_tensor(g, device=dev), torch.as_tensor(caps, device=dev))
+
+
+@pytest.mark.parametrize("case", sorted(SCALE_CASES))
+def test_soft_flow_bwd_scale_kernel_cases(dev, case):
+    """K17's scale equals true division by the clamped capacities bit for
+    bit, g_util / caps.clamp_min(1e-9) (its first design's quotients,
+    `__fdiv_rn`), at E % 4 in {0, 1, 2, 3}, a misaligned operand, 1 to 5
+    scenarios, with a masked scenario's row of zeros, signed zeros,
+    subnormals, and capacities at 0, below 1e-9, subnormal and infinite.
+    One launch a call; a second call gives the same bits."""
+    from openr_tpu_torch.te import kernels as tk
+
+    e, b, mis = SCALE_CASES[case]
+    g_util, caps = scale_inputs(dev, e, b)
+    want = g_util / caps.clamp_min(1e-9)
+    if mis == "g_util":
+        g_util = misaligned(g_util)
+    elif mis == "caps":
+        caps = misaligned(caps)
+    before = _cuda.SOFT_FLOW_BWD.launches
+    c = tk.soft_flow_bwd_scale(g_util, caps)
+    assert _cuda.SOFT_FLOW_BWD.launches - before == 1
+    c2 = tk.soft_flow_bwd_scale(g_util, caps)
+    torch.cuda.synchronize()
+    assert c.shape == (b, e) and c.dtype == torch.float32
+    assert torch.equal(bits(c), bits(want))
+    assert torch.equal(bits(c2), bits(c))
+    assert torch.equal(bits(c), bits(tk._soft_flow_bwd_scale_plain(
+        g_util, caps)))
+
+
+def adam_first_design(w, m, v, g, up, hp):
+    """K18's Adam step in its first design's chain, written out in torch:
+    (w, m, v) after the step. Every constant is a float32 tensor on the
+    card, so each division is a true division (PyTorch divides by a Python
+    number through its reciprocal), and each operation is rounded on its
+    own, in the kernel's order."""
+    lr, b1, b2, eps, bc1, bc2, w_min, w_max = (
+        torch.tensor(np.float32(x), device=w.device) for x in hp)
+    one = torch.tensor(np.float32(1.0), device=w.device)
+    gi = torch.where(up, g, torch.zeros((), device=w.device))
+    mi = b1 * m + (one - b1) * gi
+    vi = b2 * v + ((one - b2) * gi) * gi
+    mh = mi / bc1
+    vh = vi / bc2
+    step = (lr * mh) / (torch.sqrt(vh) + eps)
+    wi = torch.minimum(torch.maximum(w - step, w_min), w_max)
+    return wi, mi, vi
+
+
+# K18's Adam step: (edges, steps, which state is `misaligned`); E % 4 in
+# {0, 1, 2, 3} (with odd E most rows of the [steps, E] trajectory are not
+# 16-byte aligned), te_clos's width, misaligned w, g or up, three edges
+ADAM_CASES = {
+    **{f"e{e}": (e, 6, None) for e in (4096, 4097, 4098, 4099)},
+    "te_clos": (63840, 3, None),
+    "misaligned_w": (4096, 3, "w"),
+    "misaligned_g": (4096, 3, "g"),
+    "misaligned_up": (4096, 3, "up"),
+    "small": (3, 4, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ADAM_CASES))
+def test_te_adam_kernel_cases(dev, case):
+    """K18's Adam step bit for bit against its first design's chain
+    (`adam_first_design`) over several steps of one run, each step's row
+    of a [steps, E] trajectory receiving the new weights, its constants an
+    `adam_schedule` step (packed once) or `adam_hparams`' tuple in turn:
+    E % 4 in {0, 1, 2, 3}, misaligned operands, down links
+    (their gradient zeroed), and weights clamped at w_min and w_max. One
+    launch a call."""
+    from openr_tpu_torch.te import kernels as tk
+    from openr_tpu_torch.te.optimizer import TeOptConfig
+
+    e, steps, mis = ADAM_CASES[case]
+    cfg = TeOptConfig()
+    rng = np.random.default_rng(e + steps)
+    w0 = rng.uniform(1.0, 64.0, e).astype(np.float32)
+    w0[0::9] = 1.0
+    w0[1::9] = 64.0
+    w0[2::9] = 1.2
+    up_h = rng.random(e) > 0.15
+    w = torch.as_tensor(w0, device=dev)
+    m, v = torch.zeros_like(w), torch.zeros_like(w)
+    up = torch.as_tensor(up_h, device=dev)
+    if mis == "w":
+        w = misaligned(w)
+    elif mis == "up":
+        up = misaligned(up)
+    w_hist = torch.full((steps, e), np.nan, device=dev)
+    rows = w_hist.unbind(0)
+    sched = tk.adam_schedule(cfg, steps)
+    want = (w.clone(), m.clone(), v.clone())
+    for i in range(steps):
+        g_h = rng.standard_normal(e).astype(np.float32) * np.float32(3.0)
+        # pushes the clamped weights out of the box: down at w_min, up at
+        # w_max
+        g_h[0::9] = np.abs(g_h[0::9]) + 1
+        g_h[1::9] = -np.abs(g_h[1::9]) - 1
+        g_h[2::9] = 50.0
+        g = torch.as_tensor(g_h, device=dev)
+        if mis == "g":
+            g = misaligned(g)
+        # odd steps as adam_solve runs them (the step's constants packed
+        # once, its row a view made once), even ones with adam_hparams'
+        # tuple
+        hp = sched[i] if i % 2 else tk.adam_hparams(cfg, i)
+        want = adam_first_design(*want, g, up, hp)
+        before = _cuda.TE_STEP.launches
+        tk.te_adam(w, m, v, g, up, rows[i] if i % 2 else w_hist[i], hp)
+        assert _cuda.TE_STEP.launches - before == 1
+        torch.cuda.synchronize()
+        for got, exp in zip((w, m, v, w_hist[i]), (*want, want[0])):
+            assert torch.equal(bits(got), bits(exp)), i
+    assert bool((w_hist >= 1).all() and (w_hist <= 64).all())
+    assert bool((w[0::9] == 1.0).all() and (w[1::9] == 64.0).all())
+    # down links never move: their m and v stay 0, so their step is 0
+    down = ~torch.as_tensor(up_h, device=dev)
+    assert torch.equal(w_hist[:, down], torch.as_tensor(
+        w0, device=dev)[down].expand(steps, -1))
+
+
+def test_launch_reads_the_current_card_and_stream_as_torch_does(dev):
+    """`Kernel.launch` reads the current card and its stream with torch's
+    private `torch._C._cuda_getDevice` and `_cuda_getCurrentRawStream`
+    (cheaper than the public calls): both must exist and agree with
+    `torch.cuda.current_device()` and `current_stream().cuda_stream` on
+    every visible card, also on a side stream."""
+    prev = torch.cuda.current_device()
+    try:
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.set_device(i)
+            assert torch._C._cuda_getDevice() == torch.cuda.current_device()
+            assert torch._C._cuda_getDevice() == i
+            side = torch.cuda.Stream(device=i)
+            for stream in (torch.cuda.default_stream(i), side):
+                with torch.cuda.stream(stream):
+                    assert torch._C._cuda_getCurrentRawStream(i) == (
+                        torch.cuda.current_stream(i).cuda_stream)
+    finally:
+        torch.cuda.set_device(prev)
+
+
 @pytest.mark.parametrize("name", ["clos", "grid"])
 def test_te_autograd_on_card_equals_cpu(dev, name):
     """SoftminRound and SoftFlow under autograd (K14-K17 and their launch

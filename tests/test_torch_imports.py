@@ -140,13 +140,23 @@ def _c_params(source: str, symbol: str):
                          ids=lambda k: k.name)
 def test_kernel_bindings_match_their_c_entry_points(kernel):
     """Each ctypes binding has one c_void_p per pointer parameter, one c_int
-    per int and one c_float per float parameter of its C entry point, the
-    stream last: nvcc is absent here, so this is the check that runs before
-    the card does."""
+    per int and one c_float per float parameter of its C entry point, and
+    te_adam's `AdamConsts` for the struct of that name passed by value,
+    whose float fields it lists in the C struct's order; the stream last:
+    nvcc is absent here, so this is the check that runs before the card
+    does."""
     import ctypes
 
-    scalar = {"int": ctypes.c_int, "float": ctypes.c_float}
+    from openr_tpu_torch.ops._cuda import AdamConsts
+
+    scalar = {"int": ctypes.c_int, "float": ctypes.c_float,
+              "AdamConsts": AdamConsts}
     source = kernel.source.read_text()
+    struct = re.search(r"struct AdamConsts \{\s*float ([^;]*);\s*\};",
+                       source)
+    if struct:
+        fields = [f.strip() for f in struct.group(1).split(",")]
+        assert [(f, ctypes.c_float) for f in fields] == AdamConsts._fields_
     assert kernel.entries
     for symbol, argtypes in kernel.entries.items():
         params = _c_params(source, symbol)

@@ -703,6 +703,83 @@ def test_anneal_and_adam_constants_are_float32():
     assert all(float(np.float32(x)) == x for x in hp)
 
 
+def bits32(x) -> int:
+    return int(np.float32(x).view(np.uint32))
+
+
+@pytest.mark.parametrize("cfg", [
+    topt.TeOptConfig(),
+    topt.TeOptConfig(lr=0.1, beta1=0.5, beta2=0.95, eps=1e-6, w_min=2.0,
+                     w_max=30.0),
+], ids=["default", "other"])
+def test_adam_schedule_equals_adam_hparams_at_every_step(cfg):
+    """The constants `adam_solve` makes once a solve (`adam_schedule`) are
+    `adam_hparams(cfg, i)` bit for bit at every step, as a tuple and in the
+    packed form the kernel takes."""
+    steps = 300
+    sched = tk.adam_schedule(cfg, steps)
+    assert len(sched) == steps
+    for i, step in enumerate(sched):
+        want = [bits32(x) for x in tk.adam_hparams(cfg, i)]
+        assert [bits32(x) for x in step] == want, i
+        packed = [getattr(step.packed, name)
+                  for name, _ in step.packed._fields_]
+        assert [bits32(x) for x in packed] == want, i
+
+
+def test_te_adam_raises_on_a_wrong_operand():
+    """`te_adam` checks every operand on every call, whether its constants
+    are an `adam_schedule` step or `adam_hparams`' tuple: a wrong device,
+    dtype, shape or layout raises before anything runs; the schedule's
+    step updates as the tuple does."""
+    e, steps = 6, 3
+    cfg = topt.TeOptConfig()
+    rng = np.random.default_rng(2)
+    w = torch.tensor(rng.uniform(1, 64, e), dtype=torch.float32)
+    m, v = torch.zeros(e), torch.zeros(e)
+    up = torch.tensor([True, True, False, True, True, True])
+    rows = torch.empty(steps, e).unbind(0)
+    sched = tk.adam_schedule(cfg, steps)
+    g = torch.tensor(rng.standard_normal(e), dtype=torch.float32)
+    w2, m2, v2, row2 = w.clone(), m.clone(), v.clone(), torch.empty(e)
+    tk.te_adam(w, m, v, g, up, rows[0], sched[0])
+    tk.te_adam(w2, m2, v2, g, up, row2, tk.adam_hparams(cfg, 0))
+    for a, b in ((w, w2), (m, m2), (v, v2), (rows[0], row2)):
+        assert torch.equal(a, b)
+    for msg, args in {
+        "g: expected 1-d torch.float32": (w, m, v, g.double(), up, rows[1]),
+        r"g must be \[6\]": (w, m, v, g[:5], up, rows[1]),
+        "g: on meta": (w, m, v, g.to("meta"), up, rows[1]),
+        "g: must be contiguous": (w, m, v, torch.zeros(2 * e)[::2], up,
+                                  rows[1]),
+        "w: expected 1-d torch.float32": (w.double(), m, v, g, up, rows[1]),
+        "m: on meta": (w, m.to("meta"), v, g, up, rows[1]),
+        r"m must be \[6\]": (w, m[:4], v, g, up, rows[1]),
+        r"w_row must be \[6\]": (w, m, v, g, up, torch.empty(e + 1)),
+        "up: expected 1-d torch.bool": (w, m, v, g, up.float(), rows[1]),
+        "up: on meta": (w, m, v, g, up.to("meta"), rows[1]),
+    }.items():
+        for hp in (sched[1], tk.adam_hparams(cfg, 1)):
+            with pytest.raises(ValueError, match=msg):
+                tk.te_adam(*args, hp)
+
+
+def test_soft_flow_bwd_scale_raises_on_a_wrong_operand():
+    """K17's scale checks g_util and caps: a wrong device, dtype, shape or
+    layout raises before anything runs."""
+    g_util, caps = torch.randn(3, 5), torch.rand(5)
+    for msg, args in {
+        r"caps must be \[5\]": (g_util, torch.rand(4)),
+        "g_util: expected 2-d torch.float32": (g_util[0], caps),
+        "caps: expected 1-d torch.float32": (g_util, caps.double()),
+        "caps: on meta": (g_util, caps.to("meta")),
+        "caps: on cpu, expected meta": (g_util.to("meta"), caps),
+        "g_util: must be contiguous": (torch.randn(5, 3).t(), caps),
+    }.items():
+        with pytest.raises(ValueError, match=msg):
+            tk.soft_flow_bwd_scale(*args)
+
+
 def test_optimize_weights_refuses_a_mesh():
     n, src, dst, w, up, dem, caps = clos_case(1)
     with pytest.raises(NotImplementedError, match="item 10"):
