@@ -21,7 +21,8 @@ Phases, one JSON line each:
                be answered by host Dijkstra
   k1 / k2 / k3 each kernel against its plain PyTorch version on the card at
                the main path's shapes (exact equality: min-plus on int32
-               does not depend on order), with times; K1 also at the
+               does not depend on order), with times (K3's also in a CUDA
+               graph and on the host clock); K1 also at the
                product's own batch widths on the 9,556-node Clos (rsw0_0's
                area solve: S = 16, and S = 8); K2 (dest-major rounds,
                equal to K1's D and rounds) also cold on the star at its
@@ -78,7 +79,10 @@ Phases, one JSON line each:
                with links down and decreases, more than 64 raised pairs,
                an overload toggle), each matrix equal to a fresh cold close
                and to the plain versions' composition, with their round
-               count; then K11-K13's times, bounds and plain times,
+               count; K3 on the all-pairs DAG of the closed matrix
+               (16,384 edges by 4,096 columns) against its plain version,
+               its span, device and host times beside its bounds; then
+               K11-K13's times, bounds and plain times,
                K11's device time by entry point over one close (profiler)
                and the DPX add-and-min (VIADDMNMX) and shared-load counts
                of K11's and K13's built code (cuobjdump -sass)
@@ -144,8 +148,9 @@ Phases, one JSON line each:
                equal to a cold K1 solve of the new weights; rounds,
                inv_rounds, col_changed and num_changed equal to the plain
                tiled warm); the halo bytes against the bytes the ring hops
-               copied; h, n_tile and e_tile; times, K19's and K20's
-               also replayed in a CUDA graph (device time)
+               copied; h, n_tile and e_tile; times, K19's, K20's and
+               K21's entries also replayed in a CUDA graph (device time),
+               K21's entries also on the host clock alone (host time)
   tile_clos    DeltaRouteBuilder over CudaSpfSolver(mesh=(1, 4) Mesh) on
                the 9,556-node Clos through the seven events of
                event_clos: every db equal to a mesh=None solver's and the
@@ -422,6 +427,118 @@ def launches_a_call(kernel, fn, setup=None) -> int:
     l0 = kernel.launches
     fn(*args)
     return kernel.launches - l0
+
+
+def ecmp_bytes(rows: int, e: int, t: int):
+    """K3's bound on an [rows, t] matrix and e edges: (bytes, operations,
+    bytes with every row gather from device memory). The matrix read once,
+    the [e, t] bytes written once, four int32 and the overload byte an
+    edge; six operations an output."""
+    scalars = 12 * e + rows
+    return (4 * rows * t + e * t + scalars, 6 * e * t,
+            8 * e * t + e * t + scalars)
+
+
+def ecmp_times(spf, kernel, d, ru, rv, ve, w, ov) -> dict:
+    """K3 on one DAG, after a check that it equals its plain version
+    exactly: its launches a call, its span (`time_ms`), device time
+    (`graph_ms`, 20 calls), host time (`host_ms`) and the plain version's
+    span."""
+    args = (d, ru, rv, ve, w, ov)
+
+    def k3():
+        return spf.ecmp_triangle(*args)
+
+    err = max_abs_err(k3(), spf._ecmp_triangle_plain(*args))
+    check(err == 0, f"K3 differs from its plain version: {err} entries "
+          f"([{ru.shape[0]}, {d.shape[1]}])")
+    return {
+        "max_abs_err": err, "launches_per_call": launches_a_call(kernel, k3),
+        "ms": time_ms(k3, reps=9), "graph_ms": graph_ms(k3, 20),
+        "host_ms": host_ms(k3),
+        "plain_ms": time_ms(lambda: spf._ecmp_triangle_plain(*args), reps=9),
+    }
+
+
+def tile_mark_bytes(d_new, dp) -> dict:
+    """K21's bound on one rank's [S_l, n_tile] tile, by entry: each input
+    read once and each output written once; the changed columns read down
+    to each column's first difference (all rows where it has none)."""
+    s_l, n_tile = dp.shape
+    tile_b = 4 * s_l * n_tile
+    diff = d_new != dp
+    first = (diff.int().argmax(0) + 1).masked_fill_(~diff.any(0), s_l)
+    return {
+        "init": tile_b + 4 * s_l,
+        "mark": tile_b * 14 // 4,
+        "reset": tile_b * 9 // 4 + 4 * s_l,
+        "col_changed": 8 * int(first.sum()) + n_tile + 4,
+    }
+
+
+def tile_mark_times(spf, kernel, src, off, marks, recv, dp, d_new) -> dict:
+    """K21's four entries on one rank's tile, by entry: launches a call,
+    span (`time_ms`, fresh buffers made outside it), the plain version's
+    span, device time and host time (`host_ms`). The mark and the changed
+    columns update their operands, so their graphs restore them before
+    each call (recv copied back, col_changed and count zeroed) and their
+    device time is the graph's less that of the restoring alone
+    (`restore_graph_ms`); init and reset are 20 calls in a CUDA graph."""
+    import torch
+
+    n_tile = dp.shape[1]
+    dev = dp.device
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    m_out = torch.empty(dp.shape, dtype=torch.bool, device=dev)
+    recv_g = recv.clone()
+    cc = torch.zeros(n_tile, dtype=torch.bool, device=dev)
+    cnt = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def fresh_cols():
+        return (torch.zeros(n_tile, dtype=torch.bool, device=dev),
+                torch.zeros(1, dtype=torch.int32, device=dev))
+
+    def zero_cols():
+        cc.zero_()
+        cnt.zero_()
+
+    entries = (
+        ("init", lambda: spf.tile_init(src, off, n_tile),
+         lambda: spf._tile_init_plain(src, off, n_tile), None, None, None),
+        ("mark", lambda r: spf.tile_mark(marks, r, dp, flag),
+         lambda r: spf._tile_mark_plain(marks, r, dp, flag),
+         lambda: (recv.clone(),),
+         lambda: spf.tile_mark(marks, recv_g, dp, flag, out=m_out),
+         lambda: recv_g.copy_(recv)),
+        ("reset", lambda: spf.tile_reset(marks, dp, src, off),
+         lambda: spf._tile_reset_plain(marks, dp, src, off), None, None,
+         None),
+        ("col_changed",
+         lambda c, n: spf.tile_col_changed(d_new, dp, c, n),
+         lambda c, n: spf._tile_col_changed_plain(d_new, dp, c, n),
+         fresh_cols, lambda: spf.tile_col_changed(d_new, dp, cc, cnt),
+         zero_cols),
+    )
+    out = {}
+    for name, fn_k, fn_p, setup, again, restore in entries:
+        again = again or fn_k
+        row = {
+            "launches_per_call": launches_a_call(kernel, fn_k, setup=setup),
+            "ms": time_ms(fn_k, setup=setup),
+            "plain_ms": time_ms(fn_p, setup=setup),
+            "host_ms": host_ms(again),
+        }
+        if restore is None:
+            row["graph_ms"] = graph_ms(again, 20)
+        else:
+            both = graph_ms(lambda: (restore(), again()), 20)
+            alone = graph_ms(restore, 20)
+            row["restore_graph_ms"] = alone
+            row["graph_with_restore_ms"] = both
+            row["graph_ms"] = (both - alone if isinstance(both, float)
+                               and isinstance(alone, float) else both)
+        out[name] = row
+    return out
 
 
 def profile_window(fn, split=()) -> dict:
@@ -1106,19 +1223,8 @@ def main() -> int:
     gt = to_device(grid, dev)
     d_all_t = d_all.contiguous()
 
-    def k3():
-        return spf.ecmp_triangle(
-            d_all_t, gt["src"], gt["dst"], gt["dst"], gt["w"], gt["ov"]
-        )
-
-    def k3_plain():
-        return spf._ecmp_triangle_plain(
-            d_all_t, gt["src"], gt["dst"], gt["dst"], gt["w"], gt["ov"]
-        )
-
-    dag_k3 = k3()
-    err3 = max_abs_err(dag_k3, k3_plain())
-    check(err3 == 0, f"K3 differs from its plain version: {err3} entries")
+    dag_k3 = spf.ecmp_triangle(
+        d_all_t, gt["src"], gt["dst"], gt["dst"], gt["w"], gt["ov"])
     check(torch.equal(dag_k3, dag), "K3 differs from the main path's DAG")
     a = grid.node_index["g0_0"]
     z = grid.node_index[f"g{grid_side - 1}_{grid_side - 1}"]
@@ -1127,29 +1233,30 @@ def main() -> int:
     from_a = torch.as_tensor(grid.src[: grid.e] == a, device=dev)
     first_hops = int(dag[: grid.e][from_a, z].sum())
     check(first_hops == 2, f"corner-to-corner ECMP first hops {first_hops}")
-    per_call3 = launches_a_call(K3, k3)
-    check(per_call3 == 1, f"K3 launched {per_call3} times a call, not 1")
-    ms3 = time_ms(k3, reps=9)
-    plain_ms3 = time_ms(k3_plain, reps=9)
-    e3, t3 = grid.e_pad, grid.n_pad
-    b3_ms, b3_by = bound(
-        4 * grid.n_pad * t3 + e3 * t3 + 12 * e3 + grid.n_pad,
-        6 * e3 * t3, rate,
-    )
+    t3 = ecmp_times(spf, K3, d_all_t, gt["src"], gt["dst"], gt["dst"],
+                    gt["w"], gt["ov"])
+    check(t3["launches_per_call"] == 1,
+          f"K3 launched {t3['launches_per_call']} times a call, not 1")
+    e3, n3 = grid.e_pad, grid.n_pad
+    b3_bytes, b3_ops, _ = ecmp_bytes(n3, e3, n3)
+    b3_ms, b3_by = bound(b3_bytes, b3_ops, rate)
     emit({
         "phase": "k3_ecmp_triangle", "graph": f"grid_edges({grid_side})",
-        "edges": e3, "columns": t3, "equal_plain": True,
+        "edges": e3, "columns": n3, "equal_plain": True,
         "corner_distance": corner, "corner_first_hops": first_hops,
-        "ms": ms3, "plain_ms": plain_ms3, "bound_ms": b3_ms, "card": card,
+        **t3, "bound_ms": b3_ms, "card": card,
     })
     results.append({
         "name": _cuda.ECMP_TRIANGLE.name, "route": "cuda",
         "source": "openr_tpu_torch/ops/csrc/ecmp_triangle.cu",
         "replaces": _cuda.ECMP_TRIANGLE.replaces,
-        "launches": None, "max_abs_err": err3,
-        "ms": ms3, "plain_ms": plain_ms3, "bound_ms": b3_ms,
-        "bound_by": b3_by, "library_ms": None, "launches_per_call": per_call3,
+        "launches": None, "max_abs_err": t3["max_abs_err"],
+        "ms": t3["ms"], "plain_ms": t3["plain_ms"], "bound_ms": b3_ms,
+        "bound_by": b3_by, "library_ms": None,
+        "launches_per_call": t3["launches_per_call"],
+        "graph_ms": t3["graph_ms"], "host_ms": t3["host_ms"],
     })
+    k3_row = results[-1]  # apsp_wan adds the all-pairs DAG at n_pad 4,096
 
     # -- 7. event_wan: one LSDB event on the north-star fixpoint ---------
     st = to_device(wan, dev)
@@ -2171,6 +2278,8 @@ def main() -> int:
 
     ev_nodes = {name: i for i, name in enumerate(ag.names[: ag.n])}
     d_now = apsp._d_dev
+    # K3 on the all-pairs DAG of this closed matrix, timed after the path
+    dag_d, dag_g = d_now.clone(), to_device(asolve.graph, dev)
     # 1: one directed edge on a shortest path raised (bench.py's event
     # position, moved to the next edge that is a shortest path itself)
     pos = ag.e // 2
@@ -2273,6 +2382,17 @@ def main() -> int:
     # K11-K13's times beside their bounds and plain versions. A (min,+)
     # product counts one operation per (i, j, m): its add and min are one
     # DPX instruction (__viaddmin_s32) at the int32 lane rate
+    t3a = ecmp_times(spf, K3, dag_d, dag_g["src"], dag_g["dst"],
+                     dag_g["dst"], dag_g["w"], dag_g["ov"])
+    e3a, n3a = dag_g["src"].shape[0], dag_d.shape[1]
+    b3a_bytes, b3a_ops, b3a_gathers = ecmp_bytes(dag_d.shape[0], e3a, n3a)
+    k3_dag = {
+        "edges": e3a, "columns": n3a, "equal_plain": True, **t3a,
+        "bound_ms": bound(b3a_bytes, b3a_ops, rate)[0],
+        "bound_gathers_ms": b3a_gathers / rate * 1e3,
+    }
+    k3_row["dag_4096"] = k3_dag
+    del dag_d, dag_g
     w_t, allow_t = dense(asolve.graph)
     per_call11 = launches_a_call(K11, lambda: fw.fw_close(w_t, allow_t))
     nb11 = fw.fw_block_shape(w_t.shape[0])[0]
@@ -2371,7 +2491,7 @@ def main() -> int:
                 "ms": ms12, "plain_ms": plain_ms12, "bound_ms": b12_ms},
         "k13": {"kb": kb2, "dirty_blocks": dirty02, "ms": ms13,
                 "plain_ms": plain_ms13, "bound_ms": b13_ms},
-        "card": card,
+        "k3_dag": k3_dag, "card": card,
     })
     for name, k, e, m_, pm, bm, bb, lpc in (
         ("fw_close.cu", K11, err11, ms11, plain_ms11, b11_ms, b11_by,
@@ -3263,29 +3383,11 @@ def main() -> int:
         "scatter_reduce_ differs from K20's plain version")
     lib_ms20 = time_ms(lambda: fold_t.scatter_reduce_(1, idx20, ctr20,
                                                       "amin"))
-    flag_t = torch.zeros(1, dtype=torch.int32, device=dev)
-
-    def fresh_cols():
-        return (torch.zeros(n_tile, dtype=torch.bool, device=dev),
-                torch.zeros(1, dtype=torch.int32, device=dev))
-
-    ms21_parts, plain21_parts, per_call21 = {}, {}, 0
-    for name_, fn_k, fn_p, setup in (
-        ("init", lambda: spf.tile_init(tsrc[0][j], off, n_tile),
-         lambda: spf._tile_init_plain(tsrc[0][j], off, n_tile), None),
-        ("mark", lambda r: spf.tile_mark(marks_t, r, dpt, flag_t),
-         lambda r: spf._tile_mark_plain(marks_t, r, dpt, flag_t),
-         lambda: (recv.clone(),)),
-        ("reset", lambda: spf.tile_reset(marks_t, dpt, tsrc[0][j], off),
-         lambda: spf._tile_reset_plain(marks_t, dpt, tsrc[0][j], off), None),
-        ("col_changed",
-         lambda cc, cnt: spf.tile_col_changed(dwt, dpt, cc, cnt),
-         lambda cc, cnt: spf._tile_col_changed_plain(dwt, dpt, cc, cnt),
-         fresh_cols),
-    ):
-        per_call21 += launches_a_call(K21, fn_k, setup=setup)
-        ms21_parts[name_] = time_ms(fn_k, setup=setup)
-        plain21_parts[name_] = time_ms(fn_p, setup=setup)
+    t21 = tile_mark_times(spf, K21, tsrc[0][j], off, marks_t, recv, dpt,
+                          dwt)
+    ms21_parts, plain21_parts = ({k: v[key] for k, v in t21.items()}
+                                 for key in ("ms", "plain_ms"))
+    per_call21 = sum(v["launches_per_call"] for v in t21.values())
     ms21, plain_ms21 = sum(ms21_parts.values()), sum(plain21_parts.values())
     for key, got, want in (("K19", per_call19, 2), ("K20", per_call20, 1),
                            ("K21", per_call21, 4)):
@@ -3300,15 +3402,7 @@ def main() -> int:
     b19_ms, b19_by = bound(4 * s_l * h + tile_b + 8 * k_j + 4 * (h + 1)
                            + 4 * s_l + n_tile, 3 * s_l * k_j, rate)
     b20_ms, b20_by = bound(4 * h + 12 * s_l * kept, s_l * kept, rate)
-    diff = dwt != dpt
-    first = torch.where(diff.any(0), diff.int().argmax(0) + 1, s_l)
-    rows_read = int(first.sum())
-    b21_parts = {
-        "init": tile_b + 4 * s_l,
-        "mark": tile_b * 14 // 4,
-        "reset": tile_b * 9 // 4 + 4 * s_l,
-        "col_changed": 8 * rows_read + n_tile + 4,
-    }
+    b21_parts = tile_mark_bytes(dwt, dpt)
     b21_ms = sum(b21_parts.values()) / rate * 1e3
     real_slots = (tiling.hcols != spf.TILE_PAD).sum(axis=1)
     payload = (s_l * h + h) * 4
@@ -3343,6 +3437,11 @@ def main() -> int:
         "k20_profile_10_calls": prof20, "k20_graph_ms": dev20,
         "k20_scatter_reduce_ms": lib_ms20,
         "k21_ms": ms21_parts,
+        "k21_graph_ms": {k: v["graph_ms"] for k, v in t21.items()},
+        "k21_host_ms": {k: v["host_ms"] for k, v in t21.items()},
+        "k21_restore_graph_ms": {k: t21[k]["restore_graph_ms"]
+                                 for k in ("mark", "col_changed")},
+        "k21_bound_ms": {k: v / rate * 1e3 for k, v in b21_parts.items()},
         "k21_plain_ms": plain21_parts, "setup_seconds": tile_setup_s,
         "seconds": tile_s, "launches": tile_launches, "card": card,
     })
@@ -3365,7 +3464,7 @@ def main() -> int:
                                    "slots, its index built outside the "
                                    "timing; computes no flag")
     del (d_t, d_tw, d_uw, wgs_u, tops, w2n, targs, wargs, buf, recv, outs,
-         d0t, ctr_j, ctr_0, fold_t, diff, idx20, ctr20)
+         d0t, ctr_j, ctr_0, fold_t, idx20, ctr20)
 
     # -- 18. tile_clos: CudaSpfSolver on a (1, 4) mesh, DeltaPath on tiles -
     me = "rsw0_0"

@@ -723,11 +723,12 @@ def ecmp_triangle(
     if dev.type != "cuda":
         return _ecmp_triangle_plain(d, ru, rv, ve, w, overloaded)
     out = torch.empty((e, t_cols), dtype=torch.bool, device=dev)
-    ECMP_TRIANGLE.launch(
-        dev,
-        d.data_ptr(), ru.data_ptr(), rv.data_ptr(), ve.data_ptr(),
-        w.data_ptr(), overloaded.data_ptr(), out.data_ptr(), e, t_cols,
-    )
+    if e * t_cols:
+        ECMP_TRIANGLE.launch(
+            dev,
+            d.data_ptr(), ru.data_ptr(), rv.data_ptr(), ve.data_ptr(),
+            w.data_ptr(), overloaded.data_ptr(), out.data_ptr(), e, t_cols,
+        )
     return out
 
 

@@ -133,6 +133,93 @@ def test_ecmp_triangle_kernel_equals_plain(dev, name):
     assert torch.equal(out, spf._ecmp_triangle_plain(*args))
 
 
+# name: (rows R, columns T, edges E, form): "dag" has rv = ve, the edges
+# sorted by head as a CompiledGraph's; "nh" is nh_mask's (ru all 0, rv =
+# 1 .. E, ve another node id)
+ECMP_CASES = {
+    "t_not_16": (9, 37, 50, "dag"),
+    "t_16": (9, 48, 50, "dag"),
+    "t_past_a_block": (7, 1040, 30, "dag"),  # 1,024 columns a block
+    "t_4096": (12, 4096, 40, "dag"),
+    "d_unaligned": (9, 48, 50, "dag"),
+    "d_unaligned_t_not_16": (9, 37, 50, "dag"),
+    "overloaded_in_group": (30, 48, 60, "dag"),
+    "all_inf_rows": (9, 48, 50, "dag"),
+    "no_edges": (9, 48, 0, "dag"),
+    "no_columns": (9, 0, 50, "dag"),
+    "nh_mask": (9, 100, 8, "nh"),
+    "nh_mask_16": (9, 64, 8, "nh"),
+}
+
+
+def ecmp_case(name):
+    """(d [R, T], ru, rv, ve, w, ov) on the host for one K3 case: d in 0
+    .. 3 with a tenth INF, weights 0 .. 3 and every 7th edge down (INF),
+    so that about a quarter of the triangles hold; node 3 overloaded (21
+    too in overloaded_in_group, which heads a run of edges: its own column
+    falls inside the group of columns 16 .. 31); rows 1 and 4 all INF in
+    all_inf_rows."""
+    r, t, e, form = ECMP_CASES[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    d = rng.integers(0, 4, (r, t)).astype(np.int32)
+    d[rng.random(d.shape) < 0.1] = INF
+    if name == "all_inf_rows":
+        d[[1, 4]] = INF
+    w = rng.integers(0, 4, e).astype(np.int32)
+    w[::7] = INF
+    ov = np.zeros(max(r, t, 32), dtype=bool)
+    ov[3] = True
+    if form == "dag":
+        ru = rng.integers(0, r, e)
+        rv = rng.integers(0, r, e)
+        if name == "overloaded_in_group":
+            ov[21] = True
+            rv[e // 3: e // 3 + 6] = 21
+        rv = np.sort(rv)
+        ve = rv.copy()
+    else:
+        ru = np.zeros(e, dtype=np.int64)
+        rv = np.arange(1, e + 1)
+        ve = (rv + rng.integers(1, 20, e)) % t
+        ve[e // 2] = 21  # an overloaded neighbour in a run of edges
+        ov[21] = True
+    i32 = [a.astype(np.int32) for a in (ru, rv, ve)]
+    return d, *i32, w, ov
+
+
+@pytest.mark.parametrize("name", sorted(ECMP_CASES))
+def test_ecmp_triangle_kernel_cases(dev, name):
+    """K3 against its plain version at shapes the grids of the paths do
+    not reach: T not a multiple of 16 (the scalar path), a partial block
+    of columns, d one element into its buffer (unaligned rows), an
+    overloaded head inside a 16-column group, all-INF rows, no edges, no
+    columns and nh_mask's form; one launch a call, none when the output
+    is empty."""
+    d_h, *rest = ecmp_case(name)
+    d = torch.as_tensor(d_h, device=dev)
+    if name.startswith("d_unaligned"):
+        buf = torch.empty(d.numel() + 1, dtype=torch.int32, device=dev)
+        d = buf[1:].view(d.shape)
+        d.copy_(torch.as_tensor(d_h, device=dev))
+        assert d.data_ptr() % 16
+    args = (d, *(torch.as_tensor(a, device=dev) for a in rest))
+    before = _cuda.ECMP_TRIANGLE.launches
+    out = spf.ecmp_triangle(*args)
+    want = spf._ecmp_triangle_plain(*args)
+    torch.cuda.synchronize()
+    assert _cuda.ECMP_TRIANGLE.launches == before + int(out.numel() > 0)
+    assert out.shape == want.shape
+    assert torch.equal(out, want)
+    if name in ("no_edges", "no_columns"):
+        assert out.numel() == 0
+    else:
+        assert 0 < int(want.sum()) < want.numel()
+    if name == "overloaded_in_group":
+        rows = (args[3] == 21).nonzero().flatten()
+        cols = torch.arange(want.shape[1], device=dev) != 21
+        assert not bool(out[rows][:, cols].any())
+
+
 def test_route_db_on_card_equals_cpu(dev):
     edges, _ = GRAPHS["clos"]
     dbs = {}
@@ -2830,40 +2917,128 @@ def test_tile_fold_kernel_cases(dev, name):
     assert torch.equal(again, got) and int(flag.item()) == 0
 
 
-def check_tile_mark_kernel(dev, dp, src, offset):
-    """K21's four entries against their plain versions on one tile."""
+def on_card(t, dev, offset_view=False):
+    """t on the card; with offset_view, as a contiguous view one element
+    into a buffer, so that the kernels' 16-byte paths give way to the
+    scalar ones."""
+    if not offset_view:
+        return t.to(dev)
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def check_tile_mark_kernel(dev, dp, src, offset, views=False):
+    """K21's four entries against their plain versions on one tile: init
+    and reset with the sources given (some outside the tile), the mark
+    seeded, with marks, and with nothing new (its flag stays 0), and the
+    changed columns from a preset state, over two batch ranks in turn
+    (the count summed), with differences only in the first row or only in
+    the last, with every column already set and with no difference. One
+    launch a call on the card. views: every operand of the card's calls
+    one element into its buffer (`on_card`)."""
+    dp, src = dp.cpu(), src.cpu()
     s_l, n_tile = dp.shape
     cpu = torch.device("cpu")
     rng = np.random.default_rng(5)
-    recv_h = dp.cpu().clone()
+    recv_h = dp.clone()
     recv_h[torch.as_tensor(rng.random(dp.shape) < 0.7)] += 1
     m_h = torch.as_tensor(rng.random(dp.shape) < 0.2)
     cc_h = torch.as_tensor(rng.random(n_tile) < 0.3)
+    none = torch.zeros(n_tile, dtype=torch.bool)
+    d_last, d_first, d_rank1 = dp.clone(), dp.clone(), dp.clone()
+    d_last[s_l - 1, ::2] += 1
+    d_first[0, 1::3] -= 1
+    d_rank1[0, ::5] += 1
+    d_rank1[s_l // 2, 1::7] += 1
+    col_cases = {
+        "preset": ([d_last], cc_h),
+        "two_ranks": ([d_last, d_rank1], cc_h),
+        "first_row_only": ([d_first], none),
+        "last_row_only": ([d_last], none),
+        "all_set": ([d_first], torch.ones(n_tile, dtype=torch.bool)),
+        "no_difference": ([dp.clone()], cc_h),
+    }
     got, want = {}, {}
+    before = _cuda.TILE_MARK.launches
     for device, out in ((dev, got), (cpu, want)):
-        s_d, dp_d = src.to(device), dp.to(device)
+        def put(t):
+            return t.clone() if device == cpu else on_card(t, dev, views)
+
+        s_d, dp_d = put(src), put(dp)
         out["init"] = spf.tile_init(s_d, offset, n_tile)
-        for m in (None, m_h.to(device)):
-            recv = recv_h.clone().to(device)  # tile_mark resets it
+        seeded = None
+        for key in ("seed", "marks", "nothing_new"):
+            m = {"seed": None, "marks": put(m_h),
+                 "nothing_new": None if seeded is None
+                 else put(seeded.cpu())}[key]
+            recv = put(recv_h)  # tile_mark resets it
             flag = torch.zeros(1, dtype=torch.int32, device=device)
             new = spf.tile_mark(m, recv, dp_d, flag)
-            out["mark", m is None] = (new, int(flag.item()),
-                                      bool((recv == INF).all()))
-        out["reset"] = spf.tile_reset(m_h.to(device), dp_d, s_d, offset)
-        cc = cc_h.clone().to(device)
-        count = torch.zeros(1, dtype=torch.int32, device=device)
-        d2 = dp_d.clone()
-        d2[s_l - 1, ::2] += 1
-        spf.tile_col_changed(d2, dp_d, cc, count)
-        out["cols"] = (cc, int(count.item()))
+            seeded = new if key == "seed" else seeded
+            out["mark", key] = (new.cpu(), int(flag.item()),
+                                bool((recv == INF).all()))
+        out["reset"] = spf.tile_reset(put(m_h), dp_d, s_d, offset)
+        for key, (ranks, preset) in col_cases.items():
+            cc = put(preset)
+            count = torch.zeros(1, dtype=torch.int32, device=device)
+            for d_r in ranks:
+                spf.tile_col_changed(put(d_r), dp_d, cc, count)
+            out["cols", key] = (cc.cpu(), int(count.item()))
     torch.cuda.synchronize()
+    calls = 1 + 3 + 1 + sum(len(r) for r, _ in col_cases.values())
+    assert _cuda.TILE_MARK.launches - before == calls
     assert torch.equal(got["init"].cpu(), want["init"])
     assert torch.equal(got["reset"].cpu(), want["reset"])
-    for key in (("mark", True), ("mark", False)):
-        assert torch.equal(got[key][0].cpu(), want[key][0])
-        assert got[key][1:] == want[key][1:]
-    assert torch.equal(got["cols"][0].cpu(), want["cols"][0])
-    assert got["cols"][1] == want["cols"][1]
+    for key in ("seed", "marks", "nothing_new"):
+        assert torch.equal(got["mark", key][0], want["mark", key][0])
+        assert got["mark", key][1:] == want["mark", key][1:]
+    assert want["mark", "nothing_new"][1] == 0
+    for key, (ranks, preset) in col_cases.items():
+        assert torch.equal(got["cols", key][0], want["cols", key][0])
+        assert got["cols", key][1] == want["cols", key][1]
+        # the reference: the OR over the ranks of any(d != dp, 0), and the
+        # popcount of what it adds to the preset columns
+        hit = torch.stack([(d_r != dp).any(0) for d_r in ranks]).any(0)
+        assert torch.equal(want["cols", key][0], preset | hit)
+        assert want["cols", key][1] == int((hit & ~preset).sum())
+    assert want["cols", "all_set"][1] == 0
+    assert want["cols", "no_difference"][1] == 0
+
+
+# name: (rows S_l, n_tile, offset, operands one element into their
+# buffers); n_tile % 4 picks the 4-column paths or the scalar ones
+TILE_MARK_CASES = {
+    "n_tile_odd": (5, 7, 7, False),
+    "one_row": (1, 40, 40, False),
+    "one_row_odd": (1, 37, 0, False),
+    "wide": (6, 40, 80, False),
+    "rows_past_warps": (70, 300, 300, False),  # every warp several groups
+    "strips_odd": (33, 1030, 1030, False),  # n_tile % 4 = 2
+    "full_strips": (128, 4096, 4096, False),
+    "views": (6, 40, 80, True),
+    "views_rows": (70, 300, 300, True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TILE_MARK_CASES))
+def test_tile_mark_kernel_cases(dev, name):
+    """K21's entries (`check_tile_mark_kernel`) at n_tile % 4 of 0 to 3,
+    one row, rows past the 8 warps' 32, partial strips of 128 columns,
+    unaligned operands, and sources inside the tile, just past its last
+    column and below its first."""
+    s_l, n_tile, offset, views = TILE_MARK_CASES[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    dp = rng.integers(0, 50, (s_l, n_tile)).astype(np.int32)
+    dp[rng.random(dp.shape) < 0.1] = INF
+    src = rng.integers(max(offset - n_tile, 0), offset + 2 * n_tile, s_l)
+    src[0] = offset + n_tile // 2
+    if s_l > 2:
+        src[1], src[2] = offset + n_tile, offset - 1
+    check_tile_mark_kernel(dev, torch.as_tensor(dp),
+                           torch.as_tensor(src.astype(np.int32)), offset,
+                           views)
 
 
 def tiled_case(name, g):

@@ -229,6 +229,34 @@ def test_triangle_with_overloaded_heads():
     assert out[1].tolist() == [False, False, True, False]
 
 
+@pytest.mark.parametrize("n,seed", [(37, 0), (50, 1), (21, 2), (48, 3)])
+def test_triangle_plain_matches_ecmp_dag_at_odd_widths(n, seed):
+    """K3's plain version against the reference's `_ecmp_dag` on the same
+    seeded [n, n] matrix and edge list, sorted by head as a
+    CompiledGraph's, at widths K3's 16-column groups do not divide (and
+    one they do), with overloaded heads (one heading a run of edges) and
+    down links (INF weights)."""
+    rng = np.random.default_rng(seed)
+    d = rng.integers(0, 4, (n, n)).astype(np.int32)
+    d[rng.random(d.shape) < 0.1] = INF
+    e = 3 * n
+    src = rng.integers(0, n, e).astype(np.int32)
+    dst = np.sort(rng.integers(0, n, e)).astype(np.int32)
+    w = rng.integers(0, 4, e).astype(np.int32)
+    w[::7] = INF
+    ov = rng.random(n) < 0.15
+    ov[dst[e // 2]] = True
+    want = np.asarray(jspf._ecmp_dag(
+        jnp.asarray(d), jnp.asarray(src), jnp.asarray(dst), jnp.asarray(w),
+        jnp.asarray(ov)))
+    got = tspf._ecmp_triangle_plain(t32(d), t32(src), t32(dst), t32(dst),
+                                    t32(w), torch.as_tensor(ov))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert 0 < want.sum() < want.size
+    heads = dst == dst[e // 2]
+    assert not want[heads][:, np.arange(n) != dst[e // 2]].any()
+
+
 def test_wrappers_check_inputs():
     d0 = torch.zeros((4, 2), dtype=torch.int32)
     src = t32([0, 1])

@@ -167,6 +167,81 @@ def test_tile_fold_with_every_slot_a_sentinel_changes_nothing():
     assert bool((out == 7).all()) and int(flag.item()) == 0
 
 
+@pytest.mark.parametrize("ranks", [1, 2, 3])
+def test_tile_col_changed_plain_rank_after_rank_equals_the_reference(ranks):
+    """K21's tile_col_changed (plain) run over the batch ranks of one
+    column block in turn against the reference's expressions in
+    `_tile_solver_warm`: any(d != dp, 0) per rank, the pmax over 'batch'
+    (under jax.vmap with that axis name) and the popcount; columns that
+    differ only in the first row, only in the last, in one rank alone,
+    and columns equal everywhere."""
+    import jax
+
+    s_l, n_tile = 6, 37
+    rng = np.random.default_rng(ranks)
+    dps = rng.integers(0, 50, (ranks, s_l, n_tile)).astype(np.int32)
+    dps[rng.random(dps.shape) < 0.1] = INF
+    ds = dps.copy()
+    ds[0, 0, ::5] += 1
+    ds[-1, s_l - 1, 2::7] -= 1
+    for i in range(ranks):
+        ds[i, i % s_l, rng.choice(n_tile, 3, replace=False)] = INF
+
+    def ref(d, dp):
+        cc = jnp.any(d != dp, axis=0)
+        cc = jax.lax.pmax(cc.astype(jnp.int32), "batch") > 0
+        return cc, jnp.sum(cc.astype(jnp.int32))
+
+    cc_j, num_j = jax.vmap(ref, axis_name="batch")(jnp.asarray(ds),
+                                                   jnp.asarray(dps))
+    cc = torch.zeros(n_tile, dtype=torch.bool)
+    count = torch.zeros(1, dtype=torch.int32)
+    for d, dp in zip(ds, dps):
+        tspf._tile_col_changed_plain(torch.as_tensor(d), torch.as_tensor(dp),
+                                     cc, count)
+    np.testing.assert_array_equal(cc.numpy(), np.asarray(cc_j)[0])
+    assert int(count.item()) == int(np.asarray(num_j)[0])
+    assert 0 < int(count.item()) < n_tile
+
+
+@pytest.mark.parametrize("me", [0, 1, 2, 3])
+def test_tile_init_and_reset_plain_drop_sources_outside_the_tile(me):
+    """K21's tile_init and tile_reset (plain) on partition `me` of a graph
+    axis of 4 against `_tile_d0_allow`'s d0 and the reference's reset in
+    `_tile_solver_warm` (where(marks, INF, dp), then .at[].set(0,
+    mode="drop") at each source's local column): sources inside the
+    tile, just past its last column, just before its first, and far
+    outside."""
+    s_l, n_tile = 7, 37
+    offset = me * n_tile
+    rng = np.random.default_rng(me)
+    sources = rng.integers(0, 4 * n_tile, s_l)
+    sources[:4] = (offset + 3, offset + n_tile, max(offset - 1, 0),
+                   offset + n_tile - 1)
+    sources = sources.astype(np.int32)
+    ov = np.zeros(4 * n_tile, dtype=bool)
+    d0_j, _ = jspf._tile_d0_allow(jnp.asarray(sources), jnp.asarray(ov), me,
+                                  n_tile)
+    src = torch.as_tensor(sources)
+    d0 = tspf._tile_init_plain(src, offset, n_tile)
+    np.testing.assert_array_equal(d0.numpy(), np.asarray(d0_j))
+    dp = rng.integers(0, 50, (s_l, n_tile)).astype(np.int32)
+    dp[rng.random(dp.shape) < 0.1] = INF
+    marks = rng.random(dp.shape) < 0.3
+    marks[0, 3] = True  # a marked source column: the pin wins
+    want = jnp.where(jnp.asarray(marks), INF, jnp.asarray(dp))
+    local = jnp.asarray(sources) - offset
+    local = jnp.where((local >= 0) & (local < n_tile), local, n_tile)
+    want = want.at[jnp.arange(s_l), local].set(0, mode="drop")
+    got = tspf._tile_reset_plain(torch.as_tensor(marks), torch.as_tensor(dp),
+                                 src, offset)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    pinned = int((d0 == 0).sum())
+    assert pinned == int(((sources >= offset)
+                          & (sources < offset + n_tile)).sum())
+    assert 0 < pinned < s_l
+
+
 def ascends_with_sentinels_last(hcols):
     """Each row of hcols [g, h] rises strictly up to its sentinels, which
     come last: K20's precondition."""
