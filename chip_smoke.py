@@ -82,8 +82,12 @@ Phases, one JSON line each:
                count; K3 on the all-pairs DAG of the closed matrix
                (16,384 edges by 4,096 columns) against its plain version,
                its span, device and host times beside its bounds; then
-               K11-K13's times, bounds and plain times,
-               K11's device time by entry point over one close (profiler)
+               K11-K13's times, bounds and plain times, K12's (one launch
+               a seed) on the raise_40 seed also as device time (a CUDA
+               graph of 20 seeds), host time and device time by entry
+               point (profiler), beside the data's rows_scanned and both
+               terms of its bound, K11's device time by entry point over
+               one close (profiler)
                and the DPX add-and-min (VIADDMNMX) and shared-load counts
                of K11's and K13's built code (cuobjdump -sass)
   lfa_clos     DeltaRouteBuilder over CudaSpfSolver(compute_lfa_paths=True,
@@ -123,6 +127,15 @@ Phases, one JSON line each:
                8 steps on fabric_edges(4) (260 nodes, seeded metrics)
                against the plain versions differentiated by autograd on
                the card
+  te_mesh      te_clos's batch (4 scenarios, 128 rounds) sharded over a
+               (4, 1) mesh of ranks sharing the card, 2 Adam steps,
+               counted: each rank's forward and backward in turn, the
+               gradients summed onto rank 0, one Adam step there; weights
+               within 5e-3 and losses within 1e-4 of the unsharded
+               adam_solve of the same steps; step time and peak memory of
+               both (under 48 GiB), K14-K18 launches a step (K14-K17 four
+               times te_clos's, K18 an MLU and a seed a rank and one Adam
+               step)
   te_service   TeService(device="cuda") on the bench's congested 6-node
                fixture: at the bench's settings (48 steps, 4 scenarios)
                the CPU run's proposal and scores, best of 3 timed runs
@@ -167,8 +180,8 @@ Phases, one JSON line each:
                graph_ms where taken)
 
 Every path (main_path, event_wan, event_clos, star_flap, ksp_wan,
-ksp_star, apsp_wan, lfa_clos, te_clos, te_service, tile_wan, tile_clos,
-mesh_rows) runs with all launch
+ksp_star, apsp_wan, lfa_clos, te_clos, te_mesh, te_service, tile_wan,
+tile_clos, mesh_rows) runs with all launch
 counts set to 0 just before it and read just after, and fails if a kernel
 it drives was not launched. The (min,+) tile product of fw_minplus.cuh
 (K10 in the port's numbering) has no launch and no row of its own: it
@@ -229,6 +242,10 @@ TE_CLOS_NODES = 3956
 TE_STEPS = 8
 TE_DEMANDS = 4096
 TE_CHAIN_PODS = 4
+# te_mesh: te_clos's batch of 4 scenarios over a (4, 1) mesh of ranks
+# sharing the card, 2 Adam steps
+TE_MESH_B = 4
+TE_MESH_STEPS = 2
 # te_clos's last loss on an H100 80GB HBM3 with the first designs of K15,
 # K16 and K17 (one thread a column; K17 divided g_util by the capacity per
 # column): the redesigned K15 (softmin backward), K16 (flow round) and
@@ -317,7 +334,7 @@ TIMED_UNIT = {
                                "rounds",
     "fw_close": "a cold close (n_pad 4,096): block (0, 0)'s close, panels "
                 "and outer a stage, the probe",
-    "fw_seed": "one seed (n_pad 4,096)",
+    "fw_seed": "one seed (n_pad 4,096, apsp_wan's raise_40 event)",
     "fw_reclose": "one re-close round (the event's dirty blocks)",
     "softmin_round": "one softmin round (te_clos)",
     "softmin_round_bwd": "one softmin round's backward (te_clos): rows, "
@@ -427,6 +444,23 @@ def launches_a_call(kernel, fn, setup=None) -> int:
     l0 = kernel.launches
     fn(*args)
     return kernel.launches - l0
+
+
+def seed_times(fw, kernel, args) -> dict:
+    """K12 on one seed's inputs (`fw_seed(*args)`): its launches a call,
+    its span (`time_ms`, 21 calls), device time (`graph_ms`, 20 calls),
+    host time (`host_ms`) and, under the profiler, the device time of each
+    of its entry points (`profile.split_ms`)."""
+
+    def k12():
+        return fw.fw_seed(*args)
+
+    return {
+        "launches_per_call": launches_a_call(kernel, k12),
+        "ms": time_ms(k12, reps=21), "graph_ms": graph_ms(k12, 20),
+        "host_ms": host_ms(k12),
+        "profile": profile_window(k12, split=tuple(kernel.entries)),
+    }
 
 
 def ecmp_bytes(rows: int, e: int, t: int):
@@ -623,6 +657,90 @@ def digest(*tensors) -> str:
     for t in tensors:
         h.update(t.detach().contiguous().cpu().numpy())
     return h.hexdigest()
+
+
+def apsp_events(apsp_edges, ag, d_now):
+    """apsp_wan's four events on `wan_edges(4096, 4, 7)` (`ag` its
+    compiled graph, `d_now` the closed matrix before them): (name, edits
+    for `edit_adjacency` or None for the overload toggle, warm expected)."""
+    import numpy as np
+
+    # 1: one directed edge on a shortest path raised (bench.py's event
+    # position, moved to the next edge that is a shortest path itself)
+    pos = ag.e // 2
+    while int(ag.w[pos]) != int(d_now[ag.src[pos], ag.dst[pos]]):
+        pos += 1
+    u1, v1 = ag.names[ag.src[pos]], ag.names[ag.dst[pos]]
+    ev1 = [(u1, v1, {"metric": int(ag.w[pos]) + 20})]
+    # 2: about 40 raised pairs: 30 metrics up, 5 links down (both
+    # directions), and 15 metrics down
+    erng = np.random.default_rng(11)
+    dirs = [(a, b) for a, b, _ in apsp_edges] + [
+        (b, a) for a, b, _ in apsp_edges]
+    pick = erng.choice(len(dirs), size=50, replace=False)
+    metric = {(a, b): m for a, b, m in apsp_edges}
+    metric.update({(b, a): m for a, b, m in apsp_edges})
+    ev2 = []
+    for j, idx in enumerate(pick):
+        a, b = dirs[idx]
+        if j < 30:
+            ev2.append((a, b, {"metric": metric[(a, b)]
+                               + int(erng.integers(1, 60))}))
+        elif j < 35:
+            ev2.append((a, b, {"is_overloaded": True}))
+        else:
+            ev2.append((a, b, {"metric": max(1, metric[(a, b)]
+                                             - int(erng.integers(1, 60)))}))
+    # 3: more than 64 raised pairs: the warm patch overflows, cold close
+    pick3 = erng.choice(len(dirs), size=80, replace=False)
+    ev3 = [(dirs[i][0], dirs[i][1], {"metric": 101 + int(erng.integers(
+        0, 50))}) for i in pick3]
+    return [("raise_one", ev1, True), ("raise_40", ev2, True),
+            ("raise_80", ev3, False), ("overload_toggle", None, False)]
+
+
+def increase_slots(w_prev, w_new):
+    """The warm seed's slot arrays (inc_u, inc_v, inc_w) on w_new's device
+    for the pairs whose weight rose, as `ApspState` fills them: p bucketed
+    (at least 8), padding slots u = INCREASE_PAD."""
+    import numpy as np
+    import torch
+
+    from openr_tpu_torch.apsp import kernels as fw
+    from openr_tpu_torch.ops.graph import _next_bucket
+
+    pairs = torch.nonzero(w_new > w_prev).cpu().numpy()
+    check(len(pairs) <= fw._APSP_PATCH_SLOTS, "warm event too wide")
+    p = _next_bucket(max(len(pairs), 1), minimum=8)
+    slots = np.zeros((3, p), dtype=np.int32)
+    slots[0] = fw.INCREASE_PAD
+    w_prev_h = w_prev.cpu().numpy()
+    for i, (u, v) in enumerate(pairs):
+        slots[:, i] = (u, v, w_prev_h[u, v])
+    return tuple(torch.as_tensor(x, device=w_new.device) for x in slots)
+
+
+def seed_work(d_prev, iu, iv, iw) -> dict:
+    """K12's work on this data, for its bound: a row scans D once for each
+    valid slot whose u it reaches, up to and including its first hit, an
+    add, a min and a compare per entry (`rows_scanned`, `ops`); D and
+    w_new read once, d0 written once, the slots read and the flags written
+    (`bytes`)."""
+    import torch
+
+    from openr_tpu_torch.ops.graph import INF
+
+    n = d_prev.shape[0]
+    done = torch.zeros(n, dtype=torch.bool, device=d_prev.device)
+    rows_scanned = 0
+    for q in torch.nonzero(iu < n).flatten().tolist():
+        a_q = (d_prev[:, int(iu[q])] + iw[q]).clamp_max(INF)
+        live = (a_q < INF) & ~done
+        rows_scanned += int(live.sum())
+        cand = (a_q[:, None] + d_prev[int(iv[q])][None, :]).clamp_max(INF)
+        done |= live & ((cand == d_prev) & (d_prev < INF)).any(dim=1)
+    return {"rows_scanned": rows_scanned, "ops": 3 * rows_scanned * n,
+            "bytes": 12 * n * n + n + 12 * iu.numel()}
 
 
 def max_abs_err(a, b) -> int:
@@ -2254,15 +2372,7 @@ def main() -> int:
     def plain_warm(d_prev, w_prev, w_new):
         """The plain versions' composition of a warm close: the seed, then
         rounds until nothing changes. (d, rounds, slots, dirty0)."""
-        pairs = torch.nonzero(w_new > w_prev).cpu().numpy()
-        check(len(pairs) <= fw._APSP_PATCH_SLOTS, "warm event too wide")
-        p = _next_bucket(max(len(pairs), 1), minimum=8)
-        slots = np.zeros((3, p), dtype=np.int32)
-        slots[0] = fw.INCREASE_PAD
-        w_prev_h = w_prev.cpu().numpy()
-        for i, (u, v) in enumerate(pairs):
-            slots[:, i] = (u, v, w_prev_h[u, v])
-        iu, iv, iw = (torch.as_tensor(x, device=dev) for x in slots)
+        iu, iv, iw = increase_slots(w_prev, w_new)
         d, dirty, num = fw._fw_seed_plain(d_prev, w_new, iu, iv, iw, nb_a,
                                           bsz_a)
         nd, rounds, dirty0 = int(num), 0, int(num)
@@ -2276,42 +2386,10 @@ def main() -> int:
             nd = int(nd_t)
         return d, rounds, (iu, iv, iw), dirty0
 
-    ev_nodes = {name: i for i, name in enumerate(ag.names[: ag.n])}
     d_now = apsp._d_dev
     # K3 on the all-pairs DAG of this closed matrix, timed after the path
     dag_d, dag_g = d_now.clone(), to_device(asolve.graph, dev)
-    # 1: one directed edge on a shortest path raised (bench.py's event
-    # position, moved to the next edge that is a shortest path itself)
-    pos = ag.e // 2
-    while int(ag.w[pos]) != int(d_now[ag.src[pos], ag.dst[pos]]):
-        pos += 1
-    u1, v1 = ag.names[ag.src[pos]], ag.names[ag.dst[pos]]
-    ev1 = [(u1, v1, {"metric": int(ag.w[pos]) + 20})]
-    # 2: about 40 raised pairs: 30 metrics up, 5 links down (both
-    # directions), and 15 metrics down
-    erng = np.random.default_rng(11)
-    dirs = [(a, b) for a, b, _ in apsp_edges] + [
-        (b, a) for a, b, _ in apsp_edges]
-    pick = erng.choice(len(dirs), size=50, replace=False)
-    metric = {(a, b): m for a, b, m in apsp_edges}
-    metric.update({(b, a): m for a, b, m in apsp_edges})
-    ev2 = []
-    for j, idx in enumerate(pick):
-        a, b = dirs[idx]
-        if j < 30:
-            ev2.append((a, b, {"metric": metric[(a, b)]
-                               + int(erng.integers(1, 60))}))
-        elif j < 35:
-            ev2.append((a, b, {"is_overloaded": True}))
-        else:
-            ev2.append((a, b, {"metric": max(1, metric[(a, b)]
-                                             - int(erng.integers(1, 60)))}))
-    # 3: more than 64 raised pairs: the warm patch overflows, cold close
-    pick3 = erng.choice(len(dirs), size=80, replace=False)
-    ev3 = [(dirs[i][0], dirs[i][1], {"metric": 101 + int(erng.integers(
-        0, 50))}) for i in pick3]
-    events = [("raise_one", ev1, True), ("raise_40", ev2, True),
-              ("raise_80", ev3, False), ("overload_toggle", None, False)]
+    events = apsp_events(apsp_edges, ag, d_now)
     per_event = []
     seed2 = None
     for k, (name, edits, want_warm) in enumerate(events):
@@ -2425,27 +2503,16 @@ def main() -> int:
     err12 = max(max_abs_err(d0_2, d0p), max_abs_err(dirty_2, dirtyp))
     check(err12 == 0 and int(num_2) == int(nump) == dirty02,
           f"K12 differs from its plain version: {err12}")
-    per_call12 = launches_a_call(K12, lambda: fw.fw_seed(*seed_args))
-    check(per_call12 == 2, f"K12 launched {per_call12} times a seed, not 2")
-    ms12 = time_ms(lambda: fw.fw_seed(*seed_args))
+    t12 = seed_times(fw, K12, seed_args)
+    per_call12, ms12 = t12["launches_per_call"], t12["ms"]
+    check(per_call12 == 1, f"K12 launched {per_call12} times a seed, not 1")
     plain_ms12 = time_ms(lambda: fw._fw_seed_plain(*seed_args), reps=3,
                          warmup=1)
-    # K12's work on this data: a row scans D once for each valid slot whose
-    # u it reaches, up to and including its first hit; an add, a min and a
-    # compare per entry
-    iu2, iv2, iw2 = slots2
+    iu2 = slots2[0]
     valid2 = iu2 < n_a
-    done = torch.zeros(n_a, dtype=torch.bool, device=dev)
-    rows_scanned = 0
-    for q in torch.nonzero(valid2).flatten().tolist():
-        a_q = (d_prev2[:, int(iu2[q])] + iw2[q]).clamp_max(INF)
-        live = (a_q < INF) & ~done
-        rows_scanned += int(live.sum())
-        cand = (a_q[:, None] + d_prev2[int(iv2[q])][None, :]).clamp_max(INF)
-        done |= live & ((cand == d_prev2) & (d_prev2 < INF)).any(dim=1)
-    del cand
-    b12_ms, b12_by = bound(12 * n_a * n_a + n_a + 12 * iu2.numel(),
-                           3 * rows_scanned * n_a, rate)
+    w12 = seed_work(d_prev2, *slots2)
+    rows_scanned = w12["rows_scanned"]
+    b12_ms, b12_by = bound(w12["bytes"], w12["ops"], rate)
     kb2 = min(_next_bucket(dirty02, minimum=1), nb_a)
 
     def fresh_round():
@@ -2488,25 +2555,31 @@ def main() -> int:
                 "profile": prof11, "sass": sass_fw},
         "k12": {"slots": int(iu2.numel()), "valid": int(valid2.sum()),
                 "rows_scanned": rows_scanned, "dirty_blocks": dirty02,
-                "ms": ms12, "plain_ms": plain_ms12, "bound_ms": b12_ms},
+                **t12, "plain_ms": plain_ms12, "bound_ms": b12_ms,
+                "bound_bytes_ms": w12["bytes"] / rate * 1e3,
+                "bound_ops_ms": w12["ops"] / _INT32_OPS_PER_S * 1e3},
         "k13": {"kb": kb2, "dirty_blocks": dirty02, "ms": ms13,
                 "plain_ms": plain_ms13, "bound_ms": b13_ms},
         "k3_dag": k3_dag, "card": card,
     })
-    for name, k, e, m_, pm, bm, bb, lpc in (
+    for name, k, e, m_, pm, bm, bb, lpc, extra in (
         ("fw_close.cu", K11, err11, ms11, plain_ms11, b11_ms, b11_by,
-         per_call11),
+         per_call11, {"graph_ms": dev11}),
         ("fw_seed.cu", K12, err12, ms12, plain_ms12, b12_ms, b12_by,
-         per_call12),
+         per_call12, {
+             "graph_ms": t12["graph_ms"], "host_ms": t12["host_ms"],
+             "rows_scanned": rows_scanned,
+             "bound_bytes_ms": w12["bytes"] / rate * 1e3,
+             "bound_ops_ms": w12["ops"] / _INT32_OPS_PER_S * 1e3}),
         ("fw_reclose.cu", K13, err13, ms13, plain_ms13, b13_ms, b13_by,
-         per_call13),
+         per_call13, {}),
     ):
         results.append({
             "name": k.name, "route": "cuda",
             "source": f"openr_tpu_torch/ops/csrc/{name}",
             "replaces": k.replaces, "launches": None, "max_abs_err": e,
             "ms": m_, "plain_ms": pm, "bound_ms": bm, "bound_by": bb,
-            "library_ms": None, "launches_per_call": lpc,
+            "library_ms": None, "launches_per_call": lpc, **extra,
         })
     del (asolver, asolve, apsp, apsp_ls, w_t, allow_t, seed2,
          d_prev2, w_new2, allow2, d0_2, d0p, d_prev, w_prev, w_new, cold)
@@ -2932,7 +3005,7 @@ def main() -> int:
     # one more step under torch.profiler, outside the counted run
     te_profile = profile_window(lambda: teopt.adam_solve(
         inp["w"], dem_t, mask_t, caps_t, graph, up_t, cfg, te_rounds, 1))
-    del dem_t, inp, we, mask_t
+    del we
     torch.cuda.empty_cache()
 
     # the whole chain on a smaller Clos with seeded metrics 1..9: kernels
@@ -3053,6 +3126,67 @@ def main() -> int:
                 for name_, b_ in side_bound.items()
                 if name_.startswith(key)},
         })
+
+    # -- 15b. te_mesh: TE's scenario batch sharded over 'batch' ----------
+    # te_clos's batch over a (TE_MESH_B, 1) mesh of ranks sharing the card,
+    # counted, against the unsharded adam_solve of the same steps (not
+    # counted); PERF.md §2's TE limits. Each rank runs K14-K17 on its own
+    # scenario and K18's MLU and seed; the one Adam step runs on rank 0
+    t0 = time.perf_counter()
+    bmesh = make_mesh([dev] * TE_MESH_B, (TE_MESH_B, 1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    _, wh_one, ls_one = teopt.adam_solve(
+        inp["w"], dem_t, mask_t, caps_t, graph, up_t, cfg, te_rounds,
+        TE_MESH_STEPS)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t1
+    one_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    paths.start()
+    t1 = time.perf_counter()
+    _, wh_mesh, ls_mesh = teopt.adam_solve(
+        inp["w"], dem_t, mask_t, caps_t, graph, up_t, cfg, te_rounds,
+        TE_MESH_STEPS, mesh=bmesh)
+    torch.cuda.synchronize()
+    mesh_s = time.perf_counter() - t1
+    mesh_launches = paths.read("te_mesh", (K14, K15, K16, K17, K18))
+    mesh_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(bool(torch.isfinite(wh_mesh).all())
+          and bool(torch.isfinite(ls_mesh).all()),
+          "te_mesh: a loss or a weight is not finite")
+    mesh_w_err = float((wh_mesh - wh_one).abs().max())
+    mesh_loss_err = rel_err(ls_mesh, ls_one)
+    check(mesh_w_err <= 5e-3 and mesh_loss_err <= 1e-4,
+          f"te_mesh: weights differ by {mesh_w_err}, losses by "
+          f"{mesh_loss_err} from the unsharded run")
+    check(mesh_peak < 48, f"te_mesh peak memory {mesh_peak:.1f} GiB")
+    mesh_per_step = {k.name: mesh_launches[k.name] / TE_MESH_STEPS
+                     for k in (K14, K15, K16, K17, K18)}
+    # every rank runs a step's K14-K17 launches, each on fewer scenarios;
+    # K18: an MLU and a seed a rank, one Adam step
+    for k in (K14, K15, K16, K17):
+        check(mesh_per_step[k.name] == TE_MESH_B * per_step[k.name],
+              f"te_mesh: {k.name} launched {mesh_per_step[k.name]} times a "
+              f"step, not {TE_MESH_B} x {per_step[k.name]}")
+    check(mesh_per_step[K18.name] == 2 * TE_MESH_B + 1,
+          f"te_mesh: {K18.name} launched {mesh_per_step[K18.name]} times a "
+          f"step, not {2 * TE_MESH_B + 1}")
+    emit({
+        "phase": "te_mesh", "mesh": [TE_MESH_B, 1],
+        "graph": f"fabric_edges({TE_CLOS_PODS})", "n": n_t, "e": e_t,
+        "scenarios": te_b, "rounds": te_rounds, "steps": TE_MESH_STEPS,
+        "step_ms": mesh_s * 1e3 / TE_MESH_STEPS,
+        "unsharded_step_ms": one_s * 1e3 / TE_MESH_STEPS,
+        "peak_memory_gib": mesh_peak, "unsharded_peak_memory_gib": one_peak,
+        "launches": mesh_launches, "launches_per_step": mesh_per_step,
+        "max_weight_err": mesh_w_err, "max_loss_rel_err": mesh_loss_err,
+        "losses": ls_mesh.tolist(), "unsharded_losses": ls_one.tolist(),
+        "seconds": time.perf_counter() - t0, "card": card,
+    })
+    del dem_t, inp, mask_t, wh_one, ls_one, wh_mesh, ls_mesh
+    torch.cuda.empty_cache()
 
     # -- 16. te_service: the TE service on the card ----------------------
     t0 = time.perf_counter()

@@ -288,6 +288,23 @@ def fw_close(
     return d, probe[0]
 
 
+# K12's scratch per card and stream: each block row's arrivals and dirty
+# arrivals, then the completed block rows and the dirty ones (fw_seed.cu).
+# Zeroed once; the kernel leaves it at 0 again. Seeds on one stream run in
+# order, so only seeds on different streams could overlap, and each stream
+# has its own
+_seed_scratch = {}
+
+
+def _seed_scratch_for(dev, nb: int) -> torch.Tensor:
+    key = (dev.index, torch._C._cuda_getCurrentRawStream(dev.index))
+    buf = _seed_scratch.get(key)
+    if buf is None or buf.numel() < nb + 1:
+        buf = torch.zeros(nb + 1, dtype=torch.int32, device=dev)
+        _seed_scratch[key] = buf
+    return buf
+
+
 def fw_seed(
     d_prev: torch.Tensor,
     w_new: torch.Tensor,
@@ -298,7 +315,8 @@ def fw_seed(
     bsz: int,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Warm re-close seed (K12): (d0 [N, N], dirty [nb] bool, num_dirty
-    one-element int32). d_prev and w_new are not modified."""
+    one-element int32). d_prev and w_new are not modified. On the card, one
+    launch a seed: the affected rows, the fold and the dirty blocks."""
     dev = d_prev.device
     n = _square("d_prev", d_prev, torch.int32, dev)
     if _square("w_new", w_new, torch.int32, dev) != n or nb * bsz != n:
@@ -313,17 +331,14 @@ def fw_seed(
                                         nb, bsz)
         return d0, dirty, num.reshape(1)
     d0 = torch.empty_like(d_prev)
-    row_dirty = torch.empty(n, dtype=torch.bool, device=dev)
     dirty = torch.empty(nb, dtype=torch.bool, device=dev)
     num = torch.empty(1, dtype=torch.int32, device=dev)
     FW_SEED.launch(
         dev,
         d_prev.data_ptr(), w_new.data_ptr(), inc_u.data_ptr(),
-        inc_v.data_ptr(), inc_w.data_ptr(), d0.data_ptr(),
-        row_dirty.data_ptr(), p, n, entry="fw_seed_rows",
+        inc_v.data_ptr(), inc_w.data_ptr(), d0.data_ptr(), dirty.data_ptr(),
+        num.data_ptr(), _seed_scratch_for(dev, nb).data_ptr(), p, n, nb, bsz,
     )
-    FW_SEED.launch(dev, row_dirty.data_ptr(), dirty.data_ptr(), num.data_ptr(),
-                   nb, bsz, entry="fw_seed_blocks")
     return d0, dirty, num
 
 

@@ -273,10 +273,7 @@ FW_CLOSE = Kernel(
 FW_SEED = Kernel(
     "fw_seed",
     "fw_seed.cu",
-    {
-        "fw_seed_rows": [_P, _P, _P, _P, _P, _P, _P, _I, _I],
-        "fw_seed_blocks": [_P, _P, _P, _I, _I],
-    },
+    {"fw_seed": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I]},
     "openr_tpu/apsp/kernels.py:178 _fw_seed_solver",
 )
 FW_RECLOSE = Kernel(

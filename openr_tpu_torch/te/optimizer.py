@@ -12,19 +12,28 @@ integer* iterate under exact hard-SPF routing and keep the best one.
 The scenario batch is a [B, N, N] demand tensor with a validity mask. The
 softmin distances do not depend on the demands, so a step computes them
 once for the whole batch (the reference's vmap leaves them unbatched too).
-The batch sharded over several cards (the reference's mesh) is not ported.
+With a solver mesh the batch is sharded over its 'batch' axis, as SPF
+source batches are (`parallel/mesh.py`): padded to the axis size with
+masked zero-demand scenarios, batch rank r's [B / b, N, N] slice and mask
+on its device, the topology replicated. One process drives every rank: a
+step runs each rank's forward and backward in turn (so ranks sharing a
+card peak near one rank's memory), sums their gradients onto batch rank
+0's device, where the one Adam step runs, and copies the new weights to
+the other ranks' devices.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from openr_tpu_torch.convert import TeGraph, te_inputs
 from openr_tpu_torch.device import DeviceLike, resolve_device
+from openr_tpu_torch.ops.spf import batch_devices
 from openr_tpu_torch.te import kernels as tk
 from openr_tpu_torch.te.objective import (
     edge_weights,
@@ -98,6 +107,85 @@ def _loss_plain(w, demands, scen_mask, caps, graph: TeGraph, up,
     return tk._te_mlu_plain(util, scen_mask, tk.f32(tau_obj))[0]
 
 
+@dataclass
+class ScenarioShard:
+    """Batch rank r's share of the scenario batch, on its device: its
+    demand slice [B / b, N, N] and mask [B / b], replicas of caps, up and
+    the TeGraph, and `scale`, max(its mask's sum, 1) / max(the whole mask's
+    sum, 1): K18's MLU averages over the rank's own scenarios, and the
+    scale turns that into its share of the global mean."""
+
+    demands: torch.Tensor
+    mask: torch.Tensor
+    caps: torch.Tensor
+    graph: TeGraph
+    up: torch.Tensor
+    scale: float
+
+    @property
+    def device(self) -> torch.device:
+        return self.demands.device
+
+
+def _graph_on(graph: TeGraph, dev: torch.device) -> TeGraph:
+    if graph.device == dev:
+        return graph
+    return dataclasses.replace(graph, **{
+        f.name: getattr(graph, f.name).to(dev)
+        for f in dataclasses.fields(graph)
+        if isinstance(getattr(graph, f.name), torch.Tensor)})
+
+
+def shard_scenarios(demands, scen_mask, caps, graph: TeGraph, up,
+                    mesh) -> List[ScenarioShard]:
+    """The scenario batch sharded over `mesh`'s 'batch' axis (the
+    reference's `_shard_scenarios`): the scenario axis padded to the axis
+    size with zero-demand scenarios whose mask is 0, and batch rank r's
+    slice on `batch_devices(mesh)[r]` (graph rank 0: the batch replicates
+    over 'graph'), with caps, up and the graph copied once to each device
+    they are not on."""
+    devs = batch_devices(mesh)
+    b = len(devs)
+    pad = (-demands.shape[0]) % b
+    if pad:
+        demands = torch.cat([demands, demands.new_zeros(
+            (pad,) + tuple(demands.shape[1:]))])
+        scen_mask = torch.cat([scen_mask, scen_mask.new_zeros(pad)])
+    per = demands.shape[0] // b
+    counts = scen_mask.reshape(b, per).sum(dim=1).tolist()
+    total = max(sum(counts), 1.0)
+    topo = {}
+    out = []
+    for r, dev in enumerate(devs):
+        if dev not in topo:
+            topo[dev] = (caps.to(dev), _graph_on(graph, dev), up.to(dev))
+        rows = slice(r * per, (r + 1) * per)
+        out.append(ScenarioShard(
+            demands[rows].to(dev), scen_mask[rows].to(dev), *topo[dev],
+            float(np.float32(max(counts[r], 1.0)) / np.float32(total))))
+    return out
+
+
+def _sharded_grad(w, shards, replicas, loss_fn, tau: float, tau_obj: float,
+                  rounds: int):
+    """(loss [1], g [E]) on w's device: each rank's scaled loss and its
+    gradient in turn, summed in rank order. `replicas` holds this step's
+    copy of w on every other device."""
+    loss_sum = g_sum = None
+    for sh in shards:
+        wr = w if sh.device == w.device else replicas[sh.device]
+        wv = wr.detach().requires_grad_(True)
+        loss = loss_fn(wv, sh.demands, sh.mask, sh.caps, sh.graph, sh.up,
+                       tau, tau_obj, rounds)
+        if sh.scale != 1.0:
+            loss = loss * sh.scale
+        (g,) = torch.autograd.grad(loss, wv)
+        loss, g = loss.detach().to(w.device), g.to(w.device)
+        loss_sum = loss if loss_sum is None else loss_sum + loss
+        g_sum = g if g_sum is None else g_sum + g
+    return loss_sum, g_sum
+
+
 def anneal_tau(cfg: TeOptConfig, i: int, steps: int) -> float:
     """Step i's temperature tau0 * (tau_min / tau0) ** (i / (steps - 1)),
     in float32 as the reference's traced step computes it."""
@@ -117,12 +205,27 @@ def adam_solve(
     rounds: int,
     steps: int,
     plain: bool = False,
+    mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(final w [E], weight trajectory [steps, E], losses [steps]) on w0's
     device, with nothing copied to the host. Each step takes the gradient
     of `_loss` at w, zeroes it on down links and applies Adam (K18). With
     `plain` every piece is its plain version differentiated by autograd,
-    on any device: the reference the card's kernels are held against."""
+    on any device: the reference the card's kernels are held against.
+
+    With `mesh`, the batch is sharded over its 'batch' axis
+    (`shard_scenarios`; w0 on batch rank 0's device): a step's loss and
+    gradient are the ranks' sums (`_sharded_grad`), and the Adam step runs
+    once, on w0's device. Without one the whole batch is one shard."""
+    if mesh is None:
+        shards = [ScenarioShard(demands, scen_mask, caps, graph, up, 1.0)]
+    else:
+        if batch_devices(mesh)[0] != w0.device:
+            raise ValueError(
+                f"w0 on {w0.device}, batch rank 0 on {batch_devices(mesh)[0]}")
+        shards = shard_scenarios(demands, scen_mask, caps, graph, up, mesh)
+    replicas = {sh.device: torch.empty_like(w0, device=sh.device)
+                for sh in shards if sh.device != w0.device}
     w = w0.detach().clone()
     m = torch.zeros_like(w)
     v = torch.zeros_like(w)
@@ -135,16 +238,16 @@ def adam_solve(
     sched = tk.adam_schedule(cfg, steps)
     for i in range(steps):
         tau = anneal_tau(cfg, i, steps)
-        wv = w.detach().requires_grad_(True)
-        loss = loss_fn(wv, demands, scen_mask, caps, graph, up, tau,
-                       cfg.tau_obj, rounds)
-        (g,) = torch.autograd.grad(loss, wv)
+        for rep in replicas.values():
+            rep.copy_(w)
+        loss, g = _sharded_grad(w, shards, replicas, loss_fn, tau,
+                                cfg.tau_obj, rounds)
         losses[i : i + 1].copy_(loss.detach())
         if plain:
             tk._te_adam_plain(w, m, v, g, up, rows[i], sched[i])
         else:
             tk.te_adam(w, m, v, g.contiguous(), up, rows[i], sched[i])
-        del loss, g, wv
+        del loss, g
     return w, w_hist, losses
 
 
@@ -170,23 +273,22 @@ def optimize_weights(
     instead of proposing noise. `initial_d`, when given, is an exact
     distance matrix for the INITIAL integer weights (the solver's resident
     APSP matrix, docs/Apsp.md): the w0 score reuses it instead of
-    re-deriving [N, N] distances by Bellman-Ford."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the scenario batch sharded over a mesh of cards is not ported "
-            "(ROADMAP.md queue 1 item 10, multi-GPU layouts): pass mesh=None"
-        )
+    re-deriving [N, N] distances by Bellman-Ford. With `mesh` (a
+    `parallel.Mesh`) the scenario batch is sharded over its 'batch' axis
+    and the loop runs on its devices, batch rank 0's holding the weights:
+    `device` is not read."""
     cfg = config or TeOptConfig()
     rounds = cfg.rounds if cfg.rounds is not None else int(n)
     rounds = max(2, min(int(rounds), 128))
 
     b = demands.shape[0]
-    dev = resolve_device(device)
+    dev = (batch_devices(mesh)[0] if mesh is not None
+           else resolve_device(device))
     inp = te_inputs(src_e, dst_e, w0, up, demands, caps, dev)
     scen_mask = torch.ones(b, dtype=torch.float32, device=dev)
     _, w_hist, losses = adam_solve(
         inp["w"], inp["demands"], scen_mask, inp["caps"], inp["graph"],
-        inp["up"], cfg, rounds, int(cfg.steps),
+        inp["up"], cfg, rounds, int(cfg.steps), mesh=mesh,
     )
     # the whole optimization stays on the device; this is its single
     # copy-back (trajectory + losses), accounted like every other d2h

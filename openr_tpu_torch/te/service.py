@@ -12,10 +12,11 @@ the CPU behind the caller's back, so every report is `"backend":
 This is a REPORTING service: it proposes per-link metric changes plus the
 predicted hard-SPF max-link-utilization delta; nothing is programmed.
 
-Not ported yet: the supervised run with its CPU fallback and fault seam,
-the device-memory ledger registration of the scenario batch and the
-degraded-run log sample (they come with the monitor and the supervisor),
-and the scenario batch sharded over a mesh of cards.
+With a mesh (given, or the solver's) the scenario batch is sharded over
+its 'batch' axis (te/optimizer.py). Not ported yet: the supervised run
+with its CPU fallback and fault seam, the device-memory ledger
+registration of the scenario batch and the degraded-run log sample (they
+come with the monitor and the supervisor).
 """
 
 from __future__ import annotations
@@ -53,11 +54,8 @@ class TeService(CountersMixin, HistogramsMixin):
         # scoring reads its resident all-pairs matrix
         self.solver = solver
         self.device = resolve_device(device)
-        if mesh is not None or getattr(solver, "mesh", None) is not None:
-            raise NotImplementedError(
-                "the scenario batch sharded over a mesh of cards is not "
-                "ported (ROADMAP.md queue 1 item 10, multi-GPU layouts)"
-            )
+        # the scenario batch rides the solver's mesh unless one is given
+        self.mesh = mesh if mesh is not None else getattr(solver, "mesh", None)
         self.counters: Dict[str, int] = {}
         self.histograms: Dict = {}
 
@@ -116,7 +114,8 @@ class TeService(CountersMixin, HistogramsMixin):
 
         result = optimize_weights(
             src_e, dst_e, up, w0, demands, caps, graph.n,
-            config=cfg, initial_d=initial_d, device=self.device,
+            config=cfg, mesh=self.mesh, initial_d=initial_d,
+            device=self.device,
         )
 
         self._bump("decision.te.steps", result.steps)

@@ -1358,7 +1358,7 @@ def test_fw_seed_and_reclose_kernels_equal_plain(dev, n):
             *(torch.as_tensor(x, device=dev) for x in (iu, iv, iw)), nb, bsz)
     before = _cuda.FW_SEED.launches
     d0, dirty, num = fw.fw_seed(*args)
-    assert _cuda.FW_SEED.launches == before + 2
+    assert _cuda.FW_SEED.launches == before + 1
     d0_p, dirty_p, num_p = fw._fw_seed_plain(*args)
     torch.cuda.synchronize()
     assert torch.equal(d0, d0_p) and torch.equal(dirty, dirty_p)
@@ -1380,6 +1380,115 @@ def test_fw_seed_and_reclose_kernels_equal_plain(dev, n):
         assert rounds <= nb + 4
     cold, _ = fw.fw_close(torch.as_tensor(w_new, device=dev), at)
     assert torch.equal(d_k, cold)
+
+
+def _seed_case(case, n, dev, rng, close=fw._fw_close_plain):
+    """(d_prev, w_new, inc_u, inc_v, inc_w) on `dev` for one K12 case on
+    n nodes: d_prev the closed matrix of fw_inputs' weights (`close` on the
+    card), the slots by case."""
+    w, _, _ = fw_inputs(n, n + 7)
+    wt = torch.as_tensor(w, device=dev)
+    d = close(wt, torch.ones_like(wt, dtype=torch.bool))[0]
+    w_new = w.copy()
+    p = 64
+    iu = np.full(p, fw.INCREASE_PAD, dtype=np.int32)
+    iv = np.zeros(p, dtype=np.int32)
+    iw = np.zeros(p, dtype=np.int32)
+    present = np.argwhere((w < INF) & (w > 0))
+
+    def pick(k):
+        k = min(k, len(present))
+        return present[rng.choice(len(present), k, replace=False)]
+
+    if case == "padding":  # every slot a padding slot, a few decreases
+        for u, v in pick(4):
+            w_new[u, v] = max(1, w[u, v] - 1)
+    elif case == "none":  # raised pairs whose candidates all reach INF
+        for i, (u, v) in enumerate(pick(8)):
+            iu[i], iv[i], iw[i] = u, v, INF - 1
+    elif case == "every":  # a slot (q, q) for every node: past 64 slots
+        iu = iv = np.arange(n, dtype=np.int32)
+        iw = np.zeros(n, dtype=np.int32)
+    elif case == "event":  # raised, downed and lowered pairs, u and v clipped
+        for i, (u, v) in enumerate(pick(40)):
+            if i < 24:
+                iu[i], iv[i], iw[i] = u, v, w[u, v]
+                w_new[u, v] = INF if i % 3 == 0 else w[u, v] + 7
+            else:
+                w_new[u, v] = max(1, w[u, v] - 3)
+        iu[62], iv[62], iw[62] = 1 % n, n + 5, 3
+        iu[63], iv[63], iw[63] = -4, 0, 1
+    return (d, *(torch.as_tensor(x, device=dev) for x in (w_new, iu, iv,
+                                                          iw)))
+
+
+@pytest.mark.parametrize("case", ["padding", "none", "every", "event"])
+@pytest.mark.parametrize("n, nb", [(1, 1), (7, 1), (130, 2), (133, 7),
+                                   (512, 4), (4096, 32), (4098, 2)])
+def test_fw_seed_kernel_cases(dev, case, n, nb):
+    """K12 against its plain version, exactly: n not a multiple of the 16-
+    byte units a thread holds, n % 4 != 0 (the 4-byte path), a block row or
+    32 of them; all slots padding, raised pairs that touch no row, every
+    row affected, an event. One launch a seed, and its scratch left at 0
+    for the next."""
+    args = (*_seed_case(case, n, dev, np.random.default_rng(n + nb)), nb,
+            n // nb)
+    before = _cuda.FW_SEED.launches
+    got = fw.fw_seed(*args)
+    assert _cuda.FW_SEED.launches == before + 1
+    want = fw._fw_seed_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert got[2].shape == (1,) and int(got[2]) == int(want[2])
+    assert not any(buf.any() for buf in fw._seed_scratch.values())
+    if case == "none":
+        assert int(got[2]) == 0 and torch.equal(got[0], args[0])
+    if case == "every":
+        reach = (args[0] < INF).any(dim=1)
+        assert torch.equal(got[0][reach], args[1][reach].clamp_max(INF))
+    again = fw.fw_seed(*args)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+@pytest.mark.parametrize("n, misaligned", [(16512, False), (8320, True)])
+def test_fw_seed_kernel_past_registers(dev, n, misaligned):
+    """Rows wider than a block's registers hold (16,384 columns on the
+    16-byte path, 8,192 on the 4-byte one, taken here by views one element
+    into their buffers): the rest of each row is read from memory, and the
+    seed still equals its plain version exactly. d_prev is closed by K11."""
+    nb = n // 128
+    d, w_new, *slots = _seed_case("event", n, dev, np.random.default_rng(5),
+                                  close=fw.fw_close)
+    if misaligned:
+        d, w_new = _shifted(d), _shifted(w_new)
+        assert d.data_ptr() % 16
+    args = (d, w_new, *slots, nb, n // nb)
+    before = _cuda.FW_SEED.launches
+    got = fw.fw_seed(*args)
+    assert _cuda.FW_SEED.launches == before + 1
+    want = fw._fw_seed_plain(*args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(got[2]) == int(want[2]) > 0
+
+
+def _shifted(a):
+    """A copy of `a` one element into its buffer: not 16-byte aligned."""
+    buf = torch.empty(a.numel() + 1, dtype=a.dtype, device=a.device)
+    buf[1:] = a.flatten()
+    return buf[1:].view(a.shape)
+
+
+def test_fw_seed_kernel_misaligned(dev):
+    """The 4-byte path where n % 4 == 0 but the matrices are not 16-byte
+    aligned: views one element into their buffers."""
+    n, nb = 256, 2
+    d, w_new, *slots = _seed_case("event", n, dev, np.random.default_rng(3))
+    args = (_shifted(d), _shifted(w_new), *slots, nb, n // nb)
+    assert args[0].data_ptr() % 16
+    got = fw.fw_seed(*args)
+    want = fw._fw_seed_plain(*args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(got[2]) == int(want[2]) > 0
 
 
 def test_apsp_state_on_card_equals_numpy(dev):
@@ -2505,6 +2614,59 @@ def test_adam_solve_on_card_equals_cpu(dev):
     assert rel_err(ls_k, ls_c) <= 1e-4
 
 
+def te_mesh_case(device):
+    """The inputs of test_adam_solve_on_card_equals_cpu on `device`: a
+    2-pod Clos with seeded metrics, 3 scenarios, the second masked."""
+    from openr_tpu_torch.convert import te_inputs
+    from openr_tpu_torch.te import te_edge_arrays
+
+    rng = np.random.default_rng(4)
+    edges = [(a, b, int(rng.integers(1, 10))) for a, b, _ in
+             fabric_edges(pods=2)]
+    ls = LinkState("0")
+    for db in build_adj_dbs(edges).values():
+        ls.update_adjacency_database(db)
+    graph = compile_graph(ls)
+    src, dst, w, up = te_edge_arrays(graph)
+    n = graph.n
+    dem = (rng.uniform(0, 2, (3, n, n)) * (1 - np.eye(n))).astype(np.float32)
+    caps = rng.uniform(0.5, 2.0, len(src)).astype(np.float32)
+    inp = te_inputs(src, dst, w, up, dem, caps, device)
+    return inp, torch.tensor([1.0, 0.0, 1.0], device=device)
+
+
+def te_mesh_run(devices, steps=4):
+    """adam_solve on te_mesh_case over a (len(devices), 1) mesh, or
+    unsharded with devices a single device: (trajectory, losses) on the
+    host."""
+    from openr_tpu_torch.parallel import make_mesh
+    from openr_tpu_torch.te.optimizer import TeOptConfig, adam_solve
+
+    mesh = None
+    if isinstance(devices, list):
+        mesh = make_mesh(devices, (len(devices), 1))
+        devices = devices[0]
+    inp, mask = te_mesh_case(devices)
+    _, wh, ls = adam_solve(inp["w"], inp["demands"], mask, inp["caps"],
+                           inp["graph"], inp["up"], TeOptConfig(), 16,
+                           steps, mesh=mesh)
+    return wh.cpu(), ls.cpu()
+
+
+def test_te_mesh_on_card_equals_unsharded(dev):
+    """TE's scenario batch over a (4, 1) mesh of ranks sharing the card
+    (3 scenarios padded to 4) against the unsharded run on the card:
+    weights within 5e-3, losses within 1e-4 (PERF.md §2); K18 launches an
+    MLU and a seed a rank and one Adam step a step."""
+    before = _cuda.TE_STEP.launches
+    wh, ls = te_mesh_run([dev] * 4)
+    assert _cuda.TE_STEP.launches - before == (2 * 4 + 1) * 4
+    wh1, ls1 = te_mesh_run(dev)
+    assert float((wh - wh1).abs().max()) <= 5e-3
+    assert rel_err(ls, ls1) <= 1e-4
+    assert bool(torch.isfinite(wh).all())
+
+
 def test_te_service_on_card_equals_cpu(dev):
     """The acceptance fixture (one scenario): 6.0 -> 2.0 on the card with
     the CPU run's proposal; at the bench's 4 scenarios the worst scenario
@@ -3120,6 +3282,18 @@ def spread(cards, n):
     lie on different cards, and with more positions than cards a card
     holds several ranks."""
     return [cards[k % len(cards)] for k in range(n)]
+
+
+@pytest.mark.parametrize("ranks", [2, 4])
+def test_te_scenarios_across_cards_equal_one_card(cards, ranks):
+    """TE's scenario batch with its batch ranks spread over the cards: each
+    rank's forward and backward on its own card, the gradients copied to
+    rank 0's card, the new weights back. The trajectory and losses equal
+    the same mesh on one card within PERF.md §2's TE limits."""
+    got = te_mesh_run(spread(cards, ranks))
+    want = te_mesh_run([cards[0]] * ranks)
+    assert float((got[0] - want[0]).abs().max()) <= 5e-3
+    assert rel_err(got[1], want[1]) <= 1e-4
 
 
 @pytest.mark.parametrize("shape", [(1, 2), (1, 4), (2, 2), (2, 4)])

@@ -778,10 +778,3 @@ def test_soft_flow_bwd_scale_raises_on_a_wrong_operand():
     }.items():
         with pytest.raises(ValueError, match=msg):
             tk.soft_flow_bwd_scale(*args)
-
-
-def test_optimize_weights_refuses_a_mesh():
-    n, src, dst, w, up, dem, caps = clos_case(1)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        topt.optimize_weights(src, dst, up, w, dem, caps, n, mesh=object(),
-                              device="cpu")

@@ -269,12 +269,6 @@ def test_no_borrow_where_the_matrix_cannot_serve(case):
         assert "decision.te.apsp_borrows" not in svc.counters
 
 
-def test_a_mesh_is_refused():
-    ls = build_ls("torch", [("a", "b", 1)])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        TeService("a", {"0": ls}, mesh=object(), device="cpu")
-
-
 def test_the_card_is_the_default(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     ls = build_ls("torch", [("a", "b", 1)])
