@@ -172,6 +172,44 @@ Phases, one JSON line each:
                cold and event_wan's event, D and rounds equal to the
                unsharded K1 / K5 path; 16 KSP2 prefixes of ksp_wan under a
                (2, 1) mesh, the route db equal to the unsharded solver's
+  decision_clos  Decision(cuda) for rsw0_0 on the 9,556-node Clos (one
+               prefix a node), behind its SolverSupervisor, fed live
+               publications beside Decision(cpu): the first route delta
+               and then main_path's event as adjacency publications
+               (fsw0_1<->ssw1_0 overloaded, fsw0_2<->rsw0_5 at metric 3),
+               which takes DeltaPath, each equal to the CPU's; K1, K3, K4,
+               K5 and K7 launched; route_build_ms, route_build_delta_ms,
+               debounce_ms and solve_ms_last, and each publication's time
+               to its delta split into the ingest (process_publication),
+               the rebuild callback (rebuild_routes) and, inside it, the
+               solver's poll_device_delta (Decision(cuda)'s first poll
+               builds the area's graph and layout and solves) and its
+               build_route_db, and the cyclic garbage collector's passes
+               and time in it, for both Decisions; the process-wide
+               decode cache is cleared before each delivery, so each
+               Decision pays its own parse
+  decision_drill  the fault domain on the card, on lfa_clos's 3,956-node
+               Clos: solver.tpu.solve armed until the breaker trips, the
+               CPU oracle's deltas equal to Decision(cpu)'s while degraded;
+               disarmed, probes close the breaker and the next delta comes
+               from the card; a real allocation past the card's memory
+               classifies as device_oom; on fabric_edges(4) a clean
+               run_te_optimize (primary, its proposals equal to
+               TeService's direct run on the card; K14-K18) and one with
+               te.optimize armed once (degraded, one TE_OPTIMIZE_DEGRADED
+               sample); then every kernel's launch refused: the error
+               raises out of the rebuild and out of run_te_optimize, no
+               delta and no report come from the CPU, the breaker stays
+               closed, and once the launches are restored the card serves
+               the next event, its route db equal to Decision(cpu)'s
+  decision_mesh  the gate under a (4, 2) mesh of ranks sharing the card:
+               Decision(cuda, mesh) == Decision(cpu) on the 3,956-node Clos
+               and an event (tiled layout: K19, K20, K21)
+               A Decision phase fails if the supervisor served a delta
+               outside the drill (fallback_active, an open breaker, a
+               decision.spf fault counter), if device_solves did not rise,
+               if an SPF answer came from host Dijkstra, or if an error
+               reached the loop outside the drill.
   kernels      one line for all kernels: launches, error, ms, bounds;
                what `ms` times (`timed_unit`) and the kernel's launches
                in one such call, counted beside its timing
@@ -181,7 +219,8 @@ Phases, one JSON line each:
 
 Every path (main_path, event_wan, event_clos, star_flap, ksp_wan,
 ksp_star, apsp_wan, lfa_clos, te_clos, te_mesh, te_service, tile_wan,
-tile_clos, mesh_rows) runs with all launch
+tile_clos, mesh_rows, decision_clos, decision_drill, decision_mesh) runs
+with all launch
 counts set to 0 just before it and read just after, and fails if a kernel
 it drives was not launched. The (min,+) tile product of fw_minplus.cuh
 (K10 in the port's numbering) has no launch and no row of its own: it
@@ -922,6 +961,552 @@ def clos_events():
         ("at_me", [("rsw0_0", "fsw0_1", {"metric": 3}),
                    ("fsw0_1", "rsw0_0", {"metric": 3})], False),
     ]
+
+
+# -- Decision on the card ---------------------------------------------------
+
+DECISION_ME = "rsw0_0"
+DECISION_TIMEOUT_S = 300.0
+# the spf fault counters a clean Decision phase must not show
+DECISION_FAULT_COUNTERS = (
+    "decision.spf.solver_failures", "decision.spf.solver_retries",
+    "decision.spf.fallback_solves", "decision.spf.breaker_trips",
+    "decision.spf.probe_failures", "decision.spf.audit_mismatches",
+    "decision.spf.delta_audit_mismatches",
+    "decision.spf.apsp_fallback_closes",
+)
+
+
+def edited_adj_dbs(dbs: dict, edits) -> dict:
+    """Apply [(node, other, adjacency changes)] to the advertised
+    databases `dbs` (in place) and return the re-advertised ones."""
+    changed = {}
+    for node, other, changes in edits:
+        db = changed.get(node, dbs[node])
+        changed[node] = dataclasses.replace(db, adjacencies=[
+            dataclasses.replace(a, **changes)
+            if a.other_node_name == other else a
+            for a in db.adjacencies
+        ])
+    dbs.update(changed)
+    return changed
+
+
+def timed_calls(obj, attr: str, into: dict, key: str):
+    """Replace obj.attr by a wrapper that adds each call's wall time in ms
+    to into[key]; returns the wrapper."""
+    fn = getattr(obj, attr)
+
+    def timed(*args, **kwargs):
+        t = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            into[key] = into.get(key, 0.0) + (time.perf_counter() - t) * 1e3
+
+    setattr(obj, attr, timed)
+    return timed
+
+
+class GcTime:
+    """The cyclic garbage collector's time and passes while installed (a
+    `gc.callbacks` entry): `ms`, and `passes` by generation."""
+
+    def __init__(self) -> None:
+        self.ms = 0.0
+        self.passes = [0, 0, 0]
+        self._t = 0.0
+
+    def __call__(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._t = time.perf_counter()
+        else:
+            self.ms += (time.perf_counter() - self._t) * 1e3
+            self.passes[info["generation"]] += 1
+
+    def reset(self) -> None:
+        self.ms, self.passes = 0.0, [0, 0, 0]
+
+
+class DecisionLoop:
+    """Decisions on one asyncio loop, each with its own queues, fed the
+    same publications one Decision at a time (so one's route build does not
+    delay another's debounce)."""
+
+    def __init__(self, dev) -> None:
+        import asyncio
+
+        from openr_tpu_torch.decision import Decision, DecisionConfig
+        from openr_tpu_torch.messaging import (
+            ReplicateQueue, RQueue, RWQueue,
+        )
+
+        self.asyncio = asyncio
+        self.loop = asyncio.new_event_loop()
+        # what raises out of a Decision's callbacks reaches the loop
+        self.raised = []
+
+        def handler(loop, ctx) -> None:
+            self.raised.append(ctx.get("exception"))
+            loop.default_exception_handler(ctx)
+
+        self.loop.set_exception_handler(handler)
+        self.dev = dev
+        self._mods = (Decision, DecisionConfig, ReplicateQueue, RQueue,
+                      RWQueue)
+        self.nodes = []
+
+    def boot(self, backend: str, me: str = DECISION_ME, **cfg):
+        Decision, DecisionConfig, ReplicateQueue, RQueue, RWQueue = self._mods
+        kv_q, route_q, samples = RWQueue(), ReplicateQueue(), []
+        dec = Decision(
+            DecisionConfig(
+                my_node_name=me, solver_backend=backend,
+                solver_device=str(self.dev), debounce_min=0.005,
+                debounce_max=0.05, **cfg,
+            ),
+            RQueue(kv_q), route_q, loop=self.loop,
+            log_sample_fn=samples.append,
+        )
+        node = {"dec": dec, "kv": kv_q, "reader": route_q.get_reader(),
+                "samples": samples, "ms": {}}
+        # the split of publication to delta: the ingest, the rebuild
+        # callback (the debouncer's and the retry's) and inside it the
+        # solver's route db build
+        timed_calls(dec, "process_publication", node["ms"], "ingest_ms")
+        dec._rebuild_debounce._callback = timed_calls(
+            dec, "rebuild_routes", node["ms"], "rebuild_ms")
+        timed_calls(dec.solver, "build_route_db", node["ms"],
+                    "solver_build_ms")
+        timed_calls(dec.solver, "poll_device_delta", node["ms"], "poll_ms")
+        dec.start()
+        self.nodes.append(node)
+        return node
+
+    def deliver(self, node, pub):
+        """Push one publication to one Decision; its route delta."""
+        node["kv"].push(pub)
+        return self.loop.run_until_complete(self.asyncio.wait_for(
+            node["reader"].get(), DECISION_TIMEOUT_S))
+
+    def wait(self, cond, what: str, timeout: float = 120.0) -> None:
+        async def poll():
+            t_end = time.monotonic() + timeout
+            while not cond():
+                check(time.monotonic() < t_end, f"timed out: {what}")
+                await self.asyncio.sleep(0.02)
+
+        self.loop.run_until_complete(poll())
+
+    def stop(self) -> None:
+        for node in self.nodes:
+            task = node["dec"]._task
+            node["dec"].stop()
+            if task is not None:
+                self.loop.run_until_complete(
+                    self.asyncio.gather(task, return_exceptions=True))
+        self.nodes = []
+        self.loop.close()
+
+
+def hist_sum(dec, name: str):
+    h = dec.histograms.get(name)
+    return (h.count, h.sum) if h is not None else (0, 0.0)
+
+
+def same_delta(cuda_delta, cpu_delta, what: str):
+    from openr_tpu_torch.testing.decision_harness import (
+        assert_route_delta_equal,
+    )
+
+    try:
+        return assert_route_delta_equal(cuda_delta, cpu_delta)
+    except AssertionError as exc:
+        check(False, f"{what}: Decision(cuda) differs from Decision(cpu): "
+              f"{exc}")
+
+
+def decision_clean(node, what: str, solves_before: int) -> dict:
+    """The no-hidden-fallback gate of a Decision phase: the card served
+    every delta. Returns the supervisor's health less its ledger rows."""
+    from openr_tpu_torch.solver.supervisor import CLOSED
+
+    dec = node["dec"]
+    health = dec.get_solver_health()
+    prim = dec.solver.primary
+    check(health["fallback_active"] == 0 and health["breaker_state"] == CLOSED
+          and dec.counters.get("decision.spf.fallback_active") == 0,
+          f"{what}: the supervisor served degraded ({health['breaker_state']})")
+    faults_seen = {
+        k: v for k, v in dec.counters.items()
+        if k.startswith(DECISION_FAULT_COUNTERS) and v
+    }
+    check(not faults_seen, f"{what}: fault counters {faults_seen}")
+    check(prim.device_solves > solves_before,
+          f"{what}: device_solves did not rise ({prim.device_solves})")
+    check(prim.host_spf_calls == 0,
+          f"{what}: {prim.host_spf_calls} SPF answers from host Dijkstra")
+    errors = dec.counters.get("decision.route_build_errors", 0)
+    check(errors == 0, f"{what}: {errors} route builds raised")
+    return {k: v for k, v in health.items()
+            if k not in ("device_memory", "traces", "forensics")}
+
+
+def refused_launch_drill(drv, cu, cp, te, dbs, flap, params, inj,
+                         on_card: bool) -> dict:
+    """decision_drill's last step: every kernel's launch refused (without
+    a card, the solve and TE seams armed with the error a refused launch
+    raises). The KernelLaunchError raises out of Decision(cuda)'s rebuild
+    (to the loop) and out of run_te_optimize; nothing is served from the
+    CPU; restored, the card serves the next event."""
+    import contextlib
+
+    from openr_tpu_torch.ops._cuda import KernelLaunchError
+    from openr_tpu_torch.solver.supervisor import CLOSED
+    from openr_tpu_torch.testing.decision_harness import lsdb_publication
+    from openr_tpu_torch.testing.kernel_faults import refused_launches
+
+    dec, sup = cu["dec"], cu["dec"].solver
+    c, tc = dec.counters, te["dec"].counters
+    before = {k: c.get(k, 0) for k in (
+        "decision.spf.solver_failures", "decision.spf.fallback_solves",
+        "decision.route_build_errors")}
+    te_before = {k: tc.get(k, 0) for k in (
+        "decision.te.fallback_runs", "decision.te.optimize_errors")}
+    drv.raised.clear()
+    pubs = [lsdb_publication(edited_adj_dbs(
+        dbs, [(a, b, {"metric": m}) for a, b in flap]).values())
+        for m in (7, 8)]
+    if on_card:
+        refusing = refused_launches()
+    else:
+        refusing = contextlib.nullcontext()
+        for point in ("solver.tpu.solve", "te.optimize"):
+            inj.arm(point, times=None, exc=KernelLaunchError)
+    with refusing:
+        cu["kv"].push(pubs[0])
+        drv.wait(lambda: drv.raised, "the refused launch reaching the loop")
+        te_exc = None
+        try:
+            te["dec"].run_te_optimize(params)
+        except KernelLaunchError as exc:
+            te_exc = exc
+    if not on_card:
+        for point in ("solver.tpu.solve", "te.optimize"):
+            inj.disarm(point)
+    raised = list(drv.raised)
+    drv.raised.clear()
+    check(len(raised) == 1 and isinstance(raised[0], KernelLaunchError),
+          f"decision_drill: a refused launch raised {raised}")
+    check(te_exc is not None,
+          "decision_drill: run_te_optimize served a refused launch")
+    check(cu["reader"].size() == 0,
+          "decision_drill: a delta came out of a refused launch")
+    check(sup.state == CLOSED
+          and c.get("decision.spf.solver_failures", 0)
+          == before["decision.spf.solver_failures"]
+          and c.get("decision.spf.fallback_solves", 0)
+          == before["decision.spf.fallback_solves"]
+          and c.get("decision.route_build_errors", 0)
+          == before["decision.route_build_errors"] + 1,
+          f"decision_drill: the refused launch reached the breaker {c}")
+    check(tc.get("decision.te.fallback_runs", 0)
+          == te_before["decision.te.fallback_runs"]
+          and tc.get("decision.te.optimize_errors", 0)
+          == te_before["decision.te.optimize_errors"] + 1,
+          f"decision_drill: TE counted the refused launch as {tc}")
+    # restored: the next event's full build comes from the card
+    solves0 = sup.primary.device_solves
+    drv.deliver(cu, pubs[1])
+    # Decision(cpu) takes the last event alone (metric 8 after 7 moves no
+    # route, so it would emit no delta); both end in the same LSDB
+    drv.deliver(cp, pubs[1])
+    for kind in ("unicast_entries", "mpls_entries"):
+        check(getattr(dec.route_db, kind)
+              == getattr(cp["dec"].route_db, kind),
+              f"decision_drill: after the refused launch, {kind} differ "
+              f"from Decision(cpu)'s")
+    check(sup.primary.device_solves > solves0 and not drv.raised
+          and c["decision.spf.fallback_active"] == 0,
+          "decision_drill: the card did not serve the event after the "
+          "refused launch")
+    return {"raised": type(raised[0]).__name__, "text": str(raised[0]),
+            "te_raised": type(te_exc).__name__,
+            "route_build_errors": c["decision.route_build_errors"],
+            "breaker": sup.state}
+
+
+def decision_phases(dev, card, paths, expect, clos_edges, lfa_edges,
+                    te_edges) -> None:
+    """decision_clos, decision_drill and decision_mesh (see the module
+    docstring). `expect` maps a phase to the kernels it must launch;
+    `paths` counts launches as every path does."""
+    import torch
+
+    from openr_tpu_torch.decision.decision import _loads_cached
+    from openr_tpu_torch.parallel import make_mesh
+    from openr_tpu_torch.solver.supervisor import (
+        CLOSED, FAULT_DEVICE_OOM, classify_solver_error,
+    )
+    from openr_tpu_torch.te import TeService
+    from openr_tpu_torch.testing import faults
+    from openr_tpu_torch.testing.decision_harness import lsdb_publication
+    from openr_tpu_torch.topology import build_adj_dbs
+
+    me = DECISION_ME
+
+    def announce(dbs):
+        return {name: [f"10.{i // 256}.{i % 256}.0/24"]
+                for i, name in enumerate(sorted(dbs))}
+
+    main_event = [
+        ("fsw0_1", "ssw1_0", {"is_overloaded": True}),
+        ("ssw1_0", "fsw0_1", {"is_overloaded": True}),
+        ("fsw0_2", "rsw0_5", {"metric": 3}),
+        ("rsw0_5", "fsw0_2", {"metric": 3}),
+    ]
+
+    # -- decision_clos ---------------------------------------------------
+    import gc
+
+    t0 = time.perf_counter()
+    gc_time = GcTime()
+    gc.callbacks.append(gc_time)
+    dbs = build_adj_dbs(clos_edges)
+    pub0 = lsdb_publication(dbs.values(), announce(dbs))
+    drv = DecisionLoop(dev)
+    cu, cp = drv.boot("cuda"), drv.boot("cpu")
+    prim = cu["dec"].solver.primary
+    events = []
+    for name, pub in (
+        ("first", pub0),
+        ("main_event", lsdb_publication(
+            edited_adj_dbs(dbs, main_event).values())),
+    ):
+        solves0 = prim.device_solves
+        h0 = {k: hist_sum(cu["dec"], k) for k in (
+            "decision.route_build_ms", "decision.route_build_delta_ms",
+            "decision.debounce_ms")}
+        delta_runs0 = cu["dec"].counters.get(
+            "decision.route_build_delta_runs", 0)
+        inc0 = cu["dec"].counters.get("decision.spf.incremental_solves", 0)
+        cu["ms"].clear()
+        cp["ms"].clear()
+        _loads_cached.cache_clear()
+        gc_time.reset()
+        paths.resume()
+        t = time.perf_counter()
+        got = drv.deliver(cu, pub)
+        cuda_ms = (time.perf_counter() - t) * 1e3
+        paths.pause()
+        cu["ms"].update(gc_ms=gc_time.ms, gc_passes=gc_time.passes)
+        _loads_cached.cache_clear()
+        gc_time.reset()
+        t = time.perf_counter()
+        want = drv.deliver(cp, pub)
+        cpu_ms = (time.perf_counter() - t) * 1e3
+        cp["ms"].update(gc_ms=gc_time.ms, gc_passes=gc_time.passes)
+        n_uni, n_mpls = same_delta(got, want, f"decision_clos {name}")
+        decision_clean(cu, f"decision_clos {name}", solves0)
+        ev = {"event": name, "unicast": n_uni, "mpls": n_mpls,
+              "publication_to_delta_ms": cuda_ms,
+              "cpu_publication_to_delta_ms": cpu_ms,
+              "solve_ms_last": prim.solve_ms_last}
+        for side, node, total in (("", cu, cuda_ms), ("cpu_", cp, cpu_ms)):
+            split = dict(node["ms"])
+            # what is left: the debounce timer's wait and the loop's wake
+            split["wait_ms"] = total - split.get("ingest_ms", 0.0) \
+                - split.get("rebuild_ms", 0.0)
+            ev[side + "split"] = split
+        for k, (c0, s0) in h0.items():
+            c1, s1 = hist_sum(cu["dec"], k)
+            ev[k] = (s1 - s0) if c1 > c0 else None
+        ev["delta_path"] = cu["dec"].counters.get(
+            "decision.route_build_delta_runs", 0) > delta_runs0
+        ev["incremental_solve"] = cu["dec"].counters.get(
+            "decision.spf.incremental_solves", 0) > inc0
+        events.append(ev)
+    check(events[1]["delta_path"] and events[1]["incremental_solve"],
+          "decision_clos: main_event did not take DeltaPath on an "
+          "incremental solve")
+    gc.callbacks.remove(gc_time)
+    launches = paths.read("decision_clos", expect["decision_clos"])
+    health = decision_clean(cu, "decision_clos", 0)
+    check(not drv.raised, f"decision_clos: the loop saw {drv.raised}")
+    drv.stop()
+    emit({
+        "phase": "decision_clos", "me": me, "nodes": len(dbs),
+        "graph": f"fabric_edges({CLOS_PODS})", "events": events,
+        "route_build_delta_runs": cu["dec"].counters.get(
+            "decision.route_build_delta_runs", 0),
+        "device_solves": prim.device_solves, "health": health,
+        "seconds": time.perf_counter() - t0, "launches": launches,
+        "card": card,
+    })
+    del cu, cp, prim, drv
+
+    # -- decision_drill --------------------------------------------------
+    t0 = time.perf_counter()
+    paths.start()
+    dbs = build_adj_dbs(lfa_edges)
+    pub0 = lsdb_publication(dbs.values(), announce(dbs))
+    drv = DecisionLoop(dev)
+    cu = drv.boot("cuda", solver_probe_interval_s=0.05)
+    cp = drv.boot("cpu")
+    sup = cu["dec"].solver
+    prim = sup.primary
+    same_delta(drv.deliver(cu, pub0), drv.deliver(cp, pub0),
+               "decision_drill first")
+    decision_clean(cu, "decision_drill first", 0)
+    flap = [("fsw0_3", "rsw0_9"), ("rsw0_9", "fsw0_3")]
+    inj = faults.install(faults.FaultInjector(seed=0))
+    try:
+        inj.arm("solver.tpu.solve", times=None)
+        degraded_events = 0
+        for k in range(8):
+            metric = 5 if k % 2 == 0 else 1
+            pub = lsdb_publication(edited_adj_dbs(
+                dbs, [(a, b, {"metric": metric}) for a, b in flap]).values())
+            got = drv.deliver(cu, pub)
+            if sup.state != CLOSED:
+                # disarm while the trip's forensics are fresh: the probes
+                # must recover the card, not back off against a held fault
+                inj.disarm("solver.tpu.solve")
+            same_delta(got, drv.deliver(cp, pub),
+                       f"decision_drill armed event {k}")
+            degraded_events += 1
+            if sup.state != CLOSED:
+                break
+        health = cu["dec"].get_solver_health()
+        check(health["degraded"] and health["breaker_state"] != CLOSED,
+              "decision_drill: the breaker did not trip")
+        c = cu["dec"].counters
+        check(c.get("decision.spf.breaker_trips") == 1
+              and c.get("decision.spf.fallback_solves", 0) > 0
+              and c.get("decision.spf.solver_failures", 0)
+              >= cu["dec"].config.solver_failure_threshold,
+              f"decision_drill: trip counters {c}")
+        trips = {k: v for k, v in c.items()
+                 if k.startswith("decision.spf.") and "fail" in k
+                 or k.endswith(("breaker_trips", "fallback_solves"))}
+        t = time.perf_counter()
+        drv.wait(lambda: sup.state == CLOSED, "probes closing the breaker")
+        close_s = time.perf_counter() - t
+        solves0 = prim.device_solves
+        fallback0 = c.get("decision.spf.fallback_solves", 0)
+        # the flap back: a route change, so a delta is emitted
+        pub = lsdb_publication(edited_adj_dbs(
+            dbs, [(a, b, {"metric": 6 - metric}) for a, b in flap]).values())
+        same_delta(drv.deliver(cu, pub), drv.deliver(cp, pub),
+                   "decision_drill recovered event")
+        check(sup.state == CLOSED and prim.device_solves > solves0
+              and c.get("decision.spf.fallback_solves", 0) == fallback0
+              and c["decision.spf.fallback_active"] == 0,
+              "decision_drill: the recovered event was not served by the "
+              "card")
+        # a real allocation past the card's memory
+        oom_kind = oom_text = None
+        if dev.type == "cuda":
+            try:
+                torch.empty(1 << 40, dtype=torch.uint8, device=dev)
+            except torch.cuda.OutOfMemoryError as exc:
+                oom_kind, oom_text = classify_solver_error(exc), str(exc)
+            check(oom_kind == FAULT_DEVICE_OOM,
+                  f"decision_drill: a 1 TiB allocation classified as "
+                  f"{oom_kind}")
+        # TE through the supervisor on fabric_edges(TE_CHAIN_PODS)
+        te_dbs = build_adj_dbs(te_edges)
+        te = drv.boot("cuda", solver_max_attempts=1)
+        te_cpu = drv.boot("cpu")
+        te_pub = lsdb_publication(te_dbs.values(), announce(te_dbs))
+        same_delta(drv.deliver(te, te_pub), drv.deliver(te_cpu, te_pub),
+                   "decision_drill TE area")
+        params = {"steps": 2, "seed": 0}
+        clean = te["dec"].run_te_optimize(params)
+        tc = te["dec"].counters
+        check(clean["backend"] == "primary" and not clean["degraded"]
+              and tc.get("decision.te.fallback_runs", 0) == 0,
+              f"decision_drill: clean TE run {clean['backend']}")
+        paths.pause()  # the direct run is a comparison
+        direct = TeService(me, te["dec"].area_link_states,
+                           device=dev).optimize(params)
+        paths.resume()
+        keys = ("weight_changes", "initial_max_util", "optimized_max_util",
+                "improved", "steps")
+        check(all(clean[k] == direct[k] for k in keys),
+              "decision_drill: run_te_optimize's proposals differ from "
+              "TeService's direct run")
+        inj.arm("te.optimize", times=1)
+        degraded = te["dec"].run_te_optimize(params)
+        te_samples = [s for s in te["samples"]
+                      if s.get("event") == "TE_OPTIMIZE_DEGRADED"]
+        check(degraded["degraded"]
+              and degraded["backend"] == "cpu-fallback"
+              and tc.get("decision.te.fallback_runs") == 1
+              and len(te_samples) == 1,
+              "decision_drill: the armed TE run was not degraded once")
+        refused = refused_launch_drill(drv, cu, cp, te, dbs, flap, params,
+                                       inj, dev.type == "cuda")
+    finally:
+        faults.uninstall()
+    launches = paths.read("decision_drill", expect["decision_drill"])
+    emit({
+        "phase": "decision_drill", "me": me, "nodes": len(dbs),
+        "graph": f"fabric_edges({LFA_CLOS_PODS})",
+        "armed_events": degraded_events, "trip_counters": trips,
+        "breaker_close_s": close_s,
+        "probe_successes": cu["dec"].counters.get(
+            "decision.spf.probe_successes"),
+        "samples": sorted({s.get("event") for s in cu["samples"]}),
+        "oom": {"kind": oom_kind, "text": (oom_text or "")[:160]},
+        "te": {"graph": f"fabric_edges({TE_CHAIN_PODS})", "params": params,
+               "clean_backend": clean["backend"],
+               "degraded_backend": degraded["backend"],
+               "fallback_runs": tc.get("decision.te.fallback_runs"),
+               "degraded_samples": len(te_samples),
+               "equal_direct": True},
+        "refused_launch": refused,
+        "seconds": time.perf_counter() - t0, "launches": launches,
+        "card": card,
+    })
+    drv.stop()
+    del cu, cp, te, te_cpu, sup, prim, drv
+
+    # -- decision_mesh ---------------------------------------------------
+    t0 = time.perf_counter()
+    paths.start()
+    dbs = build_adj_dbs(lfa_edges)
+    pub0 = lsdb_publication(dbs.values(), announce(dbs))
+    drv = DecisionLoop(dev)
+    cu = drv.boot("cuda", solver_mesh=make_mesh([dev] * 8, (4, 2)))
+    cp = drv.boot("cpu")
+    prim = cu["dec"].solver.primary
+    counts = []
+    for name, pub in (
+        ("first", pub0),
+        ("main_event", lsdb_publication(
+            edited_adj_dbs(dbs, main_event).values())),
+    ):
+        solves0 = prim.device_solves
+        paths.resume()
+        got = drv.deliver(cu, pub)
+        paths.pause()
+        counts.append(same_delta(got, drv.deliver(cp, pub),
+                                 f"decision_mesh {name}"))
+        decision_clean(cu, f"decision_mesh {name}", solves0)
+    solve = prim._solves[("0", me)][1]
+    check(solve._dev["kind"] == "tile2d", "decision_mesh: not tiled")
+    launches = paths.read("decision_mesh", expect["decision_mesh"])
+    check(not drv.raised, f"decision_mesh: the loop saw {drv.raised}")
+    drv.stop()
+    emit({
+        "phase": "decision_mesh", "me": me, "mesh": [4, 2],
+        "nodes": len(dbs), "graph": f"fabric_edges({LFA_CLOS_PODS})",
+        "deltas": counts, "device_solves": prim.device_solves,
+        "halo_bytes": prim.counters.get("decision.spf.halo_bytes"),
+        "seconds": time.perf_counter() - t0, "launches": launches,
+        "card": card,
+    })
 
 
 def main() -> int:
@@ -3737,7 +4322,21 @@ def main() -> int:
     })
     del d_r, d_rw, nb_r, wg_r, ov_r, kr, ku, krs, kr_ls, st_w, d_new
 
-    # -- 20. kernels line, card, result ----------------------------------
+    # -- 20-22. Decision on the card -------------------------------------
+    K14, K15, K16, K17, K18 = (
+        _cuda.SOFTMIN_ROUND, _cuda.SOFTMIN_BWD, _cuda.SOFT_FLOW,
+        _cuda.SOFT_FLOW_BWD, _cuda.TE_STEP,
+    )
+    paths.start()
+    decision_phases(
+        dev, card, paths,
+        {"decision_clos": (K1, K3, K4, K5, K7),
+         "decision_drill": (K1, K3, K14, K15, K16, K17, K18),
+         "decision_mesh": (K3, K19, K20, K21)},
+        clos_edges, lfa_edges, fabric_edges(pods=TE_CHAIN_PODS),
+    )
+
+    # -- 23. kernels line, card, result ----------------------------------
     for row in results:
         row["launches"] = paths.total(row["name"])
         row["launches_by_path"] = {

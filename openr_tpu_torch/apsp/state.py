@@ -16,9 +16,16 @@ batch, and the TE borrow — from that one matrix.
     `_APSP_PATCH_SLOTS` increased pairs close cold (K11).
   - **Staleness guard.** `invalidate()` drops the matrix; the owning
     `_AreaSolve` calls it whenever its own warm solve was poisoned.
-  - **No fallback that hides the kernel.** A failed close raises; no
-    close is served by the host. `fallback_closes` stays 0 and is kept so
-    the counters line up with the JAX package's.
+  - **Degraded closes through the supervisor only.** A close runs
+    through the `dispatch` hook when one is given (`CudaSpfSolver`
+    installs `SolverSupervisor.supervised_call` under a supervisor):
+    classified faults feed the shared breaker, and the numpy
+    Floyd–Warshall serves the close degraded, counted in
+    `fallback_closes` and kept host-resident until the next cold close.
+    Without a hook a failed close raises: the JAX package's bare
+    try/except fallback is not copied, so nothing hides the kernel. A
+    kernel fault (`supervisor.is_kernel_fault`: no build, a refused
+    launch, a fault on the card) raises through the hook too.
   - **Shadow audit.** Every `audit_interval`-th close compares the matrix
     with `np_floyd_warshall` of the host-side graph; a mismatch
     invalidates and closes cold in place.
@@ -30,7 +37,7 @@ is what the JAX package uses where it has no device-memory source.
 from __future__ import annotations
 
 import time
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,6 +55,7 @@ from openr_tpu_torch.apsp.kernels import (
 )
 from openr_tpu_torch.device import DeviceLike, resolve_device
 from openr_tpu_torch.ops.graph import CompiledGraph, _next_bucket
+from openr_tpu_torch.testing.faults import fault_point
 
 # re-close safety margin: the restricted fixpoint stitches at least one
 # old-path segment per round, so rounds beyond the block count mean a bug
@@ -60,12 +68,17 @@ class ApspState:
     def __init__(
         self,
         max_nodes: int,
+        dispatch: Optional[Callable] = None,
         audit_interval: int = 0,
         warm: bool = True,
         device: DeviceLike = "cuda",
     ) -> None:
         self.max_nodes = max_nodes
         self.device = resolve_device(device)
+        # dispatch(op, primary_fn, fallback_fn) -> (result, degraded): the
+        # SolverSupervisor.supervised_call signature; None = the close
+        # raises on failure
+        self._dispatch = dispatch
         self.audit_interval = audit_interval
         self.warm = warm
 
@@ -73,7 +86,7 @@ class ApspState:
         self.closes = 0
         self.warm_closes = 0
         self.cold_closes = 0
-        self.fallback_closes = 0  # no host path: always 0
+        self.fallback_closes = 0  # closes served by the numpy FW fallback
         self.invalidations = 0
         self.audit_runs = 0
         self.audit_mismatches = 0
@@ -81,7 +94,7 @@ class ApspState:
         self.close_ms_last: Optional[float] = None
         self.h2d_bytes = 0
         self.d2h_bytes = 0
-        self.backend: Optional[str] = None  # "device" once closed
+        self.backend: Optional[str] = None  # "device" | "numpy"
         self.stale_reason: Optional[str] = None
         # counter-sync bookmarks (CudaSpfSolver._sync_apsp_counters)
         self._closes_synced = 0
@@ -140,7 +153,11 @@ class ApspState:
             return False
         if self.fresh_for(graph):
             return True
-        structural = not self.resident() or self._src_ref is not graph.src
+        structural = (
+            not self.resident()
+            or self._src_ref is not graph.src
+            or self._d_dev is None  # numpy-resident: no device warm base
+        )
         ov_changed = not structural and not np.array_equal(
             self._ov_host, graph.overloaded
         )
@@ -183,21 +200,48 @@ class ApspState:
                 inc.append((u, v, old))
         return inc, patch
 
+    def _run_close(self, op: str, primary, fallback):
+        if self._dispatch is not None:
+            return self._dispatch(op, primary, fallback)
+        return primary(), False
+
+    def _fallback_close(self, graph: CompiledGraph):
+        self.fallback_closes += 1
+        d_np = np_floyd_warshall(build_weight_matrix(graph), graph.overloaded)
+        return d_np, None, None
+
     def _close_cold(self, graph: CompiledGraph, audit: bool = True) -> None:
         t0 = time.perf_counter()
         self._compile(graph)
-        w_np = build_weight_matrix(graph)
-        allow_np = build_allow_matrix(graph.overloaded)
-        w_dev = torch.as_tensor(w_np, device=self.device)
-        allow_dev = torch.as_tensor(allow_np, device=self.device)
-        self.h2d_bytes += w_np.nbytes + allow_np.nbytes
-        d, probe = fw_close(w_dev, allow_dev)
-        int(probe)  # 4-byte read: the timing covers the card's work
-        self._d_dev = d
-        self._d_host = None
-        self._w_dev = w_dev
-        self._allow_dev = allow_dev
-        self.backend = "device"
+
+        def primary():
+            # named fault seam: the supervisor's all-pairs fault tests
+            # inject faults here, where a kernel launch would raise
+            fault_point("solver.apsp.close", self)
+            w_np = build_weight_matrix(graph)
+            allow_np = build_allow_matrix(graph.overloaded)
+            w_dev = torch.as_tensor(w_np, device=self.device)
+            allow_dev = torch.as_tensor(allow_np, device=self.device)
+            self.h2d_bytes += w_np.nbytes + allow_np.nbytes
+            d, probe = fw_close(w_dev, allow_dev)
+            int(probe)  # 4-byte read: the timing covers the card's work
+            return d, w_dev, allow_dev
+
+        (d, w_dev, allow_dev), degraded = self._run_close(
+            "apsp.close", primary, lambda: self._fallback_close(graph)
+        )
+        if degraded or w_dev is None:
+            self._d_dev = None
+            self._d_host = np.asarray(d)
+            self._w_dev = None
+            self._allow_dev = None
+            self.backend = "numpy"
+        else:
+            self._d_dev = d
+            self._d_host = None
+            self._w_dev = w_dev
+            self._allow_dev = allow_dev
+            self.backend = "device"
         self._snapshot(graph)
         self.closes += 1
         self.cold_closes += 1
@@ -211,54 +255,74 @@ class ApspState:
         t0 = time.perf_counter()
         nb, bsz = self._nb, self._bsz
         dev = self.device
-        us = np.array([u for u, _, _ in patch], dtype=np.int32)
-        vs = np.array([v for _, v, _ in patch], dtype=np.int32)
-        vals = np.array([w for _, _, w in patch], dtype=np.int32)
-        # the resident weights are patched in place: they are this state's
-        # own buffer and describe the new snapshot from here on
-        self._w_dev.index_put_(
-            (
-                torch.as_tensor(us, device=dev).long(),
-                torch.as_tensor(vs, device=dev).long(),
-            ),
-            torch.as_tensor(vals, device=dev),
-        )
-        self.h2d_bytes += us.nbytes + vs.nbytes + vals.nbytes
-        p = _next_bucket(max(len(inc), 1), minimum=8)
-        iu = np.full(p, INCREASE_PAD, dtype=np.int32)
-        iv = np.zeros(p, dtype=np.int32)
-        iw = np.zeros(p, dtype=np.int32)
-        for i, (u, v, old) in enumerate(inc):
-            iu[i], iv[i], iw[i] = u, v, old
-        self.h2d_bytes += iu.nbytes + iv.nbytes + iw.nbytes
-        d, dirty, num_dirty = fw_seed(
-            self._d_dev,
-            self._w_dev,
-            torch.as_tensor(iu, device=dev),
-            torch.as_tensor(iv, device=dev),
-            torch.as_tensor(iw, device=dev),
-            nb,
-            bsz,
-        )
-        rounds = 0
-        nd = int(num_dirty)  # 4-byte read
-        while nd:
-            if rounds > nb + _RECLOSE_ROUND_MARGIN:
-                raise RuntimeError(
-                    f"APSP re-close did not converge in {rounds} "
-                    f"rounds ({nd} dirty blocks)"
+
+        def primary():
+            fault_point("solver.apsp.close", self)
+            us = np.array([u for u, _, _ in patch], dtype=np.int32)
+            vs = np.array([v for _, v, _ in patch], dtype=np.int32)
+            vals = np.array([w for _, _, w in patch], dtype=np.int32)
+            # the resident weights are patched in place: they are this
+            # state's own buffer and describe the new snapshot from here
+            # on (the set is idempotent, so a retried close patches alike;
+            # a degraded close drops the buffer)
+            self._w_dev.index_put_(
+                (
+                    torch.as_tensor(us, device=dev).long(),
+                    torch.as_tensor(vs, device=dev).long(),
+                ),
+                torch.as_tensor(vals, device=dev),
+            )
+            self.h2d_bytes += us.nbytes + vs.nbytes + vals.nbytes
+            p = _next_bucket(max(len(inc), 1), minimum=8)
+            iu = np.full(p, INCREASE_PAD, dtype=np.int32)
+            iv = np.zeros(p, dtype=np.int32)
+            iw = np.zeros(p, dtype=np.int32)
+            for i, (u, v, old) in enumerate(inc):
+                iu[i], iv[i], iw[i] = u, v, old
+            self.h2d_bytes += iu.nbytes + iv.nbytes + iw.nbytes
+            d, dirty, num_dirty = fw_seed(
+                self._d_dev,
+                self._w_dev,
+                torch.as_tensor(iu, device=dev),
+                torch.as_tensor(iv, device=dev),
+                torch.as_tensor(iw, device=dev),
+                nb,
+                bsz,
+            )
+            rounds = 0
+            nd = int(num_dirty)  # 4-byte read
+            while nd:
+                if rounds > nb + _RECLOSE_ROUND_MARGIN:
+                    raise RuntimeError(
+                        f"APSP re-close did not converge in {rounds} "
+                        f"rounds ({nd} dirty blocks)"
+                    )
+                kb = min(_next_bucket(nd, minimum=1), nb)
+                d, dirty, counts = fw_reclose(
+                    d, self._allow_dev, dirty, nb, bsz, kb
                 )
-            kb = min(_next_bucket(nd, minimum=1), nb)
-            d, dirty, counts = fw_reclose(d, self._allow_dev, dirty, nb, bsz, kb)
-            rounds += 1
-            nd, changed = counts.tolist()  # the round's two scalars
-            if changed == 0:
-                break
-        self._d_dev = d
-        self._d_host = None
-        self.backend = "device"
-        self.warm_closes += 1
-        self.reclose_rounds_last = rounds
+                rounds += 1
+                nd, changed = counts.tolist()  # the round's two scalars
+                if changed == 0:
+                    break
+            return d, self._w_dev, rounds
+
+        (d, w_dev, rounds), degraded = self._run_close(
+            "apsp.close", primary, lambda: self._fallback_close(graph)
+        )
+        if degraded or w_dev is None:
+            self._d_dev = None
+            self._d_host = np.asarray(d)
+            self._w_dev = None
+            self.backend = "numpy"
+            self.cold_closes += 1
+            self.reclose_rounds_last = None
+        else:
+            self._d_dev = d
+            self._d_host = None
+            self.backend = "device"
+            self.warm_closes += 1
+            self.reclose_rounds_last = rounds
         self._snapshot(graph)
         self.closes += 1
         self.close_ms_last = (time.perf_counter() - t0) * 1e3

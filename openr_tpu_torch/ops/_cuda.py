@@ -45,6 +45,20 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 
+class KernelBuildError(RuntimeError):
+    """A kernel that could not be built or loaded: nvcc missing or refusing
+    a source, or a library that does not load. A fault of the deployment,
+    not of the card: the solver supervisor re-raises it instead of serving
+    the CPU oracle in the kernel's place."""
+
+
+class KernelLaunchError(RuntimeError):
+    """A launch that the CUDA runtime refused (a bad configuration, no
+    image for the card, too many resources). A fault of the kernel, not of
+    the card's state: like `KernelBuildError`, the solver supervisor
+    re-raises it instead of serving the CPU oracle in the kernel's place."""
+
+
 class AdamConsts(ctypes.Structure):
     """te_adam's constants, one argument by value (te_step.cu's struct):
     step i's lr, beta1, beta2, eps, the bias corrections 1 - beta1 ** (i +
@@ -95,7 +109,12 @@ class Kernel:
                 path = self.library_path()
                 if not path.exists():
                     build([self])
-                lib = ctypes.CDLL(str(path))
+                try:
+                    lib = ctypes.CDLL(str(path))
+                except OSError as exc:
+                    raise KernelBuildError(
+                        f"cannot load {path.name}: {exc}"
+                    ) from exc
                 fns = {}
                 for sym, argtypes in self.entries.items():
                     fn = getattr(lib, sym)
@@ -130,7 +149,7 @@ class Kernel:
             if prev != idx:
                 torch.cuda.set_device(prev)
         if rc != 0:
-            raise RuntimeError(
+            raise KernelLaunchError(
                 f"CUDA kernel {sym} failed to launch: cudaError {rc}"
             )
         self.launches += kernels
@@ -147,7 +166,7 @@ def _nvcc() -> str:
     for cand in (os.path.join(home, "bin", "nvcc"), shutil.which("nvcc")):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError(
+    raise KernelBuildError(
         "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin and "
         "PATH): the CUDA kernels cannot be built"
     )
@@ -181,7 +200,7 @@ def build(kernels: Optional[Sequence[Kernel]] = None) -> Dict[str, Path]:
             continue
         os.replace(tmp, out)
     if errors:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+        raise KernelBuildError("nvcc failed:\n" + "\n".join(errors))
     return {k.name: k.library_path() for k in kernels}
 
 

@@ -98,6 +98,7 @@ from openr_tpu_torch.ops._cuda import (
     TILE_ROUND,
 )
 from openr_tpu_torch.ops.graph import INF, CompiledGraph, _next_bucket
+from openr_tpu_torch.testing.faults import fault_point
 
 _INT32_MAX = int(np.iinfo(np.int32).max)
 # row index of a padding patch or KSP mask entry: out of range of every
@@ -2441,6 +2442,8 @@ def batched_spf(
     """Run the batched solve for the given source node indices: the
     sliced-ELL pull kernel when the graph's degree profile qualifies
     (ops.graph._build_sell), else the edge-list form. D [S, n_pad]."""
+    # named fault seam for injected dispatch failures (docs/Robustness.md)
+    fault_point("ops.spf.batched_spf", graph)
     dev = resolve_device(device)
     if graph.sell is not None:
         return sell_fixpoint(
@@ -2466,6 +2469,7 @@ def batched_spf_vw(
     and must hold INF, as they do in graph.w. With a mesh, the sources and
     the weight rows split over 'batch' (S must be a multiple of the batch
     axis) and D comes back `Sharded`."""
+    fault_point("ops.spf.batched_spf_vw", graph)
     if mesh is not None:
         devs = batch_devices(mesh)
         rows = np.asarray(source_rows)

@@ -114,6 +114,7 @@ from openr_tpu_torch.parallel.mesh import (
     tile_graph,
 )
 from openr_tpu_torch.solver.cpu import Metric, SpfSolver
+from openr_tpu_torch.testing.faults import fault_point
 
 # fixed per-bucket patch width of the fused patch + solve; an event that
 # changes more slots in one bucket is patched by standalone scatters and
@@ -295,6 +296,7 @@ class _AreaSolve:
         apsp_max_nodes: int = 0,
         apsp_audit_interval: int = 0,
         mesh: Optional[Mesh] = None,
+        apsp_dispatch=None,
     ) -> None:
         self.link_state = link_state
         self.me = me
@@ -312,6 +314,7 @@ class _AreaSolve:
         if apsp_max_nodes > 0:
             self.apsp = ApspState(
                 apsp_max_nodes,
+                dispatch=apsp_dispatch,
                 audit_interval=apsp_audit_interval,
                 warm=warm_start,
                 device=device,
@@ -363,6 +366,8 @@ class _AreaSolve:
         self._d_host: Optional[np.ndarray] = None
         self._nh_links: Optional[List[str]] = None
         self._nh_mask: Optional[np.ndarray] = None
+        # set while a solve runs: one that raised is run again by refresh
+        self._solve_failed = False
         self._solve()
 
     @property
@@ -413,6 +418,10 @@ class _AreaSolve:
         )
 
     def _solve(self) -> None:
+        # named fault seam: the supervisor's error-classification and
+        # breaker tests inject faults here, where a kernel launch would
+        # raise (the JAX package's name, so one fault script arms both)
+        fault_point("solver.tpu.solve", self)
         me = self.me
         neighbors = sorted(
             {
@@ -467,6 +476,9 @@ class _AreaSolve:
         # the touched blocks
         if self.apsp is not None and not self.last_solve_warm:
             self.apsp.invalidate("batch_warm_poisoned")
+        # corruption seam (ctx = this solve): the warm-state audit tests
+        # perturb the resident D here to prove divergence detection works
+        fault_point("solver.tpu.warm_d", self)
 
     def ensure_apsp(self) -> bool:
         """Bring the resident all-pairs matrix current with this solve's
@@ -1096,6 +1108,7 @@ class _AreaSolve:
                     w_rows[row, rev] = INF
             self.h2d_bytes += w_rows.nbytes
             if warm_prev is not None:
+                fault_point("ops.spf.batched_spf_vw", self.graph)
                 d_dev, _rounds, _inv = _bf_warm_vw_core(
                     torch.as_tensor(sources, device=self.device),
                     st["src"],
@@ -1123,11 +1136,17 @@ class _AreaSolve:
             )
 
     def refresh(self) -> None:
-        """Re-solve against the current LinkState snapshot if it moved."""
-        if self.graph.version == self.link_state.version:
+        """Re-solve against the current LinkState snapshot if it moved, or
+        if the last solve raised: the graph was patched before that solve,
+        so without the mark the next call would find it current and serve
+        the D from before the event (the JAX package's refresh does)."""
+        if self.graph.version != self.link_state.version:
+            self.graph = refresh_graph(self.graph, self.link_state)
+        elif not self._solve_failed:
             return
-        self.graph = refresh_graph(self.graph, self.link_state)
+        self._solve_failed = True
         self._solve()
+        self._solve_failed = False
 
     def cold_reference_d(self) -> np.ndarray:
         """A cold solve from the host-side graph (the compiled arrays that
@@ -1223,7 +1242,18 @@ class CudaSpfSolver(SpfSolver):
     mesh: None (one device), a `parallel.Mesh`, or a (batch, graph) shape
     laid over the first batch * graph cards; resolved here, so a shape that
     does not fit the cards fails at construction. Its devices must be of
-    `device`'s type."""
+    `device`'s type.
+
+    What degrades, and through what: nothing here falls back by itself. A
+    failing solve or all-pairs close raises. Under `SolverSupervisor`
+    (Decision's default) the supervisor classifies the fault, retries,
+    trips its breaker and serves the CPU oracle's route dbs; the all-pairs
+    closes run through `attach_supervisor`'s dispatch hook, with the numpy
+    Floyd–Warshall as their degraded path (`fallback_closes`); every
+    degraded answer is counted (`decision.spf.fallback_*`) and shown by
+    `health()`. A kernel fault (a kernel that does not build, a launch the
+    runtime refuses, a fault on the card: `supervisor.is_kernel_fault`)
+    degrades nothing: the supervisor raises it to the caller."""
 
     def __init__(
         self,
@@ -1259,6 +1289,24 @@ class CudaSpfSolver(SpfSolver):
         self.host_spf_calls = 0
         self.solve_ms_last: Optional[float] = None
         self.delta_extract_ms_last: Optional[float] = None
+        # set by SolverSupervisor.attach_supervisor: the all-pairs closes
+        # dispatch through its fault domain (classified errors feed the
+        # shared breaker, the numpy Floyd–Warshall is their degraded path)
+        self._supervisor = None
+
+    def attach_supervisor(self, supervisor) -> None:
+        """Wire the solver fault domain into the non-solve device work of
+        this backend (the all-pairs closes). Called by
+        SolverSupervisor.__init__, before the first solve."""
+        self._supervisor = supervisor
+
+    def _apsp_dispatch(self, op: str, primary_fn, fallback_fn):
+        """ApspState dispatch hook, installed only under a supervisor:
+        classified faults feed the shared breaker and the numpy close
+        serves degraded. The JAX package's bare try/except for the
+        unsupervised case is not copied: without a supervisor no hook is
+        installed and a failed close raises."""
+        return self._supervisor.supervised_call(op, primary_fn, fallback_fn)
 
     def _area_solve(
         self, link_state: LinkState, node: str
@@ -1287,6 +1335,9 @@ class CudaSpfSolver(SpfSolver):
             apsp_max_nodes=self.apsp_max_nodes,
             apsp_audit_interval=self.apsp_audit_interval,
             mesh=self.mesh,
+            apsp_dispatch=(
+                self._apsp_dispatch if self._supervisor is not None else None
+            ),
         )
         self.device_solves += solve.device_solves
         self._sync_spf_counters(solve, 0, 0)
@@ -1491,11 +1542,18 @@ class CudaSpfSolver(SpfSolver):
 
     def invalidate_warm_state(self) -> None:
         """Drop every cached device solve: the next build_route_db compiles
-        the graph again and solves cold. For use after a device fault or a
-        detected divergence, when the resident buffers are not to be
+        the graph again and solves cold. The supervisor calls this on
+        breaker trips, probes and audit mismatches: after a device fault or
+        a detected divergence the resident buffers are not to be
         trusted."""
         self._solves.clear()
         self._bump("decision.spf.warm_state_invalidations")
+
+    def close(self) -> None:
+        """Solver teardown (Decision.stop): drop every resident solve and
+        its all-pairs matrix, so the card's buffers are freed. (Releasing
+        their memory-ledger entries comes with the ledger registrations.)"""
+        self._solves.clear()
 
     def audit_warm_state(self) -> List[dict]:
         """Shadow cold audit of every resident solve: recompute each area's

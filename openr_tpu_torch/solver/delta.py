@@ -34,9 +34,15 @@ already covers. Solvers without a resident APSP state keep the historical
 force-full behavior. Everything else is provably unchanged and is neither
 recomputed nor diffed.
 
-In the JAX package the correctness backstop is its SolverSupervisor's
-route-delta shadow audit. The port has no supervisor yet (ROADMAP queue 1
-item 6); `CudaSpfSolver.audit_warm_state` audits the resident distances.
+The correctness backstop is the SolverSupervisor's route-delta shadow audit
+(`verify_route_delta`, solver/supervisor.py), which Decision reaches after
+every delta build: every Nth delta-built db is compared against a full
+rebuild, and a mismatch self-heals exactly like a warm-state audit hit
+(the warm state is dropped and the full db is served). While the breaker is
+open the supervisor's `poll_device_delta` answers None, so every event
+takes the full path through the CPU oracle. A kernel fault
+(`supervisor.is_kernel_fault`) opens no breaker: it raises out of the full
+build to Decision.
 """
 
 from __future__ import annotations

@@ -4,23 +4,32 @@ LSDB.
 The counterpart of the JAX package's te/service.py. `TeService` snapshots an
 area's `LinkState` into the compiled graph arrays (ops/graph.py), builds
 the demand-scenario batch (te/scenarios.py), and runs the annealed GD loop
-(te/optimizer.py) on `device`, "cuda" by default. A failing device run
-raises (and counts `decision.te.optimize_errors`): the work never moves to
-the CPU behind the caller's back, so every report is `"backend":
-"primary"`, `"degraded": false`.
+(te/optimizer.py) on `device`, "cuda" by default.
+
+What degrades, and through what: when the solver is a `SolverSupervisor`
+the run is a supervised call (classified errors, bounded retry, a per-call
+deadline, the shared breaker), and a failing or degraded device run is
+re-run on the CPU (`optimize_weights(..., device="cpu")`), counted in
+`decision.te.fallback_runs`, reported as `"backend": "cpu-fallback"`,
+`"degraded": true`, and logged as a `TE_OPTIMIZE_DEGRADED` sample; a
+kernel fault (`supervisor.is_kernel_fault`: no build, a refused launch, a
+fault on the card) is not re-run but raises, as it does without the
+supervisor, counted in `decision.te.optimize_errors`. Without
+a supervisor a failing device run raises (and counts
+`decision.te.optimize_errors`): the JAX package's bare try/except fallback
+is not copied, so the work never moves to the CPU behind the caller's back.
 
 This is a REPORTING service: it proposes per-link metric changes plus the
 predicted hard-SPF max-link-utilization delta; nothing is programmed.
 
 With a mesh (given, or the solver's) the scenario batch is sharded over
-its 'batch' axis (te/optimizer.py). Not ported yet: the supervised run
-with its CPU fallback and fault seam, the device-memory ledger
-registration of the scenario batch and the degraded-run log sample (they
-come with the monitor and the supervisor).
+its 'batch' axis (te/optimizer.py). Not ported yet: the device-memory
+ledger registration of the scenario batch.
 """
 
 from __future__ import annotations
 
+import logging
 import time
 from typing import Dict, List, Optional
 
@@ -31,7 +40,10 @@ from openr_tpu_torch.ops.graph import compile_graph
 from openr_tpu_torch.te.objective import hard_utilization, te_edge_arrays
 from openr_tpu_torch.te.optimizer import TeOptConfig, optimize_weights
 from openr_tpu_torch.te.scenarios import build_demand_scenarios
+from openr_tpu_torch.testing.faults import fault_point
 from openr_tpu_torch.utils.counters import CountersMixin, HistogramsMixin
+
+log = logging.getLogger(__name__)
 
 # report at most this many hottest links per utilization table
 _TOP_LINKS = 8
@@ -47,12 +59,16 @@ class TeService(CountersMixin, HistogramsMixin):
         solver=None,
         device: DeviceLike = "cuda",
         mesh=None,
+        log_sample_fn=None,
     ) -> None:
         self.my_node_name = my_node_name
         self.area_link_states = area_link_states
-        # the Decision solver facade; when it offers borrow_apsp the initial
-        # scoring reads its resident all-pairs matrix
+        # the Decision solver facade; when it is a SolverSupervisor the
+        # optimization runs as a supervised call and shares the breaker,
+        # and when it offers borrow_apsp the initial scoring reads its
+        # resident all-pairs matrix
         self.solver = solver
+        self._log_sample_fn = log_sample_fn
         self.device = resolve_device(device)
         # the scenario batch rides the solver's mesh unless one is given
         self.mesh = mesh if mesh is not None else getattr(solver, "mesh", None)
@@ -112,11 +128,31 @@ class TeService(CountersMixin, HistogramsMixin):
             area, link_state, graph, w0, up, cfg
         )
 
-        result = optimize_weights(
-            src_e, dst_e, up, w0, demands, caps, graph.n,
-            config=cfg, mesh=self.mesh, initial_d=initial_d,
-            device=self.device,
-        )
+        def primary():
+            # named fault seam: the supervisor's TE fault tests raise here,
+            # where a kernel launch would
+            fault_point("te.optimize", self)
+            return optimize_weights(
+                src_e, dst_e, up, w0, demands, caps, graph.n,
+                config=cfg, mesh=self.mesh, initial_d=initial_d,
+                device=self.device,
+            )
+
+        def fallback():
+            # the identical optimization on the CPU: the degraded path
+            self._bump("decision.te.fallback_runs")
+            return optimize_weights(
+                src_e, dst_e, up, w0, demands, caps, graph.n,
+                config=cfg, initial_d=initial_d, device="cpu",
+            )
+
+        supervised = getattr(self.solver, "supervised_call", None)
+        if supervised is not None:
+            result, degraded = supervised("te.optimize", primary, fallback)
+        else:
+            result, degraded = primary(), False
+        if degraded:
+            self._emit_degraded(area)
 
         self._bump("decision.te.steps", result.steps)
         self._bump("decision.te.d2h_bytes", result.d2h_bytes)
@@ -127,7 +163,7 @@ class TeService(CountersMixin, HistogramsMixin):
         solve_ms = (time.perf_counter() - t0) * 1e3
         return self._build_report(
             area, graph, src_e, dst_e, up, demands, caps, result,
-            scenarios, improved, solve_ms, initial_d=initial_d,
+            scenarios, degraded, improved, solve_ms, initial_d=initial_d,
         )
 
     # ------------------------------------------------------------------
@@ -177,6 +213,7 @@ class TeService(CountersMixin, HistogramsMixin):
         caps,
         result,
         scenarios,
+        degraded,
         improved,
         solve_ms,
         initial_d=None,
@@ -233,8 +270,8 @@ class TeService(CountersMixin, HistogramsMixin):
             "scenarios": scenarios,
             "steps": result.steps,
             "best_step": result.best_step,
-            "backend": "primary",
-            "degraded": False,
+            "backend": "cpu-fallback" if degraded else "primary",
+            "degraded": bool(degraded),
             "improved": bool(improved),
             "initial_max_util": round(float(result.initial_max_util), 6),
             "optimized_max_util": round(float(result.best_max_util), 6),
@@ -257,3 +294,18 @@ class TeService(CountersMixin, HistogramsMixin):
             else None,
             "solve_ms": round(solve_ms, 3),
         }
+
+    # ------------------------------------------------------------------
+
+    def _emit_degraded(self, area: str) -> None:
+        if self._log_sample_fn is None:
+            return
+        from openr_tpu_torch.monitor.monitor import LogSample
+
+        sample = LogSample()
+        sample.add_string("event", "TE_OPTIMIZE_DEGRADED")
+        sample.add_string("area", area)
+        try:
+            self._log_sample_fn(sample)
+        except Exception:  # a closed monitor queue must not fail the run
+            log.exception("failed to emit TE degraded log sample")

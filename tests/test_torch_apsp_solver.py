@@ -276,3 +276,172 @@ def test_lfa_alternate_flips_through_delta_builds():
     h.step()
     entry = next(iter(h.db["port"].unicast_entries.values()))
     assert {nh.neighbor_node for nh in entry.nexthops} == {"b"}
+
+
+# -- the all-pairs closes in the fault domain: tests/test_apsp.py
+# TestFaultDomain, the same fault script armed in both packages ----------
+
+import openr_tpu.apsp as j_apsp  # noqa: E402
+import openr_tpu.ops.graph as j_graph  # noqa: E402
+import openr_tpu.solver as j_solver  # noqa: E402
+import openr_tpu.testing.faults as j_faults  # noqa: E402
+import openr_tpu_torch.apsp as t_apsp  # noqa: E402
+import openr_tpu_torch.ops.graph as t_graph  # noqa: E402
+import openr_tpu_torch.solver as t_solver  # noqa: E402
+import openr_tpu_torch.testing.faults as t_faults  # noqa: E402
+
+FAULT_PKGS = {
+    "port": (T, t_solver, t_faults,
+             lambda me, **kw: t_solver.CudaSpfSolver(me, device="cpu", **kw)),
+    "jax": (J, j_solver, j_faults,
+            lambda me, **kw: j_solver.TpuSpfSolver(me, **kw)),
+}
+
+
+def _supervised_close(name, warm_event):
+    """A supervised solver on grid_edges(3), its first close on the card
+    (or, with warm_event, a clean close and then a weight event), with
+    solver.apsp.close armed: what the fault domain served and counted."""
+    pkg, solver, faults, primary_of = FAULT_PKGS[name]
+    ls = build_ls(pkg, grid_edges(3))
+    primary = primary_of("g0_0", apsp_max_nodes=64)
+    sup = solver.SolverSupervisor(
+        primary, solver.SpfSolver("g0_0"),
+        solver.SupervisorConfig(failure_threshold=2, max_attempts=1),
+    )
+    sup.build_route_db("g0_0", {"0": ls}, make_ps(pkg, {}))
+    solve = primary._solves[("0", "g0_0")][1]
+    seen = []
+    if warm_event:
+        assert solve.ensure_apsp() and solve.apsp.backend == "device"
+        ls_cls, _, build_adj_dbs, _ = pkg
+        db = build_adj_dbs(grid_edges(3))["g1_1"]
+        ls.update_adjacency_database(dataclasses.replace(
+            db, adjacencies=[dataclasses.replace(a, metric=3)
+                             for a in db.adjacencies]))
+        sup.build_route_db("g0_0", {"0": ls}, make_ps(pkg, {}))
+    with faults.injected() as inj:
+        inj.arm("solver.apsp.close", times=3, exc=faults.FaultInjected)
+        assert solve.ensure_apsp()  # degraded to numpy, no raise
+        seen.append((solve.apsp.backend, sup.state,
+                     solve.apsp.d[: solve.graph.n, : solve.graph.n].copy()))
+        solve.apsp.invalidate("test")
+        solve.ensure_apsp()
+        seen.append((solve.apsp.backend, sup.state, None))
+    # the breaker opened on the second faulted close; the solve that
+    # serves the next build syncs the apsp counters
+    health = solve.apsp.health()
+    counters = {k: v for k, v in sup.counters.items()
+                if k.startswith(("decision.spf.solver_failures",
+                                 "decision.spf.breaker",
+                                 "decision.spf.fallback_active"))}
+    oracle = j_graph if name == "jax" else t_graph
+    want = np.asarray(
+        (j_apsp if name == "jax" else t_apsp).np_floyd_warshall(
+            (j_apsp if name == "jax" else t_apsp).build_weight_matrix(
+                oracle.compile_graph(ls)),
+            oracle.compile_graph(ls).overloaded,
+        ))[: solve.graph.n, : solve.graph.n]
+    return seen, health, counters, want
+
+
+@pytest.mark.parametrize("warm_event", [False, True], ids=["cold", "warm"])
+def test_supervised_close_faults_feed_the_breaker_as_the_reference(
+    warm_event
+):
+    port = _supervised_close("port", warm_event)
+    ref = _supervised_close("jax", warm_event)
+    (p_seen, p_health, p_counters, p_want) = port
+    (j_seen, j_health, j_counters, _) = ref
+    assert [s[:2] for s in p_seen] == [s[:2] for s in j_seen] == [
+        ("numpy", "closed"), ("numpy", "open")]
+    np.testing.assert_array_equal(p_seen[0][2], j_seen[0][2])
+    np.testing.assert_array_equal(p_seen[0][2], p_want)
+    assert p_health == j_health
+    assert p_health["fallback_closes"] == 2
+    assert p_counters == j_counters
+    assert p_counters["decision.spf.fallback_active"] == 1
+
+
+def test_supervised_numpy_resident_matrix_recovers_on_the_card():
+    """A degraded (numpy-resident) matrix has no device base: the next
+    close after the fault is cold and on the card again, as in the
+    reference's test_injected_fault_falls_back_to_numpy."""
+    ls = build_ls(T, grid_edges(3))
+    graph = t_graph.compile_graph(ls)
+    calls = []
+
+    def dispatch(op, primary, fallback):
+        calls.append(op)
+        try:
+            return primary(), False
+        except t_faults.FaultInjected:
+            return fallback(), True
+
+    apsp = t_apsp.ApspState(max_nodes=64, dispatch=dispatch, device="cpu")
+    with t_faults.injected() as inj:
+        inj.arm("solver.apsp.close", times=1)
+        assert apsp.ensure(graph)
+    assert apsp.backend == "numpy" and apsp.fallback_closes == 1
+    want = t_apsp.np_floyd_warshall(
+        t_apsp.build_weight_matrix(graph), graph.overloaded)
+    np.testing.assert_array_equal(apsp.d, want)
+    apsp.invalidate("test")
+    assert apsp.ensure(graph)
+    assert apsp.backend == "device" and apsp.cold_closes == 2
+    np.testing.assert_array_equal(apsp.d, want)
+    assert calls == ["apsp.close", "apsp.close"]
+
+
+@pytest.mark.parametrize("armed_at", ["cold", "warm"])
+def test_unsupervised_apsp_close_raises_where_the_reference_degrades(
+    armed_at
+):
+    """Without a dispatch hook (no supervisor) a faulted close raises in
+    the port; the reference serves the numpy close behind a bare
+    try/except."""
+    ls_t, ls_j = build_ls(T, grid_edges(3)), build_ls(J, grid_edges(3))
+    port = t_apsp.ApspState(max_nodes=64, device="cpu")
+    ref = j_apsp.ApspState(max_nodes=64)
+    g_t, g_j = t_graph.compile_graph(ls_t), j_graph.compile_graph(ls_j)
+    if armed_at == "warm":
+        assert port.ensure(g_t) and ref.ensure(g_j)
+        for pkg, ls in ((T, ls_t), (J, ls_j)):
+            db = pkg[2](grid_edges(3))["g1_1"]
+            ls.update_adjacency_database(dataclasses.replace(
+                db, adjacencies=[dataclasses.replace(a, metric=3)
+                                 for a in db.adjacencies]))
+        g_t = t_graph.refresh_graph(g_t, ls_t)
+        g_j = j_graph.refresh_graph(g_j, ls_j)
+    with j_faults.injected() as inj:
+        inj.arm("solver.apsp.close", times=1)
+        assert ref.ensure(g_j) and ref.backend == "numpy"
+    with t_faults.injected() as inj:
+        inj.arm("solver.apsp.close", times=1)
+        with pytest.raises(t_faults.FaultInjected):
+            port.ensure(g_t)
+    assert port.fallback_closes == 0 and ref.fallback_closes == 1
+
+
+def test_supervised_close_that_fails_its_kernel_is_not_served_by_numpy():
+    """A close whose kernel launch is refused passes the supervisor's
+    dispatch: it raises, the numpy Floyd-Warshall serves nothing, and the
+    breaker stays closed."""
+    from openr_tpu_torch.ops import _cuda
+
+    ls = build_ls(T, grid_edges(3))
+    primary = t_solver.CudaSpfSolver("g0_0", device="cpu", apsp_max_nodes=64)
+    sup = t_solver.SolverSupervisor(
+        primary, t_solver.SpfSolver("g0_0"),
+        t_solver.SupervisorConfig(failure_threshold=1, max_attempts=2),
+    )
+    sup.build_route_db("g0_0", {"0": ls}, make_ps(T, {}))
+    solve = primary._solves[("0", "g0_0")][1]
+    with t_faults.injected() as inj:
+        inj.arm("solver.apsp.close", times=None,
+                exc=lambda point: _cuda.KernelLaunchError(point))
+        with pytest.raises(_cuda.KernelLaunchError):
+            solve.ensure_apsp()
+    assert solve.apsp.fallback_closes == 0
+    assert sup.state == "closed"
+    assert "decision.spf.solver_failures" not in sup.counters

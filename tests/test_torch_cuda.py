@@ -3436,3 +3436,253 @@ def test_mesh_route_db_on_card_equals_cpu(dev, shape):
         assert got.mpls_entries == want.mpls_entries
     assert solver.counters["decision.spf.incremental_solves"] == 1
     assert (_cuda.TILE_ROUND.launches > before) == (shape[1] > 1)
+
+
+# -- Decision on the card ----------------------------------------------------
+
+
+@pytest.fixture
+def built_dev(dev):
+    """The card, with every kernel built before any Decision is: a first-use
+    nvcc build never runs inside a supervised solve's deadline."""
+    _cuda.build()
+    return dev
+
+
+def _grid_publication(side=8):
+    from openr_tpu_torch.testing.decision_harness import lsdb_publication
+
+    dbs = build_adj_dbs(grid_edges(side))
+    names = sorted(dbs)
+    return dbs, lsdb_publication(
+        dbs.values(), {n: [f"10.{i // 256}.{i % 256}.0/24"]
+                       for i, n in enumerate(names)})
+
+
+@pytest.mark.parametrize("shape", [None, (4, 2)], ids=["bare", "mesh_4x2"])
+def test_decision_on_card_equals_decision_cpu(built_dev, shape):
+    """Decision(cuda) behind its supervisor on the card == Decision(cpu) on
+    grid 8, first publication and a weight event, bare and under a (4, 2)
+    mesh of ranks sharing the card; the card served every delta."""
+    import asyncio
+
+    from openr_tpu_torch.decision import Decision, DecisionConfig
+    from openr_tpu_torch.messaging import ReplicateQueue, RQueue, RWQueue
+    from openr_tpu_torch.parallel import make_mesh
+    from openr_tpu_torch.testing.decision_harness import (
+        assert_route_delta_equal,
+        lsdb_publication,
+    )
+
+    dbs, pub0 = _grid_publication()
+    # the link g0_1 - g0_2 to metric 5: g0_0's route to g0_2 moves from
+    # g0_1 to g1_0 (a far-side event: DeltaPath)
+    event = lsdb_publication([
+        dataclasses.replace(dbs[a], adjacencies=[
+            dataclasses.replace(x, metric=5) if x.other_node_name == b
+            else x for x in dbs[a].adjacencies])
+        for a, b in (("g0_1", "g0_2"), ("g0_2", "g0_1"))
+    ])
+    mesh = None if shape is None else make_mesh([built_dev] * 8, shape)
+
+    async def body():
+        nodes = []
+        for backend in ("cuda", "cpu"):
+            kv_q, route_q = RWQueue(), ReplicateQueue()
+            dec = Decision(
+                DecisionConfig(my_node_name="g0_0", solver_backend=backend,
+                               solver_device=str(built_dev),
+                               solver_mesh=mesh if backend == "cuda" else None,
+                               debounce_min=0.005, debounce_max=0.02),
+                RQueue(kv_q), route_q,
+            )
+            dec.start()
+            nodes.append((dec, kv_q, route_q.get_reader()))
+        deltas = []
+        for pub in (pub0, event):
+            got = []
+            for dec, kv_q, reader in nodes:
+                kv_q.push(pub)
+                got.append(await asyncio.wait_for(reader.get(), 60))
+            deltas.append(got)
+        for dec, _, _ in nodes:
+            task = dec._task
+            dec.stop()
+            await asyncio.gather(task, return_exceptions=True)
+        return nodes[0][0], deltas
+
+    before = (_cuda.TILE_ROUND if shape else _cuda.SELL_RELAX).launches
+    dec, deltas = asyncio.new_event_loop().run_until_complete(body())
+    for cuda_delta, cpu_delta in deltas:
+        assert_route_delta_equal(cuda_delta, cpu_delta)
+    health = dec.get_solver_health()
+    assert health["breaker_state"] == "closed" and not health["degraded"]
+    assert dec.counters["decision.spf.fallback_active"] == 0
+    assert "decision.spf.solver_failures" not in dec.counters
+    assert dec.solver.primary.device_solves == 2
+    assert dec.solver.primary.host_spf_calls == 0
+    assert (_cuda.TILE_ROUND if shape else _cuda.SELL_RELAX).launches > before
+
+
+def test_a_refused_launch_raises_out_of_decision_and_run_te_optimize(
+    built_dev
+):
+    """Every kernel's launch refused on the card: the KernelLaunchError
+    raises out of Decision(cuda)'s rebuild (to the loop) and out of
+    run_te_optimize, no delta comes from the CPU and the breaker stays
+    closed; restored, the next publication's routes come from the card
+    and equal Decision(cpu)'s."""
+    import asyncio
+
+    from openr_tpu_torch.decision import Decision, DecisionConfig
+    from openr_tpu_torch.messaging import ReplicateQueue, RQueue, RWQueue
+    from openr_tpu_torch.testing.decision_harness import (
+        assert_route_delta_equal,
+        decision_route_delta,
+        lsdb_publication,
+    )
+    from openr_tpu_torch.testing.kernel_faults import refused_launches
+
+    dbs, pub0 = _grid_publication()
+    names = sorted(dbs)
+    announcers = {n: [f"10.{i // 256}.{i % 256}.0/24"]
+                  for i, n in enumerate(names)}
+    edited = {a: dataclasses.replace(dbs[a], adjacencies=[
+        dataclasses.replace(x, metric=5) if x.other_node_name == b else x
+        for x in dbs[a].adjacencies])
+        for a, b in (("g0_1", "g0_2"), ("g0_2", "g0_1"))}
+    event = lsdb_publication(edited.values())
+    raised = []
+
+    async def body():
+        asyncio.get_running_loop().set_exception_handler(
+            lambda loop, ctx: raised.append(ctx.get("exception")))
+        kv_q, route_q = RWQueue(), ReplicateQueue()
+        dec = Decision(
+            DecisionConfig(my_node_name="g0_0", solver_device=str(built_dev),
+                           debounce_min=0.005, debounce_max=0.02),
+            RQueue(kv_q), route_q,
+        )
+        reader = route_q.get_reader()
+        dec.start()
+        try:
+            with refused_launches():
+                kv_q.push(pub0)
+                deadline = asyncio.get_running_loop().time() + 60.0
+                while not raised:
+                    assert asyncio.get_running_loop().time() < deadline
+                    await asyncio.sleep(0.005)
+                with pytest.raises(_cuda.KernelLaunchError):
+                    dec.run_te_optimize({"steps": 2})
+            assert reader.size() == 0
+            solves = dec.solver.primary.device_solves
+            kv_q.push(event)
+            delta = await asyncio.wait_for(reader.get(), 60)
+            assert dec.solver.primary.device_solves > solves
+        finally:
+            task = dec._task
+            dec.stop()
+            await asyncio.gather(task, return_exceptions=True)
+        want = await decision_route_delta(
+            "g0_0", lsdb_publication({**dbs, **edited}.values(), announcers),
+            "cpu")
+        return dec, delta, want
+
+    dec, delta, want = asyncio.new_event_loop().run_until_complete(body())
+    assert len(raised) == 1
+    assert isinstance(raised[0], _cuda.KernelLaunchError)
+    assert_route_delta_equal(delta, want)
+    c = dec.counters
+    assert c["decision.route_build_errors"] == 1
+    assert c["decision.te.optimize_errors"] == 1
+    assert "decision.te.fallback_runs" not in c
+    assert c["decision.spf.fallback_active"] == 0
+    assert "decision.spf.solver_failures" not in c
+    assert "decision.spf.fallback_solves" not in c
+    assert dec.get_solver_health()["breaker_state"] == "closed"
+    assert dec.solver.primary.host_spf_calls == 0
+
+
+def test_breaker_trips_to_cpu_and_probes_restore_the_card(built_dev):
+    """The fault domain on the card: solver.tpu.solve armed trips the
+    breaker and the CPU oracle serves; disarmed, probes close it and the
+    card serves again."""
+    from openr_tpu_torch.solver import SolverSupervisor, SupervisorConfig
+    from openr_tpu_torch.testing import faults
+
+    ls = LinkState("0")
+    for db in build_adj_dbs(grid_edges(8)).values():
+        ls.update_adjacency_database(db)
+    ps = PrefixState()
+    ps.update_prefix_database(PrefixDatabase(
+        "g7_7", [PrefixEntry(IpPrefix("10.1.0.0/16"))], area="0"))
+    t = [0.0]
+    sup = SolverSupervisor(
+        CudaSpfSolver("g0_0", device=built_dev), SpfSolver("g0_0"),
+        SupervisorConfig(failure_threshold=2, max_attempts=1,
+                         probe_interval_s=1.0, probe_successes_to_close=2),
+        clock=lambda: t[0],
+    )
+    want = SpfSolver("g0_0").build_route_db("g0_0", {"0": ls}, ps)
+    with faults.injected() as inj:
+        inj.arm("solver.tpu.solve", times=None)
+        for _ in range(2):
+            db = sup.build_route_db("g0_0", {"0": ls}, ps)
+            assert db.unicast_entries == want.unicast_entries
+    assert sup.state == "open" and sup.health()["degraded"]
+    for _ in range(2):
+        t[0] += 1.0
+        assert sup.maybe_probe()
+    assert sup.state == "closed"
+    solves = sup.primary.device_solves
+    db = sup.build_route_db("g0_0", {"0": ls}, ps)
+    assert db.unicast_entries == want.unicast_entries
+    assert sup.counters["decision.spf.fallback_solves"] == 2
+    assert sup.primary.device_solves >= solves
+
+
+def test_a_real_allocation_past_the_card_classifies_as_device_oom(dev):
+    from openr_tpu_torch.solver.supervisor import (
+        FAULT_DEVICE_OOM,
+        classify_solver_error,
+    )
+
+    with pytest.raises(torch.cuda.OutOfMemoryError) as info:
+        torch.empty(1 << 40, dtype=torch.uint8, device=dev)
+    assert "out of memory" in str(info.value)
+    assert classify_solver_error(info.value) == FAULT_DEVICE_OOM
+
+
+def test_a_device_side_assert_is_a_kernel_fault(dev):
+    """The text torch raises for a kernel fault (its advice sentence's
+    "Compile with" included) classifies as runtime, not compile, and is a
+    kernel fault, which the supervisor raises instead of serving the CPU
+    oracle. The fault poisons its process's context, so it is raised in a
+    child."""
+    import subprocess
+    import sys
+
+    from openr_tpu_torch.solver.supervisor import (
+        FAULT_RUNTIME,
+        classify_solver_error,
+        is_kernel_fault,
+    )
+
+    child = (
+        "import torch\n"
+        "x = torch.zeros(4, device='cuda')\n"
+        "i = torch.tensor([9], device='cuda')\n"
+        "try:\n"
+        "    x[i] = 1.0\n"
+        "    torch.cuda.synchronize()\n"
+        "except Exception as exc:\n"
+        "    print(type(exc).__name__)\n"
+        "    print(str(exc))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", child], capture_output=True,
+                         text=True, timeout=120).stdout
+    name, _, text = out.partition("\n")
+    assert "CUDA error" in text, out
+    exc_cls = type(name, (RuntimeError,), {})
+    assert classify_solver_error(exc_cls(text)) == FAULT_RUNTIME
+    assert is_kernel_fault(exc_cls(text))

@@ -275,3 +275,171 @@ def test_the_card_is_the_default(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA card"):
         TeService("a", {"0": ls})
     assert TeService("a", {"0": ls}, device="cpu").device.type == "cpu"
+
+
+# -- the supervised run: tests/test_te_service.py TestFaultDomain and
+# TestDecisionIntegration, the same fault script armed in both packages ---
+
+import openr_tpu.solver as j_solver  # noqa: E402
+import openr_tpu.testing.faults as j_faults  # noqa: E402
+import openr_tpu_torch.solver as t_solver  # noqa: E402
+import openr_tpu_torch.testing.faults as t_faults  # noqa: E402
+
+SUPERVISED = {
+    "jax": (j_solver, j_faults, lambda me: j_solver.TpuSpfSolver(me), None),
+    "torch": (t_solver, t_faults,
+              lambda me: t_solver.CudaSpfSolver(me, device="cpu"), "cpu"),
+}
+
+
+def make_supervised(pkg, me, edges, samples, **cfg_kw):
+    solver, _, primary, device = SUPERVISED[pkg]
+    sup = solver.SolverSupervisor(
+        primary(me), solver.SpfSolver(me), solver.SupervisorConfig(**cfg_kw),
+        log_sample_fn=samples.append,
+    )
+    kw = {} if device is None else {"device": device}
+    svc = (JTeService if pkg == "jax" else TeService)(
+        me, {"0": build_ls(pkg, edges)}, solver=sup,
+        log_sample_fn=samples.append, **kw)
+    return svc, sup
+
+
+def supervised_both(script, cfg_kw):
+    """script(svc, sup, inj) -> [report, ...] in both packages: the reports
+    (less solve_ms and loss_last), the TE and spf fault counters and the
+    LogSample event names must be equal."""
+    seen = {}
+    for pkg in ("torch", "jax"):
+        edges, spec = congested_clos_fixture()
+        samples = []
+        svc, sup = make_supervised(pkg, "l0_0", edges, samples, **cfg_kw)
+        with SUPERVISED[pkg][1].injected() as inj:
+            reports = script(svc, sup, inj, spec)
+        seen[pkg] = (reports, svc, sup, [s.get("event") for s in samples])
+    (got, t_svc, t_sup, t_ev), (want, j_svc, j_sup, j_ev) = (
+        seen["torch"], seen["jax"])
+    assert len(got) == len(want)
+    for a, b in zip(want, got):
+        assert_reports_equal(a, b)
+    assert t_svc.counters == j_svc.counters
+    assert {k: v for k, v in t_sup.counters.items()
+            if k.startswith("decision.spf.solver")
+            or k.startswith("decision.spf.fallback")
+            or k.startswith("decision.spf.breaker")} == {
+        k: v for k, v in j_sup.counters.items()
+        if k.startswith("decision.spf.solver")
+        or k.startswith("decision.spf.fallback")
+        or k.startswith("decision.spf.breaker")}
+    assert t_ev == j_ev
+    assert t_sup.state == j_sup.state
+    return got, t_svc, t_sup, t_ev
+
+
+def test_supervised_injected_fault_degrades_to_cpu_as_the_reference():
+    def script(svc, sup, inj, spec):
+        inj.arm("te.optimize", times=None)
+        report = svc.optimize({"demands": spec, "steps": 40, "seed": 0})
+        assert inj.fired("te.optimize") >= 1
+        return [report]
+
+    (report,), svc, sup, events = supervised_both(script, {"max_attempts": 2})
+    assert report["degraded"] is True and report["backend"] == "cpu-fallback"
+    assert report["improved"] is True
+    assert svc.counters["decision.te.fallback_runs"] == 1
+    assert sup.counters["decision.spf.solver_failures"] >= 1
+    assert events.count("TE_OPTIMIZE_DEGRADED") == 1
+
+
+def test_supervised_transient_fault_is_retried_in_call_as_the_reference():
+    def script(svc, sup, inj, spec):
+        inj.arm("te.optimize", times=1)
+        return [svc.optimize({"demands": spec, "steps": 20})]
+
+    (report,), _, sup, events = supervised_both(script, {"max_attempts": 3})
+    assert report["degraded"] is False and report["backend"] == "primary"
+    assert sup.counters["decision.spf.solver_retries"] >= 1
+    assert "TE_OPTIMIZE_DEGRADED" not in events
+
+
+def test_supervised_open_breaker_serves_fallback_as_the_reference():
+    def script(svc, sup, inj, spec):
+        inj.arm("te.optimize", times=None)
+        first = svc.optimize({"demands": spec, "steps": 10})
+        fired = inj.fired("te.optimize")
+        second = svc.optimize({"demands": spec, "steps": 10})
+        assert inj.fired("te.optimize") == fired
+        return [first, second]
+
+    reports, svc, sup, events = supervised_both(
+        script, {"failure_threshold": 1, "max_attempts": 1})
+    assert all(r["degraded"] for r in reports)
+    assert svc.counters["decision.te.fallback_runs"] == 2
+    assert sup.state == "open"
+    assert events.count("TE_OPTIMIZE_DEGRADED") == 2
+
+
+def test_unsupervised_service_raises_where_the_reference_degrades():
+    """Without a supervisor the reference re-runs a failed device
+    optimization on the CPU behind the caller's back; the port raises."""
+    edges, spec = congested_clos_fixture()
+    params = {"demands": spec, "steps": 20}
+    with j_faults.injected() as inj:
+        inj.arm("te.optimize", times=None)
+        ref = JTeService("l0_0", {"0": build_ls("jax", edges)}).optimize(
+            dict(params))
+    assert ref["degraded"] is True
+    svc = TeService("l0_0", {"0": build_ls("torch", edges)}, device="cpu")
+    with t_faults.injected() as inj:
+        inj.arm("te.optimize", times=None)
+        with pytest.raises(t_faults.FaultInjected):
+            svc.optimize(dict(params))
+    assert svc.counters["decision.te.optimize_errors"] == 1
+    assert "decision.te.fallback_runs" not in svc.counters
+
+
+def _te_decision(pkg, edges):
+    if pkg == "jax":
+        from openr_tpu.decision import Decision, DecisionConfig
+        from openr_tpu.messaging import ReplicateQueue, RQueue, RWQueue
+
+        cfg = DecisionConfig(my_node_name="l0_0", solver_backend="tpu")
+    else:
+        from openr_tpu_torch.decision import Decision, DecisionConfig
+        from openr_tpu_torch.messaging import ReplicateQueue, RQueue, RWQueue
+
+        cfg = DecisionConfig(my_node_name="l0_0", solver_backend="cuda",
+                             solver_device="cpu")
+    decision = Decision(cfg, RQueue(RWQueue()), ReplicateQueue())
+    ls = decision.area_link_states["0"]
+    for db in PKGS[pkg][1](edges).values():
+        ls.update_adjacency_database(db)
+    return decision
+
+
+@pytest.mark.parametrize("armed", [False, True],
+                         ids=["run_te_optimize_through_decision",
+                              "decision_level_fault_degrades"])
+def test_run_te_optimize_through_decision_as_the_reference(armed):
+    edges, spec = congested_clos_fixture()
+    params = {"demands": spec, "steps": 20, "seed": 0}
+    seen = {}
+    for pkg, faults in (("torch", t_faults), ("jax", j_faults)):
+        decision = _te_decision(pkg, edges)
+        with faults.injected() as inj:
+            if armed:
+                inj.arm("te.optimize", times=None)
+            report = decision.run_te_optimize(dict(params))
+        svc = decision._te_service
+        decision.run_te_optimize({"demands": spec, "steps": 4})
+        assert decision._te_service is svc
+        seen[pkg] = (report, {k: v for k, v in decision.counters.items()
+                              if k.startswith("decision.te.")
+                              or k == "decision.spf.solver_failures"})
+    assert_reports_equal(seen["jax"][0], seen["torch"][0])
+    assert seen["torch"][1] == seen["jax"][1]
+    report, counters = seen["torch"]
+    assert report["improved"] is True and report["degraded"] is armed
+    assert counters["decision.te.optimize_runs"] == 2
+    assert counters.get("decision.spf.solver_failures", 0) == (
+        2 if armed else 0)
