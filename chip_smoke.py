@@ -205,6 +205,32 @@ Phases, one JSON line each:
   decision_mesh  the gate under a (4, 2) mesh of ranks sharing the card:
                Decision(cuda, mesh) == Decision(cpu) on the 3,956-node Clos
                and an event (tiled layout: K19, K20, K21)
+  decision_ledger  the memory ledger and the flight recorder on the card's
+               solver: (a) Decision(cuda) with solver_trace_sample_every=1
+               through decision_clos's first publication and event, each
+               solve's phase split (prepare, h2d, relax, delta_extract,
+               d2h ms) beside solve_ms_last, deltas equal to Decision(cpu);
+               (b) after every solve registered == live + freed, and
+               predict_fit's bytes (structure by structure equal to the
+               registered ones) beside the caching allocator's change across
+               the first dispatch (within 10%) for sell (the 9,556-node
+               Clos), tile2d (decision_mesh's (4, 2)), apsp (apsp_wan's
+               4,096 nodes, one cold close) and te (te_clos's working set
+               through TeService: its upload and one Adam step measured by a
+               spy in place of optimize_weights, skipping the host scoring;
+               the step's peak beside the model); (c) a capacity drill on the
+               3,956-node Clos under compute_lfa_paths: room for the sliced
+               layout's solves, not for the all-pairs matrix: one
+               SOLVER_CAPACITY_REFUSED sample (apsp, override), deltas equal
+               to Decision(cpu)'s, another node's route db from the host's
+               Dijkstra (host_spf_calls) equal to the CPU oracle's; (d) a
+               capacity below the sliced layout's model: DeviceCapacityError
+               before any allocation (the ledger and the allocator
+               unchanged), solver_failures.device_oom, the oracle's delta;
+               the override lifted, the probes close the breaker and the card
+               serves the next event; (e) after Decision.stop the ledger's
+               live handles and the allocator are back to the phase's
+               baseline (a remainder is named or fails)
                A Decision phase fails if the supervisor served a delta
                outside the drill (fallback_active, an open breaker, a
                decision.spf fault counter), if device_solves did not rise,
@@ -219,7 +245,8 @@ Phases, one JSON line each:
 
 Every path (main_path, event_wan, event_clos, star_flap, ksp_wan,
 ksp_star, apsp_wan, lfa_clos, te_clos, te_mesh, te_service, tile_wan,
-tile_clos, mesh_rows, decision_clos, decision_drill, decision_mesh) runs
+tile_clos, mesh_rows, decision_clos, decision_drill, decision_mesh,
+decision_ledger) runs
 with all launch
 counts set to 0 just before it and read just after, and fails if a kernel
 it drives was not launched. The (min,+) tile product of fw_minplus.cuh
@@ -1507,6 +1534,429 @@ def decision_phases(dev, card, paths, expect, clos_edges, lfa_edges,
         "seconds": time.perf_counter() - t0, "launches": launches,
         "card": card,
     })
+
+
+class _Measured(Exception):
+    """decision_ledger's TE step: raised by the spy in place of
+    optimize_weights once the working set is measured, so the service's
+    host scoring of the full-width Clos (minutes) is not run."""
+
+
+def _alloc(dev) -> int:
+    """The caching allocator's allocated bytes, after a garbage collection
+    (so an earlier step's cyclic garbage is not freed inside a measured
+    window) and the card's work."""
+    import gc
+
+    import torch
+
+    if dev.type != "cuda":
+        return 0
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    return torch.cuda.memory_allocated(dev)
+
+
+def _area_live(ledger, area: str, exclude=frozenset(),
+               skip=("mirror",)) -> dict:
+    """Live bytes of one ledger area by structure, less the handles in
+    `exclude` (earlier phases' solvers, never closed, may hold entries
+    under the same area) and the host mirror (not on the card)."""
+    out = {}
+    for e in ledger.live_entries(area):
+        if e.handle not in exclude and e.structure not in skip:
+            out[e.structure] = out.get(e.structure, 0) + e.nbytes
+    return out
+
+
+def _fit_row(dev, ledger, name: str, fit: dict, registered: dict,
+             alloc_delta: int) -> dict:
+    """One (b) row: predict_fit's bytes, the ledger's registered bytes and
+    the caching allocator's change across the first dispatch. The model is
+    held to the registered bytes, structure by structure (exact), and on
+    the card the registered bytes to the allocator's change (10%)."""
+    predicted, reg = fit["predicted_bytes"], sum(registered.values())
+    check(reg > 0, f"decision_ledger: {name} registered nothing")
+    folded = {}
+    for key, nbytes in fit["components"].items():
+        key = key.split(".", 1)[0]  # "apsp.d" is the structure "apsp"
+        folded[key] = folded.get(key, 0) + nbytes
+    check(folded == registered,
+          f"decision_ledger: {name} predict_fit {fit['components']} "
+          f"against the registered {registered}")
+    row = {"layout": name, "predicted_bytes": predicted,
+           "registered_bytes": reg, "components": fit["components"],
+           "registered": registered,
+           "allocated_delta_bytes": alloc_delta if dev.type == "cuda"
+           else "not measured"}
+    if dev.type == "cuda":
+        row["allocated_over_registered"] = alloc_delta / reg
+        check(abs(alloc_delta - reg) <= 0.10 * reg,
+              f"decision_ledger: {name}: the allocator moved {alloc_delta} "
+              f"bytes, the ledger registered {reg}")
+    return row
+
+
+def decision_ledger(dev, card, paths, expect, clos_edges, lfa_edges,
+                    apsp_edges) -> None:
+    """decision_ledger (see the module docstring): the memory ledger and the
+    flight recorder on the card's solver. Every check raises."""
+    import gc
+
+    import torch
+
+    from openr_tpu_torch.apsp import ApspState
+    from openr_tpu_torch.lsdb import LinkState
+    from openr_tpu_torch.monitor.memledger import get_ledger
+    from openr_tpu_torch.ops.graph import compile_graph
+    from openr_tpu_torch.parallel import make_mesh
+    from openr_tpu_torch.solver import SpfSolver
+    from openr_tpu_torch.solver.supervisor import CLOSED, OPEN
+    from openr_tpu_torch.te import kernels as tk
+    from openr_tpu_torch.te import service as te_service
+    from openr_tpu_torch.te import TeService
+    from openr_tpu_torch.te import optimizer as teopt
+    from openr_tpu_torch.testing.decision_harness import lsdb_publication
+    from openr_tpu_torch.topology import build_adj_dbs
+    from openr_tpu_torch.convert import te_inputs
+
+    me = DECISION_ME
+    t0 = time.perf_counter()
+    ledger = get_ledger()
+    gc.collect()
+    # the baseline: what earlier phases' solvers left registered (none of
+    # them is closed) and allocated
+    base_handles = {e.handle for e in ledger.live_entries()}
+    base_live = ledger.live_bytes
+    alloc_start = _alloc(dev)
+    scratch0 = (len(tk._mlu_scratch),)
+    out = {"phase": "decision_ledger", "me": me,
+           "baseline": {"handles": len(base_handles),
+                        "live_bytes": base_live,
+                        "allocated_bytes": alloc_start
+                        if dev.type == "cuda" else "not measured"}}
+
+    def announce(dbs):
+        return {name: [f"10.{i // 256}.{i % 256}.0/24"]
+                for i, name in enumerate(sorted(dbs))}
+
+    main_event = [
+        ("fsw0_1", "ssw1_0", {"is_overloaded": True}),
+        ("ssw1_0", "fsw0_1", {"is_overloaded": True}),
+        ("fsw0_2", "rsw0_5", {"metric": 3}),
+        ("rsw0_5", "fsw0_2", {"metric": 3}),
+    ]
+
+    def exact(what):
+        check(ledger.check(), f"decision_ledger: {what}: registered "
+              f"{ledger.registered_bytes} != live {ledger.live_bytes} + "
+              f"freed {ledger.freed_bytes}")
+
+    def solve_of(node):
+        return node["dec"].solver.primary._solves[("0", me)][1]
+
+    steps = {}
+    t_step = time.perf_counter()
+
+    def step_done(name):
+        nonlocal t_step
+        now = time.perf_counter()
+        steps[name] = now - t_step
+        t_step = now
+
+    # (a) the phase split, every solve sampled, on the 9,556-node Clos
+    dbs = build_adj_dbs(clos_edges)
+    pub0 = lsdb_publication(dbs.values(), announce(dbs))
+    drv = DecisionLoop(dev)
+    cp = drv.boot("cpu")
+    alloc0 = _alloc(dev)
+    cu = drv.boot("cuda", solver_trace_sample_every=1)
+    rec = cu["dec"].solver.recorder
+    split = []
+    for name, pub in (("first", pub0), ("main_event", lsdb_publication(
+            edited_adj_dbs(dbs, main_event).values()))):
+        seen = rec.recorded
+        paths.resume()
+        t = time.perf_counter()
+        got = drv.deliver(cu, pub)
+        ms = (time.perf_counter() - t) * 1e3
+        paths.pause()
+        same_delta(got, drv.deliver(cp, pub), f"decision_ledger {name}")
+        exact(name)
+        traces = [x for x in rec.snapshot() if x["event"] == "solve"]
+        check(rec.recorded > seen and traces and traces[-1]["sampled"],
+              f"decision_ledger: {name} recorded no sampled solve")
+        tr = traces[-1]
+        check({"prepare", "h2d", "relax"} <= set(tr["phases"]),
+              f"decision_ledger: {name} phases {tr['phases']}")
+        split.append({
+            "event": name, "publication_to_delta_ms": ms,
+            "solve_ms_last": cu["dec"].solver.primary.solve_ms_last,
+            "trace_solve_ms": tr["solve_ms"], "phases_ms": tr["phases"],
+            "warm": tr["warm"], "rounds": tr["rounds"],
+            "delta_columns": tr["delta_columns"],
+            "h2d_bytes": tr["h2d_bytes"], "d2h_bytes": tr["d2h_bytes"],
+        })
+        if name == "first":
+            solve = solve_of(cu)
+            alloc_sell = _alloc(dev) - alloc0
+            fit = ledger.predict_fit(
+                solve.graph.n, "sell", n_sources=len(solve.sources),
+                graph=solve.graph)
+            sell_row = _fit_row(
+                dev, ledger, "sell", fit,
+                _area_live(ledger, solve._mem_area, base_handles),
+                alloc_sell)
+            # the patch slots are the layout's capacity, not on the card
+            # until an event patches: the allocator's change has no such
+            # buffer
+            sell_row["not_on_card_yet"] = {"patch": fit["components"][
+                "patch"]}
+    decision_clean(cu, "decision_ledger (a)", 0)
+    out["split"] = split
+    out["traces"] = {k: cu["dec"].counters.get(k) for k in (
+        "decision.spf.traces_recorded", "decision.spf.traces_sampled",
+        "decision.spf.traces_evicted")}
+    out["phase_samples"] = {k: v.count for k, v in cu["dec"].histograms.items()
+                            if k.startswith("decision.spf.phase.")}
+    drv.stop()
+    del cu, cp, drv, rec, solve
+    gc.collect()
+    exact("(a) stopped")
+    step_done("a_split")
+
+    # (b) tile2d: decision_mesh's (4, 2) ranks on the 3,956-node Clos
+    dbs = build_adj_dbs(lfa_edges)
+    pub0 = lsdb_publication(dbs.values(), announce(dbs))
+    drv = DecisionLoop(dev)
+    alloc0 = _alloc(dev)
+    cu = drv.boot("cuda", solver_mesh=make_mesh([dev] * 8, (4, 2)))
+    paths.resume()
+    drv.deliver(cu, pub0)
+    paths.pause()
+    exact("tile2d")
+    solve = solve_of(cu)
+    check(solve._dev["kind"] == "tile2d", "decision_ledger: not tiled")
+    fit = ledger.predict_fit(solve.graph.n, "tile2d",
+                             n_sources=len(solve.sources), graph=solve.graph,
+                             mesh_shape=(4, 2))
+    tile_row = _fit_row(dev, ledger, "tile2d", fit,
+                        _area_live(ledger, solve._mem_area, base_handles),
+                        _alloc(dev) - alloc0)
+    decision_clean(cu, "decision_ledger tile2d", 0)
+    drv.stop()
+    del cu, drv, solve
+    gc.collect()
+
+    # (b) apsp: apsp_wan's 4,096 nodes, one cold close
+    ag = compile_graph(build_ls(apsp_edges, LinkState, build_adj_dbs))
+    alloc0 = _alloc(dev)
+    apsp = ApspState(APSP_N, device=dev, area="ledger/apsp")
+    paths.resume()
+    check(apsp.ensure(ag), "decision_ledger: the all-pairs matrix refused")
+    paths.pause()
+    exact("apsp")
+    apsp_row = _fit_row(dev, ledger, "apsp",
+                        ledger.predict_fit(ag.n, "apsp", graph=ag),
+                        _area_live(ledger, "ledger/apsp", base_handles),
+                        _alloc(dev) - alloc0)
+    apsp.close()
+    del apsp
+    exact("apsp closed")
+
+    # (b) te: te_clos's working set through TeService; the spy measures
+    # the upload and one Adam step in place of optimize_weights
+    te_ls = build_ls(lfa_edges, LinkState, build_adj_dbs)
+    te_g = compile_graph(te_ls)
+    spec = te_demand_spec(te_g.names[: te_g.n], TE_DEMANDS, seed=11)
+    seen = {}
+    real = te_service.optimize_weights
+
+    def spy(src_e, dst_e, up, w0, demands, caps, n, config=None, mesh=None,
+            initial_d=None, device="cuda", mem_area=None):
+        seen["registered"] = _area_live(ledger, mem_area, base_handles)
+        seen["fit"] = ledger.predict_fit(n, "te", n_sources=demands.shape[0],
+                                         graph=te_g)
+        a0 = _alloc(dev)
+        inp = te_inputs(src_e, dst_e, w0, up, demands, caps, dev)
+        seen["upload"] = _alloc(dev) - a0
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        b = demands.shape[0]
+        paths.resume()
+        teopt.adam_solve(
+            inp["w"], inp["demands"], torch.ones(b, device=dev), inp["caps"],
+            inp["graph"], inp["up"], config, max(2, min(n, 128)), 1,
+            mem_area=mem_area)
+        paths.pause()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+            seen["peak"] = torch.cuda.max_memory_allocated(dev) - a0
+        raise _Measured()
+
+    te_service.optimize_weights = spy
+    try:
+        TeService(me, {"0": te_ls}, device=dev).optimize(
+            {"demands": spec, "seed": 0, "steps": 1, "rounds": 128})
+        check(False, "decision_ledger: the TE spy did not run")
+    except _Measured:
+        pass
+    finally:
+        te_service.optimize_weights = real
+    check(not _area_live(ledger, "0/te", base_handles),
+          "decision_ledger: the TE working set was not released")
+    exact("te")
+    te_row = _fit_row(dev, ledger, "te", seen["fit"], seen["registered"],
+                      seen["upload"])
+    te_row["peak_step_bytes"] = seen.get("peak", "not measured")
+    if dev.type == "cuda":
+        # the reference's model is the scenario batch and the capacities;
+        # one step's activations and gradients are not in it
+        te_row["peak_over_predicted"] = seen["peak"] / seen["fit"][
+            "predicted_bytes"]
+    out["fit"] = [sell_row, tile_row, apsp_row, te_row]
+    del te_ls, te_g
+    step_done("b_tile_apsp_te")
+
+    # (c) the capacity drill: room for the sliced layout's solves (each
+    # admission counts the live generation and the next), not for the
+    # 4,096 all-pairs matrix; LFA asks for it on a delta event
+    g = compile_graph(build_ls(lfa_edges, LinkState, build_adj_dbs))
+    sources = 1 + len({b for a, b, _ in lfa_edges if a == me}
+                      | {a for a, b, _ in lfa_edges if b == me})
+    p_sell = ledger.predict_fit(g.n, "sell", n_sources=sources,
+                                graph=g)["predicted_bytes"]
+    p_apsp = ledger.predict_fit(g.n, "apsp", graph=g)["predicted_bytes"]
+    mirror = 64 * g.n_pad * 4
+    cap = ledger.live_bytes + 2 * p_sell + mirror + p_apsp // 2
+    check(cap < ledger.live_bytes + p_sell + p_apsp,
+          "decision_ledger: no capacity refuses the matrix alone")
+    drv = DecisionLoop(dev)
+    cp = drv.boot("cpu", compute_lfa_paths=True)
+    cu = drv.boot("cuda", compute_lfa_paths=True,
+                  solver_mem_capacity_bytes=cap,
+                  solver_mem_headroom_frac=0.0)
+    paths.resume()
+    for name, pub in (("first", pub0), ("event", lsdb_publication(
+            edited_adj_dbs(dbs, main_event).values()))):
+        same_delta(drv.deliver(cu, pub), drv.deliver(cp, pub),
+                   f"decision_ledger drill {name}")
+        exact(f"drill {name}")
+    paths.pause()
+    decision_clean(cu, "decision_ledger drill", 0)
+    refused = [x for x in cu["samples"]
+               if x.get("event") == "SOLVER_CAPACITY_REFUSED"]
+    check([(x.get("layout"), x.get("capacity_source")) for x in refused]
+          == [("apsp", "override")],
+          f"decision_ledger: drill refusals {refused}")
+    others = [x for x in sorted(dbs) if x.startswith("rsw1_")][:1]
+    prim = cu["dec"].solver.primary
+    for other in others:
+        got = cu["dec"].solver.build_route_db(
+            other, cu["dec"].area_link_states, cu["dec"].prefix_state)
+        want = SpfSolver(other, compute_lfa_paths=True).build_route_db(
+            other, cp["dec"].area_link_states, cp["dec"].prefix_state)
+        check(got.unicast_entries == want.unicast_entries
+              and got.mpls_entries == want.mpls_entries,
+              f"decision_ledger: {other}'s route db differs from the CPU's")
+    check(prim.host_spf_calls > 0,
+          "decision_ledger: no out-of-batch answer came from the host")
+    out["drill"] = {
+        "graph": f"fabric_edges({LFA_CLOS_PODS})", "capacity_bytes": cap,
+        "sell_predicted_bytes": p_sell, "apsp_predicted_bytes": p_apsp,
+        "refusals": len(refused),
+        "refused_headroom_bytes": refused[0].get("headroom_bytes"),
+        "other_nodes": others, "host_spf_calls": prim.host_spf_calls,
+        "fallback_active": cu["dec"].counters.get(
+            "decision.spf.fallback_active"),
+    }
+    drv.stop()
+    del cu, cp, drv, prim
+    step_done("c_drill")
+
+    # (d) the layout refused: a capacity below the sliced layout's model
+    drv = DecisionLoop(dev)
+    cp = drv.boot("cpu")
+    cu = drv.boot("cuda", solver_mem_capacity_bytes=ledger.live_bytes
+                  + p_sell // 2, solver_mem_headroom_frac=0.0,
+                  solver_failure_threshold=1, solver_max_attempts=1,
+                  solver_probe_interval_s=0.05)
+    sup = cu["dec"].solver
+    alloc0 = _alloc(dev)
+    live0 = ledger.live_bytes
+    same_delta(drv.deliver(cu, pub0), drv.deliver(cp, pub0),
+               "decision_ledger refused layout")
+    c = cu["dec"].counters
+    refused = [x for x in cu["samples"]
+               if x.get("event") == "SOLVER_CAPACITY_REFUSED"]
+    # (the breaker's probes, every 0.05 s, are refused alike until the
+    # override is lifted, each with its sample)
+    check(c.get("decision.spf.solver_failures.device_oom") == 1
+          and sup.state == OPEN and c.get("decision.spf.fallback_solves")
+          and refused and {x.get("layout") for x in refused} == {"sell"},
+          f"decision_ledger: the refused layout gave {sup.state}, {c}")
+    alloc1 = _alloc(dev)
+    check(ledger.live_bytes == live0 and alloc1 == alloc0,
+          f"decision_ledger: the refused layout allocated before raising: "
+          f"the ledger {ledger.live_bytes - live0} bytes, the allocator "
+          f"{alloc1 - alloc0}")
+    exact("refused layout")
+    ledger.set_capacity_override(None)
+    drv.wait(lambda: sup.state == CLOSED, "probes closing the breaker")
+    solves0 = sup.primary.device_solves
+    fallback0 = c.get("decision.spf.fallback_solves", 0)
+    pub = lsdb_publication(edited_adj_dbs(dbs, main_event).values())
+    paths.resume()
+    same_delta(drv.deliver(cu, pub), drv.deliver(cp, pub),
+               "decision_ledger after the override")
+    paths.pause()
+    check(sup.primary.device_solves > solves0
+          and c.get("decision.spf.fallback_solves", 0) == fallback0
+          and c["decision.spf.fallback_active"] == 0,
+          "decision_ledger: the card did not serve the event after the "
+          "override was lifted")
+    exact("override lifted")
+    out["refused_layout"] = {
+        "device_oom": c.get("decision.spf.solver_failures.device_oom"),
+        "refusal_samples": len(refused),
+        "refusal": {k: refused[0].get(k) for k in (
+            "layout", "capacity_source", "predicted_bytes",
+            "headroom_bytes")},
+        "allocated_while_refused": 0, "breaker": sup.state,
+        "served_by_card_after": True,
+    }
+    drv.stop()
+    del cu, cp, drv, sup
+    ledger.set_headroom_frac(0.10)
+    ledger.set_capacity_override(None)
+    step_done("d_refused_layout")
+
+    # (e) teardown: back to the baseline
+    gc.collect()
+    left = [(e.area, e.structure, e.nbytes) for e in ledger.live_entries()
+            if e.handle not in base_handles]
+    check(not left, f"decision_ledger: live after stop {left}")
+    check({e.handle for e in ledger.live_entries()} == base_handles,
+          "decision_ledger: a baseline entry was released")
+    exact("teardown")
+    remainder = _alloc(dev) - alloc_start
+    named = {}
+    if len(tk._mlu_scratch) > scratch0[0]:
+        named["te.kernels._mlu_scratch"] = (len(tk._mlu_scratch)
+                                            - scratch0[0])
+    out["teardown"] = {
+        "live_handles_over_baseline": len(left),
+        "allocated_remainder_bytes": remainder
+        if dev.type == "cuda" else "not measured",
+        "named": named,
+    }
+    check(remainder == 0 or named,
+          f"decision_ledger: {remainder} bytes still allocated after stop")
+    step_done("e_teardown")
+    launches = paths.read("decision_ledger", expect)
+    out.update(seconds=time.perf_counter() - t0, seconds_by_step=steps,
+               launches=launches, card=card)
+    emit(out)
 
 
 def main() -> int:
@@ -4334,6 +4784,12 @@ def main() -> int:
          "decision_drill": (K1, K3, K14, K15, K16, K17, K18),
          "decision_mesh": (K3, K19, K20, K21)},
         clos_edges, lfa_edges, fabric_edges(pods=TE_CHAIN_PODS),
+    )
+    paths.start()
+    decision_ledger(
+        dev, card, paths,
+        (K1, K3, K4, K5, K7, K11, K14, K15, K16, K17, K18, K19, K20, K21),
+        clos_edges, lfa_edges, wan_edges(APSP_N, degree=4, seed=7),
     )
 
     # -- 23. kernels line, card, result ----------------------------------

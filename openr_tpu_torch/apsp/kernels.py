@@ -26,6 +26,11 @@ inside its body, and it is held against `_mp` through it. K11 carries its
 own register-blocked product (fw_close.cu), held against `_mp` through the
 close.
 
+Each wrapper runs under a `torch.profiler.record_function` seam named as
+the JAX package's profiling spans are (`apsp.fw_close.{nb}x{bsz}`,
+`apsp.fw_seed.{nb}x{bsz}`, `apsp.fw_reclose.{nb}x{bsz}`), so a profiler
+trace names the all-pairs work as it names ops/spf.py's.
+
 Each wrapper checks device, dtype, shape and contiguity; on a CUDA tensor
 it launches its kernel (and counts the launch), on a CPU tensor it runs the
 plain PyTorch version beside it. The plain versions are the CPU tests' path
@@ -42,6 +47,7 @@ from typing import Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from openr_tpu_torch.ops._cuda import FW_CLOSE, FW_RECLOSE, FW_SEED
 from openr_tpu_torch.ops.graph import INF, CompiledGraph
@@ -264,6 +270,12 @@ def fw_close(
     if _square("allow", allow, torch.bool, dev) != n:
         raise ValueError("w and allow differ in size")
     nb, bsz = fw_block_shape(n)
+    with record_function(f"apsp.fw_close.{nb}x{bsz}"):
+        return _fw_close(w, allow, nb, bsz)
+
+
+def _fw_close(w, allow, nb: int, bsz: int):
+    dev, n = w.device, w.shape[0]
     if dev.type != "cuda":
         return _fw_close_plain(w, allow)
     d = w.clone()
@@ -326,6 +338,12 @@ def fw_seed(
     p = inc_u.shape[0]
     if inc_v.shape[0] != p or inc_w.shape[0] != p:
         raise ValueError("increase slot arrays differ in length")
+    with record_function(f"apsp.fw_seed.{nb}x{bsz}"):
+        return _fw_seed(d_prev, w_new, inc_u, inc_v, inc_w, nb, bsz)
+
+
+def _fw_seed(d_prev, w_new, inc_u, inc_v, inc_w, nb: int, bsz: int):
+    dev, n, p = d_prev.device, d_prev.shape[0], inc_u.shape[0]
     if dev.type != "cuda":
         d0, dirty, num = _fw_seed_plain(d_prev, w_new, inc_u, inc_v, inc_w,
                                         nb, bsz)
@@ -360,6 +378,12 @@ def fw_reclose(
     _check("dirty", dirty, torch.bool, 1, dev)
     if dirty.shape[0] != nb or not 1 <= kb <= nb:
         raise ValueError(f"dirty has {dirty.shape[0]} blocks, kb {kb}")
+    with record_function(f"apsp.fw_reclose.{nb}x{bsz}"):
+        return _fw_reclose(d, allow, dirty, nb, bsz, kb)
+
+
+def _fw_reclose(d, allow, dirty, nb: int, bsz: int, kb: int):
+    dev, n = d.device, d.shape[0]
     if dev.type != "cuda":
         d, dirty_new, num, changed = _fw_reclose_plain(d, allow, dirty, nb,
                                                        bsz, kb)

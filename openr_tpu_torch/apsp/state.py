@@ -30,8 +30,15 @@ batch, and the TE borrow — from that one matrix.
     with `np_floyd_warshall` of the host-side graph; a mismatch
     invalidates and closes cold in place.
 
-The admission gate is the static node cap (`graph.n <= max_nodes`), which
-is what the JAX package uses where it has no device-memory source.
+Admission is the memory ledger's (monitor/memledger.py): the [n_pad,
+n_pad] triple is admitted when `predict_fit` says it fits the headroom
+left on the card; a definite no-fit is a refusal, counted once per graph
+snapshot and passed to `on_refusal` (the owning solver queues it for the
+supervisor's SOLVER_CAPACITY_REFUSED sample). Without a capacity source
+(no card, or the card's CUDA context not made yet, and no override) the
+static node cap (`graph.n <= max_nodes`) is the gate. The resident triple
+registers with the ledger after every close and is released when it
+drops (invalidation, a degraded close, `close`).
 """
 
 from __future__ import annotations
@@ -72,9 +79,21 @@ class ApspState:
         audit_interval: int = 0,
         warm: bool = True,
         device: DeviceLike = "cuda",
+        area: str = "",
+        on_refusal: Optional[Callable] = None,
     ) -> None:
         self.max_nodes = max_nodes
         self.device = resolve_device(device)
+        # device-memory ledger: the resident triple registers under this
+        # area tag; admission asks the ledger's capacity model first
+        from openr_tpu_torch.monitor.memledger import get_ledger
+
+        self._ledger = get_ledger()
+        self._mem_area = area or "apsp"
+        self._mem_handle: Optional[int] = None
+        self._on_refusal = on_refusal
+        self.last_refusal: Optional[Dict] = None
+        self._refused_version: Optional[int] = None
         # dispatch(op, primary_fn, fallback_fn) -> (result, degraded): the
         # SolverSupervisor.supervised_call signature; None = the close
         # raises on failure
@@ -117,8 +136,27 @@ class ApspState:
     # ------------------------------------------------------------------
 
     def enabled_for(self, graph: CompiledGraph) -> bool:
-        """Dense FW residency admission: the static node cap."""
-        return 0 < graph.n <= self.max_nodes
+        """Dense FW residency admission: the ledger's `predict_fit` verdict
+        when a capacity source exists, else the static node cap. A definite
+        no-fit is a refusal: counted, remembered, and passed to
+        `on_refusal`, once per graph snapshot."""
+        if graph.n <= 0:
+            return False
+        verdict = self._ledger.predict_fit(graph.n, "apsp", graph=graph)
+        if verdict["fits"] is None:
+            # no capacity source: the static node cap is the gate
+            return graph.n <= self.max_nodes
+        if verdict["fits"]:
+            return True
+        if self._refused_version != graph.version:
+            # one refusal per graph snapshot: every later probe of the same
+            # snapshot rides the remembered verdict
+            self._refused_version = graph.version
+            self._ledger.record_refusal(verdict)
+            self.last_refusal = dict(verdict)
+            if self._on_refusal is not None:
+                self._on_refusal(verdict)
+        return False
 
     def resident(self) -> bool:
         return self._d_dev is not None or self._d_host is not None
@@ -141,6 +179,26 @@ class ApspState:
         self._src_ref = None
         self._version = -2
         self.stale_reason = reason
+        self._mem_register_resident()
+
+    def _mem_register_resident(self) -> None:
+        """Ledger seam: register the resident triple (d, w, allow) after a
+        close, or release it when the matrix dropped (invalidation, a
+        degraded close, teardown)."""
+        self._ledger.release(self._mem_handle)
+        self._mem_handle = None
+        if self._d_dev is not None:
+            self._mem_handle = self._ledger.register(
+                self._mem_area,
+                "apsp",
+                layout="apsp",
+                arrays=(self._d_dev, self._w_dev, self._allow_dev),
+            )
+
+    def close(self) -> None:
+        """Teardown: release the ledger entry (the owning solve dropped)."""
+        self._ledger.release(self._mem_handle)
+        self._mem_handle = None
 
     # ------------------------------------------------------------------
 
@@ -242,6 +300,7 @@ class ApspState:
             self._w_dev = w_dev
             self._allow_dev = allow_dev
             self.backend = "device"
+        self._mem_register_resident()
         self._snapshot(graph)
         self.closes += 1
         self.cold_closes += 1
@@ -323,6 +382,7 @@ class ApspState:
             self.backend = "device"
             self.warm_closes += 1
             self.reclose_rounds_last = rounds
+        self._mem_register_resident()
         self._snapshot(graph)
         self.closes += 1
         self.close_ms_last = (time.perf_counter() - t0) * 1e3

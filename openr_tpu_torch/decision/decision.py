@@ -175,12 +175,9 @@ class DecisionConfig:
     solver_apsp_max_nodes: int = 4096
     # flight recorder (solver/flight_recorder.py, docs/Monitoring.md):
     # per-area SolveTrace ring bound, the sampled phase-timing cadence
-    # (every Nth solve takes block_until_ready barriers at phase seams;
-    # 0 disables sampling), and an optional directory forensics dumps
-    # are written to as JSON artifacts. Port: the ring and the forensics
-    # directory work (the supervisor records and dumps); the sampling
-    # cadence is inert until the primary attaches the recorder's
-    # PhaseClock seams (ROADMAP queue 1 item 6b)
+    # (every Nth solve synchronizes the card at its phase seams; 0
+    # disables sampling), and an optional directory forensics dumps are
+    # written to as JSON artifacts
     solver_trace_ring: int = 64
     solver_trace_sample_every: int = 16
     solver_forensics_dir: Optional[str] = None
@@ -188,12 +185,9 @@ class DecisionConfig:
     # docs/Monitoring.md "Device-memory observatory"): capacity admission
     # keeps this fraction of device capacity free when gating layouts
     # (predict_fit headroom), and an explicit capacity override in bytes
-    # stands in for backends that expose no memory_stats (0 = auto-detect;
-    # without stats the static caps like solver_apsp_max_nodes remain the
-    # only gate). Port: both are set on the ledger but inert until the
-    # primary registers its structures and admits layouts with
-    # predict_fit (ROADMAP queue 1 item 6b); until then only the static
-    # caps gate
+    # stands in for backends that expose no memory_stats (0 = auto-detect:
+    # the card's total memory; without a card the static caps like
+    # solver_apsp_max_nodes remain the only gate)
     solver_mem_headroom_frac: float = 0.10
     solver_mem_capacity_bytes: int = 0
 

@@ -521,7 +521,17 @@ class MemLedger:
 
         Returns {layout, predicted_bytes, components, capacity_bytes,
         headroom_bytes, fits, source}; `fits is None` means no capacity
-        source exists and the caller must use its fallback gate."""
+        source exists and the caller must use its fallback gate.
+
+        Port: the components are what the port keeps resident between
+        solves, which is the JAX package's set plus two derived arrays,
+        named where they are added (the edge-list `csr`, the tiling's
+        `hptr`). The kernels' per-solve buffers (the round protocol's
+        second D buffer and state, K5's and K6's bit marks, K19's
+        node-major tile copy, K11's and K13's operand panels) are
+        allocated inside one call and freed when it returns: they are
+        transient, like the JAX package's XLA temporaries, and neither
+        model counts them."""
         from openr_tpu_torch.ops.graph import _next_bucket
 
         n = int(n_nodes)
@@ -575,8 +585,14 @@ class MemLedger:
             elif layout in ("bf", "replicated"):
                 # edge-list planes (src/dst/w int32 [e_pad]) + the
                 # overload mask; the mesh-replicated edge-list layout has
-                # the same logical footprint
-                components["bf"] = 3 * e_pad * _INT32 + n_pad * _BOOL
+                # the same logical footprint. Port: + `csr` int32
+                # [n_pad + 1], the in-edge ranges of the dst-sorted real
+                # edges that K2 and K6 walk (convert.to_device), resident
+                # beside the planes; the JAX package keeps no such array
+                components["bf"] = (
+                    3 * e_pad * _INT32 + (n_pad + 1) * _INT32
+                    + n_pad * _BOOL
+                )
             elif layout == "tile2d":
                 if tiling is None and graph is not None and g > 1:
                     from openr_tpu_torch.parallel.mesh import tile_graph
@@ -586,14 +602,22 @@ class MemLedger:
                     except Exception:
                         tiling = None
                 if tiling is not None:
+                    # port: + `hptr` int32 [g, h + 1], each frontier slot's
+                    # range of real edges that K19 walks (the tiling's one
+                    # derived array; the JAX package keeps no such array)
                     components["tile"] = (
-                        tiling.tile_bytes() + n_pad * _BOOL
+                        tiling.tile_bytes() + g * (tiling.h + 1) * _INT32
+                        + n_pad * _BOOL
                     )
                     components["halo"] = tiling.halo_bytes()
                 else:
                     # estimate: 3 int32 planes of [g, e_tile≈e_pad/g] + the
-                    # ov mask, halo slots bounded by n_pad
-                    components["tile"] = 3 * e_pad * _INT32 + n_pad * _BOOL
+                    # ov mask, halo slots bounded by n_pad (port: + hptr,
+                    # bounded like the halo)
+                    components["tile"] = (
+                        3 * e_pad * _INT32 + g * (_next_bucket(n_pad) + 1)
+                        * _INT32 + n_pad * _BOOL
+                    )
                     components["halo"] = g * _next_bucket(n_pad) * _INT32
         for extra in consumers:
             if extra == "mirror":

@@ -20,6 +20,16 @@ the card that holds its tensors and goes on that card's current stream,
 with that card current: the ranks of a mesh may lie on several cards, and
 PyTorch orders its own work on a card, the copies between cards among it,
 on the same streams.
+
+The port's compile cache is this build directory. `compile_cache_stats`
+counts, per process, the libraries it built (`misses`: nvcc ran) and the
+libraries it loaded that were built already (`hits`); a solve compiles
+nothing unless its first launch of a kernel builds it. The solver reports
+them as `decision.spf.compile_cache_{misses,hits}`, where the JAX package
+counts its jit caches' traces and reuses, so the two packages' counters
+mean different things. `compile_cache_memory` is the memory ledger's
+informational `compile_cache` row: the loaded libraries and their file
+bytes.
 """
 
 from __future__ import annotations
@@ -43,6 +53,34 @@ _ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+
+
+# the libraries this process built, and each library it loaded with its
+# file bytes (compile_cache_stats, compile_cache_memory)
+_BUILT: set = set()
+_LOADED: Dict[Path, int] = {}
+
+
+def compile_cache_stats() -> Dict[str, int]:
+    """This process's kernel libraries: `misses` built here by nvcc,
+    `hits` loaded already built, `entries` loaded."""
+    return {
+        "hits": len(set(_LOADED) - _BUILT),
+        "misses": len(_BUILT),
+        "entries": len(_LOADED),
+    }
+
+
+def compile_cache_memory() -> Dict[str, int]:
+    """The memory ledger's `compile_cache` row: the libraries loaded and
+    their file bytes (host bytes; the code they load onto the card is not
+    counted)."""
+    return {
+        "structure": "compile_cache",
+        "entries": len(_LOADED),
+        "library_bytes": sum(_LOADED.values()),
+        "built": len(_BUILT),
+    }
 
 
 class KernelBuildError(RuntimeError):
@@ -115,6 +153,7 @@ class Kernel:
                     raise KernelBuildError(
                         f"cannot load {path.name}: {exc}"
                     ) from exc
+                _LOADED[path] = path.stat().st_size
                 fns = {}
                 for sym, argtypes in self.entries.items():
                     fn = getattr(lib, sym)
@@ -199,6 +238,7 @@ def build(kernels: Optional[Sequence[Kernel]] = None) -> Dict[str, Path]:
             errors.append(f"{k.source.name}:\n{log}")
             continue
         os.replace(tmp, out)
+        _BUILT.add(out)
     if errors:
         raise KernelBuildError("nvcc failed:\n" + "\n".join(errors))
     return {k.name: k.library_path() for k in kernels}

@@ -203,6 +203,16 @@ class Sharded:
         rows = sum(row[0].shape[0] for row in self.blocks)
         return rows, sum(t.shape[1] for t in self.blocks[0])
 
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.blocks[0][0].dtype
+
+    @property
+    def nbytes(self) -> int:
+        """The whole matrix's bytes, each block once (the memory ledger's
+        logical size, as a sharded array's `nbytes` in the JAX package)."""
+        return sum(t.nbytes for row in self.blocks for t in row)
+
     def numpy(self) -> np.ndarray:
         """The whole matrix on the host (an owned array)."""
         return np.concatenate([

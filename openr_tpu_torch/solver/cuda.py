@@ -55,6 +55,19 @@ with DeltaPath (`_tile_solve_resident`), and the ring's traffic lands in
 `halo_bytes` and `halo_exchanges_last`. Otherwise the source batch is split
 into row slices over 'batch' against replicated layout buffers. KSP's
 masked solves run cold and row-sharded under a mesh, as in the reference.
+
+Every resident structure registers with the device-memory ledger
+(monitor/memledger.py) under the area's tag ("{area}/{me}") and is released
+when it is replaced or dropped: D (`dist`), the layout (`sell` with its
+`patch` slots, `bf`, or the tiled layout's `tile` and `halo`), the host
+mirror (`mirror`) and KSP's per-row weights while a batch runs (`ksp`).
+Before a layout's first dispatch `_admit_layout` asks the ledger's
+`predict_fit` whether it fits the card's headroom; a definite no-fit
+raises `DeviceCapacityError` before anything is allocated, which the
+supervisor classifies as `device_oom`. With a flight recorder attached
+(`attach_recorder`), every solve records a `SolveTrace`, and every
+sampled solve's `PhaseClock` splits it at the seams prepare, h2d, relax,
+delta_extract and (at the mirror's fetch) d2h.
 """
 
 from __future__ import annotations
@@ -76,6 +89,8 @@ from openr_tpu_torch.convert import (
 )
 from openr_tpu_torch.device import DeviceLike, resolve_device
 from openr_tpu_torch.lsdb.link_state import Link, LinkState, Path
+from openr_tpu_torch.monitor.memledger import get_ledger
+from openr_tpu_torch.ops import _cuda
 from openr_tpu_torch.ops.graph import (
     INF,
     CompiledGraph,
@@ -114,7 +129,19 @@ from openr_tpu_torch.parallel.mesh import (
     tile_graph,
 )
 from openr_tpu_torch.solver.cpu import Metric, SpfSolver
+from openr_tpu_torch.solver.flight_recorder import NULL_CLOCK, SolveTrace
 from openr_tpu_torch.testing.faults import fault_point
+
+
+class DeviceCapacityError(RuntimeError):
+    """Predicted out-of-memory: the memory ledger's capacity model says the
+    chosen layout cannot fit the card's headroom. Raised before the first
+    dispatch, so the supervisor classifies it as `device_oom` and walks its
+    degrade ladder (a smaller mesh, then the CPU oracle) instead of the
+    allocator failing in the middle of a solve. Its message keeps the JAX
+    package's words ("predicted RESOURCE_EXHAUSTED: ..."), which the
+    supervisor's classifier also reads as out of memory."""
+
 
 # fixed per-bucket patch width of the fused patch + solve; an event that
 # changes more slots in one bucket is patched by standalone scatters and
@@ -125,6 +152,12 @@ _PATCH_SLOTS = 64
 # changed, the full [S, n_pad] mirror is the cheaper copy-back and the event
 # is served as a full rebuild instead
 _DELTA_MAX_FRAC = 0.5
+
+
+def _first(placed):
+    """A layout buffer as one copy: under a mesh `_place` keeps one per
+    device (a dict), and the ledger counts one of them."""
+    return next(iter(placed.values())) if isinstance(placed, dict) else placed
 
 
 class _NodeView:
@@ -297,9 +330,23 @@ class _AreaSolve:
         apsp_audit_interval: int = 0,
         mesh: Optional[Mesh] = None,
         apsp_dispatch=None,
+        recorder=None,
+        on_capacity_refusal=None,
     ) -> None:
         self.link_state = link_state
         self.me = me
+        # device-memory ledger: every resident structure registers under
+        # this area tag and close() releases it
+        self._ledger = get_ledger()
+        self._mem_area = f"{link_state.area}/{me}"
+        self._mem: Dict[str, int] = {}
+        self._on_capacity_refusal = on_capacity_refusal
+        # flight recorder: every solve records a SolveTrace; a sampled one
+        # gets a live PhaseClock (barriers at the phase seams), the others
+        # the shared NULL_CLOCK, whose seams do nothing
+        self._recorder = recorder
+        self._pclock = NULL_CLOCK
+        self._last_trace: Optional[SolveTrace] = None
         # under a mesh the sources split over 'batch' and, with a graph
         # axis above one, D is tiled; host-side work (the delta extraction,
         # the nexthop mask) lands on the mesh's first device
@@ -318,6 +365,8 @@ class _AreaSolve:
                 audit_interval=apsp_audit_interval,
                 warm=warm_start,
                 device=device,
+                area=self._mem_area,
+                on_refusal=self._note_capacity_refusal,
             )
         self.device_solves = 0
         # decision.spf.* convergence counters
@@ -377,9 +426,82 @@ class _AreaSolve:
         event patches it in place). An owned copy: on the CPU device the
         tensor's numpy view would alias the solver's own buffer."""
         if self._d_host is None:
+            t0 = time.perf_counter()
             self._d_host = to_host(self._d_dev).copy()
             self.d2h_bytes += self._d_host.nbytes
+            trace = self._last_trace
+            if trace is not None and trace.sampled:
+                # the mirror fetch is the solve's d2h phase; it comes after
+                # the trace was recorded, so it is added to the trace (the
+                # ring holds the object) and queued for the next sync
+                ms = (time.perf_counter() - t0) * 1e3
+                trace.phases["d2h"] = trace.phases.get("d2h", 0.0) + ms
+                trace.d2h_bytes += self._d_host.nbytes
+                self._recorder.observe_phase("d2h", ms)
+            self._mem_register("mirror", "host", arrays=(self._d_host,))
         return self._d_host
+
+    # -- device-memory ledger seams (monitor/memledger.py) -------------
+
+    def _mem_register(
+        self, structure: str, layout: str, arrays=(), nbytes=None
+    ) -> None:
+        """Register one named resident structure under this area, releasing
+        its previous generation first (a rebuild frees the old buffers when
+        the new upload replaces them)."""
+        self._ledger.release(self._mem.pop(structure, None))
+        self._mem[structure] = self._ledger.register(
+            self._mem_area, structure, layout=layout, arrays=arrays,
+            nbytes=nbytes,
+        )
+
+    def _mem_release(self, structure: str) -> None:
+        self._ledger.release(self._mem.pop(structure, None))
+
+    def close(self) -> None:
+        """Area teardown: release every registered structure and the
+        all-pairs state's. Called when the owning solver drops or replaces
+        this solve."""
+        if self.apsp is not None:
+            self.apsp.close()
+        for structure in list(self._mem):
+            self._mem_release(structure)
+
+    def _note_capacity_refusal(self, verdict: Dict) -> None:
+        """Pass an admission refusal up to the owning solver (the
+        supervisor's SOLVER_CAPACITY_REFUSED sample)."""
+        if self._on_capacity_refusal is not None:
+            self._on_capacity_refusal(verdict)
+
+    def _admit_layout(self, layout: str, tiling=None) -> None:
+        """Capacity admission before a layout's dispatch: the ledger's
+        forward model against the card's headroom. No capacity source (no
+        card and no override) gives no verdict and admits; a definite
+        no-fit is recorded and raises DeviceCapacityError before anything
+        is allocated. `tiling`: the resident tiled layout's, when current,
+        so a tiled event does not tile the graph again to be admitted."""
+        verdict = self._ledger.predict_fit(
+            self.graph.n,
+            layout,
+            n_sources=len(getattr(self, "sources", ())) or 1,
+            graph=self.graph,
+            tiling=tiling,
+            mesh_shape=(
+                (self.mesh.shape["batch"], self.mesh.shape["graph"])
+                if self.mesh is not None
+                else None
+            ),
+        )
+        if verdict["fits"] is False:
+            self._ledger.record_refusal(verdict)
+            self._note_capacity_refusal(verdict)
+            raise DeviceCapacityError(
+                f"predicted RESOURCE_EXHAUSTED: layout {layout} for area "
+                f"{self._mem_area} needs {verdict['predicted_bytes']} bytes, "
+                f"headroom {verdict['headroom_bytes']} "
+                f"(capacity {verdict['capacity_bytes']}, "
+                f"source {verdict['source']})"
+            )
 
     def _batch_pad(self, n: int, minimum: int = 8) -> int:
         """Source-batch pad: a power-of-two bucket, rounded up to a multiple
@@ -437,20 +559,40 @@ class _AreaSolve:
         rows = self._source_rows()
         inc_before = self.incremental_solves
         self._last_solve_delta = None  # set by a qualifying warm solve
+        rec = self._recorder
+        pc = self._pclock = rec.begin() if rec is not None else NULL_CLOCK
+        h2d0, d2h0, halo0 = self.h2d_bytes, self.d2h_bytes, self.halo_bytes
+        misses0 = (
+            _cuda.compile_cache_stats()["misses"] if rec is not None else 0
+        )
         t0 = time.perf_counter()
         self.h2d_bytes += rows.nbytes
+        pc.seam("prepare")
         if self._use_tiled():
+            st = self._dev
+            self._admit_layout("tile2d", tiling=(
+                st["tiling"] if st is not None and st["kind"] == "tile2d"
+                and st["src_ref"] is self.graph.src else None))
             self._d_dev, self.rounds_last = self._tile_solve_resident(rows)
         elif self.graph.sell is not None:
+            self._admit_layout("sell")
             self._d_dev, self.rounds_last = self._sell_solve_resident(rows)
         elif self.mesh is not None:
             # the edge-list layout under a mesh: cold, row-sharded, rounds
             # untracked, as in the reference
+            self._admit_layout("replicated")
             self._d_dev = sharded_batched_spf(self.graph, rows, self.mesh)
             self.rounds_last = None
             self.full_solves += 1
+            pc.seam("relax", self._d_dev)
         else:
+            self._admit_layout("bf")
             self._d_dev, self.rounds_last = self._bf_solve_resident(rows)
+        self._mem_register(
+            "dist",
+            (self._dev or {}).get("kind", "none"),
+            arrays=(self._d_dev,),
+        )
         # the round loops read a flag from the card every round, so the wall
         # time covers the device work
         self.solve_ms_last = (time.perf_counter() - t0) * 1e3
@@ -461,6 +603,7 @@ class _AreaSolve:
             # the accumulated delta cannot describe the event; poison it
             # until the consumer takes it (and rebuilds in full)
             self._d_host = None
+            self._mem_release("mirror")
             self._nh_links = None
             self._nh_mask = None
             self._delta_pending = None
@@ -476,6 +619,44 @@ class _AreaSolve:
         # the touched blocks
         if self.apsp is not None and not self.last_solve_warm:
             self.apsp.invalidate("batch_warm_poisoned")
+        if rec is not None:
+            kind = (self._dev or {}).get("kind") or (
+                "replicated" if self.mesh is not None else "none"
+            )
+            self._last_trace = SolveTrace(
+                seq=rec.next_seq(),
+                ts=time.time(),
+                area=self.link_state.area,
+                node=self.me,
+                event="solve",
+                layout=kind,
+                warm=self.last_solve_warm,
+                solve_ms=self.solve_ms_last,
+                rounds=self.rounds_last,
+                invalidation_rounds=(
+                    self.invalidation_rounds_last
+                    if self.last_solve_warm
+                    else None
+                ),
+                halo_exchanges=(
+                    self.halo_exchanges_last if kind == "tile2d" else None
+                ),
+                h2d_bytes=self.h2d_bytes - h2d0,
+                d2h_bytes=self.d2h_bytes - d2h0,
+                halo_bytes=self.halo_bytes - halo0,
+                delta_columns=(
+                    len(self._last_solve_delta)
+                    if self._last_solve_delta is not None
+                    else None
+                ),
+                compile_cache_misses=(
+                    _cuda.compile_cache_stats()["misses"] - misses0
+                ),
+                breaker_state=rec.breaker_state,
+                sampled=pc.sampled,
+                phases=dict(pc.phases),
+            )
+            rec.record(self._last_trace, pc)
         # corruption seam (ctx = this solve): the warm-state audit tests
         # perturb the resident D here to prove divergence detection works
         fault_point("solver.tpu.warm_d", self)
@@ -542,6 +723,21 @@ class _AreaSolve:
                 + sum(a.nbytes for a in sell.wg)
                 + g.overloaded.nbytes
             )
+            # under a mesh one copy per device: the ledger counts one, as
+            # the JAX package counts a replicated array's logical size
+            self._mem_register(
+                "sell",
+                "sell",
+                arrays=(*_first(st["nbrs"]), *_first(st["wgs"]),
+                        _first(st["ov"])),
+            )
+            # the fixed-capacity weight-patch slots (rowcol [nb, 64, 2] +
+            # vals [nb, 64], int32): uploaded per patched event, but the
+            # capacity is the layout's, so the ledger carries one entry
+            # per sell generation
+            self._mem_register(
+                "patch", "sell", nbytes=len(sell.nbr) * _PATCH_SLOTS * 3 * 4
+            )
         else:
             ov_changed = not np.array_equal(st["ov_host"], g.overloaded)
             ov_seed_edges = np.empty(0, dtype=np.int64)
@@ -606,6 +802,7 @@ class _AreaSolve:
                         delta_ok = not ov_changed and self._delta_ok(
                             changed, rows
                         )
+                        self._pclock.seam("h2d", idx_t, vals_t)
                         (
                             d,
                             st["wgs"],
@@ -627,11 +824,13 @@ class _AreaSolve:
                         )
                         self.incremental_solves += 1
                         self.invalidation_rounds_last = inv_rounds
+                        self._pclock.seam("relax", d)
                         self._finish_delta(
                             col_changed, num_changed, d, delta_ok
                         )
                         return d, rounds
                     if len(changed):
+                        self._pclock.seam("h2d", idx_t, vals_t)
                         d, st["wgs"], rounds = _sell_solver_patched(
                             sell.shape_key(),
                             rows_t,
@@ -643,6 +842,7 @@ class _AreaSolve:
                             mesh=self.mesh,
                         )
                         self.full_solves += 1
+                        self._pclock.seam("relax", d)
                         return d, rounds
                     # overload-only event without a warm start: nothing to
                     # patch, plain cold solve below
@@ -659,11 +859,13 @@ class _AreaSolve:
                             torch.as_tensor(idx, device=wgs[0].device),
                             torch.as_tensor(vals, device=wgs[0].device),
                         )
+        self._pclock.seam("h2d", st["ov"], st["wgs"])
         d, rounds = _sell_solver_counted(
             sell.shape_key(), rows_t, st["nbrs"], st["wgs"], st["ov"],
             mesh=self.mesh,
         )
         self.full_solves += 1
+        self._pclock.seam("relax", d)
         return d, rounds
 
     def _bf_solve_resident(self, rows: np.ndarray):
@@ -691,6 +893,12 @@ class _AreaSolve:
                 st[k].numel() * st[k].element_size()
                 for k in ("src", "dst", "csr", "w", "ov")
             )
+            # the JAX package's planes and mask, and the port's csr
+            self._mem_register(
+                "bf",
+                "bf",
+                arrays=tuple(st[k] for k in ("src", "dst", "csr", "w", "ov")),
+            )
         else:
             ov_changed = not np.array_equal(st["ov_host"], g.overloaded)
             rows_same = np.array_equal(st["rows"], rows)
@@ -710,6 +918,7 @@ class _AreaSolve:
                 w_new = upload(g.w, np.int32, self.device)
                 self.h2d_bytes += g.w.nbytes
                 delta_ok = self._delta_ok(changed, rows)
+                self._pclock.seam("h2d", w_new)
                 d, rounds, inv_rounds, col_changed, num_changed = (
                     _bf_solver_warm(
                         rows_t,
@@ -726,16 +935,19 @@ class _AreaSolve:
                 st["w_host"] = g.w.copy()
                 self.incremental_solves += 1
                 self.invalidation_rounds_last = inv_rounds
+                self._pclock.seam("relax", d)
                 self._finish_delta(col_changed, num_changed, d, delta_ok)
                 return d, rounds
             if len(changed):
                 st["w"] = upload(g.w, np.int32, self.device)
                 st["w_host"] = g.w.copy()
                 self.h2d_bytes += g.w.nbytes
+        self._pclock.seam("h2d", st["w"], st["ov"])
         d = _bf_fixpoint(
             rows_t, st["src"], st["dst"], st["w"], st["ov"], st["csr"]
         )
         self.full_solves += 1
+        self._pclock.seam("relax", d)
         return d, None
 
     def _use_tiled(self) -> bool:
@@ -790,6 +1002,18 @@ class _AreaSolve:
                 + tiling.hcols.nbytes + tiling.hptr.nbytes
                 + g.overloaded.nbytes
             )
+            # the logical size, each partition's rows once (the ranks of a
+            # graph column hold the same rows, and ov is replicated), as
+            # the JAX package counts its sharded arrays; the tiling's host
+            # arrays are the ranks' uploads, byte for byte. `tile` holds
+            # the JAX package's planes and ov, and the port's hptr
+            self._mem_register(
+                "tile",
+                "tile2d",
+                arrays=(tiling.src_l, tiling.hseg, tiling.w, tiling.hptr,
+                        g.overloaded),
+            )
+            self._mem_register("halo", "tile2d", arrays=(tiling.hcols,))
         else:
             tiling = st["tiling"]
             ov_changed = not np.array_equal(st["ov_host"], g.overloaded)
@@ -809,6 +1033,9 @@ class _AreaSolve:
                     ov_new = rank_replicas(mesh, g.overloaded, bool)
                     self.h2d_bytes += g.overloaded.nbytes
                 delta_ok = not ov_changed and self._delta_ok(changed, rows)
+                # every rank's uploads and tiles: the ranks may lie on
+                # several cards, and each of them is waited for
+                self._pclock.seam("h2d", w2_new, ov_new)
                 d, rounds, inv_rounds, col_changed, num_changed, copies = (
                     _tile_solver_warm(
                         tiling.shape_key() + (g.n_pad,), mesh,
@@ -823,6 +1050,7 @@ class _AreaSolve:
                 st["ov_host"] = g.overloaded.copy()
                 self.incremental_solves += 1
                 self.invalidation_rounds_last = inv_rounds
+                self._pclock.seam("relax", d)
                 # the seed exchange, then one ring per mark and relax round
                 self._account_halo(copies)
                 self._finish_delta(col_changed, num_changed, d, delta_ok)
@@ -835,12 +1063,14 @@ class _AreaSolve:
                 st["ov"] = rank_replicas(mesh, g.overloaded, bool)
                 st["ov_host"] = g.overloaded.copy()
                 self.h2d_bytes += g.overloaded.nbytes
+        self._pclock.seam("h2d", st["w2"], st["ov"])
         d, rounds, copies = _tile_solver(
             tiling.shape_key() + (g.n_pad,), mesh, rank_sources(mesh, rows),
             st["src_l"], st["hseg"], st["hptr"], st["w2"], st["hcols"],
             st["ov"],
         )
         self.full_solves += 1
+        self._pclock.seam("relax", d)
         self._account_halo(copies)
         return d, rounds
 
@@ -896,6 +1126,7 @@ class _AreaSolve:
         dcols = dcols_d.cpu().numpy().copy()
         nh = nh_d.cpu().numpy().copy()
         self.delta_extract_ms_last = (time.perf_counter() - t0) * 1e3
+        self._pclock.seam("delta_extract")  # the copies above waited
         xfer = cols.nbytes + dcols.nbytes + nh.nbytes + 4  # + the count
         self.d2h_bytes += xfer
         self.delta_bytes += xfer
@@ -1073,6 +1304,7 @@ class _AreaSolve:
                         w_rows[row, fwd] = INF
                         w_rows[row, rev] = INF
                 self.h2d_bytes += w_rows.nbytes
+                self._mem_register("ksp", "vw", arrays=(w_rows,))
                 d_dev = batched_spf_vw(
                     self.graph, sources, w_rows, mesh=self.mesh
                 )
@@ -1107,6 +1339,9 @@ class _AreaSolve:
                     w_rows[row, fwd] = INF
                     w_rows[row, rev] = INF
             self.h2d_bytes += w_rows.nbytes
+            # the per-row weights [s_pad, e_pad] are the batch's transient
+            # structure, registered while it runs
+            self._mem_register("ksp", "vw", arrays=(w_rows,))
             if warm_prev is not None:
                 fault_point("ops.spf.batched_spf_vw", self.graph)
                 d_dev, _rounds, _inv = _bf_warm_vw_core(
@@ -1128,6 +1363,7 @@ class _AreaSolve:
         # back-trace: a real copy-back
         d_rows = to_host(d_dev)
         self.d2h_bytes += d_rows.nbytes
+        self._mem_release("ksp")
         self.ksp_device_batches += 1
 
         for row, (dest, ig) in enumerate(zip(todo, ignores)):
@@ -1253,7 +1489,15 @@ class CudaSpfSolver(SpfSolver):
     degraded answer is counted (`decision.spf.fallback_*`) and shown by
     `health()`. A kernel fault (a kernel that does not build, a launch the
     runtime refuses, a fault on the card: `supervisor.is_kernel_fault`)
-    degrades nothing: the supervisor raises it to the caller."""
+    degrades nothing: the supervisor raises it to the caller.
+
+    Capacity: the ledger reads the card's memory only once CUDA is
+    initialised on it. On the card the solver initialises CUDA when it is
+    made, so every layout admission, the first included, is judged against
+    the card's total memory; without a card (and without an override) no
+    admission has a verdict and the all-pairs gate is the node cap. A
+    refused layout raises DeviceCapacityError (the supervisor's
+    `device_oom`); refusals queue for `take_capacity_refusals`."""
 
     def __init__(
         self,
@@ -1275,6 +1519,21 @@ class CudaSpfSolver(SpfSolver):
                 f"mesh devices {list(self.mesh.devices.flat)} are not "
                 f"{self.device.type} devices"
             )
+        if self.device.type == "cuda":
+            # the ledger's capacity source is the card's memory once CUDA
+            # is initialised: do it before the first admission
+            torch.cuda.init()
+        # device-memory ledger, with the kernel libraries as an
+        # informational row; capacity refusals queue here until the
+        # supervisor drains them into SOLVER_CAPACITY_REFUSED samples
+        self._ledger = get_ledger()
+        self._ledger.attach_external(
+            "compile_cache", _cuda.compile_cache_memory
+        )
+        self._capacity_refusals: List[Dict] = []
+        # flight recorder, attached by the supervisor before the first
+        # solve; every _AreaSolve records its SolveTraces into it
+        self._recorder = None
         self.warm_start = warm_start
         self.apsp_max_nodes = apsp_max_nodes
         self.apsp_audit_interval = apsp_audit_interval
@@ -1299,6 +1558,21 @@ class CudaSpfSolver(SpfSolver):
         this backend (the all-pairs closes). Called by
         SolverSupervisor.__init__, before the first solve."""
         self._supervisor = supervisor
+
+    def attach_recorder(self, recorder) -> None:
+        """Wire the solver flight recorder into every area solve. Called by
+        SolverSupervisor.__init__ before the first solve."""
+        self._recorder = recorder
+
+    def _note_capacity_refusal(self, verdict: Dict) -> None:
+        """Queue an admission refusal for the supervisor's
+        SOLVER_CAPACITY_REFUSED sample."""
+        self._capacity_refusals.append(dict(verdict))
+
+    def take_capacity_refusals(self) -> List[Dict]:
+        """Drain the queued capacity refusals."""
+        out, self._capacity_refusals = self._capacity_refusals, []
+        return out
 
     def _apsp_dispatch(self, op: str, primary_fn, fallback_fn):
         """ApspState dispatch hook, installed only under a supervisor:
@@ -1327,6 +1601,10 @@ class CudaSpfSolver(SpfSolver):
             self.device_solves += solve.device_solves - before
             self._sync_spf_counters(solve, inc0, full0)
             return solve
+        if cached is not None:
+            # a replaced LinkState for the same area: release the stale
+            # solve's structures before the rebuild
+            cached[1].close()
         solve = _AreaSolve(
             link_state,
             node,
@@ -1338,6 +1616,8 @@ class CudaSpfSolver(SpfSolver):
             apsp_dispatch=(
                 self._apsp_dispatch if self._supervisor is not None else None
             ),
+            recorder=self._recorder,
+            on_capacity_refusal=self._note_capacity_refusal,
         )
         self.device_solves += solve.device_solves
         self._sync_spf_counters(solve, 0, 0)
@@ -1411,7 +1691,23 @@ class CudaSpfSolver(SpfSolver):
             self._observe(
                 "decision.spf.delta_extract_ms", solve.delta_extract_ms_last
             )
+        # the recorder's sampled phases land in the decision.spf.phase.*_ms
+        # histograms, and its ring accounting rides the counters
+        rec = self._recorder
+        if rec is not None:
+            for hist_name, value in rec.drain_observations():
+                self._observe(hist_name, value)
+            counters["decision.spf.traces_recorded"] = rec.recorded
+            counters["decision.spf.traces_evicted"] = rec.evicted
+            counters["decision.spf.traces_sampled"] = rec.sampled_solves
         self._sync_apsp_counters(solve)
+        # the kernel libraries this process built (misses) and loaded
+        # built already (hits): ops/_cuda.py
+        stats = _cuda.compile_cache_stats()
+        counters["decision.spf.compile_cache_hits"] = stats["hits"]
+        counters["decision.spf.compile_cache_misses"] = stats["misses"]
+        # the ledger's decision.mem.* counters, on the same cadence
+        self._ledger.fold_counters(counters)
 
     def _sync_apsp_counters(self, solve: _AreaSolve) -> None:
         """Fold the solve's APSP and KSP-warm stats into the decision.spf.*
@@ -1534,7 +1830,7 @@ class CudaSpfSolver(SpfSolver):
         if new_mesh is None:
             return False
         self.mesh = new_mesh
-        self._solves.clear()
+        self._close_solves()
         counters = self._ensure_counters()
         self._bump("decision.spf.mesh_degradations")
         counters["decision.spf.mesh_devices"] = int(new_mesh.devices.size)
@@ -1546,14 +1842,24 @@ class CudaSpfSolver(SpfSolver):
         breaker trips, probes and audit mismatches: after a device fault or
         a detected divergence the resident buffers are not to be
         trusted."""
-        self._solves.clear()
+        self._close_solves()
         self._bump("decision.spf.warm_state_invalidations")
 
     def close(self) -> None:
         """Solver teardown (Decision.stop): drop every resident solve and
-        its all-pairs matrix, so the card's buffers are freed. (Releasing
-        their memory-ledger entries comes with the ledger registrations.)"""
+        its all-pairs matrix, so the card's buffers are freed and the
+        ledger's entries released. Entries pinned by the
+        `solver.mem.retain` fault survive by design: that is the leak the
+        ledger exists to show."""
+        self._close_solves()
+
+    def _close_solves(self) -> None:
+        """Drop every cached solve, releasing its ledger entries first:
+        teardown returns the ledger to its baseline."""
+        for _, solve in self._solves.values():
+            solve.close()
         self._solves.clear()
+        self._ledger.fold_counters(self._ensure_counters())
 
     def audit_warm_state(self) -> List[dict]:
         """Shadow cold audit of every resident solve: recompute each area's

@@ -3,8 +3,10 @@ fault-forensics dumps.
 
 Port of the JAX package's solver/flight_recorder.py. What the device
 demands changed: `device_digest` reads `torch.cuda` (card count, name,
-mesh shape) and never raises; `PhaseClock.seam` synchronizes a CUDA
-tensor's card where the reference calls `block_until_ready`.
+mesh shape) and never raises; `PhaseClock.seam` synchronizes the cards of
+the tensors it is given where the reference calls `block_until_ready` on
+each array, one barrier per device (a tiled solve's ranks pass all their
+tiles, which may lie on several cards).
 
 Every solver path this repo has shipped — cold, warm-invalidation,
 edge-list, tiled-halo, blocked-FW APSP — reported exactly one wall-clock
@@ -36,9 +38,7 @@ needed to diagnose it. This module is the missing observability layer:
 
 The recorder owns no registry: phase samples queue in a pending list the
 owning backend drains into its `decision.spf.phase.*_ms` histograms on
-the existing counter-sync path (the JAX package's
-solver/tpu.py:_sync_spf_counters; in the port the primary's recorder
-wiring comes later, so only supervisor-level traces record here), so
+the existing counter-sync path (solver/cuda.py:_sync_spf_counters), so
 monitor/ctrl/exporter all see them through the normal substrate.
 """
 
@@ -73,36 +73,58 @@ PHASE_HISTOGRAMS: Dict[str, str] = {
 class PhaseClock:
     """Per-solve phase timer; a live one exists only on sampled solves.
 
-    `seam(phase, *values)` closes the current phase: it synchronizes the
-    card of every value that is a CUDA tensor (so device execution up to the
+    `seam(phase, *values)` closes the current phase: it waits for the
+    device of every tensor among `values` (so device execution up to the
     seam is inside the measured window, not smeared into the next phase
     by async dispatch) and credits the elapsed milliseconds to `phase`.
-    The shared NULL_CLOCK instance short-circuits on `self.sampled`."""
+    The shared NULL_CLOCK instance short-circuits on `self.sampled`.
+
+    Port: a value may be a tensor, a `Sharded` matrix (its blocks) or a
+    list, tuple or dict of them. Each distinct device among them takes one
+    barrier, counted in `barriers`: a card is synchronized, and a CPU
+    tensor's work is done when its op returns (the barrier is counted, as
+    the JAX package counts `block_until_ready` on a CPU array). Other
+    values are skipped."""
 
     __slots__ = ("sampled", "phases", "barriers", "_last")
 
     def __init__(self, sampled: bool) -> None:
         self.sampled = sampled
         self.phases: Dict[str, float] = {}
-        self.barriers = 0  # card synchronizations taken (probe-effect)
+        self.barriers = 0  # device barriers taken (probe-effect)
         self._last = time.perf_counter() if sampled else 0.0
 
     def seam(self, phase: str, *values: Any) -> None:
         if not self.sampled:
             return
-        for value in values:
-            # port: a CUDA tensor's card is synchronized where the JAX
-            # package calls block_until_ready on the array
-            if getattr(value, "is_cuda", False):
+        devices = set()
+        _devices_of(values, devices)
+        for dev in devices:
+            if dev.type == "cuda":
                 import torch
 
-                torch.cuda.synchronize(value.device)
-                self.barriers += 1
+                torch.cuda.synchronize(dev)
+            self.barriers += 1
         now = time.perf_counter()
         self.phases[phase] = (
             self.phases.get(phase, 0.0) + (now - self._last) * 1e3
         )
         self._last = now
+
+
+def _devices_of(value: Any, out: set) -> None:
+    """Collect the devices of the tensors in `value` (a tensor, a
+    `Sharded`, or a list, tuple or dict of them) into `out`."""
+    if isinstance(value, (list, tuple)):
+        for v in value:
+            _devices_of(v, out)
+    elif isinstance(value, dict):
+        for v in value.values():
+            _devices_of(v, out)
+    elif hasattr(value, "blocks"):  # ops.spf.Sharded
+        _devices_of(value.blocks, out)
+    elif hasattr(value, "is_cuda") and hasattr(value, "device"):
+        out.add(value.device)
 
 
 NULL_CLOCK = PhaseClock(False)

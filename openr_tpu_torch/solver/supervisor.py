@@ -235,9 +235,7 @@ class SupervisorConfig:
     # "Flight recorder & profiling"): per-area SolveTrace ring bound and
     # the phase-timing sampling cadence — every trace_sample_every-th
     # solve synchronizes the card at phase seams; 0 disables
-    # sampling entirely (traces still record, without phase splits).
-    # Port: the cadence is inert until the primary attaches the
-    # recorder's PhaseClock seams (ROADMAP queue 1 item 6b)
+    # sampling entirely (traces still record, without phase splits)
     trace_ring_size: int = 64
     trace_sample_every: int = 16
     # forensics dumps: traces per area snapshotted into each dump, and an

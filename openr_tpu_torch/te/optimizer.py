@@ -19,7 +19,11 @@ on its device, the topology replicated. One process drives every rank: a
 step runs each rank's forward and backward in turn (so ranks sharing a
 card peak near one rank's memory), sums their gradients onto batch rank
 0's device, where the one Adam step runs, and copies the new weights to
-the other ranks' devices.
+the other ranks' devices. Given a ledger area (`mem_area`, TeService's
+"{area}/te"), each rank's shard registers with the device-memory ledger
+for the loop's duration, on its own card's tag: the memory it holds beyond
+the batch the caller uploaded (its slice copied to another card, the
+padded batch, the topology's replicas).
 """
 
 from __future__ import annotations
@@ -166,6 +170,34 @@ def shard_scenarios(demands, scen_mask, caps, graph: TeGraph, up,
     return out
 
 
+def _register_shards(shards, inputs, mem_area: str) -> List[int]:
+    """Ledger handles of the shards' own memory: per rank, the storages
+    that neither the inputs nor an earlier rank hold (a slice of the
+    uploaded batch on its card is a view and counts nothing), under
+    "{mem_area}/rank{r}@{device}"."""
+    from openr_tpu_torch.monitor.memledger import get_ledger
+
+    ledger = get_ledger()
+    seen = {t.untyped_storage().data_ptr() for t in inputs}
+    handles = []
+    for r, sh in enumerate(shards):
+        tensors = [sh.demands, sh.mask, sh.caps, sh.up] + [
+            getattr(sh.graph, f.name) for f in dataclasses.fields(sh.graph)
+            if isinstance(getattr(sh.graph, f.name), torch.Tensor)]
+        own = 0
+        for t in tensors:
+            ptr = t.untyped_storage().data_ptr()
+            if ptr not in seen:
+                seen.add(ptr)
+                own += t.untyped_storage().nbytes()
+        if own:
+            handles.append(ledger.register(
+                f"{mem_area}/rank{r}@{sh.device}", "te.shard", layout="te",
+                nbytes=own, dtype="float32",
+                shape=tuple(sh.demands.shape)))
+    return handles
+
+
 def _sharded_grad(w, shards, replicas, loss_fn, tau: float, tau_obj: float,
                   rounds: int):
     """(loss [1], g [E]) on w's device: each rank's scaled loss and its
@@ -206,6 +238,7 @@ def adam_solve(
     steps: int,
     plain: bool = False,
     mesh=None,
+    mem_area: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(final w [E], weight trajectory [steps, E], losses [steps]) on w0's
     device, with nothing copied to the host. Each step takes the gradient
@@ -216,7 +249,10 @@ def adam_solve(
     With `mesh`, the batch is sharded over its 'batch' axis
     (`shard_scenarios`; w0 on batch rank 0's device): a step's loss and
     gradient are the ranks' sums (`_sharded_grad`), and the Adam step runs
-    once, on w0's device. Without one the whole batch is one shard."""
+    once, on w0's device. Without one the whole batch is one shard. With
+    `mem_area` too, the shards' own memory is registered with the ledger
+    while the loop runs (`_register_shards`)."""
+    handles: List[int] = []
     if mesh is None:
         shards = [ScenarioShard(demands, scen_mask, caps, graph, up, 1.0)]
     else:
@@ -224,6 +260,24 @@ def adam_solve(
             raise ValueError(
                 f"w0 on {w0.device}, batch rank 0 on {batch_devices(mesh)[0]}")
         shards = shard_scenarios(demands, scen_mask, caps, graph, up, mesh)
+        if mem_area is not None:
+            inputs = [demands, scen_mask, caps, up] + [
+                getattr(graph, f.name) for f in dataclasses.fields(graph)
+                if isinstance(getattr(graph, f.name), torch.Tensor)]
+            handles = _register_shards(shards, inputs, mem_area)
+    try:
+        return _adam_loop(w0, shards, up, cfg, rounds, steps, plain)
+    finally:
+        if handles:
+            from openr_tpu_torch.monitor.memledger import get_ledger
+
+            for h in handles:
+                get_ledger().release(h)
+
+
+def _adam_loop(w0, shards, up, cfg: TeOptConfig, rounds: int, steps: int,
+               plain: bool):
+    """adam_solve's steps over its shards."""
     replicas = {sh.device: torch.empty_like(w0, device=sh.device)
                 for sh in shards if sh.device != w0.device}
     w = w0.detach().clone()
@@ -263,6 +317,7 @@ def optimize_weights(
     mesh=None,
     initial_d: Optional[np.ndarray] = None,
     device: DeviceLike = "cuda",
+    mem_area: Optional[str] = None,
 ) -> TeOptResult:
     """Run the annealed GD loop on `device` and hard-score the rounded
     iterates on the host.
@@ -276,7 +331,8 @@ def optimize_weights(
     re-deriving [N, N] distances by Bellman-Ford. With `mesh` (a
     `parallel.Mesh`) the scenario batch is sharded over its 'batch' axis
     and the loop runs on its devices, batch rank 0's holding the weights:
-    `device` is not read."""
+    `device` is not read; `mem_area` registers each rank's shard with the
+    memory ledger while the loop runs (`adam_solve`)."""
     cfg = config or TeOptConfig()
     rounds = cfg.rounds if cfg.rounds is not None else int(n)
     rounds = max(2, min(int(rounds), 128))
@@ -288,7 +344,7 @@ def optimize_weights(
     scen_mask = torch.ones(b, dtype=torch.float32, device=dev)
     _, w_hist, losses = adam_solve(
         inp["w"], inp["demands"], scen_mask, inp["caps"], inp["graph"],
-        inp["up"], cfg, rounds, int(cfg.steps), mesh=mesh,
+        inp["up"], cfg, rounds, int(cfg.steps), mesh=mesh, mem_area=mem_area,
     )
     # the whole optimization stays on the device; this is its single
     # copy-back (trajectory + losses), accounted like every other d2h

@@ -23,8 +23,10 @@ This is a REPORTING service: it proposes per-link metric changes plus the
 predicted hard-SPF max-link-utilization delta; nothing is programmed.
 
 With a mesh (given, or the solver's) the scenario batch is sharded over
-its 'batch' axis (te/optimizer.py). Not ported yet: the device-memory
-ledger registration of the scenario batch.
+its 'batch' axis (te/optimizer.py). The run's working set registers with
+the device-memory ledger for its duration: the scenario batch and the
+capacities under "{area}/te", as the JAX package registers them, and under
+a mesh each rank's shard on its own card (`adam_solve(mem_area=)`).
 """
 
 from __future__ import annotations
@@ -113,6 +115,17 @@ class TeService(CountersMixin, HistogramsMixin):
         if len(drained_rows):
             demands[:, drained_rows, :] = 0.0
             demands[:, :, drained_rows] = 0.0
+        # device-memory ledger seam: the [B, N, N] scenario batch and the
+        # capacity vector are the run's resident working set, registered
+        # for the optimization's duration (the JAX package's structure;
+        # the loop's own state, activations and gradients, is not counted
+        # by either package)
+        from openr_tpu_torch.monitor.memledger import get_ledger
+
+        ledger = get_ledger()
+        mem_handle = ledger.register(
+            f"{area}/te", "te", layout="te", arrays=(demands, caps)
+        )
 
         cfg = TeOptConfig(
             steps=int(params.get("steps", TeOptConfig.steps)),
@@ -135,7 +148,7 @@ class TeService(CountersMixin, HistogramsMixin):
             return optimize_weights(
                 src_e, dst_e, up, w0, demands, caps, graph.n,
                 config=cfg, mesh=self.mesh, initial_d=initial_d,
-                device=self.device,
+                device=self.device, mem_area=f"{area}/te",
             )
 
         def fallback():
@@ -147,10 +160,15 @@ class TeService(CountersMixin, HistogramsMixin):
             )
 
         supervised = getattr(self.solver, "supervised_call", None)
-        if supervised is not None:
-            result, degraded = supervised("te.optimize", primary, fallback)
-        else:
-            result, degraded = primary(), False
+        try:
+            if supervised is not None:
+                result, degraded = supervised(
+                    "te.optimize", primary, fallback
+                )
+            else:
+                result, degraded = primary(), False
+        finally:
+            ledger.release(mem_handle)
         if degraded:
             self._emit_degraded(area)
 

@@ -3686,3 +3686,71 @@ def test_a_device_side_assert_is_a_kernel_fault(dev):
     exc_cls = type(name, (RuntimeError,), {})
     assert classify_solver_error(exc_cls(text)) == FAULT_RUNTIME
     assert is_kernel_fault(exc_cls(text))
+
+
+def test_ledger_and_recorder_on_card(built_dev):
+    """The solver on the card: its capacity source is the card's memory
+    before the first admission; after a cold and a warm solve on the
+    20-pod Clos the registered layout and D are within 10% of the caching
+    allocator's change (the patch slots not yet on the card); the sampled
+    cold solve is split into prepare, h2d and relax with barriers taken,
+    the unsampled warm one takes none; close() returns the ledger and the
+    allocator to where they were."""
+    import gc
+
+    from openr_tpu_torch.monitor.memledger import MemLedger
+    from openr_tpu_torch.monitor import memledger
+    from openr_tpu_torch.solver.flight_recorder import FlightRecorder
+
+    ledger = MemLedger()
+    saved = memledger._LEDGER
+    memledger._LEDGER = ledger
+    try:
+        gc.collect()
+        torch.cuda.synchronize()
+        alloc0 = torch.cuda.memory_allocated(built_dev)
+        solver = CudaSpfSolver("rsw0_0", device=built_dev)
+        assert ledger.capacity()["source"] == "memory_stats"
+        rec = FlightRecorder(sample_every=2)
+        solver.attach_recorder(rec)
+        edges = fabric_edges(pods=20)
+        dbs = build_adj_dbs(edges)
+        ls = LinkState("0")
+        for db in dbs.values():
+            ls.update_adjacency_database(db)
+        ps = PrefixState()
+        ps.update_prefix_database(PrefixDatabase("rsw1_0", [PrefixEntry(
+            IpPrefix("10.1.0.0/16"))], area="0"))
+        solver.build_route_db("rsw0_0", {"0": ls}, ps)
+        torch.cuda.synchronize()
+        (_, solve), = solver._solves.values()
+        by = {}
+        for e in ledger.live_entries():
+            by[e.structure] = by.get(e.structure, 0) + e.nbytes
+        on_card = by["dist"] + by["sell"]
+        delta = torch.cuda.memory_allocated(built_dev) - alloc0
+        assert abs(delta - on_card) <= 0.10 * on_card, (delta, by)
+        assert ledger.check()
+        barriers = rec.barrier_calls
+        assert barriers > 0
+        (cold,) = rec.snapshot()
+        assert cold["sampled"] and {"prepare", "h2d", "relax"} <= set(
+            cold["phases"])
+        ls.update_adjacency_database(dataclasses.replace(
+            dbs["fsw0_2"], adjacencies=[
+                dataclasses.replace(a, metric=3)
+                if a.other_node_name == "rsw0_5" else a
+                for a in dbs["fsw0_2"].adjacencies]))
+        solver.build_route_db("rsw0_0", {"0": ls}, ps)
+        warm = rec.snapshot()[-1]
+        assert not warm["sampled"] and warm["phases"] == {}
+        assert rec.barrier_calls == barriers
+        assert ledger.check()
+        solver.close()
+        assert ledger.live_entries() == [] and ledger.check()
+        del solver, solve
+        gc.collect()
+        torch.cuda.synchronize()
+        assert torch.cuda.memory_allocated(built_dev) == alloc0
+    finally:
+        memledger._LEDGER = saved

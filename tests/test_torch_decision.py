@@ -12,12 +12,20 @@ test body, through four Decisions fed the same publications:
 
 Their route deltas must be equal in canonical form (every route field,
 objects of either package compared as plain data), and their `decision.*`
-counters equal: the device pair's except the set that waits for the
-memory ledger and flight recorder wiring (`decision.mem.*`, the recorder's
-`decision.spf.traces_*`, the compile-cache gauges, which the port does not
-report: its kernels are built by nvcc ahead of the first solve, so no
-solve compiles) and the transfer bytes, which depend on each layout's own
-buffers (tests/test_torch_solver.py), the CPU pair's all of them.
+counters equal, the CPU pair's all of them, the device pair's all but the
+four of `_NOT_SHARED`: the compile-cache counters, which count different
+things (the kernel libraries the port's process built with nvcc or loaded
+built, against the JAX package's jit traces and reuses), and the transfer
+bytes, which depend on each layout's own buffers
+(tests/test_torch_solver.py). The compared set holds the flight
+recorder's `decision.spf.traces_*` and the sample counts of the
+`decision.spf.phase.*_ms` histograms (their times are not compared), and
+the memory ledger's `decision.mem.*` counters. Each package runs on a
+fresh process ledger, the port's a `PortLedger`
+(tests/test_torch_memledger.py), whose counters leave out the arrays the
+port keeps and the JAX package does not (none on these graphs, which all
+take the sliced layout), and both ledgers are back to their baseline,
+exact, after Decision.stop.
 """
 
 import asyncio
@@ -76,15 +84,33 @@ DECISIONS = (
     ("jax_cpu", JAX, {"solver_backend": "cpu"}),
 )
 
-# decision.* counters that wait for the ledger and recorder wiring, or
-# that depend on a layout's own buffers
-_NOT_SHARED_PREFIXES = ("decision.mem.", "decision.spf.traces_")
+# the device pair's decision.* counters that are not compared
 _NOT_SHARED = (
+    # the port's kernel libraries built by nvcc (misses) or loaded built
+    # (hits) in this process (ops/_cuda.py), against the JAX package's jit
+    # traces and reuses
     "decision.spf.compile_cache_hits",
     "decision.spf.compile_cache_misses",
+    # each layout's own buffers and mirror copies (tests/test_torch_solver.py)
     "decision.spf.host_to_device_bytes",
     "decision.spf.device_to_host_bytes",
 )
+
+
+@pytest.fixture(autouse=True)
+def fresh_ledgers(monkeypatch):
+    """Each package on a fresh process ledger, the port's a `PortLedger`
+    (tests/test_torch_memledger.py): the ledgers are process-global, and
+    the decision.mem.* counters are their absolute totals. Autouse here
+    and in the files that import it."""
+    import openr_tpu.monitor.memledger as j_memledger
+    import openr_tpu_torch.monitor.memledger as t_memledger
+    from test_torch_memledger import PortLedger
+
+    port, ref = PortLedger(), j_memledger.MemLedger()
+    monkeypatch.setattr(t_memledger, "_LEDGER", port)
+    monkeypatch.setattr(j_memledger, "_LEDGER", ref)
+    return port, ref
 
 PFX = "10.9.0.0/16"
 
@@ -124,12 +150,16 @@ def canon_delta(delta):
 
 
 def counters(decision, device: bool):
-    return {
+    out = {
         k: v for k, v in decision.counters.items()
-        if k.startswith("decision.")
-        and not (device and (k.startswith(_NOT_SHARED_PREFIXES)
-                             or k in _NOT_SHARED))
+        if k.startswith("decision.") and not (device and k in _NOT_SHARED)
     }
+    # the phase histograms' sample counts (their times are not compared)
+    out.update({
+        f"{k}.count": h.count for k, h in decision.histograms.items()
+        if k.startswith("decision.spf.phase.")
+    })
+    return out
 
 
 class Run:
@@ -445,7 +475,7 @@ def run_scenario(scenario, P, backend_cfg, cfg_kw) -> Run:
     "name,scenario,cfg_kw", SCENARIOS, ids=[s[0] for s in SCENARIOS]
 )
 def test_decision_scenario_equal_across_packages_and_backends(
-    name, scenario, cfg_kw
+    name, scenario, cfg_kw, fresh_ledgers
 ):
     runs = {
         label: run_scenario(scenario, P, backend_cfg, cfg_kw)
@@ -459,6 +489,16 @@ def test_decision_scenario_equal_across_packages_and_backends(
         runs["jax_tpu"].decision, True)
     assert counters(runs["port_cpu"].decision, False) == counters(
         runs["jax_cpu"].decision, False)
+    # the recorder and the ledger were wired: the first solve is sampled
+    got = counters(port.decision, True)
+    assert got["decision.spf.traces_recorded"] >= 1
+    assert got["decision.spf.traces_sampled"] >= 1
+    assert got["decision.spf.phase.relax_ms.count"] >= 1
+    assert got["decision.mem.registers"] >= 1
+    # Decision.stop returned both ledgers to their (empty) baseline
+    for led in fresh_ledgers:
+        assert led.live_entries() == [] and led.check()
+    assert fresh_ledgers[0].stripped == {}
     # the port's device Decision ran its solver under the supervisor
     from openr_tpu_torch.solver import CudaSpfSolver, SolverSupervisor
 

@@ -257,15 +257,20 @@ def test_sample_every_zero_disables_sampling_not_recording(R):
     assert clock.phases == {}
 
 
-def test_phase_clock_synchronizes_only_cuda_tensors():
-    """The port's seam: a CPU tensor or any other value takes no barrier
-    (the JAX package's blocks on every array with block_until_ready);
-    the phase is timed all the same."""
+def test_phase_clock_synchronizes_only_cuda_tensors(monkeypatch):
+    """The port's seam: only a CUDA tensor's card is synchronized; a CPU
+    tensor's work is done when its op returns, and it counts one barrier
+    for its device (as the JAX package counts block_until_ready on a CPU
+    array); other values are skipped; the phase is timed all the same."""
+    synced = []
+    monkeypatch.setattr(torch.cuda, "synchronize", synced.append)
     clock = t_recorder.PhaseClock(True)
     clock.seam("relax", torch.arange(8) * 2, object(), np.arange(3))
-    assert clock.barriers == 0
+    assert clock.barriers == 1
+    assert synced == []
     assert clock.phases["relax"] >= 0.0
     clock.seam("relax")
+    assert clock.barriers == 1
     assert set(clock.phases) == {"relax"}
 
 
@@ -475,7 +480,18 @@ def test_capacity_override_refusal_and_verdicts_equal_the_reference():
         small = led.predict_fit(16, "apsp")
         assert small["fits"] is True
         verdicts.append((big, small, led.predict_fit(1000, "bf", n_sources=9)))
-    assert verdicts[0] == verdicts[1]
+    assert verdicts[0][:2] == verdicts[1][:2]
+    # the edge-list layout: the port's model adds the csr it keeps
+    # resident beside the JAX package's planes, int32 [n_pad + 1]
+    port_bf, ref_bf = verdicts[0][2], verdicts[1][2]
+    csr = (port_bf["n_pad"] + 1) * 4
+    assert port_bf["components"]["bf"] == ref_bf["components"]["bf"] + csr
+    assert port_bf["predicted_bytes"] == ref_bf["predicted_bytes"] + csr
+    assert port_bf["headroom_bytes"] == ref_bf["headroom_bytes"] - csr
+    assert {k: v for k, v in port_bf.items() if k not in (
+        "components", "predicted_bytes", "headroom_bytes")} == {
+        k: v for k, v in ref_bf.items() if k not in (
+            "components", "predicted_bytes", "headroom_bytes")}
 
 
 def test_no_card_means_no_capacity_source_and_an_unavailable_reconcile():

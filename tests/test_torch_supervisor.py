@@ -6,11 +6,19 @@ same script, its faults armed through each package's own injector, drives
 a SolverSupervisor over the port's CudaSpfSolver (device="cpu", the
 kernels' plain PyTorch versions) and one over the JAX package's
 TpuSpfSolver. Both must give the same served route dbs (canonical form),
-the same breaker transitions, the same `decision.spf.*` counters (less the
-ledger, recorder and compile-cache gauges and the transfer bytes, as in
-tests/test_torch_decision.py), the same LogSample event names and the same
-`health()` less its device_memory and traces fields, its timing gauges and
-its dumps' time-stamped ids.
+the same breaker transitions, the same `decision.spf.*` and `decision.mem.*`
+counters (less the compile-cache counters and the transfer bytes, as in
+tests/test_torch_decision.py), the same sample counts of the
+`decision.spf.phase.*_ms` histograms, the same LogSample event names and
+the same `health()` less its device_memory and traces fields (the real
+ledger's bytes and the barrier count, which differ by the named arrays
+and by device), its timing gauges and its dumps' time-stamped ids. Each
+package runs on a fresh process ledger, the port's a `PortLedger`
+(tests/test_torch_memledger.py): its counters leave out the arrays the
+port keeps and the JAX package does not, and the port's own ledger is
+held against its `predict_fit`, structure by structure, for every live
+solve. Two scripts set a capacity (source `override`, a verdict on the
+CPU too): one refuses the all-pairs matrix, one the sliced layout.
 
 Port-only cases: `classify_solver_error` on the errors torch raises (a real
 `torch.cuda.OutOfMemoryError`, the CUDA runtime's texts with torch's
@@ -50,7 +58,11 @@ import openr_tpu_torch.topology as t_topology
 import openr_tpu_torch.types as t_types
 from openr_tpu_torch import parallel
 from openr_tpu_torch.ops import _cuda
-from test_torch_decision import canon
+from test_torch_decision import (  # noqa: F401 (an autouse fixture)
+    _NOT_SHARED,
+    canon,
+    fresh_ledgers,
+)
 from test_torch_memory import release_memory_around_each_test  # noqa: F401
 
 
@@ -82,13 +94,31 @@ PORT = pytypes.SimpleNamespace(
     to_device=lambda d: torch.as_tensor(d),
 )
 
-_NOT_SHARED_PREFIXES = ("decision.mem.", "decision.spf.traces_")
-_NOT_SHARED = (
-    "decision.spf.compile_cache_hits",
-    "decision.spf.compile_cache_misses",
-    "decision.spf.host_to_device_bytes",
-    "decision.spf.device_to_host_bytes",
-)
+
+
+def assert_layouts_match_predict_fit(solver):
+    """The port's registered bytes of every live solve, structure by
+    structure, are its own predict_fit's components for the solve's
+    layout, graph, batch and mesh (the host mirror is a consumer's, not
+    the layout's)."""
+    import openr_tpu_torch.monitor.memledger as t_memledger
+
+    led = t_memledger.get_ledger()
+    for _, solve in solver._solves.values():
+        kind = (solve._dev or {}).get("kind")
+        if kind is None:
+            continue
+        mesh = solve.mesh
+        fit = led.predict_fit(
+            solve.graph.n, kind, n_sources=len(solve.sources),
+            graph=solve.graph,
+            mesh_shape=(None if mesh is None else
+                        (mesh.shape["batch"], mesh.shape["graph"])))
+        got = {}
+        for e in led.live_entries(solve._mem_area):
+            if e.structure not in ("mirror", "ksp", "apsp"):
+                got[e.structure] = got.get(e.structure, 0) + e.nbytes
+        assert got == fit["components"], (kind, got, fit["components"])
 _HEALTH_TIMES = ("solve_ms_last", "delta_extract_ms_last",
                  "apsp_close_ms_last")
 
@@ -177,12 +207,17 @@ class Obs:
                   if k not in ("device_memory", "traces", *_HEALTH_TIMES)}
         health["forensics"] = {k: v for k, v in health["forensics"].items()
                                if k != "last_id"}
+        if isinstance(sup.primary, t_solver.CudaSpfSolver):
+            assert_layouts_match_predict_fit(sup.primary)
         self.final = {
             "counters": {
                 k: v for k, v in sup.counters.items()
-                if k.startswith("decision.spf.")
-                and not k.startswith(_NOT_SHARED_PREFIXES)
+                if k.startswith(("decision.spf.", "decision.mem."))
                 and k not in _NOT_SHARED
+            },
+            "phase_samples": {
+                k: h.count for k, h in sup.histograms.items()
+                if k.startswith("decision.spf.phase.")
             },
             "samples": [s.get("event") for s in samples],
             "health": health,
@@ -885,3 +920,141 @@ def test_supervisor_counters_reach_decision_counters():
         obs.end(decision.solver)
 
     both(script)
+
+
+# -- capacity admission under an override (both packages have a verdict) ----
+
+
+def _sell_prediction(K, edges, me):
+    """The bytes the sliced layout's admission predicts for `me`'s batch
+    (dist + sell + patch): the same in both packages on the sliced
+    layout."""
+    import openr_tpu_torch.monitor.memledger as t_memledger
+    from openr_tpu_torch.ops.graph import compile_edges
+
+    g = compile_edges(edges)
+    sources = 1 + len({b for a, b, _ in edges if a == me}
+                      | {a for a, b, _ in edges if b == me})
+    return t_memledger.MemLedger().predict_fit(
+        g.n, "sell", n_sources=sources, graph=g)["predicted_bytes"], g
+
+
+def test_capacity_override_refuses_the_all_pairs_matrix_alike():
+    """DecisionConfig.solver_mem_capacity_bytes with no headroom kept: room
+    for the sliced layout's solves (each admission counts the live
+    generation and the next), not for the all-pairs matrix. Under
+    compute_lfa_paths a delta-eligible event asks lfa_delta_ready, whose
+    all-pairs admission refuses once: one SOLVER_CAPACITY_REFUSED sample,
+    the event built in full; a route db from a node outside the batch is
+    answered by the LinkState's Dijkstra (the port counts it in
+    host_spf_calls). Samples, breaker states, counters and route dbs equal
+    the reference's."""
+    import asyncio
+
+    edges = PORT.topology.grid_edges(6)
+    p_sell, g = _sell_prediction(PORT, edges, "g0_0")
+    mirror = 8 * g.n_pad * 4
+    apsp = g.n_pad * g.n_pad * 9
+    cap = 2 * p_sell + mirror  # the solves' admissions fit
+    assert cap + apsp > cap + p_sell and p_sell + apsp > cap
+
+    def script(K, obs, inj):
+        samples = []
+
+        async def body():
+            kv_q = K.messaging.RWQueue()
+            route_q = K.messaging.ReplicateQueue()
+            reader = route_q.get_reader()
+            decision = K.decision.Decision(
+                K.decision.DecisionConfig(
+                    my_node_name="g0_0", debounce_min=0.005,
+                    debounce_max=0.02, compute_lfa_paths=True,
+                    solver_mem_capacity_bytes=cap,
+                    solver_mem_headroom_frac=0.0, **K.backend,
+                ),
+                K.messaging.RQueue(kv_q), route_q,
+                log_sample_fn=samples.append,
+            )
+            decision.start()
+            try:
+                dbs = K.topology.build_adj_dbs(edges)
+                kv_q.push(K.harness.lsdb_publication(dbs.values(),
+                                                     ANNOUNCERS))
+                await asyncio.wait_for(reader.get(), 10.0)
+                kv_q.push(K.harness.lsdb_publication([
+                    dataclasses.replace(dbs[a], adjacencies=[
+                        dataclasses.replace(x, metric=4)
+                        if x.other_node_name == b else x
+                        for x in dbs[a].adjacencies])
+                    for a, b in (("g0_1", "g0_2"), ("g0_2", "g0_1"))]))
+                await asyncio.wait_for(reader.get(), 10.0)
+                obs.db(decision.route_db)
+                other = decision.solver.build_route_db(
+                    "g5_5", decision.area_link_states,
+                    decision.prefix_state)
+                obs.db(other)
+                obs.state(decision.solver)
+                assert_route_db_equal(other, K.solver.SpfSolver(
+                    "g5_5", compute_lfa_paths=True).build_route_db(
+                    "g5_5", decision.area_link_states,
+                    decision.prefix_state))
+                if K is PORT:
+                    assert decision.solver.primary.host_spf_calls >= 1
+            finally:
+                task = decision._task
+                decision.stop()
+                if task is not None:
+                    await asyncio.gather(task, return_exceptions=True)
+            return decision
+
+        decision = asyncio.new_event_loop().run_until_complete(body())
+        refused = [x for x in samples
+                   if x.get("event") == "SOLVER_CAPACITY_REFUSED"]
+        assert [(x.get("layout"), x.get("capacity_source"))
+                for x in refused] == [("apsp", "override")]
+        assert decision.counters["decision.mem.capacity_refusals"] == 1
+        assert decision.counters["decision.spf.fallback_active"] == 0
+        obs.end(decision.solver, samples)
+
+    obs = both(script)
+    assert obs.states == ["closed"]
+
+
+def test_capacity_override_refuses_the_layout_then_serves_when_lifted():
+    """A capacity below the sliced layout's prediction: the solve raises
+    DeviceCapacityError before anything is registered, classified
+    device_oom (one SOLVER_CAPACITY_REFUSED sample, a forensics dump with
+    the ledger), the breaker trips and the oracle serves; with the
+    override lifted the probe closes the breaker and the card serves the
+    next event. Equal in both packages."""
+
+    def script(K, obs, inj):
+        import openr_tpu.monitor.memledger as j_memledger
+        import openr_tpu_torch.monitor.memledger as t_memledger
+
+        led = (t_memledger if K is PORT else j_memledger).get_ledger()
+        clock = FakeClock()
+        samples = []
+        sup = make_supervisor(K, clock=clock, samples=samples,
+                              failure_threshold=1, max_attempts=1,
+                              probe_interval_s=5.0,
+                              probe_successes_to_close=1)
+        led.set_capacity_override(1024)
+        me, states, ps = solve_inputs(K)
+        obs.db(sup.build_route_db(me, states, ps))
+        obs.state(sup)
+        assert sup.counters["decision.spf.solver_failures.device_oom"] == 1
+        assert sup.recorder.last_dump_reason in ("device_oom",
+                                                 "breaker_trip")
+        assert led.live_entries() == []
+        led.set_capacity_override(None)
+        clock.advance(5.0)
+        db = obs.db(sup.build_route_db(me, states, ps))
+        obs.state(sup)
+        assert_route_db_equal(db, oracle_db(K))
+        assert led.live_entries()
+        obs.end(sup, samples)
+
+    obs = both(script)
+    assert obs.states == ["open", "closed"]
+    assert obs.final["samples"].count("SOLVER_CAPACITY_REFUSED") == 1
